@@ -1,0 +1,76 @@
+"""Carry a served corpus across from the JAX package (the system's
+counterpart of loading weights).
+
+A JAX ``DatasetSearchIndex``'s state is its store buffers, row count and
+tenant ranges plus, per table, the name, row count and KMV sample.  The
+caller exports them as numpy (this module imports nothing of JAX)::
+
+    buffers = [np.asarray(b) for b in jax_index.store.buffers()]
+    tables = [(t.name, t.n_rows, (t.sample.hashes, t.sample.values))
+              for t in jax_index.tables]
+    ranges = {t: jax_index.store.tenant_ranges(t)
+              for t in jax_index.store.tenants()}
+    index = index_from_numpy(buffers, len(jax_index.store), tables=tables,
+                             tenant_ranges=ranges, m=jax_index.m,
+                             seed=jax_index.seed, device="cuda")
+
+and gets a port index that serves the same sketch rows.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.core import KMVSketch
+from repro_torch.data.dataset_search import DatasetSearchIndex
+
+
+def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
+                     tables: Sequence[Tuple[str, int,
+                                            Tuple[np.ndarray, np.ndarray]]],
+                     tenant_ranges: Optional[Dict[str, Sequence[
+                         Tuple[int, int]]]] = None,
+                     m: int, seed: int = 0, key_space: int = 2 ** 31,
+                     device="cuda") -> DatasetSearchIndex:
+    """A port index over the given ICWS corpus.
+
+    Args:
+      buffers: ``(fp [3, cap, m], val [3, cap, m], norm [3, cap],
+        argkey [3, cap, m])`` -- a JAX store's ``buffers()`` as numpy.
+      size: live rows per field (the first ``size`` rows are copied).
+      tables: per table ``(name, n_rows, (kmv_hashes, kmv_values))``, in
+        store-row order (table i is row i).
+      tenant_ranges: tenant id -> its ``[start, stop)`` row ranges.
+      m, seed, key_space: the JAX index's parameters (queries sketch with
+        them, so they must match the corpus).
+    """
+    if len(tables) != size:
+        raise ValueError(f"{len(tables)} tables for {size} store rows")
+    index = DatasetSearchIndex(m=m, seed=seed, key_space=key_space,
+                               device=device)
+    if size == 0:
+        return index
+    fp, val, norm, argkey = (np.array(b) for b in buffers)
+    if fp.shape[2] != m:
+        raise ValueError(f"corpus rows have m={fp.shape[2]}, index m={m}")
+    owner: Dict[int, str] = {}
+    for tenant, ranges in (tenant_ranges or {}).items():
+        for lo, hi in ranges:
+            owner.update((r, str(tenant)) for r in range(lo, hi))
+    # append run by run of rows sharing an owner, so the store records the
+    # same coalesced tenant ranges
+    lo = 0
+    while lo < size:
+        hi = lo + 1
+        while hi < size and owner.get(hi) == owner.get(lo):
+            hi += 1
+        index.store.append(fp[:, lo:hi], val[:, lo:hi], norm[:, lo:hi],
+                           argkey[:, lo:hi], tenant=owner.get(lo))
+        lo = hi
+    for row, (name, n_rows, (hashes, values)) in enumerate(tables):
+        sample = KMVSketch(hashes=np.asarray(hashes, np.int64),
+                           values=np.asarray(values, np.float64),
+                           k=index.kmv.k, seed=index.kmv.seed)
+        index._register_table(name, int(n_rows), sample, tenant=owner.get(row))
+    return index

@@ -1,0 +1,314 @@
+"""Dataset search, the paper's motivating application (§1.3), on PyTorch.
+
+Port of ``repro.data.dataset_search.DatasetSearchIndex`` on its default
+serving path.  Tables are (key column, value column) pairs; per table the
+index sketches three field vectors -- key multiplicities ``x^{1[K]}``,
+values summed at their key ``x^V``, and squared values ``x^{V^2}`` -- into
+one field-stacked :class:`~repro_torch.data.store.CorpusStore` on the
+device, and keeps a KMV keyed sample of the values on the host.
+
+Every query, single or batched, is one ``[3Q, N]`` ICWS sketch launch and
+ONE fused multi-field estimate launch straight off the store buffers
+(a single query is the Q = 1 case).  ``_corr_scores`` and ``_top_k`` rank
+the tables on the device; the host then refines the k survivors'
+correlation from the matched KMV samples.  Per-query results of
+``query_batch`` equal a loop of ``query`` bit for bit.
+
+Not ported yet (the constructor raises ``NotImplementedError`` naming the
+``ROADMAP.md`` queue item): the host oracle (``backend="host"``,
+``keep_host_oracle=True``), the other sketch families, the packed store
+and sharded serving (``mesh``).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import KMV, KMVSketch, SparseVec
+from repro_torch.device import resolve_device
+
+from .families import make_family, wmh_storage
+from .store import CorpusStore
+
+FIELDS = ("key_indicator", "values", "values_sq")
+
+# Field-pair maps of the fused estimate launch, in _corr_scores argument
+# order (join, sum_a, sum_b, sum_a2, sum_b2, prod): estimate g pairs query
+# field QFIELD[g] with corpus field CFIELD[g].
+_IND, _VAL, _SQ = 0, 1, 2
+QFIELD = (_IND, _VAL, _IND, _SQ, _IND, _VAL)
+CFIELD = (_IND, _IND, _VAL, _IND, _SQ, _VAL)
+
+
+@dataclasses.dataclass
+class TableSketch:
+    name: str
+    sample: KMVSketch            # KMV keyed sample of (key -> summed value)
+    n_rows: int
+
+
+@dataclasses.dataclass
+class SearchResult:
+    name: str
+    join_size: float
+    joinability: float           # join size / query rows
+    sum_b: float
+    mean_b: float
+    corr: float
+
+
+def _corr_scores(join, sum_a, sum_b, sum_a2, sum_b2, prod,
+                 min_join: float) -> torch.Tensor:
+    """Ranking scores: |sketch-estimated corr| among joinable rows, in f32.
+
+    All inputs are [Q, P] estimates.  Rows failing ``join >= min_join``
+    score -1 so the host can drop them.
+    """
+    var_a = join * sum_a2 - sum_a * sum_a
+    var_b = join * sum_b2 - sum_b * sum_b
+    cov = join * prod - sum_a * sum_b
+    ok = (var_a > 0) & (var_b > 0)
+    corr = torch.where(ok, cov * torch.rsqrt(torch.where(ok, var_a * var_b,
+                                                         1.0)), 0.0)
+    corr = torch.clamp(corr, -1.0, 1.0)
+    return torch.where(join >= min_join, corr.abs(), -1.0)
+
+
+def _top_k(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k scores + indices per row, equal scores by ascending index (as
+    ``jax.lax.top_k``): a stable descending sort keeps the index order of
+    ties, which ``torch.topk`` does not promise.  Every table failing
+    ``min_join`` scores exactly -1, so ties are the common case."""
+    scores, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    return scores[..., :k], idx[..., :k]
+
+
+class DatasetSearchIndex:
+    """Sketch once, query many times -- the data-lake discovery pattern.
+
+    ``device`` defaults to ``"cuda"`` and raises when no card is present;
+    pass ``device="cpu"`` for the plain PyTorch kernels.
+    """
+
+    def __init__(self, m: int = 256, seed: int = 0, key_space: int = 2 ** 31,
+                 backend: str = "device", keep_host_oracle: bool = False,
+                 mesh=None, family: str = "icws", packed: bool = False,
+                 device="cuda"):
+        if backend == "host":
+            raise NotImplementedError(
+                "backend='host' (the WeightedMinHash host oracle) is not "
+                "ported yet (Queue A 19 in ROADMAP.md)")
+        if backend != "device":
+            raise ValueError(f"unknown backend {backend!r}")
+        if keep_host_oracle:
+            raise NotImplementedError(
+                "keep_host_oracle=True (host WeightedMinHash sketches) is "
+                "not ported yet (Queue A 19 in ROADMAP.md)")
+        if packed:
+            raise NotImplementedError(
+                "packed=True is not ported yet (Queue A 12 in ROADMAP.md)")
+        if mesh is not None:
+            raise NotImplementedError(
+                "sharded serving (mesh) is not ported yet (Queue A 14 in "
+                "ROADMAP.md)")
+        self.device = resolve_device(device)
+        self.m = m
+        self.seed = seed
+        self.key_space = key_space
+        self.backend = backend
+        # sized to the storage an m-sample ICWS sketch occupies: exactly m
+        self.family = make_family(family, storage=wmh_storage(m), seed=seed)
+        self.kmv = KMV(k=m, seed=seed)
+        self.tables: List[TableSketch] = []
+        # tenant id -> global table positions, ascending (table i IS store
+        # row i); the store keeps the same assignment as row ranges
+        self._tenant_tables: Dict[str, List[int]] = {}
+        self.store = CorpusStore(family=self.family, fields=len(FIELDS),
+                                 device=self.device)
+
+    # -- ingestion ----------------------------------------------------------
+    def vectorize(self, keys: np.ndarray, values: np.ndarray
+                  ) -> Tuple[SparseVec, SparseVec, SparseVec]:
+        """A table's three field vectors, keys folded into [0, key_space)
+        first and repeated keys aggregated (multiplicity, summed values,
+        summed squared values); zero values are nudged to 1e-9 so their key
+        stays represented."""
+        keys = np.asarray(keys, dtype=np.int64)
+        values = np.asarray(values, dtype=np.float64)
+        keys = keys % np.int64(self.key_space)
+        safe = np.where(values == 0.0, 1e-9, values)
+        ind = SparseVec.from_pairs(keys, np.ones_like(safe), self.key_space,
+                                   sum_duplicates=True)
+        sq = SparseVec.from_pairs(keys, safe ** 2, self.key_space,
+                                  sum_duplicates=True)
+        uniq, inverse = np.unique(keys, return_inverse=True)
+        vsum = np.zeros(uniq.size, np.float64)
+        np.add.at(vsum, inverse, safe)
+        val = SparseVec.from_pairs(uniq, np.where(vsum == 0.0, 1e-9, vsum),
+                                   self.key_space)
+        return ind, val, sq
+
+    def add_table(self, name: str, keys: np.ndarray, values: np.ndarray,
+                  tenant: Optional[str] = None):
+        """Sketch one table into the corpus (one ``[3, N]`` kernel launch,
+        rows appended in place); ``tenant`` scopes it to a logical corpus
+        inside the shared arena."""
+        ind, val, sq = self.vectorize(keys, values)
+        comps = self.family.sketch_rows([ind, val, sq], device=self.device)
+        self.store.append(*(c[:, None] for c in comps), tenant=tenant)
+        self._register_table(name, len(keys), self.kmv.sketch(val),
+                             tenant=tenant)
+
+    def _register_table(self, name: str, n_rows: int, sample: KMVSketch,
+                        tenant: Optional[str] = None):
+        if tenant is not None:
+            self._tenant_tables.setdefault(str(tenant), []).append(
+                len(self.tables))
+        self.tables.append(TableSketch(name=name, sample=sample,
+                                       n_rows=n_rows))
+
+    # -- tenancy -------------------------------------------------------------
+    def tenants(self) -> Tuple[str, ...]:
+        return tuple(self._tenant_tables)
+
+    def _tenant_table_list(self, tenant: Optional[str]) -> List[TableSketch]:
+        if tenant is None:
+            return self.tables
+        try:
+            sel = self._tenant_tables[str(tenant)]
+        except KeyError:
+            raise KeyError(f"unknown tenant {tenant!r}; "
+                           f"have {list(self._tenant_tables)}") from None
+        return [self.tables[i] for i in sel]
+
+    # -- queries ------------------------------------------------------------
+    def _check_backend(self, backend: Optional[str]) -> None:
+        if backend not in (None, "device"):
+            raise NotImplementedError(
+                f"backend={backend!r} is not ported yet (Queue A 19 in "
+                "ROADMAP.md); this index serves backend='device'")
+
+    def query(self, keys: np.ndarray, values: np.ndarray,
+              top_k: int = 10, min_join: float = 1.0,
+              backend: Optional[str] = None,
+              tenant: Optional[str] = None) -> List[SearchResult]:
+        """Rank corpus tables by |corr| among sufficiently-joinable tables.
+
+        ``tenant`` restricts the search to one logical corpus of the shared
+        arena, bit for bit what a dedicated index over its tables returns.
+        """
+        self._check_backend(backend)
+        if not self.tables:
+            return []
+        return self._query_batch_device(
+            [(np.asarray(keys), np.asarray(values))], top_k, min_join,
+            tenant=tenant)[0]
+
+    def query_batch(self, queries: Sequence[Tuple[np.ndarray, np.ndarray]],
+                    top_k: int = 10, min_join: float = 1.0,
+                    backend: Optional[str] = None,
+                    tenant: Optional[str] = None) -> List[List[SearchResult]]:
+        """Answer Q ``(keys, values)`` queries with ONE ``[3Q, N]`` sketch
+        launch and ONE fused estimate launch; per-query results equal
+        ``[self.query(k, v) for k, v in queries]``."""
+        self._check_backend(backend)
+        queries = list(queries)
+        if not self.tables or not queries:
+            return [[] for _ in queries]
+        return self._query_batch_device(queries, top_k, min_join,
+                                        tenant=tenant)
+
+    def _assemble_results(self, scores, idx, join_h, sum_b_h, q_sample,
+                          n_q: int, tables: List[TableSketch]
+                          ) -> List[SearchResult]:
+        """Host epilogue: drop min_join failures, refine corr from the
+        matched KMV samples, re-rank the k survivors by refined |corr|."""
+        results = []
+        for score, i in zip(scores, idx):
+            if score < 0:                    # failed the min_join filter
+                continue
+            t = tables[int(i)]
+            js = max(float(join_h[i]), 0.0)
+            mean_b = float(sum_b_h[i]) / js if js > 0 else 0.0
+            corr = self._sample_corr(q_sample, t.sample)
+            results.append(SearchResult(
+                name=t.name, join_size=js, joinability=js / n_q,
+                sum_b=float(sum_b_h[i]), mean_b=mean_b, corr=corr))
+        results.sort(key=lambda r: abs(r.corr), reverse=True)
+        return results
+
+    def _query_batch_device(self, queries, top_k: int, min_join: float,
+                            tenant: Optional[str] = None
+                            ) -> List[List[SearchResult]]:
+        Q = len(queries)
+        field_vecs: List[SparseVec] = []
+        samples: List[KMVSketch] = []
+        for keys, values in queries:
+            ind, val, sq = self.vectorize(keys, values)
+            field_vecs.extend((ind, val, sq))
+            samples.append(self.kmv.sketch(val))
+        # one launch sketches all 3Q query field vectors; each component
+        # reshapes [3Q, ...] -> [3, Q, ...] for the fields launch
+        qcomps = tuple(
+            c.reshape((Q, 3) + tuple(c.shape[1:])).transpose(0, 1)
+            for c in self.family.sketch_rows(field_vecs,
+                                             device=self.device))
+        cbufs = self.store.buffers()
+        tables = self.tables
+        if tenant is not None:
+            ranges = self.store.tenant_ranges(tenant)
+            tables = self._tenant_table_list(tenant)
+            if len(ranges) == 1:
+                # contiguous tenant: slice the arena before the launch, so
+                # the cost scales with this tenant's rows
+                lo, hi = ranges[0]
+                est = self._estimate(qcomps, tuple(c[:, lo:hi] for c in cbufs))
+            else:
+                # fragmented tenant: full-arena launch, gather its columns
+                est = self._estimate(qcomps, cbufs)
+                rows = torch.from_numpy(self.store.tenant_rows(tenant))
+                est = est[:, :, rows.to(est.device)]
+        else:
+            est = self._estimate(qcomps, cbufs)          # [6, Q, cap]
+        P = len(tables)
+        est = est[:, :, :P]
+        k = min(top_k, P)
+        score = _corr_scores(est[0], est[1], est[2], est[3], est[4], est[5],
+                             float(min_join))
+        scores, idx = _top_k(score, k)
+        scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
+        join_h, sum_b_h = est[0].cpu().numpy(), est[2].cpu().numpy()
+        return [
+            self._assemble_results(scores[qi], idx[qi], join_h[qi],
+                                   sum_b_h[qi], samples[qi],
+                                   n_q=max(len(queries[qi][0]), 1),
+                                   tables=tables)
+            for qi in range(Q)]
+
+    def _estimate(self, qcomps, cbufs) -> torch.Tensor:
+        return self.family.estimate_fields(qcomps, cbufs,
+                                           qmap=QFIELD, cmap=CFIELD)
+
+    def _sample_corr(self, sa: KMVSketch, sb: KMVSketch,
+                     min_pairs: int = 8) -> float:
+        """Sample Pearson correlation over the join from matched KMV
+        samples (Santos et al. 2021 correlation sketches)."""
+        if sa.hashes.size == 0 or sb.hashes.size == 0:
+            return 0.0
+        union_h = np.union1d(sa.hashes, sb.hashes)
+        kk = min(self.kmv.k, union_h.size)
+        tau = union_h[kk - 1]
+        common, ia, ib = np.intersect1d(sa.hashes, sb.hashes,
+                                        return_indices=True)
+        keep = common <= tau
+        va, vb = sa.values[ia[keep]], sb.values[ib[keep]]
+        if va.size < min_pairs or va.std() == 0 or vb.std() == 0:
+            return 0.0
+        return float(np.clip(np.corrcoef(va, vb)[0, 1], -1.0, 1.0))
+
+    def storage_doubles(self) -> float:
+        """Serving-sketch storage (three fields per table, paper accounting)."""
+        return self.store.storage_doubles()

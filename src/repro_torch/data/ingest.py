@@ -1,0 +1,65 @@
+"""Batch ingest: pad sparse vectors into the sketch kernel's ``[B, N]``
+layout (numpy, bit for bit ``repro.data.ingest.pad_sparse_batch``) and
+sketch them on a device."""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import SparseVec
+from repro_torch.kernels import ops
+
+
+def _keys_i32(idx_cat: np.ndarray) -> np.ndarray:
+    """Fold int64 indices into the kernels' uint32 key domain (as int32)."""
+    return (idx_cat & np.int64(0xFFFFFFFF)).astype(np.uint32).astype(np.int32)
+
+
+def pad_sparse_batch(vecs: Sequence[SparseVec], *, bucket: int = 256
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Pad sparse vectors into the ICWS kernel's ``[B, N]`` layout.
+
+    Returns host arrays ``(w, keys, vals, norms)``: f32 normalized squared
+    weights (0 marks a pad lane), int32 keys (mod 2^32), f32 normalized
+    signed values, and f64 norms.  ``N`` is the max nnz rounded up to a
+    multiple of ``bucket``.  Norms are per-vector ``SparseVec.norm()``
+    calls, so the normalized values equal the JAX package's bit for bit.
+    """
+    B = len(vecs)
+    nnz = np.fromiter((v.nnz for v in vecs), np.int64, count=B)
+    max_nnz = int(nnz.max()) if B else 0
+    N = max(bucket, -(-max_nnz // bucket) * bucket)
+    w = np.zeros((B, N), np.float32)
+    keys = np.zeros((B, N), np.int32)
+    vals = np.zeros((B, N), np.float32)
+    norms = np.array([v.norm() for v in vecs], np.float64)
+    active = (nnz > 0) & (norms > 0.0) if B else np.zeros(0, bool)
+    if np.any(active):
+        counts = nnz[active]
+        idx_cat = np.concatenate([v.indices for v, a in zip(vecs, active) if a])
+        val_cat = np.concatenate([v.values for v, a in zip(vecs, active) if a])
+        rows = np.repeat(np.nonzero(active)[0], counts)
+        starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+        cols = np.arange(idx_cat.size) - np.repeat(starts, counts)
+        z32 = (val_cat / np.repeat(norms[active], counts)).astype(np.float32)
+        w[rows, cols] = z32 * z32
+        keys[rows, cols] = _keys_i32(idx_cat)
+        vals[rows, cols] = z32
+    return w, keys, vals, norms
+
+
+def sketch_batch(vecs: Sequence[SparseVec], *, m: int, seed: int = 0,
+                 bucket: int = 256, device="cuda"):
+    """Sketch a batch of sparse vectors with one ICWS launch on ``device``.
+
+    Returns ``(fp [B, m] int32, val [B, m] f32, norm [B] f32, argkey [B, m]
+    int32)`` on that device -- the four ICWS family components.
+    """
+    w, keys, vals, norms = pad_sparse_batch(vecs, bucket=bucket)
+    dev = torch.device(device)
+    fp, val, _, argkey = ops.icws_sketch(
+        torch.from_numpy(w).to(dev), torch.from_numpy(keys).to(dev),
+        torch.from_numpy(vals).to(dev), m=m, seed=seed)
+    return fp, val, torch.from_numpy(norms.astype(np.float32)).to(dev), argkey

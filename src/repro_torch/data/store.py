@@ -1,0 +1,194 @@
+"""Field-stacked sketch store with amortized in-place append (port of
+``repro.data.store.CorpusStore``, unpacked and on one device).
+
+All F field corpora of an index (F = 3 for the §1.3 fields) live in one
+set of preallocated per-component buffers ``[F, capacity, *trailing]``:
+for ICWS, fingerprints ``[F, cap, m]`` i32, values ``[F, cap, m]`` f32,
+norms ``[F, cap]`` f32 and argkeys ``[F, cap, m]`` i32.  ``append`` writes
+the new rows into the buffers in place (the JAX store donates its buffers
+to get the same effect), so an append costs O(rows appended); when the
+corpus outgrows its capacity the buffers double, so the total copy work
+over any append sequence is O(final size).
+
+Unused capacity rows hold the family's fills -- the corpus pad sentinel
+``-2`` (never equal to a query fingerprint) and zero norms -- and are
+inert under the estimate launch, so queries run on the full-capacity
+buffers and slice the *estimates* to the live row count.
+
+Multi-tenant arena: ``append(..., tenant=...)`` records the written row
+range per tenant, so many logical corpora share one set of buffers while
+queries address one tenant's rows (by slicing a contiguous tenant, or by
+gathering a fragmented one's estimate columns).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+from .families import ICWSFamily
+
+_ELEMENT_BYTES = {torch.int32: 4, torch.float32: 4}
+
+
+class CorpusStore:
+    """Growable field-stacked device store of ICWS sketch rows.
+
+    Args: ``m`` (or ``family``), ``fields`` (F), ``min_capacity``, and
+    ``device`` (default ``"cuda"``; raises if no card is present).
+    """
+
+    def __init__(self, m: "int | None" = None, fields: int = 1,
+                 min_capacity: int = 64, family=None, device="cuda"):
+        if family is None:
+            if m is None:
+                raise ValueError("provide a family or an ICWS sample count m")
+            family = ICWSFamily(m=int(m))
+        elif m is not None:
+            raise ValueError("m and family are mutually exclusive: the "
+                             "family defines its own sketch size")
+        if fields < 1:
+            raise ValueError("fields must be >= 1")
+        if min_capacity < 1:
+            raise ValueError("min_capacity must be >= 1")
+        self.family = family
+        self.device = resolve_device(device)
+        self._specs = tuple(family.components)
+        self.m = family.m
+        self.fields = int(fields)
+        self.min_capacity = int(min_capacity)
+        self._bufs: "Tuple[torch.Tensor, ...] | None" = None
+        self._size = 0
+        self._cap = 0
+        # tenant id -> ordered [start, stop) row ranges, coalesced when
+        # consecutive appends land back to back
+        self._tenant_ranges: Dict[str, List[Tuple[int, int]]] = {}
+
+    def __len__(self) -> int:
+        return self._size
+
+    @property
+    def size(self) -> int:
+        """Live rows per field."""
+        return self._size
+
+    @property
+    def capacity(self) -> int:
+        """Allocated rows per field (size <= capacity < 2 * max(size, min))."""
+        return self._cap
+
+    # -- ingestion -----------------------------------------------------------
+    def append(self, *rows, tenant: "str | None" = None) -> None:
+        """Append sketch rows, one tensor (or array) per component, each
+        ``[F, b, *trailing]`` (the F axis may be omitted when ``fields ==
+        1``).  Rows are validated against each other before any write.
+        The write goes into the existing buffers in place."""
+        if len(rows) != len(self._specs):
+            raise ValueError(
+                f"{self.family.name} rows have {len(self._specs)} "
+                f"components ({', '.join(s.name for s in self._specs)}); "
+                f"got {len(rows)}")
+        rows = [torch.as_tensor(r).to(device=self.device, dtype=s.dtype)
+                for r, s in zip(rows, self._specs)]
+        if self.fields == 1:
+            rows = [r[None] if r.dim() == 1 + len(s.trailing) else r
+                    for r, s in zip(rows, self._specs)]
+        lead = self._specs[0]
+        if (rows[0].dim() != 2 + len(lead.trailing)
+                or rows[0].shape[0] != self.fields
+                or tuple(rows[0].shape[2:]) != lead.trailing):
+            raise ValueError(
+                f"{lead.name} rows must be [{self.fields}, b, "
+                f"{', '.join(map(str, lead.trailing))}]; "
+                f"got {tuple(rows[0].shape)}")
+        b = int(rows[0].shape[1])
+        for r, s in zip(rows[1:], self._specs[1:]):
+            if tuple(r.shape) != (self.fields, b) + s.trailing:
+                raise ValueError(
+                    f"{s.name} rows {tuple(r.shape)} do not match "
+                    f"{lead.name} rows {(self.fields, b) + s.trailing}")
+        if b == 0:
+            return
+        self._reserve(self._size + b)
+        for buf, r in zip(self._bufs, rows):
+            buf[:, self._size:self._size + b] = r
+        if tenant is not None:
+            ranges = self._tenant_ranges.setdefault(str(tenant), [])
+            if ranges and ranges[-1][1] == self._size:
+                ranges[-1] = (ranges[-1][0], self._size + b)
+            else:
+                ranges.append((self._size, self._size + b))
+        self._size += b
+
+    def _reserve(self, n: int) -> None:
+        if n <= self._cap:
+            return
+        cap = max(self._cap, self.min_capacity)
+        while cap < n:
+            cap *= 2
+        new = tuple(torch.full((self.fields, cap) + s.trailing, s.fill,
+                               dtype=s.dtype, device=self.device)
+                    for s in self._specs)
+        if self._bufs is not None:
+            for dst, src in zip(new, self._bufs):
+                dst[:, :self._cap] = src
+        self._bufs = new
+        self._cap = cap
+
+    # -- tenancy -------------------------------------------------------------
+    def tenants(self) -> Tuple[str, ...]:
+        """Tenant ids in first-append order."""
+        return tuple(self._tenant_ranges)
+
+    def tenant_ranges(self, tenant: str) -> Tuple[Tuple[int, int], ...]:
+        """The tenant's ordered, coalesced ``[start, stop)`` row ranges."""
+        try:
+            return tuple(self._tenant_ranges[str(tenant)])
+        except KeyError:
+            raise KeyError(f"unknown tenant {tenant!r}; "
+                           f"have {list(self._tenant_ranges)}") from None
+
+    def tenant_rows(self, tenant: str) -> np.ndarray:
+        """Global row indices of the tenant's rows, ascending."""
+        return np.concatenate(
+            [np.arange(a, b, dtype=np.int64)
+             for a, b in self.tenant_ranges(tenant)] or
+            [np.zeros(0, np.int64)])
+
+    def tenant_size(self, tenant: str) -> int:
+        return int(sum(b - a for a, b in self.tenant_ranges(tenant)))
+
+    def describe_tenants(self) -> Dict[str, Dict[str, float]]:
+        """Per-tenant rows, row ranges and storage-doubles share."""
+        per_row = self.fields * self.family.storage_doubles_per_row()
+        return {
+            t: {"rows": float(self.tenant_size(t)),
+                "ranges": float(len(self.tenant_ranges(t))),
+                "storage_doubles": float(self.tenant_size(t) * per_row)}
+            for t in self._tenant_ranges}
+
+    # -- views ---------------------------------------------------------------
+    def buffers(self) -> Tuple[torch.Tensor, ...]:
+        """The full-capacity device buffers, one per component: ``(fp [F,
+        cap, m], val [F, cap, m], norm [F, cap], argkey [F, cap, m])``.
+
+        Unused rows are inert under the estimate launch; callers slice the
+        estimates, never the corpus.  A growth replaces the buffers, so
+        re-fetch them after every append.
+        """
+        if self._size == 0:
+            raise ValueError("empty corpus")
+        return self._bufs
+
+    def bytes_per_row(self) -> int:
+        """Resident device bytes per stored row (one field)."""
+        return int(sum(_ELEMENT_BYTES[s.dtype]
+                       * int(np.prod(s.trailing, dtype=np.int64))
+                       for s in self._specs))
+
+    def storage_doubles(self) -> float:
+        """Paper accounting: 1.5 doubles per sample + 1 norm per row."""
+        return self._size * self.fields * self.family.storage_doubles_per_row()

@@ -1,0 +1,87 @@
+"""The u32 RNG, salt streams and sentinels shared by the port's kernels.
+
+Twin of the JAX package's ``repro/kernels/common.py`` mixer (murmur3
+fmix32 rounds over uint32 lanes) built on int64 torch tensors that hold
+uint32 values, masked with ``0xFFFFFFFF`` after every wrapping step.
+torch has no uint32 arithmetic, and a product of two u32 values overflows
+int64, so every multiply by a 32-bit constant is split into its 16-bit
+halves (:func:`mul32`): each partial product stays below 2^49 and the
+low 32 bits come out exact.  The CUDA kernels carry the same functions
+in ``csrc/u32.cuh`` on native ``uint32_t``.
+
+The stream ids equal the JAX registry's ICWS draws
+(``repro/kernels/common.py:34-39``) one for one; the port keeps them as
+``ICWS_STREAM_<draw>`` so its sources name no constant of that registry.
+"""
+from __future__ import annotations
+
+import torch
+
+_MASK = 0xFFFFFFFF
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+_GOLDEN = 0x9E3779B9
+
+# salt streams of the ICWS draws: r ~ Gamma(2,1) from two uniforms, c ~
+# Gamma(2,1) from two more, beta ~ U(0,1), and the (key, level)
+# fingerprint salt
+ICWS_STREAM_R1 = 1
+ICWS_STREAM_R2 = 2
+ICWS_STREAM_C1 = 3
+ICWS_STREAM_C2 = 4
+ICWS_STREAM_BETA = 5
+ICWS_STREAM_FP = 9
+
+# masked-lane hash value of the sketch argmin (a python float, also the
+# empty-row marker: amin >= BIG)
+BIG = 3.0e38
+
+# pad sentinels: query padding (-1, also the empty-sketch fingerprint) and
+# corpus padding (-2) never equal each other or a live fingerprint (>= 0);
+# the estimate guard ``fq >= 0`` keeps both out of every sum
+QUERY_PAD_FP = -1
+CORPUS_PAD_FP = -2
+
+
+def as_u32(x: torch.Tensor) -> torch.Tensor:
+    """Integer tensor -> int64 holding its uint32 bit pattern (negative
+    int32 keys wrap to 2^32 + k, as ``astype(uint32)`` does)."""
+    return x.to(torch.int64) & _MASK
+
+
+def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``(x * c) mod 2^32`` for x in [0, 2^32) held in int64, exact: the
+    constant is split into 16-bit halves so no partial product overflows."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _MASK
+
+
+def mix32(x: torch.Tensor) -> torch.Tensor:
+    """Murmur3 fmix32 over uint32 values held in int64."""
+    z = as_u32(x)
+    z = z ^ (z >> 16)
+    z = mul32(z, _M1)
+    z = z ^ (z >> 13)
+    z = mul32(z, _M2)
+    return z ^ (z >> 16)
+
+
+def hash_u32(key: torch.Tensor, salt: torch.Tensor) -> torch.Tensor:
+    """Mix key with a salt (two rounds; inputs broadcast)."""
+    k = as_u32(key)
+    s = as_u32(salt)
+    return mix32(mix32((k + mul32(s, _GOLDEN)) & _MASK)
+                 ^ ((mul32(s, _M2) + 0x27D4EB2F) & _MASK))
+
+
+def uniform01(key: torch.Tensor, salt: torch.Tensor) -> torch.Tensor:
+    """Strictly-interior uniform (0,1) f32 from the top 24 hash bits."""
+    bits = hash_u32(key, salt) >> 8
+    return bits.to(torch.float32) * (2.0 ** -24) + (2.0 ** -25)
+
+
+def salt_for(seed: int, stream: int, t: torch.Tensor) -> torch.Tensor:
+    """Combine (seed, stream, sample index t) into a uint32 salt (int64)."""
+    base = ((seed & _MASK) * 0x9E3779B1 + stream * 0x517CC1B7) & _MASK
+    return (base + mul32(as_u32(t), 0x2545F491)) & _MASK

@@ -1,0 +1,42 @@
+// C ABI of the port's kernels, loaded with ctypes by repro_torch/kernels/build.py.
+// Each entry launches on the given stream and returns cudaGetLastError()
+// (0 when the launch was accepted); the Python wrapper raises otherwise.
+#include <cuda_runtime.h>
+#include <cstdint>
+
+namespace repro {
+cudaError_t launch_icws_sketch(const float* w, const int* keys, const float* vals,
+                               int B, int N, int m, uint32_t seed, int S, int* fp,
+                               float* val, float* amin, int* argkey,
+                               cudaStream_t stream);
+cudaError_t launch_estimate_fields(const int* fq, const float* vq, const int* fc,
+                                   const float* vc, long long fc_fs, long long fc_rs,
+                                   long long vc_fs, long long vc_rs, const int* qmap,
+                                   const int* cmap, int G, int Q, int P, int m,
+                                   float* cnt, float* sw, cudaStream_t stream);
+}  // namespace repro
+
+extern "C" {
+
+int repro_icws_sketch(const float* w, const int* keys, const float* vals, int B,
+                      int N, int m, uint32_t seed, int S, int* fp, float* val,
+                      float* amin, int* argkey, void* stream) {
+  return (int)repro::launch_icws_sketch(w, keys, vals, B, N, m, seed, S, fp, val,
+                                        amin, argkey, (cudaStream_t)stream);
+}
+
+int repro_estimate_fields(const int* fq, const float* vq, const int* fc,
+                          const float* vc, long long fc_fs, long long fc_rs,
+                          long long vc_fs, long long vc_rs, const int* qmap,
+                          const int* cmap, int G, int Q, int P, int m, float* cnt,
+                          float* sw, void* stream) {
+  return (int)repro::launch_estimate_fields(fq, vq, fc, vc, fc_fs, fc_rs, vc_fs,
+                                            vc_rs, qmap, cmap, G, Q, P, m, cnt, sw,
+                                            (cudaStream_t)stream);
+}
+
+const char* repro_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

@@ -1,0 +1,46 @@
+// u32 RNG shared by the port's CUDA kernels: the murmur3 fmix32 mixer, the
+// two-round keyed hash, the (seed, stream, t) salt and the 24-bit uniform,
+// on native uint32_t.  Twin of repro_torch/kernels/common.py (and of the
+// JAX package's repro/kernels/common.py); integer parts are bit-exact.
+#pragma once
+#include <cstdint>
+
+namespace repro {
+
+// salt streams of the ICWS draws (same ids as kernels/common.py)
+constexpr uint32_t ICWS_STREAM_R1 = 1u;
+constexpr uint32_t ICWS_STREAM_R2 = 2u;
+constexpr uint32_t ICWS_STREAM_C1 = 3u;
+constexpr uint32_t ICWS_STREAM_C2 = 4u;
+constexpr uint32_t ICWS_STREAM_BETA = 5u;
+constexpr uint32_t ICWS_STREAM_FP = 9u;
+
+// masked-lane hash value; a row whose minimum is >= BIG is empty
+constexpr float BIG = 3.0e38f;
+
+__device__ __forceinline__ uint32_t mix32(uint32_t z) {
+  z ^= z >> 16;
+  z *= 0x85EBCA6Bu;
+  z ^= z >> 13;
+  z *= 0xC2B2AE35u;
+  z ^= z >> 16;
+  return z;
+}
+
+__device__ __forceinline__ uint32_t hash_u32(uint32_t key, uint32_t salt) {
+  return mix32(mix32(key + salt * 0x9E3779B9u) ^ (salt * 0xC2B2AE35u + 0x27D4EB2Fu));
+}
+
+// top 24 bits -> (0, 1): bits * 2^-24 + 2^-25, two roundings as in JAX
+// (the product is exact, so a fused multiply-add would give the same value)
+__device__ __forceinline__ float uniform01(uint32_t key, uint32_t salt) {
+  const uint32_t bits = hash_u32(key, salt) >> 8;
+  return __fadd_rn(__fmul_rn(__uint2float_rn(bits), 5.9604644775390625e-08f),
+                   2.98023223876953125e-08f);
+}
+
+__device__ __forceinline__ uint32_t salt_for(uint32_t seed, uint32_t stream, uint32_t t) {
+  return seed * 0x9E3779B1u + stream * 0x517CC1B7u + t * 0x2545F491u;
+}
+
+}  // namespace repro

@@ -1,0 +1,157 @@
+"""Batched ICWS (weighted MinHash) sketch: CUDA kernel and plain twin.
+
+Replaces the TPU kernel ``repro/kernels/icws_sketch.py::_icws_kernel``
+(launcher ``icws_sketch_pallas`` at ``pack_vals=False``).  Contract::
+
+    [B, N] (w f32, keys i32, vals f32) -> (fp i32, val f32, amin f32, argkey i32) [B, m]
+
+For every (row b, sample t, non-zero i) five hashed uniforms (salted by t)
+give r, c ~ Gamma(2, 1) and beta; ``lvl = floor(log(max(w, 1e-37)) / r +
+beta)`` and ``a = c / (exp(r (lvl - beta)) exp(r))``, with pad lanes
+(``w == 0``) masked to ``BIG``.  Sample t keeps the FIRST index of the
+minimal ``a`` (the Pallas kernel's ``jnp.argmin`` plus strict-``<`` tile
+merge); its 31-bit fingerprint hashes (key, level).  Empty rows give
+``fp = -1, val = 0, argkey = 0``.
+
+The CUDA kernel (``csrc/icws_sketch.cu``) is bound by transcendentals and
+integer mixing, not by bytes: per (row, t, non-zero) it does about ten
+murmur rounds, three ``logf``, two ``expf`` and two IEEE divides, while
+the inputs are read once per row.  One warp lane group of ``S`` threads
+owns a (row, t) pair and strides over the non-zeros; the group then
+merges (a, index) lexicographically, which is the first-index argmin
+whatever ``S`` is, so results do not depend on the launch shape.  ``S``
+grows when ``B * m`` is too small to fill the card (single-table ingest
+sketches only three rows).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import build
+from .common import (BIG, ICWS_STREAM_BETA, ICWS_STREAM_C1, ICWS_STREAM_C2,
+                     ICWS_STREAM_FP, ICWS_STREAM_R1, ICWS_STREAM_R2, as_u32,
+                     hash_u32, mul32, salt_for, uniform01)
+
+# elements of one [rows, m, N] intermediate the plain version holds at a time
+_PLAIN_CHUNK = 1 << 22
+# threads the CUDA launch aims for: 132 SMs x 2048 resident threads each
+_TARGET_THREADS = 132 * 2048
+
+
+def _check_inputs(w, keys, vals, m: int):
+    if w.dim() != 2 or keys.shape != w.shape or vals.shape != w.shape:
+        raise ValueError(f"w/keys/vals must share one [B, N] shape; got "
+                         f"{tuple(w.shape)}, {tuple(keys.shape)}, "
+                         f"{tuple(vals.shape)}")
+    if (w.dtype, keys.dtype, vals.dtype) != (torch.float32, torch.int32,
+                                             torch.float32):
+        raise TypeError("icws sketch takes w f32, keys i32, vals f32; got "
+                        f"{w.dtype}, {keys.dtype}, {vals.dtype}")
+    if not (w.device == keys.device == vals.device):
+        raise ValueError("w/keys/vals must lie on one device")
+    if m < 1:
+        raise ValueError(f"m must be >= 1; got {m}")
+
+
+def icws_sketch_plain(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
+                      *, m: int, seed: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Eager-PyTorch ICWS sketch, the kernel's arithmetic op for op.
+
+    Works a few rows at a time so that no ``[B, m, N]`` tensor is held
+    whole; each row's result is independent of the others.
+    """
+    _check_inputs(w, keys, vals, m)
+    B, N = w.shape
+    dev = w.device
+    t = torch.arange(m, dtype=torch.int64, device=dev)
+    salts = {s: salt_for(seed, s, t)[None, :, None] for s in (
+        ICWS_STREAM_R1, ICWS_STREAM_R2, ICWS_STREAM_C1, ICWS_STREAM_C2,
+        ICWS_STREAM_BETA)}
+    fp_salt = salt_for(seed, ICWS_STREAM_FP, t)[None, :]
+    fp = torch.empty((B, m), dtype=torch.int32, device=dev)
+    val = torch.empty((B, m), dtype=torch.float32, device=dev)
+    amin = torch.empty((B, m), dtype=torch.float32, device=dev)
+    argkey = torch.empty((B, m), dtype=torch.int32, device=dev)
+    rows = max(1, _PLAIN_CHUNK // max(1, m * N))
+    for lo in range(0, B, rows):
+        hi = min(B, lo + rows)
+        wc, kc, vc = w[lo:hi], keys[lo:hi], vals[lo:hi]
+        kk = as_u32(kc)[:, None, :]                        # [b, 1, N]
+
+        def u(stream):
+            return uniform01(kk, salts[stream])            # [b, m, N]
+
+        r = -torch.log(u(ICWS_STREAM_R1) * u(ICWS_STREAM_R2))
+        c = -torch.log(u(ICWS_STREAM_C1) * u(ICWS_STREAM_C2))
+        beta = u(ICWS_STREAM_BETA)
+        logw = torch.log(torch.clamp_min(wc, 1e-37))[:, None, :]
+        lvl = torch.floor(logw / r + beta)
+        y = torch.exp(r * (lvl - beta))
+        a = c / (y * torch.exp(r))
+        a = torch.where((wc > 0)[:, None, :], a, BIG)
+        # torch.argmin returns the first index of the minimum
+        arg = torch.argmin(a, dim=2)                       # [b, m]
+        am = torch.gather(a, 2, arg[:, :, None])[:, :, 0]
+        key_sel = torch.gather(kc, 1, arg)
+        val_sel = torch.gather(vc, 1, arg)
+        lvl_sel = torch.gather(lvl, 2, arg[:, :, None])[:, :, 0]
+        lvl_u32 = as_u32(lvl_sel.to(torch.int32))
+        fpbits = hash_u32(as_u32(key_sel) ^ mul32(lvl_u32, 0x9E3779B9),
+                          fp_salt)
+        empty = am >= BIG
+        fp[lo:hi] = torch.where(empty, -1, (fpbits & 0x7FFFFFFF)).to(
+            torch.int32)
+        val[lo:hi] = torch.where(empty, 0.0, val_sel)
+        amin[lo:hi] = am
+        argkey[lo:hi] = torch.where(empty, 0, key_sel)
+    return fp, val, amin, argkey
+
+
+def _group_size(B: int, m: int, N: int) -> int:
+    """Threads per (row, t) pair: a power of two <= 32 that brings the
+    launch near ``_TARGET_THREADS`` without exceeding the non-zero count."""
+    s = 1
+    while s < 32 and B * m * s < _TARGET_THREADS and 2 * s <= max(N, 1):
+        s *= 2
+    return s
+
+
+def icws_sketch_cuda(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
+                     *, m: int, seed: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Launch the CUDA ICWS sketch on PyTorch's current stream.
+
+    Takes contiguous CUDA tensors only and raises on anything else; the
+    empty-row fixup happens inside the kernel.  Adds one to
+    ``icws_sketch_cuda.launches`` per launch.
+    """
+    _check_inputs(w, keys, vals, m)
+    if w.device.type != "cuda":
+        raise ValueError(f"icws_sketch_cuda takes CUDA tensors; got {w.device}")
+    w, keys, vals = w.contiguous(), keys.contiguous(), vals.contiguous()
+    B, N = w.shape
+    out = (torch.empty((B, m), dtype=torch.int32, device=w.device),
+           torch.empty((B, m), dtype=torch.float32, device=w.device),
+           torch.empty((B, m), dtype=torch.float32, device=w.device),
+           torch.empty((B, m), dtype=torch.int32, device=w.device))
+    if B == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = lib.repro_icws_sketch(
+            w.data_ptr(), keys.data_ptr(), vals.data_ptr(), B, N, m,
+            seed & 0xFFFFFFFF, _group_size(B, m, N),
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            out[3].data_ptr(), stream)
+    build.check(err, "icws_sketch")
+    icws_sketch_cuda.launches += 1
+    return out
+
+
+icws_sketch_cuda.launches = 0

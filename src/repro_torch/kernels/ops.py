@@ -1,0 +1,58 @@
+"""Device-dispatching launch layer (the port's ``repro/kernels/ops.py``).
+
+Every op picks its implementation from the device its tensors lie on: a
+CPU tensor takes the plain PyTorch version, a CUDA tensor launches the
+hand-written kernel -- or raises, if the kernel does not build or its
+launch is refused.  There is no fallback from the kernel to the plain
+version.  Launch counts live on the kernel wrappers
+(``icws_sketch_cuda.launches``, ``estimate_fields_cuda.launches``).
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from .estimate import estimate_fields_cuda, estimate_fields_plain
+from .icws_sketch import icws_sketch_cuda, icws_sketch_plain
+
+
+def _route(x: torch.Tensor, plain, kernel):
+    if x.device.type == "cpu":
+        return plain
+    if x.device.type == "cuda":
+        return kernel
+    raise ValueError(f"no kernel for device {x.device}")
+
+
+def icws_sketch(w, keys, vals, *, m: int, seed: int = 0):
+    """ICWS sketch of a padded sparse batch.
+    [B, N] -> (fp, val, amin, argkey) [B, m]."""
+    fn = _route(w, icws_sketch_plain, icws_sketch_cuda)
+    return fn(w, keys, vals, m=m, seed=seed)
+
+
+def estimate_partials_fields(fq, vq, fpc, vc, *, qmap: Sequence[int],
+                             cmap: Sequence[int]):
+    """Fused multi-field partial sums: one launch for all field pairs."""
+    fn = _route(fq, estimate_fields_plain, estimate_fields_cuda)
+    return fn(fq, vq, fpc, vc, qmap=qmap, cmap=cmap)
+
+
+def icws_estimate_fields(fq, vq, nq, fpc, vc, nc, *, qmap: Sequence[int],
+                         cmap: Sequence[int]):
+    """Fused multi-field ICWS inner-product estimates, ONE kernel launch.
+
+    Args: fq/vq [F, Q, m] per-field queries, nq [F, Q] norms; fpc/vc
+    [C, P, m] per-field corpus, nc [C, P] norms.  Returns [G, Q, P] f32:
+    the partials, then the ``m~ = 2 / (1 + j^)`` norm epilogue, with zero
+    where either norm is zero.
+    """
+    m = fpc.shape[2]
+    cnt, sw = estimate_partials_fields(fq, vq, fpc, vc, qmap=qmap, cmap=cmap)
+    j_hat = cnt / m
+    m_tilde = 2.0 / (1.0 + j_hat)
+    nqg = torch.stack([nq[qf] for qf in qmap])[:, :, None]    # [G, Q, 1]
+    ncg = torch.stack([nc[cf] for cf in cmap])[:, None, :]    # [G, 1, P]
+    est = nqg * ncg * (m_tilde / m) * sw
+    return torch.where((nqg == 0) | (ncg == 0), 0.0, est)

@@ -1,0 +1,258 @@
+"""Serving front end for corpus-scale dataset search (port of
+``repro.serve.sketch_service``).
+
+Wraps :class:`repro_torch.data.DatasetSearchIndex` in the shape a query
+service needs: named-table ingestion, ``search`` / ``search_batch``
+endpoints and request accounting.  Every query, single or batched, is one
+``[3Q, N]`` ICWS sketch launch plus one fused multi-field estimate launch
+off the index's store buffers; ``search_batch`` amortizes both across a
+micro-batch.  The JAX service's observability spans, counters and
+estimator audit (``audit_every``) are not ported yet (``ROADMAP.md``
+Queue A 15).
+"""
+from __future__ import annotations
+
+import collections
+import math
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from repro_torch.data import DatasetSearchIndex, SearchResult
+
+
+class LatencyHistogram:
+    """Count, sum, last value and a window of the most recent values.
+
+    Quantiles are order statistics of the window, exact while the window
+    still holds every observation (the JAX service's histograms interpolate
+    log buckets beyond their window instead).
+    """
+
+    def __init__(self, window: int = 1024):
+        self.count = 0
+        self.sum = 0.0
+        self.last = 0.0
+        self.recent = collections.deque(maxlen=window)
+
+    def record(self, value: float) -> None:
+        v = float(value)
+        self.count += 1
+        self.sum += v
+        self.last = v
+        self.recent.append(v)
+
+    def quantile(self, q: float) -> float:
+        if not self.recent:
+            return 0.0
+        xs = sorted(self.recent)
+        k = min(len(xs) - 1, max(0, int(math.ceil(q * len(xs))) - 1))
+        return xs[k]
+
+
+class ServiceStats:
+    """Request accounting: tables and rows ingested, and latency
+    histograms of single searches, micro-batches and per-query batched
+    latency (micro-batch wall time / its size)."""
+
+    def __init__(self) -> None:
+        self.tables_ingested = 0
+        self.rows_ingested = 0
+        self.batch_queries_served = 0
+        self.query_hist = LatencyHistogram()
+        self.batch_hist = LatencyHistogram()
+        self.batched_query_hist = LatencyHistogram()
+
+    @property
+    def queries_served(self) -> int:
+        return self.query_hist.count
+
+    @property
+    def total_query_ms(self) -> float:
+        return self.query_hist.sum * 1e3
+
+    @property
+    def last_query_ms(self) -> float:
+        return self.query_hist.last * 1e3
+
+    @property
+    def batches_served(self) -> int:
+        return self.batch_hist.count
+
+    @property
+    def total_batch_ms(self) -> float:
+        return self.batch_hist.sum * 1e3
+
+    @property
+    def last_batch_ms(self) -> float:
+        return self.batch_hist.last * 1e3
+
+    @property
+    def mean_query_ms(self) -> float:
+        return self.total_query_ms / max(self.queries_served, 1)
+
+    @property
+    def mean_batch_ms(self) -> float:
+        return self.total_batch_ms / max(self.batches_served, 1)
+
+    @property
+    def mean_batched_query_ms(self) -> float:
+        """Per-query latency through the batched endpoint."""
+        return self.total_batch_ms / max(self.batch_queries_served, 1)
+
+
+class SketchSearchService:
+    """Sketch-index serving: ingest tables once, answer joinability/corr
+    queries against the whole corpus from sketches alone.
+
+    Runs on the card (``device="cuda"``, the default) unless the caller
+    passes ``device="cpu"``.  Only the default configuration is ported:
+    ``family="icws"``, ``backend="device"``, ``packed=False``, ``mesh=None``;
+    other values raise ``NotImplementedError`` naming their ROADMAP.md item.
+    """
+
+    def __init__(self, m: int = 256, seed: int = 0,
+                 backend: str = "device", keep_host_oracle: bool = False,
+                 mesh=None, family: str = "icws", packed: bool = False,
+                 audit_every: int = 0, device="cuda"):
+        if audit_every:
+            raise NotImplementedError(
+                "audit_every (the estimator-quality audit) is not ported "
+                "yet (Queue A 15 in ROADMAP.md)")
+        self.index = DatasetSearchIndex(m=m, seed=seed, backend=backend,
+                                        keep_host_oracle=keep_host_oracle,
+                                        mesh=mesh, family=family,
+                                        packed=packed, device=device)
+        self.stats = ServiceStats()
+        self._tenant_hists: Dict[str, LatencyHistogram] = {}
+
+    # -- ingestion ----------------------------------------------------------
+    def ingest(self, name: str, keys: np.ndarray, values: np.ndarray, *,
+               tenant: Optional[str] = None) -> None:
+        """Ingest one named table; ``tenant`` scopes it to a logical corpus
+        of the shared arena.  Names are unique per tenant."""
+        if any(t.name == name
+               for t in self._tenant_tables_or_empty(tenant)):
+            raise ValueError(f"table {name!r} already ingested"
+                             + (f" for tenant {tenant!r}"
+                                if tenant is not None else ""))
+        self.index.add_table(name, keys, values, tenant=tenant)
+        self.stats.tables_ingested += 1
+        self.stats.rows_ingested += len(keys)
+
+    def _tenant_tables_or_empty(self, tenant: Optional[str]):
+        if tenant is not None and str(tenant) not in self.index.tenants():
+            return []
+        return self.index._tenant_table_list(tenant)
+
+    def ingest_many(self, tables: Sequence[Tuple[str, np.ndarray, np.ndarray]],
+                    *, tenant: Optional[str] = None) -> None:
+        for name, keys, values in tables:
+            self.ingest(name, keys, values, tenant=tenant)
+
+    # -- queries ------------------------------------------------------------
+    def search(self, keys: np.ndarray, values: np.ndarray, *,
+               top_k: int = 10, min_join: float = 1.0,
+               backend: Optional[str] = None,
+               tenant: Optional[str] = None) -> List[SearchResult]:
+        """Rank tables by |corr|; ``tenant`` searches one logical corpus."""
+        t0 = time.perf_counter()
+        results = self.index.query(keys, values, top_k=top_k,
+                                   min_join=min_join, backend=backend,
+                                   tenant=tenant)
+        dt = time.perf_counter() - t0
+        self.stats.query_hist.record(dt)
+        self._record_tenant(dt, tenant)
+        return results
+
+    def _record_tenant(self, dt: float, tenant: Optional[str]) -> None:
+        if tenant is not None:
+            self._tenant_hists.setdefault(str(tenant),
+                                          LatencyHistogram()).record(dt)
+
+    _EMPTY_QUERY = (np.zeros(0, np.int64), np.zeros(0, np.float64))
+
+    def search_batch(self, queries: Sequence[Tuple[np.ndarray, np.ndarray]],
+                     *, top_k: int = 10, min_join: float = 1.0,
+                     backend: Optional[str] = None, micro_batch: int = 16,
+                     tenant: Optional[str] = None
+                     ) -> List[List[SearchResult]]:
+        """Batched search: Q ``(keys, values)`` queries, Q result lists.
+
+        Queries run in micro-batches of ``micro_batch``; the tail
+        micro-batch is padded with empty queries so every launch sees the
+        same batch shape (empty queries sketch to ``fp == -1``, estimate to
+        zero, and are dropped).  Results equal a loop of :meth:`search`.
+        """
+        if micro_batch < 1:
+            raise ValueError("micro_batch must be >= 1")
+        queries = list(queries)
+        results: List[List[SearchResult]] = []
+        for lo in range(0, len(queries), micro_batch):
+            chunk = queries[lo:lo + micro_batch]
+            t0 = time.perf_counter()
+            padded = chunk + [self._EMPTY_QUERY] * (micro_batch - len(chunk))
+            out = self.index.query_batch(padded, top_k=top_k,
+                                         min_join=min_join, backend=backend,
+                                         tenant=tenant)
+            results.extend(out[:len(chunk)])
+            dt = time.perf_counter() - t0
+            self.stats.batch_hist.record(dt)
+            self.stats.batched_query_hist.record(dt / len(chunk))
+            self.stats.batch_queries_served += len(chunk)
+            self._record_tenant(dt, tenant)
+        return results
+
+    def describe(self, tenant: Optional[str] = None) -> Dict[str, object]:
+        """Service accounting; with ``tenant``, scoped to that logical
+        corpus (tables, rows, row ranges, storage-doubles share)."""
+        store = self.index.store
+        if tenant is not None:
+            tables = self.index._tenant_table_list(tenant)
+            acct = store.describe_tenants()[str(tenant)]
+            report = {
+                "tenant": tenant,
+                "family": self.index.family.name,
+                "backend": self.index.backend,
+                "tables": len(tables),
+                "corpus_rows": acct["rows"],
+                "row_ranges": acct["ranges"],
+                "storage_doubles": acct["storage_doubles"],
+            }
+            hist = self._tenant_hists.get(str(tenant))
+            if hist is not None and hist.count:
+                report.update(_latency_fields("request_ms", hist))
+            return report
+        report = {
+            "family": self.index.family.name,
+            "backend": self.index.backend,
+            "device": str(self.index.device),
+            "packed": False,
+            "bytes_per_row": float(store.bytes_per_row()),
+            "tables": len(self.index.tables),
+            "tenants": len(self.index.tenants()),
+            "storage_doubles": self.index.storage_doubles(),
+            "corpus_rows": int(store.size),
+            "corpus_capacity": int(store.capacity),
+            "queries_served": self.stats.queries_served,
+            "mean_query_ms": self.stats.mean_query_ms,
+            "batches_served": self.stats.batches_served,
+            "batch_queries_served": self.stats.batch_queries_served,
+            "mean_batch_ms": self.stats.mean_batch_ms,
+            "mean_batched_query_ms": self.stats.mean_batched_query_ms,
+        }
+        report.update(_latency_fields("query_ms", self.stats.query_hist))
+        report.update(_latency_fields("batch_ms", self.stats.batch_hist))
+        report.update(_latency_fields("batched_query_ms",
+                                      self.stats.batched_query_hist))
+        return report
+
+
+def _latency_fields(prefix: str, hist: LatencyHistogram) -> Dict[str, float]:
+    """p50/p95/p99 (ms) of one latency histogram, keyed ``<prefix>_p50``..."""
+    return {
+        prefix + "_p50": hist.quantile(0.50) * 1e3,
+        prefix + "_p95": hist.quantile(0.95) * 1e3,
+        prefix + "_p99": hist.quantile(0.99) * 1e3,
+    }

@@ -1,0 +1,111 @@
+"""Card-only checks of the port's CUDA kernels against their plain
+versions (``pytest -m cuda``).  This file imports nothing of JAX, so it runs
+on a machine that has the card but not the JAX package; it skips here."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.types import SparseVec
+from repro_torch.data.ingest import pad_sparse_batch
+from repro_torch.kernels import estimate as port_est
+from repro_torch.kernels import icws_sketch as port_sketch
+from repro_torch.kernels import ops
+
+QMAP = (0, 1, 0, 2, 0, 1)
+CMAP = (0, 0, 1, 0, 2, 1)
+M = 128
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _vectors(seed, count=12):
+    """Overlapping sparse vectors with a few heavy entries, one empty."""
+    rng = np.random.default_rng(seed)
+    base = rng.choice(5000, size=400, replace=False)
+    vecs = []
+    for _ in range(count):
+        idx = np.unique(np.concatenate([base[rng.random(400) < 0.5],
+                                        rng.integers(5000, 2 ** 33, 100)]))
+        val = rng.normal(size=idx.size) * np.where(
+            rng.random(idx.size) < 0.1, 25.0, 1.0)
+        vecs.append(SparseVec.from_pairs(idx, val, 2 ** 34))
+    return vecs + [SparseVec.from_pairs([], [], 10)]
+
+
+def _batch(seed, device):
+    w, keys, vals, norms = pad_sparse_batch(_vectors(seed))
+    return [torch.from_numpy(a).to(device) for a in (w, keys, vals)], norms
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 4])
+def test_sketch_kernel_matches_plain_version(cuda, seed):
+    args, _ = _batch(seed, cuda)
+    before = port_sketch.icws_sketch_cuda.launches
+    got = ops.icws_sketch(*args, m=M, seed=seed)
+    torch.cuda.synchronize()
+    assert port_sketch.icws_sketch_cuda.launches == before + 1
+    want = port_sketch.icws_sketch_plain(*args, m=M, seed=seed)
+    agree = got[0] == want[0]
+    assert agree.float().mean().item() >= 0.99
+    assert torch.equal(got[1][agree], want[1][agree])
+    assert torch.equal(got[3][agree], want[3][agree])
+    assert torch.all(got[0][-1] == -1) and torch.all(got[1][-1] == 0)
+    # a row does not depend on the launch shape (group size, batch size)
+    one = ops.icws_sketch(*(a[:1] for a in args), m=M, seed=seed)
+    for x, y in zip(one, got):
+        assert torch.equal(x[0], y[0])
+
+
+@pytest.mark.cuda
+def test_fields_kernel_matches_plain_version_bitwise(cuda):
+    """Same IEEE operations in the same t order: kernel and plain version
+    agree bit for bit, also on a strided slice of the corpus planes."""
+    args, _ = _batch(1, "cpu")
+    fp, val, _, _ = port_sketch.icws_sketch_plain(*args, m=M, seed=1)
+    fp, val = fp[:12].reshape(3, 4, M), val[:12].reshape(3, 4, M)
+    rng = np.random.default_rng(2)
+    pick = torch.from_numpy(rng.integers(0, 4, size=300))
+    fc = fp[:, pick].clone()
+    vc = val[:, pick].clone()
+    noise = torch.from_numpy(rng.random((3, 300, M)) < 0.3)
+    fc[noise] = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, int(noise.sum()),
+                                              dtype=np.int64)).int()
+    fc[:, -5:] = -2
+    fq, vq, fc, vc = (x.to(cuda) for x in (fp, val, fc, vc))
+    before = port_est.estimate_fields_cuda.launches
+    cnt, sw = ops.estimate_partials_fields(fq, vq, fc[:, 7:290], vc[:, 7:290],
+                                           qmap=QMAP, cmap=CMAP)
+    torch.cuda.synchronize()
+    assert port_est.estimate_fields_cuda.launches == before + 1
+    cnt_p, sw_p = port_est.estimate_fields_plain(
+        fq, vq, fc[:, 7:290], vc[:, 7:290], qmap=QMAP, cmap=CMAP)
+    assert cnt.sum().item() > 0
+    assert torch.equal(cnt, cnt_p) and torch.equal(sw, sw_p)
+
+
+@pytest.mark.cuda
+def test_service_on_the_card_matches_the_cpu_service(cuda):
+    rng = np.random.default_rng(3)
+    from repro_torch import SketchSearchService
+    keys = np.arange(500)
+    signal = rng.normal(size=500)
+    tables = [("corr", keys, signal + 0.1 * rng.normal(size=500)),
+              ("noise", keys, rng.normal(size=500)),
+              ("half", np.arange(250, 750), rng.normal(size=500))]
+    queries = [(keys, signal), (np.arange(100, 600), rng.normal(size=500))]
+    out = []
+    for device in ("cpu", "cuda"):
+        svc = SketchSearchService(m=M, seed=1, device=device)
+        svc.ingest_many(tables)
+        batch = svc.search_batch(queries, top_k=3, min_join=5, micro_batch=4)
+        assert batch == [svc.search(k, v, top_k=3, min_join=5)
+                         for k, v in queries]
+        out.append(batch)
+    assert [[r.name for r in q] for q in out[0]] == \
+        [[r.name for r in q] for q in out[1]]

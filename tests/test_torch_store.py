@@ -1,0 +1,88 @@
+"""The port's field-stacked corpus store: in-place append, amortized
+doubling, inert spare rows, tenant ranges -- and buffers equal to the JAX
+package's store after the same appends."""
+import numpy as np
+import pytest
+import torch
+
+from repro.data.store import CorpusStore as JaxCorpusStore
+from repro_torch.data.store import CorpusStore
+
+M = 16
+
+
+def _batch(rng, b, fields=3, m=M):
+    return (rng.integers(0, 2 ** 31 - 1, size=(fields, b, m)).astype(np.int32),
+            rng.normal(size=(fields, b, m)).astype(np.float32),
+            rng.random(size=(fields, b)).astype(np.float32),
+            rng.integers(-2 ** 31, 2 ** 31 - 1,
+                         size=(fields, b, m)).astype(np.int32))
+
+
+def test_buffers_equal_the_jax_store_after_the_same_appends():
+    rng = np.random.default_rng(0)
+    port = CorpusStore(m=M, fields=3, min_capacity=4, device="cpu")
+    ref = JaxCorpusStore(m=M, fields=3, min_capacity=4)
+    for b, tenant in ((3, "a"), (2, "a"), (6, None), (1, "b"), (9, "a")):
+        rows = _batch(rng, b)
+        port.append(*rows, tenant=tenant)
+        ref.append(*rows, tenant=tenant)
+        assert port.size == ref.size and port.capacity == ref.capacity
+        for got, want in zip(port.buffers(), ref.buffers()):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for t in ("a", "b"):
+        assert port.tenant_ranges(t) == ref.tenant_ranges(t)
+        np.testing.assert_array_equal(port.tenant_rows(t), ref.tenant_rows(t))
+    assert port.describe_tenants() == ref.describe_tenants()
+    assert port.bytes_per_row() == ref.bytes_per_row() == 12 * M + 4
+    assert port.storage_doubles() == ref.storage_doubles()
+
+
+def test_append_writes_in_place_and_doubles_capacity():
+    rng = np.random.default_rng(1)
+    store = CorpusStore(m=M, fields=3, min_capacity=4, device="cpu")
+    store.append(*_batch(rng, 3))
+    bufs = store.buffers()
+    ptrs = [b.data_ptr() for b in bufs]
+    store.append(*_batch(rng, 1))                 # fits: same storage
+    assert [b.data_ptr() for b in store.buffers()] == ptrs
+    assert store.capacity == 4
+    store.append(*_batch(rng, 1))                 # grows 4 -> 8
+    assert store.capacity == 8 and store.size == 5
+    store.append(*_batch(rng, 20))                # 25 rows -> 32
+    assert store.capacity == 32 and len(store) == 25
+
+
+def test_spare_rows_hold_inert_fills():
+    rng = np.random.default_rng(2)
+    store = CorpusStore(m=M, fields=3, min_capacity=8, device="cpu")
+    store.append(*_batch(rng, 3))
+    fp, val, norm, argkey = store.buffers()
+    assert torch.all(fp[:, 3:] == -2) and torch.all(val[:, 3:] == 0)
+    assert torch.all(norm[:, 3:] == 0) and torch.all(argkey[:, 3:] == 0)
+    assert fp.dtype == torch.int32 and val.dtype == torch.float32
+
+
+def test_append_validates_before_writing():
+    rng = np.random.default_rng(3)
+    store = CorpusStore(m=M, fields=3, device="cpu")
+    fp, val, norm, argkey = _batch(rng, 2)
+    with pytest.raises(ValueError, match="components"):
+        store.append(fp, val, norm)
+    with pytest.raises(ValueError, match="do not match"):
+        store.append(fp, val[:, :1], norm, argkey)
+    with pytest.raises(ValueError, match="rows must be"):
+        store.append(fp[:2], val, norm, argkey)
+    assert store.size == 0
+    with pytest.raises(ValueError, match="empty corpus"):
+        store.buffers()
+    with pytest.raises(KeyError):
+        store.tenant_ranges("nobody")
+
+
+def test_single_field_store_takes_rows_without_field_axis():
+    rng = np.random.default_rng(4)
+    store = CorpusStore(m=M, device="cpu")
+    fp, val, norm, argkey = (x[0] for x in _batch(rng, 5, fields=1))
+    store.append(fp, val, norm, argkey)
+    np.testing.assert_array_equal(store.buffers()[0][0, :5].numpy(), fp)

@@ -1,0 +1,91 @@
+"""The port's u32 RNG is bit-exact against the JAX package's device mixer
+(``repro.kernels.common``) and its numpy host twin (``repro.core.u32``)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import u32 as host_u32
+from repro.kernels import common as jax_common
+from repro_torch.kernels import common
+
+EDGE = np.array([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1, 0x9E3779B9,
+                 0xFFFF, 0x10000], np.uint64)
+
+
+def _keys():
+    rng = np.random.default_rng(3)
+    rand = rng.integers(0, 2 ** 32, size=4096, dtype=np.uint64)
+    return np.concatenate([EDGE, rand]).astype(np.uint32)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a).astype(np.int64))
+
+
+def test_mul32_keeps_low_bits_exact():
+    x = _keys().astype(np.int64)
+    for c in (0x85EBCA6B, 0xC2B2AE35, 0x9E3779B9, 0x2545F491, 0xFFFFFFFF):
+        got = common.mul32(_t(x), c).numpy()
+        want = np.array([(int(v) * c) & 0xFFFFFFFF for v in x], np.int64)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_mix32_matches_jax_and_host():
+    k = _keys()
+    got = common.mix32(_t(k)).numpy().astype(np.uint32)
+    np.testing.assert_array_equal(got, np.asarray(jax_common.mix32(jnp.asarray(k))))
+    np.testing.assert_array_equal(got, host_u32.mix32(k))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 32 - 1])
+def test_hash_uniform_salt_match_jax_and_host(seed):
+    k = _keys()
+    t = np.arange(k.size, dtype=np.int32) % 1000
+    for stream in sorted(common_streams().values()):
+        salt = common.salt_for(seed, stream, torch.from_numpy(t))
+        salt_j = jax_common.salt_for(seed, stream, jnp.asarray(t))
+        np.testing.assert_array_equal(salt.numpy().astype(np.uint32),
+                                      np.asarray(salt_j))
+        h = common.hash_u32(_t(k), salt).numpy().astype(np.uint32)
+        np.testing.assert_array_equal(
+            h, np.asarray(jax_common.hash_u32(jnp.asarray(k), salt_j)))
+        np.testing.assert_array_equal(
+            h, host_u32.hash_u32(k, np.asarray(salt_j)))
+        u = common.uniform01(_t(k), salt).numpy()
+        assert u.dtype == np.float32
+        np.testing.assert_array_equal(
+            u, np.asarray(jax_common.uniform01(jnp.asarray(k), salt_j)))
+        assert np.all((u > 0) & (u < 1))
+
+
+def test_negative_int32_keys_wrap_like_uint32():
+    """``_keys_i32`` folds keys >= 2^31 into negative int32s; the port's
+    ``as_u32`` must read them back as the same uint32 pattern."""
+    k = np.array([-1, -2 ** 31, -12345, 0, 2 ** 31 - 1], np.int32)
+    got = common.hash_u32(torch.from_numpy(k), torch.tensor(77)).numpy()
+    want = np.asarray(jax_common.hash_u32(jnp.asarray(k), jnp.uint32(77)))
+    np.testing.assert_array_equal(got.astype(np.uint32), want)
+    np.testing.assert_array_equal(
+        common.as_u32(torch.from_numpy(k)).numpy(),
+        k.astype(np.uint32).astype(np.int64))
+
+
+def common_streams():
+    """The port's ICWS stream ids, keyed by the JAX registry's names."""
+    prefix = "ICWS_STREAM_"
+    return {f"ICWS_{n[len(prefix):]}_STREAM": v
+            for n, v in vars(common).items() if n.startswith(prefix)}
+
+
+def test_stream_ids_and_sentinels_mirror_the_jax_registry():
+    ported = common_streams()
+    assert len(ported) == 6
+    registry = jax_common.streams()
+    for name, value in ported.items():
+        assert registry[name] == value, name
+    from repro.kernels.estimate import CORPUS_PAD_FP, QUERY_PAD_FP
+    from repro.kernels.ref import BIG
+    assert (common.QUERY_PAD_FP, common.CORPUS_PAD_FP) == (QUERY_PAD_FP,
+                                                           CORPUS_PAD_FP)
+    assert common.BIG == BIG
