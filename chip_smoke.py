@@ -5,12 +5,17 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version on the card at the serving path's
 shapes, then drives the §1.3 dataset-search service
-(``repro_torch.SketchSearchService``, ICWS, m = 512) over a synthetic lake of
-16,384 tables and checks its answers.  Imports nothing of JAX and nothing of
-the JAX package.  Exits non-zero on any failure, and at once when no card
-is present.  The line before the last is a JSON object with each kernel's
-launches on the serving run, its error against the plain version, its time,
-the plain version's time and its bound; the last line is the run's device.
+(``repro_torch.SketchSearchService``, m = 512) with each ported family --
+ICWS, CountSketch and JL, storage-matched -- over one synthetic lake of
+16,384 tables and checks its answers; it prints each family's
+planted-partner recall side by side (the paper's head-to-head).  Imports
+nothing of JAX and nothing of the JAX package.  Exits non-zero on any
+failure, and at once when no card is present.  Each phase prints its wall
+time.  The line before the last is a JSON object with each kernel's
+launches on the serving runs, its error against the plain version, its
+time, the plain version's time, its bound and the time of one PyTorch call
+that computes the same function (where there is one); the last line is the
+run's device.
 """
 from __future__ import annotations
 
@@ -40,6 +45,13 @@ ICWS_OPS_PER_DRAW = 10 * 8 + 5 * 5 + 5 * 4 + 19
 # two adds)
 EST_OPS_PER_TEST = 2
 EST_OPS_PER_HIT = 8
+# lane operations of one keyed hash (two murmur rounds and the prologue);
+# one CountSketch term per (row, rep, live non-zero) takes two hashes, the
+# bucket's modulo, the sign's select, its product and the add; one JL term
+# per (row, t, live non-zero) one hash, select, product and add
+HASH_OPS = 2 * 8 + 5
+CS_OPS_PER_TERM = 2 * HASH_OPS + 4
+JL_OPS_PER_TERM = HASH_OPS + 3
 
 M = 512
 LAKE_TABLES = 16_384
@@ -48,6 +60,11 @@ MICRO_BATCH = 16
 QUERY_ROWS = 2_000
 KEY_DOMAIN = 1 << 20
 EST_P = 131_072
+FAMILIES = ("icws", "cs", "jl")
+# the kernels each family's serving path launches
+PATH_KERNELS = {"icws": ("icws_sketch", "estimate_fields"),
+                "cs": ("countsketch_sparse", "linear_estimate_fields"),
+                "jl": ("jl_sketch", "linear_estimate_fields")}
 
 
 def log(msg: str) -> None:
@@ -62,20 +79,64 @@ def card_identity() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def phase(name: str, fn, *args):
+    """Run one phase and print its wall time on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def launch_counters():
+    """Each kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels import (countsketch, estimate, icws_sketch,
+                                     jl_sketch)
+    return {"icws_sketch": icws_sketch.icws_sketch_cuda,
+            "estimate_fields": estimate.estimate_fields_cuda,
+            "countsketch_sparse": countsketch.countsketch_sparse_cuda,
+            "jl_sketch": jl_sketch.jl_sketch_cuda,
+            "linear_estimate_fields": estimate.linear_estimate_fields_cuda}
+
+
+def family_for(name: str):
+    from repro_torch.data.families import make_family, wmh_storage
+    return make_family(name, storage=wmh_storage(M), seed=0)
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    """Milliseconds per call of ``fn``: CUDA events around a run of ``reps``
+    calls, over the count.  A call that is shorter on the device than on
+    the host (the wrapper's Python) reads as the host's time per call."""
     for _ in range(warmup):
         fn()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def device_ms(fn, symbol: str, reps: int = 10) -> float:
+    """Device milliseconds per launch of the kernel whose name contains
+    ``symbol``, from a ``torch.profiler`` trace of ``reps`` calls: the
+    kernel alone, without the host's launch cost (the mean over the
+    launches the trace recorded)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and symbol in e.name]
+    if not spans:
+        raise AssertionError(f"the profiler recorded no launch of {symbol}")
+    return sum(spans) / len(spans) / 1e3
 
 
 # --------------------------------------------------------------------------
@@ -123,16 +184,21 @@ def build_phase():
         f"{time.perf_counter() - t0:.1f} s")
 
 
+def field_vectors(index, rng, B: int, nnz: int):
+    """B field vectors (3 per table) of about ``nnz`` non-zeros each."""
+    vecs = []
+    while len(vecs) < B:
+        keys = rng.integers(0, KEY_DOMAIN, nnz + nnz // 64)
+        vecs.extend(index.vectorize(keys, rng.normal(0.0, 1.0, keys.size)))
+    return vecs[:B]
+
+
 def sketch_case(index, rng, B: int, nnz: int, dev):
     """One sketch launch at the path's shapes: B field rows (3 per table or
     query) of about ``nnz`` non-zeros each, N = nnz rounded to 256."""
     from repro_torch.data.ingest import pad_sparse_batch
     from repro_torch.kernels import icws_sketch as ks
-    vecs = []
-    while len(vecs) < B:
-        keys = rng.integers(0, KEY_DOMAIN, nnz + nnz // 64)
-        vecs.extend(index.vectorize(keys, rng.normal(0.0, 1.0, keys.size)))
-    w, keys, vals, _ = pad_sparse_batch(vecs[:B])
+    w, keys, vals, _ = pad_sparse_batch(field_vectors(index, rng, B, nnz))
     args = [torch.from_numpy(a).to(dev) for a in (w, keys, vals)]
     got = ks.icws_sketch_cuda(*args, m=M, seed=0)
     torch.cuda.synchronize()
@@ -150,14 +216,17 @@ def sketch_case(index, rng, B: int, nnz: int, dev):
     bytes_moved = w.nbytes * 3 + B * M * 16
     bound = max(ops / FP32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3
     ms = time_ms(lambda: ks.icws_sketch_cuda(*args, m=M, seed=0), reps=20)
+    dev_ms = device_ms(lambda: ks.icws_sketch_cuda(*args, m=M, seed=0),
+                       "icws_sketch_kernel")
     plain = time_ms(lambda: ks.icws_sketch_plain(*args, m=M, seed=0), reps=3,
                     warmup=1)
     shape = f"B={B} N={w.shape[1]} m={M}"
     log(f"sketch {shape}: fp agree {share:.6f}, max |dval| {err}, "
-        f"kernel {ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms "
-        f"(operations, {live} live non-zeros)")
-    return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "fp_agree": share}
+        f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
+        f"{plain:.3f} ms, bound {bound:.4f} ms (operations, {live} live "
+        f"non-zeros)")
+    return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, "bound_ms": bound, "fp_agree": share}
 
 
 def estimate_case(fq, vq, fc, vc):
@@ -190,12 +259,134 @@ def estimate_case(fq, vq, fc, vc):
     bound_by = "bytes" if bound_bytes >= bound_ops else "operations"
     ms = time_ms(lambda: ke.estimate_fields_cuda(fq, vq, fc, vc, qmap=QFIELD,
                                                  cmap=CFIELD), reps=10)
+    dev_ms = device_ms(lambda: ke.estimate_fields_cuda(
+        fq, vq, fc, vc, qmap=QFIELD, cmap=CFIELD), "estimate_fields_kernel")
     log(f"estimate {shape}: {hits:.0f} collisions of {tests} tests, cnt "
-        f"equal, max |dsw| {err}, kernel {ms:.4f} ms, plain {plain:.1f} ms "
-        f"(one run), bound {bound:.4f} ms ({bound_by}: "
-        f"{bytes_moved / 1e9:.3f} GB, {ops:.3e} ops)")
-    return {"shape": shape, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": bound_by}
+        f"equal, max |dsw| {err}, kernel {ms:.4f} ms per call ({dev_ms:.4f} "
+        f"ms on the device), plain {plain:.1f} ms (one run), bound "
+        f"{bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB, "
+        f"{ops:.3e} ops)")
+    return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by}
+
+
+def linear_sketch_case(index, rng, name: str, B: int, nnz: int, dev):
+    """One CountSketch or JL launch at the path's shapes against its plain
+    version: equal bit for bit (both sum over ascending n)."""
+    from repro_torch.data.ingest import pad_linear_batch
+    from repro_torch.kernels import countsketch as kc
+    from repro_torch.kernels import jl_sketch as kj
+    fam = family_for(name)
+    keys, vals = (torch.from_numpy(a).to(dev) for a in pad_linear_batch(
+        field_vectors(index, rng, B, nnz)))
+    if name == "cs":
+        kw = dict(width=fam.width, reps=fam.reps, seed=0)
+        kernel, plain = kc.countsketch_sparse_cuda, kc.countsketch_sparse_plain
+        ops_per_term, terms_per_nz = CS_OPS_PER_TERM, fam.reps
+        symbol = "countsketch_sparse_kernel"
+    else:
+        kw = dict(m=fam.m, seed=0)
+        kernel, plain = kj.jl_sketch_cuda, kj.jl_sketch_plain
+        ops_per_term, terms_per_nz = JL_OPS_PER_TERM, fam.m
+        symbol = "jl_sketch_kernel"
+    got = kernel(keys, vals, **kw)
+    torch.cuda.synchronize()
+    want = plain(keys, vals, **kw)
+    err = float((got - want).abs().max().item())
+    shape = f"B={B} N={keys.shape[1]} R={fam.reps} W={fam.width}"
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name} sketch {shape}: kernel differs from "
+                             f"plain (max |d| {err})")
+    live = int((vals != 0).sum().item())
+    ops = ops_per_term * live * terms_per_nz
+    bytes_moved = (keys.numel() + vals.numel()) * 4 + got.numel() * 4
+    bound_b, bound_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    bound = max(bound_b, bound_o) * 1e3
+    bound_by = "bytes" if bound_b >= bound_o else "operations"
+    ms = time_ms(lambda: kernel(keys, vals, **kw), reps=20)
+    dev_ms = device_ms(lambda: kernel(keys, vals, **kw), symbol)
+    plain_ms = time_ms(lambda: plain(keys, vals, **kw), reps=3, warmup=1)
+    log(f"{name} sketch {shape}: equal to plain, kernel {ms:.4f} ms per call "
+        f"({dev_ms:.4f} ms on the device), plain {plain_ms:.3f} ms, bound "
+        f"{bound:.5f} ms ({bound_by}, {live} live non-zeros)")
+    return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+
+
+def linear_estimate_case(name: str, tq, tc):
+    """One linear-fields launch against its plain version (equal bit for
+    bit: an f32 product then an f32 add per w, in order, in both) and
+    against ``torch.bmm`` in f32 with TF32 off over the (pair, rep)-gathered
+    tables (the gather is outside the timing; the port never calls it)."""
+    from repro_torch.data.dataset_search import CFIELD, QFIELD
+    from repro_torch.kernels import estimate as ke
+    G, (Q, R, W), P = len(QFIELD), tq.shape[1:], tc.shape[1]
+    shape = f"{name} G={G} R={R} Q={Q} P={P} W={W}"
+    got = ke.linear_estimate_fields_cuda(tq, tc, qmap=QFIELD, cmap=CFIELD)
+    torch.cuda.synchronize()
+    plain_ms = time_ms(lambda: ke.linear_estimate_fields_plain(
+        tq, tc, qmap=QFIELD, cmap=CFIELD), reps=1, warmup=0)
+    want = ke.linear_estimate_fields_plain(tq, tc, qmap=QFIELD, cmap=CFIELD)
+    err = float((got - want).abs().max().item())
+    if not torch.equal(got, want):
+        raise AssertionError(f"linear estimate {shape}: kernel differs from "
+                             f"plain (max |d| {err})")
+    del want
+    ms = time_ms(lambda: ke.linear_estimate_fields_cuda(
+        tq, tc, qmap=QFIELD, cmap=CFIELD), reps=10)
+    dev_ms = device_ms(lambda: ke.linear_estimate_fields_cuda(
+        tq, tc, qmap=QFIELD, cmap=CFIELD), "linear_estimate_fields_kernel")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    a = torch.stack([tq[qf] for qf in QFIELD]).permute(0, 2, 1, 3).reshape(
+        G * R, Q, W).contiguous()
+    b = torch.stack([tc[cf] for cf in CFIELD]).permute(0, 2, 1, 3).reshape(
+        G * R, P, W).contiguous()
+    lib = torch.bmm(a, b.transpose(1, 2))
+    lib_err = float((lib.reshape(G, R, Q, P) - got).abs().max().item())
+    lib_ms = time_ms(lambda: torch.bmm(a, b.transpose(1, 2)), reps=10)
+    del a, b, lib
+    bytes_moved = (tq.numel() + tc.numel() + got.numel()) * 4
+    ops = 2 * G * R * Q * P * W
+    bound_b, bound_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    bound = max(bound_b, bound_o) * 1e3
+    bound_by = "bytes" if bound_b >= bound_o else "operations"
+    log(f"linear estimate {shape}: equal to plain, kernel {ms:.4f} ms per "
+        f"call ({dev_ms:.4f} ms on the device), plain {plain_ms:.1f} ms (one "
+        f"run), torch.bmm {lib_ms:.4f} ms (max |d| "
+        f"{lib_err:.3g} against the kernel), bound {bound:.4f} ms "
+        f"({bound_by}: {bytes_moved / 1e9:.3f} GB, {ops:.3e} ops)")
+    return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+def linear_kernel_phase(dev):
+    """B6 and B7 at the ingest (B = 3) and query-batch (B = 48) shapes, each
+    at N = 1024 and 4096; B8 at G = 6, Q in {16, 1}, P in {131,072, 16,384}
+    for CS (R = 5, W = 153) and JL (R = 1, W = 769), over real query
+    tables and random corpus tables whose last 1,024 rows are spare."""
+    from repro_torch.data.dataset_search import DatasetSearchIndex
+    rng = np.random.default_rng(5)
+    index = DatasetSearchIndex(m=M, seed=0, device=dev)
+    sketch = {name: [linear_sketch_case(index, rng, name, B, nnz, dev)
+                     for B in (3, 48) for nnz in (1000, 4000)]
+              for name in ("cs", "jl")}
+    estimate = []
+    g = torch.Generator(device=dev).manual_seed(6)
+    for name in ("cs", "jl"):
+        fam = family_for(name)
+        (tables,) = fam.sketch_rows(field_vectors(index, rng, 48, QUERY_ROWS),
+                                    device=dev)
+        tq = tables.reshape(16, 3, fam.reps, fam.width).transpose(0, 1)
+        tc = torch.randn((3, EST_P, fam.reps, fam.width), device=dev,
+                         generator=g)
+        tc[:, -1024:] = 0.0
+        estimate += [linear_estimate_case(name, tq[:, :q], tc[:, -p:])
+                     for q, p in ((16, EST_P), (1, EST_P), (16, LAKE_TABLES),
+                                  (1, LAKE_TABLES))]
+        del tc
+        torch.cuda.empty_cache()
+    return sketch, estimate
 
 
 def kernel_phase(dev):
@@ -241,7 +432,7 @@ def kernel_phase(dev):
     return sketch, estimate
 
 
-def small_reference_phase(dev):
+def small_reference_phase(dev, family: str):
     """The service on the card against the same service on the CPU (plain
     kernels) on a small lake: same rankings, estimates within f32 tolerance."""
     from repro_torch import SketchSearchService
@@ -257,7 +448,7 @@ def small_reference_phase(dev):
     queries = [(keys, signal), (keys[:500], rng.normal(size=500))]
     out = []
     for device in ("cpu", dev):
-        svc = SketchSearchService(m=M, seed=0, device=device)
+        svc = SketchSearchService(m=M, seed=0, family=family, device=device)
         svc.ingest_many(tables)
         out.append(svc.search_batch(queries, top_k=5, min_join=20,
                                     micro_batch=2))
@@ -271,24 +462,34 @@ def small_reference_phase(dev):
             if abs(x.join_size - y.join_size) > 1e-4 * max(1.0, abs(x.join_size)):
                 raise AssertionError(f"join size {y.join_size} != {x.join_size}")
     if out[1][0][0].name != "corr":
-        raise AssertionError(f"small lake: top hit {out[1][0][0].name}")
-    log(f"small lake: card ranking equals the cpu ranking {[r.name for r in out[1][0]]}")
+        raise AssertionError(f"small lake ({family}): top hit "
+                             f"{out[1][0][0].name}")
+    log(f"small lake ({family}): card ranking equals the cpu ranking "
+        f"{[r.name for r in out[1][0]]}")
 
 
-def service_phase(dev):
-    from repro_torch import SketchSearchService
-    from repro_torch.kernels import estimate as ke
-    from repro_torch.kernels import icws_sketch as ks
+def lake_phase():
     rng = np.random.default_rng(4)
-    t0 = time.perf_counter()
     tables, queries, partners = make_lake(rng, LAKE_TABLES, QUERIES)
     rows = sum(len(k) for _, k, _ in tables)
-    log(f"lake: {len(tables)} tables, {rows} rows, made in "
-        f"{time.perf_counter() - t0:.1f} s")
-    svc = SketchSearchService(m=M, seed=0)
+    log(f"lake: {len(tables)} tables, {rows} rows")
+    return tables, queries, partners
 
-    ks.icws_sketch_cuda.launches = 0
-    ke.estimate_fields_cuda.launches = 0
+
+def service_phase(family: str, lake):
+    """One family's service over the lake: ingest every table, answer the
+    64 queries through ``search_batch`` (micro-batches of 16) and through
+    ``search``, with the launch counters set to 0 just before and read just
+    after.  Gates: batched == sequential bit for bit, finite results, the
+    launches the run needs; for ICWS also every planted partner in the top
+    10 (the linear sketches' recall is printed, not gated: losing partners
+    is the paper's finding).  Returns (launches, recall)."""
+    from repro_torch import SketchSearchService
+    tables, queries, partners = lake
+    svc = SketchSearchService(m=M, seed=0, family=family)
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     svc.ingest_many(tables)
     torch.cuda.synchronize()
@@ -299,39 +500,46 @@ def service_phase(dev):
     sequential = [svc.search(k, v, top_k=10, min_join=min_join)
                   for k, v in queries]
     torch.cuda.synchronize()
-    launches = {"icws_sketch": ks.icws_sketch_cuda.launches,
-                "estimate_fields": ke.estimate_fields_cuda.launches}
+    launches = {name: fn.launches for name, fn in counters.items()}
 
     d = svc.describe()
-    log(f"ingest: {LAKE_TABLES / ingest_s:.1f} tables/s ({ingest_s:.1f} s); "
-        f"store {d['corpus_rows']} rows x 3 fields, capacity "
-        f"{d['corpus_capacity']}, {3 * d['corpus_capacity'] * d['bytes_per_row'] / 1e6:.1f} MB")
-    log(f"query p50 {d['query_ms_p50']:.2f} ms (search, {d['queries_served']} "
-        f"queries); batch p50 {d['batch_ms_p50']:.2f} ms (micro-batch of "
-        f"{MICRO_BATCH}, {d['batches_served']} batches; "
+    log(f"{family} ingest: {LAKE_TABLES / ingest_s:.1f} tables/s "
+        f"({ingest_s:.1f} s); store {d['corpus_rows']} rows x 3 fields, "
+        f"capacity {d['corpus_capacity']}, {d['bytes_per_row']:.0f} B per "
+        f"row, {3 * d['corpus_capacity'] * d['bytes_per_row'] / 1e6:.1f} MB")
+    log(f"{family} query p50 {d['query_ms_p50']:.2f} ms (search, "
+        f"{d['queries_served']} queries); batch p50 {d['batch_ms_p50']:.2f} "
+        f"ms (micro-batch of {MICRO_BATCH}, {d['batches_served']} batches; "
         f"{d['batched_query_ms_p50']:.2f} ms per query)")
     if sequential != batched:
-        raise AssertionError("batched results differ from sequential search")
-    found = 0
+        raise AssertionError(f"{family}: batched results differ from "
+                             "sequential search")
+    in_top, first = 0, 0
     for res, partner in zip(batched, partners):
         for r in res:
             if not (math.isfinite(r.join_size) and math.isfinite(r.corr)):
-                raise AssertionError(f"non-finite result {r}")
+                raise AssertionError(f"{family}: non-finite result {r}")
         if partner is not None:
             names = [r.name for r in res]
-            if partner not in names:
+            if family == "icws" and partner not in names:
                 raise AssertionError(f"planted {partner} not in top 10: {names}")
-            found += names.index(partner) == 0
-    log(f"planted partners: {QUERIES // 2} of {QUERIES // 2} in the top 10, "
-        f"{found} ranked first; batched == sequential on {QUERIES} queries")
+            in_top += partner in names
+            first += bool(names) and names[0] == partner
+    returned = sum(len(res) for res in batched) / len(batched)
+    log(f"{family} planted partners: {in_top} of {QUERIES // 2} in the top "
+        f"10, {first} ranked first; {returned:.2f} tables returned per query "
+        f"(each refined on the host); batched == sequential on {QUERIES} "
+        f"queries")
     n_batches = math.ceil(QUERIES / MICRO_BATCH)
-    need_sketch = LAKE_TABLES + n_batches + QUERIES
-    need_est = n_batches + QUERIES
-    log(f"launches on the serving run: {launches}")
-    if launches["icws_sketch"] < need_sketch or launches["estimate_fields"] < need_est:
-        raise AssertionError(f"launch counters {launches} below "
-                             f"{need_sketch} sketch / {need_est} estimate")
-    return launches
+    sketch_k, est_k = PATH_KERNELS[family]
+    need = {sketch_k: LAKE_TABLES + n_batches + QUERIES,
+            est_k: n_batches + QUERIES}
+    log(f"{family} launches on the serving run: {launches}")
+    if any(launches[k] < n for k, n in need.items()):
+        raise AssertionError(f"{family}: launch counters {launches} below "
+                             f"{need}")
+    return launches, {"in_top10": in_top, "first": first,
+                      "planted": QUERIES // 2}
 
 
 def main() -> int:
@@ -350,18 +558,34 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
         f"{torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda")
-    build_phase()
-    sketch, estimate = kernel_phase(dev)
-    small_reference_phase(dev)
-    launches = service_phase(dev)
+    phase("build", build_phase)
+    sketch, estimate = phase("icws kernels", kernel_phase, dev)
+    lin_sketch, lin_estimate = phase("linear kernels", linear_kernel_phase,
+                                     dev)
+    for family in FAMILIES:
+        phase(f"small lake {family}", small_reference_phase, dev, family)
+    lake = phase("lake", lake_phase)
+    runs = {family: phase(f"service {family}", service_phase, family, lake)
+            for family in FAMILIES}
+    log("planted-partner recall, top 10 / ranked first, of "
+        f"{QUERIES // 2}: " + ", ".join(
+            f"{f} {r['in_top10']}/{r['first']}" for f, (_, r) in runs.items()))
+    # a kernel's launches: the sum over the family runs whose path it is on
+    launches = {name: sum(runs[f][0][name] for f in FAMILIES
+                          if name in PATH_KERNELS[f])
+                for name in launch_counters()}
 
     rep = sketch[3]   # the query micro-batch launch: B = 48, N = 4096
+    lin_rep = {"countsketch_sparse": lin_sketch["cs"][3],
+               "jl_sketch": lin_sketch["jl"][3],
+               "linear_estimate_fields": lin_estimate[0]}
     kernels = [
         {"name": "icws_sketch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/icws_sketch.cu",
          "replaces": "src/repro/kernels/icws_sketch.py:40",
          "launches": launches["icws_sketch"], "max_abs_err": rep["max_abs_err"],
-         "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+         "ms": rep["ms"], "device_ms": rep["device_ms"],
+         "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
          "bound_by": "operations", "library_ms": None, "shape": rep["shape"],
          "all_shapes": sketch},
         {"name": "estimate_fields", "route": "cuda",
@@ -369,11 +593,28 @@ def main() -> int:
          "replaces": "src/repro/kernels/estimate.py:215",
          "launches": launches["estimate_fields"],
          "max_abs_err": estimate[0]["max_abs_err"], "ms": estimate[0]["ms"],
+         "device_ms": estimate[0]["device_ms"],
          "plain_ms": estimate[0]["plain_ms"],
          "bound_ms": estimate[0]["bound_ms"],
          "bound_by": estimate[0]["bound_by"], "library_ms": None,
          "shape": estimate[0]["shape"], "all_shapes": estimate},
     ]
+    for name, source, replaces, shapes in (
+            ("countsketch_sparse", "countsketch_sparse.cu",
+             "countsketch.py:91", lin_sketch["cs"]),
+            ("jl_sketch", "jl_sketch.cu", "jl_sketch.py:28", lin_sketch["jl"]),
+            ("linear_estimate_fields", "linear_estimate_fields.cu",
+             "estimate.py:407", lin_estimate)):
+        r = lin_rep[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "device_ms": r["device_ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "shape": r["shape"], "all_shapes": shapes})
     log(f"total {time.perf_counter() - t_start:.1f} s on {identity}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

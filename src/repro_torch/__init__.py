@@ -2,11 +2,11 @@
 
 A second package beside the JAX reference (``src/repro``): it imports
 ``torch``, ``numpy`` and the standard library only -- never ``jax`` and
-nothing of ``repro``.  This slice carries the default configuration
-``SketchSearchService(family="icws", backend="device")`` on one device,
-with hand-written CUDA kernels for the ICWS sketch and the fused
-multi-field estimate (``repro_torch.kernels``).  Entry points run on the
-card unless the caller passes ``device="cpu"``.
+nothing of ``repro``.  It carries ``SketchSearchService(family=...,
+backend="device")`` on one device for the ICWS, CountSketch and JL
+families, with hand-written CUDA kernels for each family's sketch and
+fused multi-field estimate (``repro_torch.kernels``).  Entry points run on
+the card unless the caller passes ``device="cpu"``.
 """
 from .data.dataset_search import DatasetSearchIndex, SearchResult
 from .serve.sketch_service import SketchSearchService

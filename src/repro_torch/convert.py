@@ -12,9 +12,11 @@ caller exports them as numpy (this module imports nothing of JAX)::
               for t in jax_index.store.tenants()}
     index = index_from_numpy(buffers, len(jax_index.store), tables=tables,
                              tenant_ranges=ranges, m=jax_index.m,
-                             seed=jax_index.seed, device="cuda")
+                             seed=jax_index.seed,
+                             family=jax_index.family.name, device="cuda")
 
-and gets a port index that serves the same sketch rows.
+and gets a port index that serves the same sketch rows.  The ICWS, CS and
+JL families are carried (one buffer per component of the family).
 """
 from __future__ import annotations
 
@@ -32,28 +34,38 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
                      tenant_ranges: Optional[Dict[str, Sequence[
                          Tuple[int, int]]]] = None,
                      m: int, seed: int = 0, key_space: int = 2 ** 31,
-                     device="cuda") -> DatasetSearchIndex:
-    """A port index over the given ICWS corpus.
+                     family: str = "icws", device="cuda"
+                     ) -> DatasetSearchIndex:
+    """A port index over the given corpus.
 
     Args:
-      buffers: ``(fp [3, cap, m], val [3, cap, m], norm [3, cap],
-        argkey [3, cap, m])`` -- a JAX store's ``buffers()`` as numpy.
+      buffers: a JAX store's ``buffers()`` as numpy, one per component of
+        the family: icws ``(fp [3, cap, m], val [3, cap, m], norm [3, cap],
+        argkey [3, cap, m])``; cs and jl ``(tables [3, cap, R, W],)``.
       size: live rows per field (the first ``size`` rows are copied).
       tables: per table ``(name, n_rows, (kmv_hashes, kmv_values))``, in
         store-row order (table i is row i).
       tenant_ranges: tenant id -> its ``[start, stop)`` row ranges.
-      m, seed, key_space: the JAX index's parameters (queries sketch with
-        them, so they must match the corpus).
+      m, seed, key_space, family: the JAX index's parameters (queries
+        sketch with them, so they must match the corpus).
     """
     if len(tables) != size:
         raise ValueError(f"{len(tables)} tables for {size} store rows")
     index = DatasetSearchIndex(m=m, seed=seed, key_space=key_space,
-                               device=device)
+                               family=family, device=device)
     if size == 0:
         return index
-    fp, val, norm, argkey = (np.array(b) for b in buffers)
-    if fp.shape[2] != m:
-        raise ValueError(f"corpus rows have m={fp.shape[2]}, index m={m}")
+    specs = index.family.components
+    if len(buffers) != len(specs):
+        raise ValueError(f"{family} corpus has {len(specs)} buffers "
+                         f"({', '.join(s.name for s in specs)}); got "
+                         f"{len(buffers)}")
+    bufs = [np.array(b) for b in buffers]
+    for b, spec in zip(bufs, specs):
+        if tuple(b.shape[2:]) != spec.trailing:
+            raise ValueError(f"corpus {spec.name} rows have shape "
+                             f"{tuple(b.shape[2:])}; the {family} index "
+                             f"(m={m}) needs {spec.trailing}")
     owner: Dict[int, str] = {}
     for tenant, ranges in (tenant_ranges or {}).items():
         for lo, hi in ranges:
@@ -65,8 +77,8 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
         hi = lo + 1
         while hi < size and owner.get(hi) == owner.get(lo):
             hi += 1
-        index.store.append(fp[:, lo:hi], val[:, lo:hi], norm[:, lo:hi],
-                           argkey[:, lo:hi], tenant=owner.get(lo))
+        index.store.append(*(b[:, lo:hi] for b in bufs),
+                           tenant=owner.get(lo))
         lo = hi
     for row, (name, n_rows, (hashes, values)) in enumerate(tables):
         sample = KMVSketch(hashes=np.asarray(hashes, np.int64),

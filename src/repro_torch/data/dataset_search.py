@@ -7,17 +7,19 @@ values summed at their key ``x^V``, and squared values ``x^{V^2}`` -- into
 one field-stacked :class:`~repro_torch.data.store.CorpusStore` on the
 device, and keeps a KMV keyed sample of the values on the host.
 
-Every query, single or batched, is one ``[3Q, N]`` ICWS sketch launch and
-ONE fused multi-field estimate launch straight off the store buffers
-(a single query is the Q = 1 case).  ``_corr_scores`` and ``_top_k`` rank
-the tables on the device; the host then refines the k survivors'
-correlation from the matched KMV samples.  Per-query results of
+The sketch family is ICWS (the paper's method, the default), CountSketch
+or JL, each sized to the storage an ``m``-sample ICWS sketch occupies.
+Every query, single or batched, is one ``[3Q, N]`` sketch launch of the
+family and ONE fused multi-field estimate launch straight off the store
+buffers (a single query is the Q = 1 case).  ``_corr_scores`` and
+``_top_k`` rank the tables on the device; the host then refines the k
+survivors' correlation from the matched KMV samples.  Per-query results of
 ``query_batch`` equal a loop of ``query`` bit for bit.
 
 Not ported yet (the constructor raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` queue item): the host oracle (``backend="host"``,
-``keep_host_oracle=True``), the other sketch families, the packed store
-and sharded serving (``mesh``).
+``keep_host_oracle=True``), the DMH, TS and PS families, the packed
+store and sharded serving (``mesh``).
 """
 from __future__ import annotations
 
@@ -119,7 +121,8 @@ class DatasetSearchIndex:
         self.seed = seed
         self.key_space = key_space
         self.backend = backend
-        # sized to the storage an m-sample ICWS sketch occupies: exactly m
+        # every family sized to the storage an m-sample ICWS sketch
+        # occupies (icws: exactly m), so the comparison is storage-matched
         self.family = make_family(family, storage=wmh_storage(m), seed=seed)
         self.kmv = KMV(k=m, seed=seed)
         self.tables: List[TableSketch] = []
@@ -153,7 +156,7 @@ class DatasetSearchIndex:
 
     def add_table(self, name: str, keys: np.ndarray, values: np.ndarray,
                   tenant: Optional[str] = None):
-        """Sketch one table into the corpus (one ``[3, N]`` kernel launch,
+        """Sketch one table into the corpus (one ``[3, N]`` sketch launch,
         rows appended in place); ``tenant`` scopes it to a logical corpus
         inside the shared arena."""
         ind, val, sq = self.vectorize(keys, values)

@@ -1,10 +1,12 @@
-"""The ICWS serving family (port of ``repro.data.families.ICWSFamily``).
+"""Serving families (port of ``repro.data.families``): ICWS, CS and JL.
 
 A family tells the corpus store and the index what a sketch row is: its
 per-row buffers with the fill that keeps unused rows inert, its storage
-accounting, the sketch launch and the fused estimate launch.  This slice
-ports the paper's own method, ICWS weighted MinHash; the other families
-of the JAX package wait for later slices (``ROADMAP.md`` Queue A 9-11).
+accounting, the sketch launch and the fused estimate launch.  The port
+serves the paper's own method, ICWS weighted MinHash, and the two linear
+sketches it is compared with, CountSketch and JL, each sized to the same
+storage budget by :func:`make_family`; the other families of the JAX
+package wait for later slices (``ROADMAP.md`` Queue A 9 and 11).
 """
 from __future__ import annotations
 
@@ -17,12 +19,13 @@ from repro_torch.core.types import SparseVec
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import CORPUS_PAD_FP
 
-from .ingest import sketch_batch
+from .ingest import linear_sketch_batch, sketch_batch
 
 # families of the JAX package and the ROADMAP.md queue item that ports each
-_QUEUED = {"dmh": "Queue A 9", "cs": "Queue A 10", "jl": "Queue A 10",
-           "ts": "Queue A 11", "ps": "Queue A 11"}
-FAMILY_NAMES = ("icws",)
+_QUEUED = {"dmh": "Queue A 9", "ts": "Queue A 11", "ps": "Queue A 11"}
+FAMILY_NAMES = ("icws", "cs", "jl")
+# CountSketch repetitions (``repro.core.linear.REPS``): the median of five
+REPS = 5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,15 +81,118 @@ class ICWSFamily:
                                         qmap=qmap, cmap=cmap)
 
 
-def make_family(name: str, *, storage: float, seed: int = 0) -> ICWSFamily:
-    """The serving family sized to a storage budget (icws: ``m = (storage
-    - 1) / 1.5``, as ``repro.core.registry.make_icws``)."""
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet ({item} in "
+                              "ROADMAP.md)")
+
+
+class _LinearFamily:
+    """Shared serving plumbing of the linear families (``S(a) = Pi a``).
+
+    A row is one dense ``[R, W]`` f32 table; estimation is per-rep dots and
+    the median over reps (R = 1 for JL, where the median is the dot).
+    Everything is zero-fill inert: empty sketches, spare capacity and
+    padding all estimate to exactly zero.
+    """
+
+    reps: int
+    width: int
+    seed: int
+    name: str
+
+    @property
+    def components(self) -> Tuple[ComponentSpec, ...]:
+        return (ComponentSpec("tables", (self.reps, self.width),
+                              torch.float32, 0.0),)
+
+    def storage_doubles_per_row(self) -> float:
+        """Paper accounting: every table cell is one double equivalent."""
+        return float(self.reps * self.width)
+
+    def sketch_rows(self, vecs: Sequence[SparseVec], *, bucket: int = 256,
+                    device="cuda"):
+        """One linear-sketch kernel launch: B sparse vectors -> ``([B, R,
+        W] tables,)`` on ``device``."""
+        return (linear_sketch_batch(vecs, method=self.name, width=self.width,
+                                    reps=self.reps, seed=self.seed,
+                                    bucket=bucket, device=device),)
+
+    def estimate_fields(self, q, c, *, qmap, cmap):
+        """All field pairs of a query batch against the corpus tables in
+        one launch: ``q = (tq,)`` [F, Q, R, W], ``c = (tc,)`` [C, P, R, W]
+        -> [G, Q, P] f32 estimates."""
+        return ops.linear_estimate_fields(q[0], c[0], qmap=qmap, cmap=cmap)
+
+    def merge_rows(self, a, b):
+        _not_ported("merging linear sketch rows", "Queue A 13")
+
+    def host_oracle(self):
+        _not_ported("the host oracle", "Queue A 19")
+
+    @property
+    def packed_components(self):
+        _not_ported("packed storage", "Queue A 12")
+
+    def pack_rows(self, rows):
+        _not_ported("packed storage", "Queue A 12")
+
+    def unpack_rows(self, rows):
+        _not_ported("packed storage", "Queue A 12")
+
+    def estimate_fields_packed(self, q, c, *, qmap, cmap):
+        _not_ported("packed storage", "Queue A 12")
+
+    def estimate_fields_sharded(self, q, c, *, qmap, cmap, mesh, axis):
+        _not_ported("sharded serving", "Queue A 14")
+
+    def estimate_fields_packed_sharded(self, q, c, *, qmap, cmap, mesh,
+                                       axis):
+        _not_ported("sharded serving", "Queue A 14")
+
+
+@dataclasses.dataclass(frozen=True)
+class CSFamily(_LinearFamily):
+    """CountSketch serving family (median of ``reps`` repetitions)."""
+
+    width: int
+    reps: int = REPS
+    seed: int = 0
+    name: str = dataclasses.field(default="cs", init=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class JLFamily(_LinearFamily):
+    """JL / AMS projection serving family (a single ``[1, m]`` table row)."""
+
+    m: int
+    seed: int = 0
+    name: str = dataclasses.field(default="jl", init=False)
+
+    @property
+    def reps(self) -> int:
+        return 1
+
+    @property
+    def width(self) -> int:
+        return self.m
+
+
+def make_family(name: str, *, storage: float, seed: int = 0):
+    """The serving family sized to a storage budget, as
+    ``repro.core.registry`` sizes it: icws ``m = (storage - 1) / 1.5``; cs
+    ``width = storage // reps`` with five reps; jl ``m = storage``.
+    Families built from one budget are storage-matched."""
     if name == "icws":
         return ICWSFamily(m=max(1, int((storage - 1) / 1.5)), seed=seed)
+    if name == "cs":
+        return CSFamily(width=max(1, int(storage // REPS)), reps=REPS,
+                        seed=seed)
+    if name == "jl":
+        return JLFamily(m=max(1, int(storage)), seed=seed)
     if name in _QUEUED:
         raise NotImplementedError(
             f"family {name!r} is not ported yet ({_QUEUED[name]} in "
-            "ROADMAP.md); this port serves 'icws'")
+            f"ROADMAP.md); this port serves {', '.join(FAMILY_NAMES)}")
     raise ValueError(f"unknown sketch family {name!r}; choose from "
                      f"{FAMILY_NAMES}")
 

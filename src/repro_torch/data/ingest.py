@@ -1,6 +1,6 @@
-"""Batch ingest: pad sparse vectors into the sketch kernel's ``[B, N]``
-layout (numpy, bit for bit ``repro.data.ingest.pad_sparse_batch``) and
-sketch them on a device."""
+"""Batch ingest: pad sparse vectors into the sketch kernels' ``[B, N]``
+layouts (numpy, bit for bit ``repro.data.ingest.pad_sparse_batch`` and
+``pad_linear_batch``) and sketch them on a device."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
@@ -10,6 +10,19 @@ import torch
 
 from repro_torch.core.types import SparseVec
 from repro_torch.kernels import ops
+
+
+def _flat_scatter(vecs: Sequence[SparseVec], active: np.ndarray,
+                  nnz: np.ndarray):
+    """(rows, cols, concatenated indices, concatenated values, counts) of
+    the active vectors: the shared fill of both padding layouts."""
+    counts = nnz[active]
+    idx_cat = np.concatenate([v.indices for v, a in zip(vecs, active) if a])
+    val_cat = np.concatenate([v.values for v, a in zip(vecs, active) if a])
+    rows = np.repeat(np.nonzero(active)[0], counts)
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    cols = np.arange(idx_cat.size) - np.repeat(starts, counts)
+    return rows, cols, idx_cat, val_cat, counts
 
 
 def _keys_i32(idx_cat: np.ndarray) -> np.ndarray:
@@ -37,17 +50,35 @@ def pad_sparse_batch(vecs: Sequence[SparseVec], *, bucket: int = 256
     norms = np.array([v.norm() for v in vecs], np.float64)
     active = (nnz > 0) & (norms > 0.0) if B else np.zeros(0, bool)
     if np.any(active):
-        counts = nnz[active]
-        idx_cat = np.concatenate([v.indices for v, a in zip(vecs, active) if a])
-        val_cat = np.concatenate([v.values for v, a in zip(vecs, active) if a])
-        rows = np.repeat(np.nonzero(active)[0], counts)
-        starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
-        cols = np.arange(idx_cat.size) - np.repeat(starts, counts)
+        rows, cols, idx_cat, val_cat, counts = _flat_scatter(vecs, active, nnz)
         z32 = (val_cat / np.repeat(norms[active], counts)).astype(np.float32)
         w[rows, cols] = z32 * z32
         keys[rows, cols] = _keys_i32(idx_cat)
         vals[rows, cols] = z32
     return w, keys, vals, norms
+
+
+def pad_linear_batch(vecs: Sequence[SparseVec], *, bucket: int = 256
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Pad sparse vectors into the linear kernels' ``[B, N]`` layout.
+
+    Returns host arrays ``(keys, vals)``: int32 keys (mod 2^32) and f32 RAW
+    signed values (linear sketches apply to the un-normalized vector; there
+    is no norm side channel).  Pad lanes hold value 0, which adds nothing
+    to any linear sketch.
+    """
+    B = len(vecs)
+    nnz = np.fromiter((v.nnz for v in vecs), np.int64, count=B)
+    max_nnz = int(nnz.max()) if B else 0
+    N = max(bucket, -(-max_nnz // bucket) * bucket)
+    keys = np.zeros((B, N), np.int32)
+    vals = np.zeros((B, N), np.float32)
+    active = nnz > 0 if B else np.zeros(0, bool)
+    if np.any(active):
+        rows, cols, idx_cat, val_cat, _ = _flat_scatter(vecs, active, nnz)
+        keys[rows, cols] = _keys_i32(idx_cat)
+        vals[rows, cols] = val_cat.astype(np.float32)
+    return keys, vals
 
 
 def sketch_batch(vecs: Sequence[SparseVec], *, m: int, seed: int = 0,
@@ -63,3 +94,23 @@ def sketch_batch(vecs: Sequence[SparseVec], *, m: int, seed: int = 0,
         torch.from_numpy(w).to(dev), torch.from_numpy(keys).to(dev),
         torch.from_numpy(vals).to(dev), m=m, seed=seed)
     return fp, val, torch.from_numpy(norms.astype(np.float32)).to(dev), argkey
+
+
+def linear_sketch_batch(vecs: Sequence[SparseVec], *, method: str,
+                        width: int, reps: int = 1, seed: int = 0,
+                        bucket: int = 256, device="cuda") -> torch.Tensor:
+    """Sketch a batch of sparse vectors with one linear-sketch launch on
+    ``device``: CountSketch (``method="cs"``, ``[B, reps, width]``) or JL
+    (``method="jl"``, ``m = width``, ``[B, 1, width]``).  Returns the
+    tables, the linear families' one component."""
+    keys, vals = pad_linear_batch(vecs, bucket=bucket)
+    dev = torch.device(device)
+    keys, vals = torch.from_numpy(keys).to(dev), torch.from_numpy(vals).to(dev)
+    if method == "cs":
+        return ops.countsketch_sparse(keys, vals, width=width, reps=reps,
+                                      seed=seed)
+    if method == "jl":
+        if reps != 1:
+            raise ValueError(f"a JL table has one rep; got reps={reps}")
+        return ops.jl_sketch(keys, vals, m=width, seed=seed)[:, None, :]
+    raise ValueError(f"unknown linear sketch {method!r}; choose 'cs' or 'jl'")

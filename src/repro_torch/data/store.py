@@ -2,18 +2,21 @@
 ``repro.data.store.CorpusStore``, unpacked and on one device).
 
 All F field corpora of an index (F = 3 for the §1.3 fields) live in one
-set of preallocated per-component buffers ``[F, capacity, *trailing]``:
-for ICWS, fingerprints ``[F, cap, m]`` i32, values ``[F, cap, m]`` f32,
-norms ``[F, cap]`` f32 and argkeys ``[F, cap, m]`` i32.  ``append`` writes
-the new rows into the buffers in place (the JAX store donates its buffers
-to get the same effect), so an append costs O(rows appended); when the
-corpus outgrows its capacity the buffers double, so the total copy work
-over any append sequence is O(final size).
+set of preallocated per-component buffers ``[F, capacity, *trailing]``,
+one per component the sketch family declares: for ICWS, fingerprints
+``[F, cap, m]`` i32, values ``[F, cap, m]`` f32, norms ``[F, cap]`` f32
+and argkeys ``[F, cap, m]`` i32; for CountSketch and JL, one table buffer
+``[F, cap, R, W]`` f32.  ``append`` writes the new rows into the buffers in
+place (the JAX store donates its buffers to get the same effect), so an
+append costs O(rows appended); when the corpus outgrows its capacity the
+buffers double, so the total copy work over any append sequence is
+O(final size).
 
-Unused capacity rows hold the family's fills -- the corpus pad sentinel
-``-2`` (never equal to a query fingerprint) and zero norms -- and are
-inert under the estimate launch, so queries run on the full-capacity
-buffers and slice the *estimates* to the live row count.
+Unused capacity rows hold the family's fills -- for ICWS the corpus pad
+sentinel ``-2`` (never equal to a query fingerprint) and zero norms, for
+the linear families zero tables -- and are inert under the estimate
+launch, so queries run on the full-capacity buffers and slice the
+*estimates* to the live row count.
 
 Multi-tenant arena: ``append(..., tenant=...)`` records the written row
 range per tenant, so many logical corpora share one set of buffers while
@@ -35,10 +38,12 @@ _ELEMENT_BYTES = {torch.int32: 4, torch.float32: 4}
 
 
 class CorpusStore:
-    """Growable field-stacked device store of ICWS sketch rows.
+    """Growable field-stacked device store of one family's sketch rows.
 
-    Args: ``m`` (or ``family``), ``fields`` (F), ``min_capacity``, and
-    ``device`` (default ``"cuda"``; raises if no card is present).
+    Args: ``m`` (an ICWS sample count) or ``family`` (any serving family),
+    ``fields`` (F), ``min_capacity``, and ``device`` (default ``"cuda"``;
+    raises if no card is present).  ``self.m`` is the family's sample count
+    where it has one (ICWS, JL) and None otherwise (CountSketch).
     """
 
     def __init__(self, m: "int | None" = None, fields: int = 1,
@@ -57,7 +62,7 @@ class CorpusStore:
         self.family = family
         self.device = resolve_device(device)
         self._specs = tuple(family.components)
-        self.m = family.m
+        self.m = getattr(family, "m", None)
         self.fields = int(fields)
         self.min_capacity = int(min_capacity)
         self._bufs: "Tuple[torch.Tensor, ...] | None" = None
@@ -172,8 +177,9 @@ class CorpusStore:
 
     # -- views ---------------------------------------------------------------
     def buffers(self) -> Tuple[torch.Tensor, ...]:
-        """The full-capacity device buffers, one per component: ``(fp [F,
-        cap, m], val [F, cap, m], norm [F, cap], argkey [F, cap, m])``.
+        """The full-capacity device buffers, one per component of the
+        family: ICWS ``(fp [F, cap, m], val [F, cap, m], norm [F, cap],
+        argkey [F, cap, m])``, CS/JL ``(tables [F, cap, R, W],)``.
 
         Unused rows are inert under the estimate launch; callers slice the
         estimates, never the corpus.  A growth replaces the buffers, so
@@ -190,5 +196,6 @@ class CorpusStore:
                        for s in self._specs))
 
     def storage_doubles(self) -> float:
-        """Paper accounting: 1.5 doubles per sample + 1 norm per row."""
+        """Paper accounting: the family's doubles per row, times rows and
+        fields."""
         return self._size * self.fields * self.family.storage_doubles_per_row()

@@ -10,8 +10,10 @@ low 32 bits come out exact.  The CUDA kernels carry the same functions
 in ``csrc/u32.cuh`` on native ``uint32_t``.
 
 The stream ids equal the JAX registry's ICWS draws
-(``repro/kernels/common.py:34-39``) one for one; the port keeps them as
-``ICWS_STREAM_<draw>`` so its sources name no constant of that registry.
+(``repro/kernels/common.py:34-39``) and its CountSketch and JL draws
+(``:43-45``) one for one; the port keeps them as ``ICWS_STREAM_<draw>``,
+``CS_STREAM_<draw>`` and ``JL_STREAM_<draw>`` so its sources name no
+constant of that registry.
 """
 from __future__ import annotations
 
@@ -31,6 +33,11 @@ ICWS_STREAM_C1 = 3
 ICWS_STREAM_C2 = 4
 ICWS_STREAM_BETA = 5
 ICWS_STREAM_FP = 9
+# salt streams of the linear sketches: CountSketch bucket and sign per
+# repetition r, and the JL sign per (sample t, key)
+CS_STREAM_BUCKET = 21
+CS_STREAM_SIGN = 22
+JL_STREAM_SIGN = 31
 
 # masked-lane hash value of the sketch argmin (a python float, also the
 # empty-row marker: amin >= BIG)

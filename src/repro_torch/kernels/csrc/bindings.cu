@@ -14,6 +14,16 @@ cudaError_t launch_estimate_fields(const int* fq, const float* vq, const int* fc
                                    long long vc_fs, long long vc_rs, const int* qmap,
                                    const int* cmap, int G, int Q, int P, int m,
                                    float* cnt, float* sw, cudaStream_t stream);
+cudaError_t launch_countsketch_sparse(const int* keys, const float* vals, int B, int N,
+                                      int W, int R, uint32_t seed, float* out,
+                                      cudaStream_t stream);
+cudaError_t launch_jl_sketch(const int* keys, const float* vals, int B, int N, int m,
+                             uint32_t seed, float* out, cudaStream_t stream);
+cudaError_t launch_linear_estimate_fields(const float* tq, const float* tc,
+                                          long long tc_fs, long long tc_ps,
+                                          const int* qmap, const int* cmap, int G,
+                                          int Q, int P, int R, int W, float* out,
+                                          cudaStream_t stream);
 }  // namespace repro
 
 extern "C" {
@@ -33,6 +43,27 @@ int repro_estimate_fields(const int* fq, const float* vq, const int* fc,
   return (int)repro::launch_estimate_fields(fq, vq, fc, vc, fc_fs, fc_rs, vc_fs,
                                             vc_rs, qmap, cmap, G, Q, P, m, cnt, sw,
                                             (cudaStream_t)stream);
+}
+
+int repro_countsketch_sparse(const int* keys, const float* vals, int B, int N, int W,
+                             int R, uint32_t seed, float* out, void* stream) {
+  return (int)repro::launch_countsketch_sparse(keys, vals, B, N, W, R, seed, out,
+                                               (cudaStream_t)stream);
+}
+
+int repro_jl_sketch(const int* keys, const float* vals, int B, int N, int m,
+                    uint32_t seed, float* out, void* stream) {
+  return (int)repro::launch_jl_sketch(keys, vals, B, N, m, seed, out,
+                                      (cudaStream_t)stream);
+}
+
+int repro_linear_estimate_fields(const float* tq, const float* tc, long long tc_fs,
+                                 long long tc_ps, const int* qmap, const int* cmap,
+                                 int G, int Q, int P, int R, int W, float* out,
+                                 void* stream) {
+  return (int)repro::launch_linear_estimate_fields(tq, tc, tc_fs, tc_ps, qmap, cmap, G,
+                                                   Q, P, R, W, out,
+                                                   (cudaStream_t)stream);
 }
 
 const char* repro_error_string(int err) {

@@ -14,6 +14,10 @@ constexpr uint32_t ICWS_STREAM_C1 = 3u;
 constexpr uint32_t ICWS_STREAM_C2 = 4u;
 constexpr uint32_t ICWS_STREAM_BETA = 5u;
 constexpr uint32_t ICWS_STREAM_FP = 9u;
+// salt streams of the linear sketches (same ids as kernels/common.py)
+constexpr uint32_t CS_STREAM_BUCKET = 21u;
+constexpr uint32_t CS_STREAM_SIGN = 22u;
+constexpr uint32_t JL_STREAM_SIGN = 31u;
 
 // masked-lane hash value; a row whose minimum is >= BIG is empty
 constexpr float BIG = 3.0e38f;

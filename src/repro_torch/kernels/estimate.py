@@ -1,7 +1,10 @@
-"""Fused multi-field ICWS estimate partials: CUDA kernel and plain twin.
+"""Fused multi-field estimate launches: CUDA kernels and plain twins.
 
-Replaces the TPU kernel ``repro/kernels/estimate.py::_fields_kernel``
-(launcher ``estimate_fields_pallas``).  Contract::
+Two kernels live here.  The ICWS collision partials replace the TPU kernel
+``repro/kernels/estimate.py::_fields_kernel`` (launcher
+``estimate_fields_pallas``); the linear-sketch dots replace
+``_linear_fields_kernel`` (launcher ``linear_estimate_fields_pallas``,
+see :func:`linear_estimate_fields_plain`).  The ICWS contract::
 
     fq/vq [F, Q, m], fc/vc [C, P, m], static qmap/cmap -> (cnt, sw) [G, Q, P] f32
 
@@ -18,8 +21,9 @@ version builds per-pair copies or a ``[Q, P, m]`` tensor.  The corpus
 planes may be any strided view whose last dimension is contiguous (a
 tenant's slice of the store's ``[3, cap, m]`` buffers is passed as is).
 
-The CUDA kernel (``csrc/estimate_fields.cu``) is bound by the bytes of the
-corpus planes it reads; see the source for its design.
+The CUDA kernels (``csrc/estimate_fields.cu``,
+``csrc/linear_estimate_fields.cu``) are bound by the bytes of the corpus
+planes they read; see the sources for their design.
 """
 from __future__ import annotations
 
@@ -30,18 +34,24 @@ import torch
 
 from . import build
 
-MAX_PAIRS = 16                 # kMaxPairs in csrc/estimate_fields.cu
+MAX_PAIRS = 16                 # kMaxPairs in both csrc/*estimate_fields.cu
 # corpus rows per plain-version chunk: one [Q, rows] accumulator pair at a time
 _PLAIN_ROWS = 1 << 16
 
 
-def _check_inputs(fq, vq, fc, vc, qmap, cmap):
+def _check_maps(qmap, cmap, F: int, C: int):
     qmap = tuple(int(i) for i in qmap)
     cmap = tuple(int(i) for i in cmap)
     if len(qmap) != len(cmap):
         raise ValueError("qmap/cmap length mismatch")
     if not qmap:
         raise ValueError("qmap/cmap must name at least one field pair")
+    if min(qmap) < 0 or max(qmap) >= F or min(cmap) < 0 or max(cmap) >= C:
+        raise ValueError("field map index out of range")
+    return qmap, cmap
+
+
+def _check_inputs(fq, vq, fc, vc, qmap, cmap):
     if fq.dim() != 3 or fc.dim() != 3 or vq.shape != fq.shape \
             or vc.shape != fc.shape or fq.shape[2] != fc.shape[2]:
         raise ValueError(f"expected fq/vq [F, Q, m] and fc/vc [C, P, m]; got "
@@ -52,10 +62,7 @@ def _check_inputs(fq, vq, fc, vc, qmap, cmap):
         raise TypeError("estimate takes int32 fingerprints and f32 values")
     if not (fq.device == vq.device == fc.device == vc.device):
         raise ValueError("query and corpus planes must lie on one device")
-    F, C = fq.shape[0], fc.shape[0]
-    if min(qmap) < 0 or max(qmap) >= F or min(cmap) < 0 or max(cmap) >= C:
-        raise ValueError("field map index out of range")
-    return qmap, cmap
+    return _check_maps(qmap, cmap, fq.shape[0], fc.shape[0])
 
 
 def estimate_fields_plain(fq: torch.Tensor, vq: torch.Tensor,
@@ -133,3 +140,91 @@ def estimate_fields_cuda(fq: torch.Tensor, vq: torch.Tensor,
 
 
 estimate_fields_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Linear-family estimation: per-rep sketch dots (CountSketch, JL)
+# ---------------------------------------------------------------------------
+def _check_linear(tq, tc, qmap, cmap):
+    if tq.dim() != 4 or tc.dim() != 4 or tq.shape[2:] != tc.shape[2:]:
+        raise ValueError(f"expected tq [F, Q, R, W] and tc [C, P, R, W]; got "
+                         f"{tuple(tq.shape)}, {tuple(tc.shape)}")
+    if (tq.dtype, tc.dtype) != (torch.float32, torch.float32):
+        raise TypeError(f"linear estimate takes f32 tables; got {tq.dtype}, "
+                        f"{tc.dtype}")
+    if tq.device != tc.device:
+        raise ValueError("query and corpus tables must lie on one device")
+    return _check_maps(qmap, cmap, tq.shape[0], tc.shape[0])
+
+
+def linear_estimate_fields_plain(tq: torch.Tensor, tc: torch.Tensor, *,
+                                 qmap: Sequence[int], cmap: Sequence[int]
+                                 ) -> torch.Tensor:
+    """Per-rep linear-sketch dots of every field pair, in plain PyTorch.
+
+    Twin of ``linear_estimate_fields_pallas``: ``tq [F, Q, R, W]``, ``tc
+    [C, P, R, W]`` -> ``[G, R, Q, P]`` f32 with ``out[g, r, q, p] = sum_w
+    tq[qmap[g], q, r, w] * tc[cmap[g], p, r, w]``.  Each sum runs over
+    ``w = 0 .. W-1`` in order, an f32 product then an f32 add per step
+    (never a fused multiply-add, never TF32), in this version and in the
+    CUDA kernel alike: the result does not depend on Q, P or tiling, and
+    the two agree bit for bit on the card.  The median over reps is the
+    caller's epilogue (``ops.linear_estimate_fields``).
+    """
+    qmap, cmap = _check_linear(tq, tc, qmap, cmap)
+    Q, P, R, W = tq.shape[1], tc.shape[1], tc.shape[2], tc.shape[3]
+    dev = tq.device
+    out = torch.empty((len(qmap), R, Q, P), dtype=torch.float32, device=dev)
+    for g, (qf, cf) in enumerate(zip(qmap, cmap)):
+        for r in range(R):
+            a = tq[qf, :, r]                               # [Q, W]
+            for lo in range(0, P, _PLAIN_ROWS):
+                hi = min(P, lo + _PLAIN_ROWS)
+                bt = tc[cf, lo:hi, r].t()                  # [W, rows] view
+                acc = torch.zeros((Q, hi - lo), dtype=torch.float32,
+                                  device=dev)
+                for w in range(W):
+                    acc = acc + a[:, w:w + 1] * bt[w][None, :]
+                out[g, r, :, lo:hi] = acc
+    return out
+
+
+def linear_estimate_fields_cuda(tq: torch.Tensor, tc: torch.Tensor, *,
+                                qmap: Sequence[int], cmap: Sequence[int]
+                                ) -> torch.Tensor:
+    """Launch the CUDA linear-fields kernel on PyTorch's current stream.
+
+    Takes CUDA tensors only; the query tables are made contiguous (they are
+    small), the corpus tables are read in place through their field and
+    row strides (each row's ``[R, W]`` table must be contiguous, as a
+    tenant slice of the store's ``[3, cap, R, W]`` buffer is).  Adds one to
+    ``linear_estimate_fields_cuda.launches`` per launch.
+    """
+    qmap, cmap = _check_linear(tq, tc, qmap, cmap)
+    if tq.device.type != "cuda":
+        raise ValueError(f"linear_estimate_fields_cuda takes CUDA tensors; "
+                         f"got {tq.device}")
+    if len(qmap) > MAX_PAIRS:
+        raise ValueError(f"at most {MAX_PAIRS} field pairs per launch")
+    Q, P, R, W = tq.shape[1], tc.shape[1], tc.shape[2], tc.shape[3]
+    if tc.stride(3) != 1 or tc.stride(2) != W:
+        raise ValueError("each corpus row's [R, W] table must be contiguous")
+    tq = tq.contiguous()
+    out = torch.empty((len(qmap), R, Q, P), dtype=torch.float32,
+                      device=tq.device)
+    if Q == 0 or P == 0 or R == 0 or W == 0:
+        return out.zero_()
+    lib = build.library()
+    qarr = (ctypes.c_int * len(qmap))(*qmap)
+    carr = (ctypes.c_int * len(cmap))(*cmap)
+    with torch.cuda.device(tq.device):
+        stream = torch.cuda.current_stream(tq.device).cuda_stream
+        err = lib.repro_linear_estimate_fields(
+            tq.data_ptr(), tc.data_ptr(), tc.stride(0), tc.stride(1), qarr,
+            carr, len(qmap), Q, P, R, W, out.data_ptr(), stream)
+    build.check(err, "linear_estimate_fields")
+    linear_estimate_fields_cuda.launches += 1
+    return out
+
+
+linear_estimate_fields_cuda.launches = 0

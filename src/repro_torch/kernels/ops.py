@@ -5,7 +5,9 @@ CPU tensor takes the plain PyTorch version, a CUDA tensor launches the
 hand-written kernel -- or raises, if the kernel does not build or its
 launch is refused.  There is no fallback from the kernel to the plain
 version.  Launch counts live on the kernel wrappers
-(``icws_sketch_cuda.launches``, ``estimate_fields_cuda.launches``).
+(``icws_sketch_cuda.launches``, ``estimate_fields_cuda.launches``,
+``countsketch_sparse_cuda.launches``, ``jl_sketch_cuda.launches``,
+``linear_estimate_fields_cuda.launches``).
 """
 from __future__ import annotations
 
@@ -13,8 +15,12 @@ from typing import Sequence
 
 import torch
 
-from .estimate import estimate_fields_cuda, estimate_fields_plain
+from .countsketch import countsketch_sparse_cuda, countsketch_sparse_plain
+from .estimate import (estimate_fields_cuda, estimate_fields_plain,
+                       linear_estimate_fields_cuda,
+                       linear_estimate_fields_plain)
 from .icws_sketch import icws_sketch_cuda, icws_sketch_plain
+from .jl_sketch import jl_sketch_cuda, jl_sketch_plain
 
 
 def _route(x: torch.Tensor, plain, kernel):
@@ -56,3 +62,39 @@ def icws_estimate_fields(fq, vq, nq, fpc, vc, nc, *, qmap: Sequence[int],
     ncg = torch.stack([nc[cf] for cf in cmap])[:, None, :]    # [G, 1, P]
     est = nqg * ncg * (m_tilde / m) * sw
     return torch.where((nqg == 0) | (ncg == 0), 0.0, est)
+
+
+def countsketch_sparse(keys, vals, *, width: int, reps: int = 5,
+                       seed: int = 0):
+    """CountSketch of a padded sparse batch.  [B, N] -> [B, reps, width]."""
+    fn = _route(keys, countsketch_sparse_plain, countsketch_sparse_cuda)
+    return fn(keys, vals, width=width, reps=reps, seed=seed)
+
+
+def jl_sketch(keys, vals, *, m: int, seed: int = 0):
+    """JL projection of a padded sparse batch.  [B, N] -> [B, m]."""
+    fn = _route(keys, jl_sketch_plain, jl_sketch_cuda)
+    return fn(keys, vals, m=m, seed=seed)
+
+
+def _median_reps(dots: torch.Tensor) -> torch.Tensor:
+    """Median over the rep axis (dim 1) as ``jnp.median`` takes it: the
+    mean of the two middle values, ``(lo + hi) * 0.5``, which for an odd
+    count is the middle value itself.  (``torch.median`` returns the lower
+    middle instead.)"""
+    R = dots.shape[1]
+    s = torch.sort(dots, dim=1).values
+    return (s[:, (R - 1) // 2] + s[:, R // 2]) * 0.5
+
+
+def linear_estimate_fields(tq, tc, *, qmap: Sequence[int],
+                           cmap: Sequence[int]):
+    """Fused multi-field linear-sketch estimates, ONE kernel launch.
+
+    Args: tq [F, Q, R, W] per-field query tables, tc [C, P, R, W] per-field
+    corpus tables (JL: R = 1, W = m).  Returns [G, Q, P] f32: the per-rep
+    dots, then the median over reps (for R = 1 the dot itself).  Zero rows
+    (empty sketches, spare store rows, padding) estimate to zero.
+    """
+    fn = _route(tq, linear_estimate_fields_plain, linear_estimate_fields_cuda)
+    return _median_reps(fn(tq, tc, qmap=qmap, cmap=cmap))

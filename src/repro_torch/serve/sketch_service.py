@@ -4,8 +4,8 @@
 Wraps :class:`repro_torch.data.DatasetSearchIndex` in the shape a query
 service needs: named-table ingestion, ``search`` / ``search_batch``
 endpoints and request accounting.  Every query, single or batched, is one
-``[3Q, N]`` ICWS sketch launch plus one fused multi-field estimate launch
-off the index's store buffers; ``search_batch`` amortizes both across a
+``[3Q, N]`` sketch launch of the index's family (ICWS, CountSketch or JL)
+plus one fused multi-field estimate launch off the index's store buffers; ``search_batch`` amortizes both across a
 micro-batch.  The JAX service's observability spans, counters and
 estimator audit (``audit_every``) are not ported yet (``ROADMAP.md``
 Queue A 15).
@@ -107,9 +107,10 @@ class SketchSearchService:
     queries against the whole corpus from sketches alone.
 
     Runs on the card (``device="cuda"``, the default) unless the caller
-    passes ``device="cpu"``.  Only the default configuration is ported:
-    ``family="icws"``, ``backend="device"``, ``packed=False``, ``mesh=None``;
-    other values raise ``NotImplementedError`` naming their ROADMAP.md item.
+    passes ``device="cpu"``.  Ported: ``family`` in ``("icws", "cs",
+    "jl")``, each sized to the storage of an ``m``-sample ICWS sketch, with
+    ``backend="device"``, ``packed=False`` and ``mesh=None``; other values
+    raise ``NotImplementedError`` naming their ROADMAP.md item.
     """
 
     def __init__(self, m: int = 256, seed: int = 0,

@@ -6,9 +6,11 @@ import pytest
 import torch
 
 from repro_torch.core.types import SparseVec
-from repro_torch.data.ingest import pad_sparse_batch
+from repro_torch.data.ingest import pad_linear_batch, pad_sparse_batch
+from repro_torch.kernels import countsketch as port_cs
 from repro_torch.kernels import estimate as port_est
 from repro_torch.kernels import icws_sketch as port_sketch
+from repro_torch.kernels import jl_sketch as port_jl
 from repro_torch.kernels import ops
 
 QMAP = (0, 1, 0, 2, 0, 1)
@@ -89,8 +91,69 @@ def test_fields_kernel_matches_plain_version_bitwise(cuda):
     assert torch.equal(cnt, cnt_p) and torch.equal(sw, sw_p)
 
 
+def _linear_batch(seed, device):
+    keys, vals = pad_linear_batch(_vectors(seed))
+    return [torch.from_numpy(a).to(device) for a in (keys, vals)]
+
+
 @pytest.mark.cuda
-def test_service_on_the_card_matches_the_cpu_service(cuda):
+@pytest.mark.parametrize("width, reps", [(153, 5), (300, 4)])
+def test_countsketch_kernel_matches_plain_version_bitwise(cuda, width, reps):
+    """Both sum each bucket over ascending n: the same bits, also for one
+    row alone (a batch shape does not enter the order)."""
+    keys, vals = _linear_batch(5, cuda)
+    before = port_cs.countsketch_sparse_cuda.launches
+    got = ops.countsketch_sparse(keys, vals, width=width, reps=reps, seed=2)
+    torch.cuda.synchronize()
+    assert port_cs.countsketch_sparse_cuda.launches == before + 1
+    want = port_cs.countsketch_sparse_plain(keys, vals, width=width,
+                                            reps=reps, seed=2)
+    assert torch.equal(got, want) and torch.all(got[-1] == 0)
+    one = ops.countsketch_sparse(keys[2:3], vals[2:3], width=width,
+                                 reps=reps, seed=2)
+    assert torch.equal(one[0], got[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [769, 97])
+def test_jl_kernel_matches_plain_version_bitwise(cuda, m):
+    keys, vals = _linear_batch(6, cuda)
+    before = port_jl.jl_sketch_cuda.launches
+    got = ops.jl_sketch(keys, vals, m=m, seed=4)
+    torch.cuda.synchronize()
+    assert port_jl.jl_sketch_cuda.launches == before + 1
+    want = port_jl.jl_sketch_plain(keys, vals, m=m, seed=4)
+    assert torch.equal(got, want) and torch.all(got[-1] == 0)
+    one = ops.jl_sketch(keys[3:4], vals[3:4], m=m, seed=4)
+    assert torch.equal(one[0], got[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R, W", [(5, 153), (1, 769)])
+def test_linear_fields_kernel_matches_plain_version_bitwise(cuda, R, W):
+    """An f32 product then an f32 add per w, in order, in both: bit for bit,
+    also on a strided slice of the corpus tables and at Q = 1."""
+    rng = np.random.default_rng(R)
+    tq = torch.from_numpy(rng.normal(size=(3, 17, R, W)).astype(np.float32))
+    tc = torch.from_numpy(rng.normal(size=(3, 300, R, W)).astype(np.float32))
+    tc[:, -5:] = 0.0
+    tq, tc = tq.to(cuda), tc.to(cuda)
+    before = port_est.linear_estimate_fields_cuda.launches
+    got = port_est.linear_estimate_fields_cuda(tq, tc[:, 7:290], qmap=QMAP,
+                                               cmap=CMAP)
+    torch.cuda.synchronize()
+    assert port_est.linear_estimate_fields_cuda.launches == before + 1
+    want = port_est.linear_estimate_fields_plain(tq, tc[:, 7:290], qmap=QMAP,
+                                                 cmap=CMAP)
+    assert torch.equal(got, want)
+    one = port_est.linear_estimate_fields_cuda(tq[:, 4:5], tc[:, 7:290],
+                                               qmap=QMAP, cmap=CMAP)
+    assert torch.equal(one[:, :, 0], got[:, :, 4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["icws", "cs", "jl"])
+def test_service_on_the_card_matches_the_cpu_service(cuda, family):
     rng = np.random.default_rng(3)
     from repro_torch import SketchSearchService
     keys = np.arange(500)
@@ -101,7 +164,7 @@ def test_service_on_the_card_matches_the_cpu_service(cuda):
     queries = [(keys, signal), (np.arange(100, 600), rng.normal(size=500))]
     out = []
     for device in ("cpu", "cuda"):
-        svc = SketchSearchService(m=M, seed=1, device=device)
+        svc = SketchSearchService(m=M, seed=1, family=family, device=device)
         svc.ingest_many(tables)
         batch = svc.search_batch(queries, top_k=3, min_join=5, micro_batch=4)
         assert batch == [svc.search(k, v, top_k=3, min_join=5)

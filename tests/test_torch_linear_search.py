@@ -1,0 +1,223 @@
+"""The port's dataset-search path with the linear families (CountSketch and
+JL), end to end against the JAX package.
+
+Each package sketches the same lake with its own kernels: the sketches
+differ only in f32 summation order, so the join sizes and sums agree to
+``rtol 1e-4`` (``atol 1e-4 x`` the largest magnitude, for cancellation)
+and the rankings agree wherever the device scores are separated.  A JAX
+index's corpus carried across with ``index_from_numpy`` ranks like the JAX
+index.  Inside the port: batched == sequential and tenant == dedicated
+index bit for bit."""
+import numpy as np
+import pytest
+
+from repro.data import DatasetSearchIndex as JaxIndex
+from repro_torch import DatasetSearchIndex, SketchSearchService
+from repro_torch.convert import index_from_numpy
+from repro_torch.data import dataset_search as port_ds
+
+M = 64          # storage 97: cs width 19 x 5 reps, jl m = 97
+DOMAIN = 3000
+FAMILIES = ("cs", "jl")
+
+
+def _lake(seed, n_random=14, n_planted=3):
+    """Random tables over a shared key domain (with duplicate keys), plus
+    planted partners that share most of a query's keys with values that
+    follow the query's; one more query has no partner."""
+    rng = np.random.default_rng(seed)
+    tables, queries = [], []
+    for i in range(n_planted):
+        keys = rng.choice(DOMAIN, size=250, replace=False)
+        vals = rng.normal(size=250)
+        queries.append((keys, vals))
+        keep = rng.random(250) < 0.85
+        pk = np.concatenate([keys[keep], rng.integers(0, DOMAIN, 50)])
+        pv = np.concatenate([2.0 * vals[keep] + 0.2 * rng.normal(size=keep.sum()),
+                             rng.normal(size=50)])
+        tables.append((f"partner_{i}", pk, pv))
+    for i in range(n_random):
+        n = int(np.exp(rng.uniform(np.log(50), np.log(300))))
+        tables.append((f"random_{i}", rng.integers(0, DOMAIN, n),
+                       rng.normal(size=n)))
+    order = rng.permutation(len(tables))
+    queries.append((rng.choice(DOMAIN, 200, replace=False),
+                    rng.normal(size=200)))
+    return [tables[i] for i in order], queries
+
+
+@pytest.fixture(scope="module")
+def lake():
+    return _lake(0)
+
+
+def _build(cls, family, tables, **kwargs):
+    idx = cls(m=M, seed=5, family=family, **kwargs)
+    for i, (name, keys, vals) in enumerate(tables):
+        idx.add_table(name, keys, vals, tenant="even" if i % 2 == 0 else None)
+    return idx
+
+
+@pytest.fixture(scope="module", params=FAMILIES)
+def indexes(request, lake):
+    tables, _ = lake
+    return (request.param,
+            _build(JaxIndex, request.param, tables, keep_host_oracle=False),
+            _build(DatasetSearchIndex, request.param, tables, device="cpu"))
+
+
+def _port_scores(idx, keys, values, min_join):
+    vecs = list(idx.vectorize(keys, values))
+    q = tuple(c[:, None] for c in idx.family.sketch_rows(vecs, device="cpu"))
+    est = idx._estimate(q, idx.store.buffers())[:, :, :len(idx.tables)]
+    return port_ds._corr_scores(*est, float(min_join))[0].numpy()
+
+
+def _same_ranking(port, jax_idx, queries, min_join=3.0):
+    P = len(jax_idx.tables)
+    for keys, values in queries:
+        want = jax_idx.query(keys, values, top_k=P, min_join=min_join)
+        got = port.query(keys, values, top_k=P, min_join=min_join)
+        assert want and {r.name for r in got} == {r.name for r in want}
+        by_name = {r.name: r for r in got}
+        j_scale = max(abs(r.join_size) for r in want)
+        b_scale = max(abs(r.sum_b) for r in want)
+        for r in want:
+            g = by_name[r.name]
+            assert g.corr == r.corr                      # same KMV samples
+            np.testing.assert_allclose(g.join_size, r.join_size, rtol=1e-4,
+                                       atol=1e-4 * j_scale)
+            np.testing.assert_allclose(g.sum_b, r.sum_b, rtol=1e-4,
+                                       atol=1e-4 * b_scale)
+        score = _port_scores(port, keys, values, min_join)
+        pos = {t.name: i for i, t in enumerate(port.tables)}
+        rank_got = {r.name: i for i, r in enumerate(got)}
+        for i, a in enumerate(want):
+            for b in want[i + 1:]:
+                if abs(a.corr) == abs(b.corr) and abs(
+                        score[pos[a.name]] - score[pos[b.name]]) > 1e-4:
+                    assert rank_got[a.name] < rank_got[b.name]
+
+
+def test_own_sketches_rank_like_the_jax_index(lake, indexes):
+    _, queries = lake
+    family, jax_idx, port = indexes
+    assert port.family.name == family
+    assert port.store.bytes_per_row() == jax_idx.store.bytes_per_row()
+    assert port.storage_doubles() == jax_idx.storage_doubles()
+    want = np.asarray(jax_idx.store.buffers()[0])
+    np.testing.assert_allclose(port.store.buffers()[0].numpy(), want,
+                               rtol=1e-4, atol=1e-4 * np.abs(want).max())
+    _same_ranking(port, jax_idx, queries)
+
+
+def test_converted_index_ranks_like_the_jax_index(lake, indexes):
+    _, queries = lake
+    family, jax_idx, _ = indexes
+    port = index_from_numpy(
+        [np.asarray(b) for b in jax_idx.store.buffers()], len(jax_idx.store),
+        tables=[(t.name, t.n_rows, (t.sample.hashes, t.sample.values))
+                for t in jax_idx.tables],
+        tenant_ranges={t: jax_idx.store.tenant_ranges(t)
+                       for t in jax_idx.store.tenants()},
+        m=jax_idx.m, seed=jax_idx.seed, key_space=jax_idx.key_space,
+        family=family, device="cpu")
+    assert port.store.tenant_ranges("even") == \
+        jax_idx.store.tenant_ranges("even")
+    np.testing.assert_array_equal(port.store.buffers()[0].numpy(),
+                                  np.asarray(jax_idx.store.buffers()[0]))
+    _same_ranking(port, jax_idx, queries)
+
+
+def test_converting_rejects_a_corpus_of_another_family(indexes):
+    family, jax_idx, _ = indexes
+    other = "jl" if family == "cs" else "cs"
+    with pytest.raises(ValueError, match="rows have shape"):
+        index_from_numpy([np.asarray(jax_idx.store.buffers()[0])],
+                         len(jax_idx.store),
+                         tables=[(t.name, t.n_rows, (t.sample.hashes,
+                                                     t.sample.values))
+                                 for t in jax_idx.tables],
+                         m=M, family=other, device="cpu")
+
+
+def test_batched_equals_sequential_bitwise(lake, indexes):
+    _, queries = lake
+    _, _, port = indexes
+    batch = port.query_batch(queries, top_k=5, min_join=3.0)
+    assert batch == [port.query(k, v, top_k=5, min_join=3.0)
+                     for k, v in queries]
+    assert any(batch)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("tenant_first", [False, True])
+def test_tenant_queries_equal_a_dedicated_index(lake, family, tenant_first):
+    """A fragmented tenant (the gather route) and a contiguous one (the
+    slice route) both equal a dedicated index over the same tables."""
+    tables, queries = lake
+    arena = DatasetSearchIndex(m=M, seed=5, family=family, device="cpu")
+    if tenant_first:
+        for name, keys, vals in tables[:8]:
+            arena.add_table(name, keys, vals, tenant="block")
+        for name, keys, vals in tables[8:]:
+            arena.add_table(name, keys, vals)
+        tenant, mine = "block", tables[:8]
+        assert len(arena.store.tenant_ranges("block")) == 1
+    else:
+        for i, (name, keys, vals) in enumerate(tables):
+            arena.add_table(name, keys, vals,
+                            tenant="even" if i % 2 == 0 else None)
+        tenant, mine = "even", tables[::2]
+        assert len(arena.store.tenant_ranges("even")) > 1
+    own = DatasetSearchIndex(m=M, seed=5, family=family, device="cpu")
+    for name, keys, vals in mine:
+        own.add_table(name, keys, vals)
+    for keys, values in queries:
+        assert arena.query(keys, values, top_k=4, min_join=3.0,
+                           tenant=tenant) == \
+            own.query(keys, values, top_k=4, min_join=3.0)
+
+
+@pytest.mark.parametrize("family, per_row", [("cs", (5, 19)), ("jl", (1, 97))])
+def test_service_serves_the_family_storage_matched(lake, family, per_row):
+    tables, queries = lake
+    svc = SketchSearchService(m=M, seed=5, family=family, device="cpu")
+    svc.ingest_many(tables[:10])
+    batch = svc.search_batch(queries, top_k=3, min_join=3.0, micro_batch=3)
+    assert batch == [svc.search(k, v, top_k=3, min_join=3.0)
+                     for k, v in queries]
+    d = svc.describe()
+    R, W = per_row
+    assert d["family"] == family and d["tables"] == 10
+    assert d["bytes_per_row"] == 4 * R * W
+    assert d["storage_doubles"] == 10 * 3 * R * W
+    assert svc.index.store.m == (None if family == "cs" else W)
+    assert svc.index.store.buffers()[0].shape[2:] == (R, W)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("kwargs, item", [
+    ({"packed": True}, "Queue A 12"),
+    ({"mesh": object()}, "Queue A 14"),
+    ({"backend": "host"}, "Queue A 19"),
+])
+def test_unported_options_raise_for_the_linear_families(family, kwargs,
+                                                        item):
+    with pytest.raises(NotImplementedError, match=item):
+        SketchSearchService(m=M, family=family, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_unported_family_members_name_their_queue_item(family):
+    from repro_torch.data import make_family
+    fam = make_family(family, storage=97.0)
+    for call, item in ((lambda: fam.merge_rows(None, None), "Queue A 13"),
+                       (fam.host_oracle, "Queue A 19"),
+                       (lambda: fam.packed_components, "Queue A 12"),
+                       (lambda: fam.pack_rows(None), "Queue A 12"),
+                       (lambda: fam.estimate_fields_sharded(
+                           None, None, qmap=(), cmap=(), mesh=None, axis=0),
+                        "Queue A 14")):
+        with pytest.raises(NotImplementedError, match=item):
+            call()

@@ -206,7 +206,7 @@ def test_service_batch_equals_search_loop_and_accounts(lake):
 @pytest.mark.parametrize("kwargs, item", [
     ({"backend": "host"}, "Queue A 19"),
     ({"keep_host_oracle": True}, "Queue A 19"),
-    ({"family": "cs"}, "Queue A 10"),
+    ({"family": "cs", "packed": True}, "Queue A 12"),
     ({"family": "dmh"}, "Queue A 9"),
     ({"family": "ts"}, "Queue A 11"),
     ({"packed": True}, "Queue A 12"),

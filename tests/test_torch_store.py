@@ -5,7 +5,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.data.families import CSFamily as JaxCSFamily
 from repro.data.store import CorpusStore as JaxCorpusStore
+from repro_torch.data.families import CSFamily, JLFamily
 from repro_torch.data.store import CorpusStore
 
 M = 16
@@ -86,3 +88,28 @@ def test_single_field_store_takes_rows_without_field_axis():
     fp, val, norm, argkey = (x[0] for x in _batch(rng, 5, fields=1))
     store.append(fp, val, norm, argkey)
     np.testing.assert_array_equal(store.buffers()[0][0, :5].numpy(), fp)
+
+
+def test_linear_family_store_grows_with_inert_zero_tables():
+    """A CountSketch family has no sample count ``m``: the store takes it
+    as None, holds one ``[F, cap, R, W]`` table buffer, grows it with zero
+    (inert) rows, and equals the JAX store after the same appends."""
+    rng = np.random.default_rng(5)
+    port = CorpusStore(family=CSFamily(width=7, reps=5), fields=3,
+                       min_capacity=4, device="cpu")
+    ref = JaxCorpusStore(family=JaxCSFamily(width=7, reps=5), fields=3,
+                         min_capacity=4)
+    assert port.m is None and port.bytes_per_row() == 4 * 5 * 7
+    for b in (3, 2, 6):
+        rows = rng.normal(size=(3, b, 5, 7)).astype(np.float32)
+        port.append(rows)
+        ref.append(rows)
+        (got,), (want,) = port.buffers(), ref.buffers()
+        assert port.capacity == ref.capacity
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    (tables,) = port.buffers()
+    assert port.size == 11 and port.capacity == 16
+    assert tables.shape == (3, 16, 5, 7) and torch.all(tables[:, 11:] == 0)
+    assert port.storage_doubles() == ref.storage_doubles() == 11 * 3 * 35
+    jl = CorpusStore(family=JLFamily(m=9), fields=3, device="cpu")
+    assert jl.m == 9 and jl.bytes_per_row() == 36

@@ -72,15 +72,19 @@ def test_negative_int32_keys_wrap_like_uint32():
 
 
 def common_streams():
-    """The port's ICWS stream ids, keyed by the JAX registry's names."""
-    prefix = "ICWS_STREAM_"
-    return {f"ICWS_{n[len(prefix):]}_STREAM": v
-            for n, v in vars(common).items() if n.startswith(prefix)}
+    """The port's stream ids (``<FAMILY>_STREAM_<draw>``), keyed by the JAX
+    registry's names (``<FAMILY>_<draw>_STREAM``)."""
+    out = {}
+    for name, value in vars(common).items():
+        family, sep, draw = name.partition("_STREAM_")
+        if sep and family in ("ICWS", "CS", "JL"):
+            out[f"{family}_{draw}_STREAM"] = value
+    return out
 
 
 def test_stream_ids_and_sentinels_mirror_the_jax_registry():
     ported = common_streams()
-    assert len(ported) == 6
+    assert len(ported) == 9
     registry = jax_common.streams()
     for name, value in ported.items():
         assert registry[name] == value, name
@@ -89,3 +93,16 @@ def test_stream_ids_and_sentinels_mirror_the_jax_registry():
     assert (common.QUERY_PAD_FP, common.CORPUS_PAD_FP) == (QUERY_PAD_FP,
                                                            CORPUS_PAD_FP)
     assert common.BIG == BIG
+
+
+def test_linear_stream_ids_equal_the_registry_by_value():
+    """The CountSketch bucket/sign and JL sign draws keep the registry's ids
+    21, 22 and 31 (checked by value: a port source spelling a registry name
+    would be listed in the generated stream table)."""
+    registry = jax_common.streams()
+    for port_name, draw in (("CS_STREAM_BUCKET", "CS_BUCKET"),
+                            ("CS_STREAM_SIGN", "CS_SIGN"),
+                            ("JL_STREAM_SIGN", "JL_SIGN")):
+        assert getattr(common, port_name) == registry[draw + "_STREAM"]
+    assert (common.CS_STREAM_BUCKET, common.CS_STREAM_SIGN,
+            common.JL_STREAM_SIGN) == (21, 22, 31)

@@ -3,10 +3,11 @@ of table ingest and of query micro-batches through ``repro_torch``.
 
     python3 tools/profile_port.py
 
-Builds the 16,384-table lake ``chip_smoke.py`` builds and ingests it
-through ``SketchSearchService.ingest``; the last 2,000 tables are traced.
-The 64 queries of ``chip_smoke.py`` then run ``search_batch`` in
-micro-batches of 16 against the whole lake, traced.  The service's own
+Builds the 16,384-table lake ``chip_smoke.py`` builds and, for each ported
+family (icws, cs, jl, as ``chip_smoke.py`` serves them), ingests it through
+``SketchSearchService.ingest``; the last 2,000 tables are traced.  The 64
+queries of ``chip_smoke.py`` then run ``search_batch`` in micro-batches of
+16 against the whole lake, traced.  The service's own
 methods run, each step of ingest and query under a profiler label of its
 method's name (the label wraps the method the service calls; nothing of
 the path is copied here).  Prints, per phase, the wall time, the host time
@@ -80,41 +81,48 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (LAKE_TABLES, M, MICRO_BATCH, QUERIES, QUERY_ROWS,
-                            card_identity, make_lake)
+    from chip_smoke import (FAMILIES, LAKE_TABLES, M, MICRO_BATCH, QUERIES,
+                            QUERY_ROWS, card_identity, make_lake)
     from repro_torch import SketchSearchService
 
     print(card_identity())
     rng = np.random.default_rng(4)
     tables, queries, _ = make_lake(rng, LAKE_TABLES, QUERIES)
-    svc = SketchSearchService(m=M, seed=0)
-    idx = svc.index
-    split = len(tables) - TRACED
-    svc.ingest_many(tables[:split])              # builds and warms up
-    svc.search_batch(queries[:MICRO_BATCH], top_k=10, min_join=QUERY_ROWS / 4)
-    torch.cuda.synchronize()
-
-    labels = (label_calls(svc, ["ingest"])
-              + label_calls(idx, ["add_table", "query_batch", "vectorize",
-                                  "_register_table"])
-              + label_calls(idx.family, ["sketch_rows"])
-              + label_calls(idx.store, ["append"])
-              + label_calls(idx.kmv, ["sketch"]))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        svc.ingest_many(tables[split:])
+    for family in FAMILIES:
+        svc = SketchSearchService(m=M, seed=0, family=family)
+        idx = svc.index
+        split = len(tables) - TRACED
+        svc.ingest_many(tables[:split])          # builds and warms up
+        svc.search_batch(queries[:MICRO_BATCH], top_k=10,
+                         min_join=QUERY_ROWS / 4)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    report(f"ingest of {TRACED} tables", prof, wall, labels)
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        svc.search_batch(queries, top_k=10, min_join=QUERY_ROWS / 4,
-                         micro_batch=MICRO_BATCH)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    report(f"{QUERIES // MICRO_BATCH} micro-batches of {MICRO_BATCH} queries "
-           f"against {len(idx.tables)} tables", prof, wall, labels)
+        labels = (label_calls(svc, ["ingest"])
+                  + label_calls(idx, ["add_table", "query_batch", "vectorize",
+                                      "_register_table"])
+                  + label_calls(idx.family, ["sketch_rows", "estimate_fields"])
+                  + label_calls(idx.store, ["append"])
+                  + label_calls(idx.kmv, ["sketch"]))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            svc.ingest_many(tables[split:])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report(f"{family}: ingest of {TRACED} tables", prof, wall, labels)
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            svc.search_batch(queries, top_k=10, min_join=QUERY_ROWS / 4,
+                             micro_batch=MICRO_BATCH)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report(f"{family}: {QUERIES // MICRO_BATCH} micro-batches of "
+               f"{MICRO_BATCH} queries against {len(idx.tables)} tables",
+               prof, wall, labels)
+        del svc, idx
+        torch.cuda.empty_cache()
     return 0
 
 
