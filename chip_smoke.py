@@ -5,17 +5,17 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version on the card at the serving path's
 shapes, then drives the §1.3 dataset-search service
-(``repro_torch.SketchSearchService``, m = 512) with each ported family --
-ICWS, CountSketch and JL, storage-matched -- over one synthetic lake of
-16,384 tables and checks its answers; it prints each family's
-planted-partner recall side by side (the paper's head-to-head).  Imports
-nothing of JAX and nothing of the JAX package.  Exits non-zero on any
-failure, and at once when no card is present.  Each phase prints its wall
-time.  The line before the last is a JSON object with each kernel's
-launches on the serving runs, its error against the plain version, its
-time, the plain version's time, its bound and the time of one PyTorch call
-that computes the same function (where there is one); the last line is the
-run's device.
+(``repro_torch.SketchSearchService``, m = 512) with each of the six
+families -- ICWS, CountSketch, JL, DMH, threshold and priority sampling,
+storage-matched -- over one synthetic lake of 16,384 tables and checks its
+answers; it prints each family's planted-partner recall side by side (the
+paper's head-to-head).  Imports nothing of JAX and nothing of the JAX
+package.  Exits non-zero on any failure, and at once when no card is
+present.  Each phase prints its wall time.  The line before the last is a
+JSON object with each kernel's launches on the serving runs, its error
+against the plain version, its time, the plain version's time, its bound
+and the time of one PyTorch call that computes the same function (where
+there is one); the last line is the run's device.
 """
 from __future__ import annotations
 
@@ -52,6 +52,18 @@ EST_OPS_PER_HIT = 8
 HASH_OPS = 2 * 8 + 5
 CS_OPS_PER_TERM = 2 * HASH_OPS + 4
 JL_OPS_PER_TERM = HASH_OPS + 3
+# DMH: per lane one bin hash and its modulo, the five salted ICWS variates
+# and the level chain, and the atomicMin; per occupied bin the winner's
+# level again and its fingerprint hash; per densify probe a hash, the
+# modulo and the occupancy test
+DMH_OPS_PER_LANE = HASH_OPS + 1 + ICWS_OPS_PER_DRAW + 1
+DMH_OPS_PER_BIN = ICWS_OPS_PER_DRAW + HASH_OPS
+DMH_OPS_PER_PROBE = HASH_OPS + 2
+# key-match merge: per step (one query slot or one corpus slot passed) a
+# compare and an advance; per match the min, the guard, the product, the
+# divide and the add
+SAMPLE_OPS_PER_STEP = 2
+SAMPLE_OPS_PER_MATCH = 5
 
 M = 512
 LAKE_TABLES = 16_384
@@ -60,11 +72,15 @@ MICRO_BATCH = 16
 QUERY_ROWS = 2_000
 KEY_DOMAIN = 1 << 20
 EST_P = 131_072
-FAMILIES = ("icws", "cs", "jl")
-# the kernels each family's serving path launches
+FAMILIES = ("icws", "cs", "jl", "dmh", "ts", "ps")
+# the kernels each family's serving path launches: its sketch kernel (none
+# for TS/PS, whose rows are built on the host) and its estimate kernel
 PATH_KERNELS = {"icws": ("icws_sketch", "estimate_fields"),
                 "cs": ("countsketch_sparse", "linear_estimate_fields"),
-                "jl": ("jl_sketch", "linear_estimate_fields")}
+                "jl": ("jl_sketch", "linear_estimate_fields"),
+                "dmh": ("dmh_sketch", "estimate_fields"),
+                "ts": ("sample_estimate_fields",),
+                "ps": ("sample_estimate_fields",)}
 
 
 def log(msg: str) -> None:
@@ -89,13 +105,16 @@ def phase(name: str, fn, *args):
 
 def launch_counters():
     """Each kernel wrapper's launch counter, by kernel name."""
-    from repro_torch.kernels import (countsketch, estimate, icws_sketch,
-                                     jl_sketch)
+    from repro_torch.kernels import (countsketch, dmh_sketch, estimate,
+                                     icws_sketch, jl_sketch, sample_estimate)
     return {"icws_sketch": icws_sketch.icws_sketch_cuda,
             "estimate_fields": estimate.estimate_fields_cuda,
             "countsketch_sparse": countsketch.countsketch_sparse_cuda,
             "jl_sketch": jl_sketch.jl_sketch_cuda,
-            "linear_estimate_fields": estimate.linear_estimate_fields_cuda}
+            "linear_estimate_fields": estimate.linear_estimate_fields_cuda,
+            "dmh_sketch": dmh_sketch.dmh_sketch_cuda,
+            "sample_estimate_fields":
+                sample_estimate.sample_estimate_fields_cuda}
 
 
 def family_for(name: str):
@@ -432,6 +451,218 @@ def kernel_phase(dev):
     return sketch, estimate
 
 
+def dmh_sketch_case(index, rng, B: int, nnz: int, dev, b1):
+    """One DMH launch at the path's shapes (B field rows of about ``nnz``
+    non-zeros, each key replicated c = 4 times at m = 512) against its
+    plain version: fingerprints, argkeys and values equal on every slot,
+    ``amin`` bitwise or its largest difference printed.  ``b1`` is the ICWS
+    sketch case at the same (B, nnz), printed beside."""
+    from repro_torch.core.dmh import dmh_replication, replicate_keys
+    from repro_torch.data.ingest import pad_sparse_batch
+    from repro_torch.kernels import dmh_sketch as kd
+    from repro_torch.kernels.common import (BIG, DMH_STREAM_BIN,
+                                            DMH_STREAM_DENSIFY, as_u32,
+                                            densify_probes, hash_u32,
+                                            salt_for)
+    w, keys, vals, _ = pad_sparse_batch(field_vectors(index, rng, B, nnz))
+    n_pre = w.shape[1]
+    c = dmh_replication(M)
+    keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (
+        np.tile(w, (1, c)), keys, np.tile(vals, (1, c)))]
+    got = kd.dmh_sketch_cuda(*args, m=M, seed=0)
+    torch.cuda.synchronize()
+    want = kd.dmh_sketch_plain(*args, m=M, seed=0)
+    shape = f"B={B} N={n_pre}x{c} m={M}"
+    for name, i in (("fingerprints", 0), ("values", 1), ("argkeys", 3)):
+        if not torch.equal(got[i], want[i]):
+            bad = int((got[i] != want[i]).sum().item())
+            raise AssertionError(f"dmh sketch {shape}: {name} differ from "
+                                 f"plain on {bad} slots")
+    err = float((got[2] - want[2]).abs().max().item())
+    amin_equal = torch.equal(got[2], want[2])
+    # the work this run's data needs: live lanes, occupied bins and the
+    # densify probes each empty bin of a live row takes
+    live = int((args[0] > 0).sum().item())
+    t = torch.arange(M, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    occ = (hash_u32(as_u32(got[3]), salt_for(0, DMH_STREAM_BIN, zero)) % M
+           == t) & (got[0] >= 0)
+    J = densify_probes(M)
+    j = torch.arange(J, device=dev)
+    probe = hash_u32(t[:, None], salt_for(0, DMH_STREAM_DENSIFY, j)[None]) % M
+    firstj = torch.where(occ[:, probe], j, J - 1).amin(2)
+    need = ~occ & occ.any(1, keepdim=True)
+    probes = int((firstj + 1)[need].sum().item())
+    ops = (DMH_OPS_PER_LANE * live + DMH_OPS_PER_BIN * int(occ.sum().item())
+           + DMH_OPS_PER_PROBE * probes)
+    # every lane's weight, the keys of live lanes, the winners' values, the
+    # four output planes
+    bytes_moved = 4 * (args[0].numel() + live + int(occ.sum().item())) \
+        + B * M * 16
+    bound_b, bound_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    bound = max(bound_b, bound_o) * 1e3
+    bound_by = "bytes" if bound_b >= bound_o else "operations"
+    ms = time_ms(lambda: kd.dmh_sketch_cuda(*args, m=M, seed=0), reps=20)
+    dev_ms = device_ms(lambda: kd.dmh_sketch_cuda(*args, m=M, seed=0),
+                       "dmh_sketch_kernel")
+    plain = time_ms(lambda: kd.dmh_sketch_plain(*args, m=M, seed=0), reps=3,
+                    warmup=1)
+    log(f"dmh sketch {shape}: fingerprints, values and argkeys equal to "
+        f"plain, amin {'equal' if amin_equal else f'max |d| {err}'}; kernel "
+        f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
+        f"{plain:.3f} ms, bound {bound:.5f} ms ({bound_by}: {live} live "
+        f"lanes, {int(occ.sum().item())} occupied bins, {probes} densify "
+        f"probes); ICWS B1 at B={B} N={n_pre}: {b1['device_ms']:.4f} ms on "
+        f"the device, {b1['device_ms'] / dev_ms:.1f}x B5")
+    return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
+            "amin_equal": amin_equal, "b1_device_ms": b1["device_ms"]}
+
+
+def dmh_kernel_phase(dev, b1_cases):
+    """B5 at the ingest (B = 3) and query-batch (B = 48) shapes, each at
+    N = 1024 and 4096 before replication: the shapes of the B1 cases."""
+    from repro_torch.data.dataset_search import DatasetSearchIndex
+    rng = np.random.default_rng(1)
+    index = DatasetSearchIndex(m=M, seed=0, device=dev)
+    return [dmh_sketch_case(index, rng, B, nnz, dev, b1)
+            for (B, nnz), b1 in zip(((3, 1000), (3, 4000), (48, 1000),
+                                     (48, 4000)), b1_cases)]
+
+
+def sample_estimate_case(q, c, hits, *, check: bool):
+    """One key-match launch: timed against its bound; with ``check`` also
+    held bit for bit against its plain version.  ``hits [6, Q, P]`` counts
+    the key matches of each (pair, query, row)."""
+    from repro_torch.data.dataset_search import CFIELD, QFIELD
+    from repro_torch.kernels import sample_estimate as ks
+    kq, vq, aq = q
+    kc, vc, ac = c
+    G, Q, P, S = len(QFIELD), kq.shape[1], kc.shape[1], kq.shape[2]
+    shape = f"G={G} Q={Q} P={P} S={S}"
+
+    def kernel():
+        return ks.sample_estimate_fields_cuda(kq, vq, aq, kc, vc, ac,
+                                              qmap=QFIELD, cmap=CFIELD)
+    got = kernel()
+    torch.cuda.synchronize()
+    err, plain_ms = None, None
+    if check:
+        t0 = time.perf_counter()
+        want = ks.sample_estimate_fields_plain(kq, vq, aq, kc, vc, ac,
+                                               qmap=QFIELD, cmap=CFIELD)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = float((got - want).abs().max().item())
+        if not torch.equal(got, want):
+            raise AssertionError(f"sample estimate {shape}: kernel differs "
+                                 f"from plain (max |d| {err})")
+        if not bool(torch.isfinite(got).all()) or \
+                int(torch.count_nonzero(got).item()) == 0:
+            raise AssertionError(f"sample estimate {shape}: no finite "
+                                 "non-zero estimate")
+    live_q = (kq >= 0).sum(2).double()                 # [F, Q]
+    live_c = (kc >= 0).sum(2).double()                 # [C, P]
+    steps = sum(float(live_q[qf].sum()) * P + float(live_c[cf].sum()) * Q
+                for qf, cf in zip(QFIELD, CFIELD))
+    matches = float(hits.double().sum().item())
+    ops = SAMPLE_OPS_PER_STEP * steps + SAMPLE_OPS_PER_MATCH * matches
+    # what the join needs: each used field's live corpus keys (and the key
+    # that ends a row's prefix) read once, value and probability of each
+    # corpus slot some query matches, the queries' live slots, the output
+    corpus_bytes = 0.0
+    for cf in sorted(set(CFIELD)):
+        qkeys = torch.cat([kq[qf][kq[qf] >= 0] for qf in
+                           {qf for qf, c in zip(QFIELD, CFIELD) if c == cf}])
+        matched = int(torch.isin(kc[cf], qkeys.unique()).sum().item())
+        corpus_bytes += 4 * (float(live_c[cf].sum())
+                             + int((live_c[cf] < S).sum().item())) \
+            + 8 * matched
+    bytes_moved = corpus_bytes + 12 * sum(
+        float(live_q[qf].sum()) for qf in set(QFIELD)) + 4 * G * Q * P
+    bound_b, bound_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    bound = max(bound_b, bound_o) * 1e3
+    bound_by = "bytes" if bound_b >= bound_o else "operations"
+    ms = time_ms(kernel, reps=10)
+    dev_ms = device_ms(kernel, "sample_estimate_fields_kernel")
+    log(f"sample estimate {shape}: "
+        + (f"equal to plain (plain {plain_ms:.1f} ms, one run), " if check
+           else "")
+        + f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), "
+        f"bound {bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB, "
+        f"{ops:.3e} ops, {matches:.0f} matches)")
+    return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+
+
+def sample_kernel_phase(dev):
+    """B9 over 16 queries' real TS rows (S = 768) against P = 131,072
+    synthetic corpus rows per field that copy a random query's live keys
+    with a per-row share and fill the rest with fresh keys, sorted, cut to
+    a random live length; the last 1,024 rows are spare.  At the service's
+    shape, Q in {16, 1} against the last 16,384 rows (the store's capacity
+    on the lake, spare rows included), checked bit for bit against the
+    plain version and timed; timed also at P = 131,072."""
+    from repro_torch.data.dataset_search import (CFIELD, QFIELD,
+                                                 DatasetSearchIndex)
+    from repro_torch.kernels.sample_estimate import (sample_inclusion_probs,
+                                                     sorted_prefix_ok)
+    rng = np.random.default_rng(7)
+    index = DatasetSearchIndex(m=M, seed=0, device=dev, family="ts")
+    kq, vq, tq = index.family.sketch_rows(
+        field_vectors(index, rng, 48, QUERY_ROWS), device=dev)
+    S = kq.shape[1]
+    kq, vq = (x.reshape(16, 3, S).transpose(0, 1).contiguous()
+              for x in (kq, vq))
+    tq = tq.reshape(16, 3).t().contiguous()
+    aq = sample_inclusion_probs(vq, tq)
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    P = EST_P
+    src = torch.randint(0, 16, (P,), device=dev, generator=g)
+    share = torch.rand((1, P, 1), device=dev, generator=g) ** 3
+    copy = (torch.rand((3, P, S), device=dev, generator=g) < share) \
+        & (kq[:, src] >= 0)
+    fresh = KEY_DOMAIN + torch.arange(P, device=dev)[:, None] * S \
+        + torch.arange(S, device=dev)
+    kc = torch.where(copy, kq[:, src].long(), fresh)
+    vc = torch.where(copy, vq[:, src] * 1.5, 0.05 + torch.rand(
+        (3, P, S), device=dev, generator=g))
+    del copy, fresh
+    kc, order = torch.sort(kc, dim=2)
+    vc = torch.gather(vc, 2, order)
+    del order
+    cut = torch.arange(S, device=dev) >= torch.randint(
+        S // 8, S + 1, (3, P, 1), device=dev, generator=g)
+    kc = torch.where(cut, -2, kc).int()
+    vc = torch.where(cut, 0.0, vc)
+    tc = torch.where(torch.rand((3, P), device=dev, generator=g) < 0.2, 0.0,
+                     S * torch.rand((3, P), device=dev, generator=g))
+    kc[:, -1024:], vc[:, -1024:], tc[:, -1024:] = -2, 0.0, 0.0
+    del cut
+    if not sorted_prefix_ok(kc):
+        raise AssertionError("synthetic corpus rows break the sorted-prefix "
+                             "contract")
+    ac = sample_inclusion_probs(vc, tc)
+    # key matches per (pair, query, corpus row), for the bound
+    hits = torch.zeros((len(QFIELD), 16, P), dtype=torch.int32, device=dev)
+    for gi, (qf, cf) in enumerate(zip(QFIELD, CFIELD)):
+        for qi in range(16):
+            live = kq[qf, qi][kq[qf, qi] >= 0]
+            hits[gi, qi] = torch.isin(kc[cf], live).sum(1)
+    torch.cuda.empty_cache()
+    q = (kq, vq, aq)
+    checked = [sample_estimate_case(tuple(x[:, :qn] for x in q),
+                                    tuple(x[:, -p:] for x in (kc, vc, ac)),
+                                    hits[:, :qn, -p:], check=p < EST_P)
+               for qn, p in ((16, LAKE_TABLES), (1, LAKE_TABLES),
+                             (16, EST_P), (1, EST_P))]
+    del kc, vc, ac, tc, hits
+    torch.cuda.empty_cache()
+    return checked
+
+
 def small_reference_phase(dev, family: str):
     """The service on the card against the same service on the CPU (plain
     kernels) on a small lake: same rankings, estimates within f32 tolerance."""
@@ -481,9 +712,11 @@ def service_phase(family: str, lake):
     64 queries through ``search_batch`` (micro-batches of 16) and through
     ``search``, with the launch counters set to 0 just before and read just
     after.  Gates: batched == sequential bit for bit, finite results, the
-    launches the run needs; for ICWS also every planted partner in the top
-    10 (the linear sketches' recall is printed, not gated: losing partners
-    is the paper's finding).  Returns (launches, recall)."""
+    launches the run needs (TS/PS build their rows on the host: only the
+    estimate kernel), for TS/PS the stored rows' sorted-prefix layout; for
+    ICWS also every planted partner in the top 10 (the other families'
+    recall is printed, not gated: losing partners is the paper's finding).
+    Returns (launches, recall)."""
     from repro_torch import SketchSearchService
     tables, queries, partners = lake
     svc = SketchSearchService(m=M, seed=0, family=family)
@@ -502,6 +735,12 @@ def service_phase(family: str, lake):
     torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in counters.items()}
 
+    if family in ("ts", "ps"):
+        from repro_torch.kernels.sample_estimate import sorted_prefix_ok
+        if not sorted_prefix_ok(svc.index.store.buffers()[0]):
+            raise AssertionError(f"{family}: stored rows break the "
+                                 "sorted-prefix contract")
+        log(f"{family}: every stored row keeps the sorted-prefix contract")
     d = svc.describe()
     log(f"{family} ingest: {LAKE_TABLES / ingest_s:.1f} tables/s "
         f"({ingest_s:.1f} s); store {d['corpus_rows']} rows x 3 fields, "
@@ -531,9 +770,12 @@ def service_phase(family: str, lake):
         f"(each refined on the host); batched == sequential on {QUERIES} "
         f"queries")
     n_batches = math.ceil(QUERIES / MICRO_BATCH)
-    sketch_k, est_k = PATH_KERNELS[family]
-    need = {sketch_k: LAKE_TABLES + n_batches + QUERIES,
-            est_k: n_batches + QUERIES}
+    # one sketch launch per ingested table and per query batch or search
+    # (none for TS/PS, built on the host), one estimate launch per batch or
+    # search
+    *sketch_k, est_k = PATH_KERNELS[family]
+    need = {k: LAKE_TABLES + n_batches + QUERIES for k in sketch_k}
+    need[est_k] = n_batches + QUERIES
     log(f"{family} launches on the serving run: {launches}")
     if any(launches[k] < n for k, n in need.items()):
         raise AssertionError(f"{family}: launch counters {launches} below "
@@ -562,6 +804,8 @@ def main() -> int:
     sketch, estimate = phase("icws kernels", kernel_phase, dev)
     lin_sketch, lin_estimate = phase("linear kernels", linear_kernel_phase,
                                      dev)
+    dmh = phase("dmh kernel", dmh_kernel_phase, dev, sketch)
+    sample = phase("sample estimate kernel", sample_kernel_phase, dev)
     for family in FAMILIES:
         phase(f"small lake {family}", small_reference_phase, dev, family)
     lake = phase("lake", lake_phase)
@@ -578,7 +822,9 @@ def main() -> int:
     rep = sketch[3]   # the query micro-batch launch: B = 48, N = 4096
     lin_rep = {"countsketch_sparse": lin_sketch["cs"][3],
                "jl_sketch": lin_sketch["jl"][3],
-               "linear_estimate_fields": lin_estimate[0]}
+               "linear_estimate_fields": lin_estimate[0],
+               "dmh_sketch": dmh[3],
+               "sample_estimate_fields": sample[0]}
     kernels = [
         {"name": "icws_sketch", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/icws_sketch.cu",
@@ -604,7 +850,10 @@ def main() -> int:
              "countsketch.py:91", lin_sketch["cs"]),
             ("jl_sketch", "jl_sketch.cu", "jl_sketch.py:28", lin_sketch["jl"]),
             ("linear_estimate_fields", "linear_estimate_fields.cu",
-             "estimate.py:407", lin_estimate)):
+             "estimate.py:407", lin_estimate),
+            ("dmh_sketch", "dmh_sketch.cu", "dmh_sketch.py:92", dmh),
+            ("sample_estimate_fields", "sample_estimate_fields.cu",
+             "sample_estimate.py:86", sample)):
         r = lin_rep[name]
         kernels.append({
             "name": name, "route": "cuda",

@@ -3,9 +3,11 @@
 A second package beside the JAX reference (``src/repro``): it imports
 ``torch``, ``numpy`` and the standard library only -- never ``jax`` and
 nothing of ``repro``.  It carries ``SketchSearchService(family=...,
-backend="device")`` on one device for the ICWS, CountSketch and JL
-families, with hand-written CUDA kernels for each family's sketch and
-fused multi-field estimate (``repro_torch.kernels``).  Entry points run on
+backend="device")`` on one device for all six families of the JAX package
+(ICWS, DMH, CountSketch, JL, threshold and priority sampling), with
+hand-written CUDA kernels for each family's sketch (the sampling rows are
+built on the host) and fused multi-field estimate
+(``repro_torch.kernels``).  Entry points run on
 the card unless the caller passes ``device="cpu"``.
 """
 from .data.dataset_search import DatasetSearchIndex, SearchResult

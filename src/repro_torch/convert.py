@@ -15,8 +15,10 @@ caller exports them as numpy (this module imports nothing of JAX)::
                              seed=jax_index.seed,
                              family=jax_index.family.name, device="cuda")
 
-and gets a port index that serves the same sketch rows.  The ICWS, CS and
-JL families are carried (one buffer per component of the family).
+and gets a port index that serves the same sketch rows.  All six families
+are carried, one buffer per component of the family: ICWS and DMH share
+the ICWS buffers, CS and JL carry their tables, TS and PS their sample
+keys, values and taus.
 """
 from __future__ import annotations
 
@@ -40,8 +42,10 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
 
     Args:
       buffers: a JAX store's ``buffers()`` as numpy, one per component of
-        the family: icws ``(fp [3, cap, m], val [3, cap, m], norm [3, cap],
-        argkey [3, cap, m])``; cs and jl ``(tables [3, cap, R, W],)``.
+        the family: icws and dmh ``(fp [3, cap, m], val [3, cap, m], norm
+        [3, cap], argkey [3, cap, m])``; cs and jl ``(tables [3, cap, R,
+        W],)``; ts and ps ``(keys [3, cap, S], values [3, cap, S], taus
+        [3, cap])``.
       size: live rows per field (the first ``size`` rows are copied).
       tables: per table ``(name, n_rows, (kmv_hashes, kmv_values))``, in
         store-row order (table i is row i).

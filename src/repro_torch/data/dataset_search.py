@@ -7,19 +7,22 @@ values summed at their key ``x^V``, and squared values ``x^{V^2}`` -- into
 one field-stacked :class:`~repro_torch.data.store.CorpusStore` on the
 device, and keeps a KMV keyed sample of the values on the host.
 
-The sketch family is ICWS (the paper's method, the default), CountSketch
-or JL, each sized to the storage an ``m``-sample ICWS sketch occupies.
-Every query, single or batched, is one ``[3Q, N]`` sketch launch of the
-family and ONE fused multi-field estimate launch straight off the store
-buffers (a single query is the Q = 1 case).  ``_corr_scores`` and
+The sketch family is any of the JAX package's six -- ICWS (the paper's
+method, the default), DMH, CountSketch, JL, TS or PS -- each sized to the
+storage an ``m``-sample ICWS sketch occupies.  Every query, single or
+batched, builds its 3Q field rows with one call of the family's
+``sketch_rows`` (one sketch launch for ICWS, DMH, CS and JL; host-built
+sample rows for TS and PS) and runs ONE fused multi-field estimate launch
+straight off the store buffers (a single query is the Q = 1 case).  The
+index itself has no family-specific branch.  ``_corr_scores`` and
 ``_top_k`` rank the tables on the device; the host then refines the k
 survivors' correlation from the matched KMV samples.  Per-query results of
 ``query_batch`` equal a loop of ``query`` bit for bit.
 
 Not ported yet (the constructor raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` queue item): the host oracle (``backend="host"``,
-``keep_host_oracle=True``), the DMH, TS and PS families, the packed
-store and sharded serving (``mesh``).
+``keep_host_oracle=True``), the packed store and sharded serving
+(``mesh``).
 """
 from __future__ import annotations
 
@@ -62,16 +65,26 @@ class SearchResult:
     corr: float
 
 
+def _mul_sub(a, b, c, d) -> torch.Tensor:
+    """``a * b - c * d`` in f32 as XLA compiles it: one fused multiply-add,
+    ``fma(a, b, -(c * d))``, with ``a * b`` exact and ``c * d`` rounded.
+    Emulated in f64, where the product of two f32 is exact."""
+    return (a.double() * b.double() - (c * d).double()).float()
+
+
 def _corr_scores(join, sum_a, sum_b, sum_a2, sum_b2, prod,
                  min_join: float) -> torch.Tensor:
     """Ranking scores: |sketch-estimated corr| among joinable rows, in f32.
 
     All inputs are [Q, P] estimates.  Rows failing ``join >= min_join``
-    score -1 so the host can drop them.
+    score -1 so the host can drop them.  The variances and the covariance
+    round as the JAX package's jitted ``_corr_scores`` does
+    (:func:`_mul_sub`), so a table whose variance cancels exactly gets the
+    same sign of residue, and the same score, in both packages.
     """
-    var_a = join * sum_a2 - sum_a * sum_a
-    var_b = join * sum_b2 - sum_b * sum_b
-    cov = join * prod - sum_a * sum_b
+    var_a = _mul_sub(join, sum_a2, sum_a, sum_a)
+    var_b = _mul_sub(join, sum_b2, sum_b, sum_b)
+    cov = _mul_sub(join, prod, sum_a, sum_b)
     ok = (var_a > 0) & (var_b > 0)
     corr = torch.where(ok, cov * torch.rsqrt(torch.where(ok, var_a * var_b,
                                                          1.0)), 0.0)
@@ -156,8 +169,8 @@ class DatasetSearchIndex:
 
     def add_table(self, name: str, keys: np.ndarray, values: np.ndarray,
                   tenant: Optional[str] = None):
-        """Sketch one table into the corpus (one ``[3, N]`` sketch launch,
-        rows appended in place); ``tenant`` scopes it to a logical corpus
+        """Sketch one table into the corpus (one ``sketch_rows`` call for
+        its three field vectors, rows appended in place); ``tenant`` scopes it to a logical corpus
         inside the shared arena."""
         ind, val, sq = self.vectorize(keys, values)
         comps = self.family.sketch_rows([ind, val, sq], device=self.device)
@@ -214,8 +227,8 @@ class DatasetSearchIndex:
                     top_k: int = 10, min_join: float = 1.0,
                     backend: Optional[str] = None,
                     tenant: Optional[str] = None) -> List[List[SearchResult]]:
-        """Answer Q ``(keys, values)`` queries with ONE ``[3Q, N]`` sketch
-        launch and ONE fused estimate launch; per-query results equal
+        """Answer Q ``(keys, values)`` queries with ONE ``sketch_rows`` call
+        for the 3Q field vectors and ONE fused estimate launch; per-query results equal
         ``[self.query(k, v) for k, v in queries]``."""
         self._check_backend(backend)
         queries = list(queries)
@@ -253,7 +266,7 @@ class DatasetSearchIndex:
             ind, val, sq = self.vectorize(keys, values)
             field_vecs.extend((ind, val, sq))
             samples.append(self.kmv.sketch(val))
-        # one launch sketches all 3Q query field vectors; each component
+        # one call sketches all 3Q query field vectors; each component
         # reshapes [3Q, ...] -> [3, Q, ...] for the fields launch
         qcomps = tuple(
             c.reshape((Q, 3) + tuple(c.shape[1:])).transpose(0, 1)

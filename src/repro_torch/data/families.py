@@ -1,12 +1,16 @@
-"""Serving families (port of ``repro.data.families``): ICWS, CS and JL.
+"""Serving families (port of ``repro.data.families``): all six of the JAX
+package -- ICWS, DMH, CountSketch, JL, TS and PS.
 
 A family tells the corpus store and the index what a sketch row is: its
 per-row buffers with the fill that keeps unused rows inert, its storage
-accounting, the sketch launch and the fused estimate launch.  The port
-serves the paper's own method, ICWS weighted MinHash, and the two linear
-sketches it is compared with, CountSketch and JL, each sized to the same
-storage budget by :func:`make_family`; the other families of the JAX
-package wait for later slices (``ROADMAP.md`` Queue A 9 and 11).
+accounting, the sketch build and the fused estimate launch.  The port
+serves the paper's own method, ICWS weighted MinHash, its constant-time
+ingest variant DMH (same wire layout and estimate), the two linear
+sketches it is compared with, CountSketch and JL, and the two sampling
+sketches, threshold (TS) and priority (PS) sampling, each sized to the
+same storage budget by :func:`make_family`.  Members not ported yet
+(merging, the host oracle, packed storage, sharded serving) raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -19,11 +23,10 @@ from repro_torch.core.types import SparseVec
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import CORPUS_PAD_FP
 
-from .ingest import linear_sketch_batch, sketch_batch
+from .ingest import (dmh_sketch_batch, linear_sketch_batch,
+                     sample_sketch_batch, sketch_batch)
 
-# families of the JAX package and the ROADMAP.md queue item that ports each
-_QUEUED = {"dmh": "Queue A 9", "ts": "Queue A 11", "ps": "Queue A 11"}
-FAMILY_NAMES = ("icws", "cs", "jl")
+FAMILY_NAMES = ("icws", "cs", "jl", "ts", "ps", "dmh")
 # CountSketch repetitions (``repro.core.linear.REPS``): the median of five
 REPS = 5
 
@@ -39,8 +42,44 @@ class ComponentSpec:
     fill: float
 
 
+def _not_ported(what: str, item: str):
+    raise NotImplementedError(f"{what} is not ported yet ({item} in "
+                              "ROADMAP.md)")
+
+
+class _Unported:
+    """The JAX family members the port does not serve yet; each raises
+    ``NotImplementedError`` naming its ``ROADMAP.md`` item."""
+
+    def merge_rows(self, a, b):
+        _not_ported(f"merging {self.name} sketch rows", "Queue A 13")
+
+    def host_oracle(self):
+        _not_ported("the host oracle", "Queue A 19")
+
+    @property
+    def packed_components(self):
+        _not_ported("packed storage", "Queue A 12")
+
+    def pack_rows(self, rows):
+        _not_ported("packed storage", "Queue A 12")
+
+    def unpack_rows(self, rows):
+        _not_ported("packed storage", "Queue A 12")
+
+    def estimate_fields_packed(self, q, c, *, qmap, cmap):
+        _not_ported("packed storage", "Queue A 12")
+
+    def estimate_fields_sharded(self, q, c, *, qmap, cmap, mesh, axis):
+        _not_ported("sharded serving", "Queue A 14")
+
+    def estimate_fields_packed_sharded(self, q, c, *, qmap, cmap, mesh,
+                                       axis):
+        _not_ported("sharded serving", "Queue A 14")
+
+
 @dataclasses.dataclass(frozen=True)
-class ICWSFamily:
+class ICWSFamily(_Unported):
     """ICWS (weighted MinWise) serving family -- the paper's method.
 
     Rows are (fingerprints, sampled values, norm, argkeys); estimation is
@@ -81,12 +120,27 @@ class ICWSFamily:
                                         qmap=qmap, cmap=cmap)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item} in "
-                              "ROADMAP.md)")
+@dataclasses.dataclass(frozen=True)
+class DMHFamily(ICWSFamily):
+    """DMH (densified one-permutation weighted MinHash) serving family.
+
+    The ICWS wire layout, storage accounting and fused estimate launch;
+    only the build differs: one DMH kernel launch, O(c * nnz + m) per
+    vector (``c = dmh_replication(m) <= 4`` pseudo-key replicas) against
+    ICWS's O(nnz * m).
+    """
+
+    name: str = dataclasses.field(default="dmh", init=False)
+
+    def sketch_rows(self, vecs: Sequence[SparseVec], *, bucket: int = 256,
+                    device="cuda"):
+        """One DMH kernel launch: B sparse vectors -> (fp, val, norm,
+        argkey) rows on ``device``."""
+        return dmh_sketch_batch(vecs, m=self.m, seed=self.seed,
+                                bucket=bucket, device=device)
 
 
-class _LinearFamily:
+class _LinearFamily(_Unported):
     """Shared serving plumbing of the linear families (``S(a) = Pi a``).
 
     A row is one dense ``[R, W]`` f32 table; estimation is per-rep dots and
@@ -123,31 +177,6 @@ class _LinearFamily:
         -> [G, Q, P] f32 estimates."""
         return ops.linear_estimate_fields(q[0], c[0], qmap=qmap, cmap=cmap)
 
-    def merge_rows(self, a, b):
-        _not_ported("merging linear sketch rows", "Queue A 13")
-
-    def host_oracle(self):
-        _not_ported("the host oracle", "Queue A 19")
-
-    @property
-    def packed_components(self):
-        _not_ported("packed storage", "Queue A 12")
-
-    def pack_rows(self, rows):
-        _not_ported("packed storage", "Queue A 12")
-
-    def unpack_rows(self, rows):
-        _not_ported("packed storage", "Queue A 12")
-
-    def estimate_fields_packed(self, q, c, *, qmap, cmap):
-        _not_ported("packed storage", "Queue A 12")
-
-    def estimate_fields_sharded(self, q, c, *, qmap, cmap, mesh, axis):
-        _not_ported("sharded serving", "Queue A 14")
-
-    def estimate_fields_packed_sharded(self, q, c, *, qmap, cmap, mesh,
-                                       axis):
-        _not_ported("sharded serving", "Queue A 14")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,22 +206,86 @@ class JLFamily(_LinearFamily):
         return self.m
 
 
+class _SamplingFamily(_Unported):
+    """Shared serving plumbing of the sampling families (TS/PS).
+
+    A row is a fixed-slot coordinate sample ``(keys [S] i32, values [S]
+    f32, tau [] f32)`` (``repro_torch.core.sampling``); estimation is the
+    unaligned key-match launch, matches reweighted by inverse inclusion
+    probability.  Spare rows hold corpus-pad keys (-2), zero values and
+    zero tau (probability 0 on every slot) and estimate to exactly zero.
+    Rows are built on the host (weighted sampling is per-vector select
+    work); the device holds them and runs the estimate.
+    """
+
+    slots: int
+    seed: int
+    name: str
+
+    @property
+    def components(self) -> Tuple[ComponentSpec, ...]:
+        return (ComponentSpec("keys", (self.slots,), torch.int32,
+                              CORPUS_PAD_FP),
+                ComponentSpec("values", (self.slots,), torch.float32, 0.0),
+                ComponentSpec("taus", (), torch.float32, 0.0))
+
+    def storage_doubles_per_row(self) -> float:
+        """A key (i32) + value (f32) pair per slot is one double
+        equivalent, plus one double for tau."""
+        return float(self.slots) + 1.0
+
+    def sketch_rows(self, vecs: Sequence[SparseVec], *, bucket: int = 256,
+                    device="cuda"):
+        """Host-build B sample rows and move them to ``device`` (``bucket``
+        is a padding knob of the kernel-built families; sampling rows are
+        fixed-slot already)."""
+        del bucket
+        return sample_sketch_batch(vecs, slots=self.slots, method=self.name,
+                                   seed=self.seed, device=device)
+
+    def estimate_fields(self, q, c, *, qmap, cmap):
+        """All field pairs of a query batch against the corpus samples in
+        one launch: ``q = (kq, vq, tq)`` [F, Q, ...], ``c = (kc, vc, tc)``
+        [C, P, ...] -> [G, Q, P] f32 estimates."""
+        return ops.sample_estimate_fields(q[0], q[1], q[2], c[0], c[1], c[2],
+                                          qmap=qmap, cmap=cmap)
+
+
+@dataclasses.dataclass(frozen=True)
+class TSFamily(_SamplingFamily):
+    """Threshold-sampling serving family."""
+
+    slots: int
+    seed: int = 0
+    name: str = dataclasses.field(default="ts", init=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class PSFamily(_SamplingFamily):
+    """Priority-sampling serving family."""
+
+    slots: int
+    seed: int = 0
+    name: str = dataclasses.field(default="ps", init=False)
+
+
 def make_family(name: str, *, storage: float, seed: int = 0):
     """The serving family sized to a storage budget, as
-    ``repro.core.registry`` sizes it: icws ``m = (storage - 1) / 1.5``; cs
-    ``width = storage // reps`` with five reps; jl ``m = storage``.
-    Families built from one budget are storage-matched."""
-    if name == "icws":
-        return ICWSFamily(m=max(1, int((storage - 1) / 1.5)), seed=seed)
+    ``repro.core.registry`` sizes it: icws and dmh ``m = (storage - 1) /
+    1.5``; cs ``width = storage // reps`` with five reps; jl ``m =
+    storage``; ts and ps ``slots = storage - 1``.  Families built from one
+    budget are storage-matched."""
+    if name in ("icws", "dmh"):
+        cls = ICWSFamily if name == "icws" else DMHFamily
+        return cls(m=max(1, int((storage - 1) / 1.5)), seed=seed)
     if name == "cs":
         return CSFamily(width=max(1, int(storage // REPS)), reps=REPS,
                         seed=seed)
     if name == "jl":
         return JLFamily(m=max(1, int(storage)), seed=seed)
-    if name in _QUEUED:
-        raise NotImplementedError(
-            f"family {name!r} is not ported yet ({_QUEUED[name]} in "
-            f"ROADMAP.md); this port serves {', '.join(FAMILY_NAMES)}")
+    if name in ("ts", "ps"):
+        cls = TSFamily if name == "ts" else PSFamily
+        return cls(slots=max(1, int(storage - 1)), seed=seed)
     raise ValueError(f"unknown sketch family {name!r}; choose from "
                      f"{FAMILY_NAMES}")
 

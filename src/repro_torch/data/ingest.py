@@ -1,6 +1,9 @@
 """Batch ingest: pad sparse vectors into the sketch kernels' ``[B, N]``
 layouts (numpy, bit for bit ``repro.data.ingest.pad_sparse_batch`` and
-``pad_linear_batch``) and sketch them on a device."""
+``pad_linear_batch``) and sketch them on a device; or, for the sampling
+families (TS/PS), build the finished sample rows on the host
+(``pad_sample_batch``, bit for bit the JAX package's) and move them to a
+device."""
 from __future__ import annotations
 
 from typing import Sequence, Tuple
@@ -8,8 +11,11 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.dmh import dmh_replication, replicate_keys
+from repro_torch.core.sampling import priority_sample, threshold_sample
 from repro_torch.core.types import SparseVec
 from repro_torch.kernels import ops
+from repro_torch.kernels.sample_estimate import SAMPLE_QUERY_PAD_KEY
 
 
 def _flat_scatter(vecs: Sequence[SparseVec], active: np.ndarray,
@@ -81,6 +87,42 @@ def pad_linear_batch(vecs: Sequence[SparseVec], *, bucket: int = 256
     return keys, vals
 
 
+def pad_sample_batch(vecs: Sequence[SparseVec], *, slots: int,
+                     method: str = "ts", seed: int = 0
+                     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Build fixed-slot sampling rows for a batch of sparse vectors.
+
+    Returns host arrays ``(keys [B, slots] i32, vals [B, slots] f32, tau
+    [B] f32)``: live (key, value) pairs ascending-key in the leading slots,
+    empty slots filled with the query-pad sentinel (-1) and value 0, and
+    ``tau`` the row's probability scale.  ``method`` picks threshold
+    (``"ts"``) or priority (``"ps"``) sampling.  The sampling is the
+    sketch, per-vector host work (hash, select, sort); the rows satisfy
+    the key-match kernel's sorted-prefix contract by construction.
+    """
+    if method == "ts":
+        def select(v):
+            return threshold_sample(v.indices, v.values, slots=slots,
+                                    seed=seed)
+    elif method == "ps":
+        def select(v):
+            return priority_sample(v.indices, v.values, slots=slots,
+                                   seed=seed)
+    else:
+        raise ValueError(f"unknown sampling method {method!r}; "
+                         "choose 'ts' or 'ps'")
+    B = len(vecs)
+    keys = np.full((B, slots), SAMPLE_QUERY_PAD_KEY, np.int32)
+    vals = np.zeros((B, slots), np.float32)
+    taus = np.zeros(B, np.float32)
+    for b, v in enumerate(vecs):
+        k, vv, tau = select(v)
+        keys[b, :k.size] = k.astype(np.int32)
+        vals[b, :k.size] = vv.astype(np.float32)
+        taus[b] = tau
+    return keys, vals, taus
+
+
 def sketch_batch(vecs: Sequence[SparseVec], *, m: int, seed: int = 0,
                  bucket: int = 256, device="cuda"):
     """Sketch a batch of sparse vectors with one ICWS launch on ``device``.
@@ -114,3 +156,35 @@ def linear_sketch_batch(vecs: Sequence[SparseVec], *, method: str,
             raise ValueError(f"a JL table has one rep; got reps={reps}")
         return ops.jl_sketch(keys, vals, m=width, seed=seed)[:, None, :]
     raise ValueError(f"unknown linear sketch {method!r}; choose 'cs' or 'jl'")
+
+
+def dmh_sketch_batch(vecs: Sequence[SparseVec], *, m: int, seed: int = 0,
+                     bucket: int = 256, device="cuda"):
+    """Sketch a batch of sparse vectors with one DMH launch on ``device``.
+
+    The ICWS padding (:func:`pad_sparse_batch`), then, where
+    ``dmh_replication(m) = c > 1``, each key expanded into c pseudo-keys
+    with ``w`` and ``vals`` tiled replica-major, then ``ops.dmh_sketch``.
+    Returns the four ICWS family components ``(fp, val, norm, argkey)``.
+    """
+    w, keys, vals, norms = pad_sparse_batch(vecs, bucket=bucket)
+    c = dmh_replication(m)
+    if c > 1:
+        keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
+        w = np.tile(w, (1, c))
+        vals = np.tile(vals, (1, c))
+    dev = torch.device(device)
+    fp, val, _, argkey = ops.dmh_sketch(
+        torch.from_numpy(w).to(dev), torch.from_numpy(keys).to(dev),
+        torch.from_numpy(vals).to(dev), m=m, seed=seed)
+    return fp, val, torch.from_numpy(norms.astype(np.float32)).to(dev), argkey
+
+
+def sample_sketch_batch(vecs: Sequence[SparseVec], *, slots: int,
+                        method: str, seed: int = 0, device="cuda"):
+    """Host-build B sampling rows (:func:`pad_sample_batch`) and move them
+    to ``device``: ``(keys [B, slots] i32, vals [B, slots] f32, taus [B]
+    f32)``, the sampling families' three components.  No kernel runs."""
+    dev = torch.device(device)
+    return tuple(torch.from_numpy(a).to(dev) for a in pad_sample_batch(
+        vecs, slots=slots, method=method, seed=seed))

@@ -3,19 +3,21 @@
 
 All F field corpora of an index (F = 3 for the §1.3 fields) live in one
 set of preallocated per-component buffers ``[F, capacity, *trailing]``,
-one per component the sketch family declares: for ICWS, fingerprints
-``[F, cap, m]`` i32, values ``[F, cap, m]`` f32, norms ``[F, cap]`` f32
-and argkeys ``[F, cap, m]`` i32; for CountSketch and JL, one table buffer
-``[F, cap, R, W]`` f32.  ``append`` writes the new rows into the buffers in
+one per component the sketch family declares: for ICWS and DMH,
+fingerprints ``[F, cap, m]`` i32, values ``[F, cap, m]`` f32, norms
+``[F, cap]`` f32 and argkeys ``[F, cap, m]`` i32; for CountSketch and JL,
+one table buffer ``[F, cap, R, W]`` f32; for TS and PS, sample keys
+``[F, cap, S]`` i32, values ``[F, cap, S]`` f32 and taus ``[F, cap]`` f32.  ``append`` writes the new rows into the buffers in
 place (the JAX store donates its buffers to get the same effect), so an
 append costs O(rows appended); when the corpus outgrows its capacity the
 buffers double, so the total copy work over any append sequence is
 O(final size).
 
-Unused capacity rows hold the family's fills -- for ICWS the corpus pad
-sentinel ``-2`` (never equal to a query fingerprint) and zero norms, for
-the linear families zero tables -- and are inert under the estimate
-launch, so queries run on the full-capacity buffers and slice the
+Unused capacity rows hold the family's fills -- for ICWS and DMH the
+corpus pad sentinel ``-2`` (never equal to a query fingerprint) and zero
+norms, for the linear families zero tables, for TS and PS pad keys ``-2``
+with zero values and taus (probability 0 on every slot) -- and are inert
+under the estimate launch, so queries run on the full-capacity buffers and slice the
 *estimates* to the live row count.
 
 Multi-tenant arena: ``append(..., tenant=...)`` records the written row
@@ -43,7 +45,8 @@ class CorpusStore:
     Args: ``m`` (an ICWS sample count) or ``family`` (any serving family),
     ``fields`` (F), ``min_capacity``, and ``device`` (default ``"cuda"``;
     raises if no card is present).  ``self.m`` is the family's sample count
-    where it has one (ICWS, JL) and None otherwise (CountSketch).
+    where it has one (ICWS, DMH, JL) and None otherwise (CountSketch; TS
+    and PS, which count ``slots``).
     """
 
     def __init__(self, m: "int | None" = None, fields: int = 1,
@@ -178,8 +181,9 @@ class CorpusStore:
     # -- views ---------------------------------------------------------------
     def buffers(self) -> Tuple[torch.Tensor, ...]:
         """The full-capacity device buffers, one per component of the
-        family: ICWS ``(fp [F, cap, m], val [F, cap, m], norm [F, cap],
-        argkey [F, cap, m])``, CS/JL ``(tables [F, cap, R, W],)``.
+        family: ICWS/DMH ``(fp [F, cap, m], val [F, cap, m], norm [F,
+        cap], argkey [F, cap, m])``, CS/JL ``(tables [F, cap, R, W],)``,
+        TS/PS ``(keys [F, cap, S], values [F, cap, S], taus [F, cap])``.
 
         Unused rows are inert under the estimate launch; callers slice the
         estimates, never the corpus.  A growth replaces the buffers, so

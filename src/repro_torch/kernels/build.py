@@ -28,7 +28,8 @@ import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("icws_sketch.cu", "estimate_fields.cu", "countsketch_sparse.cu",
-           "jl_sketch.cu", "linear_estimate_fields.cu", "bindings.cu")
+           "jl_sketch.cu", "linear_estimate_fields.cu", "dmh_sketch.cu",
+           "sample_estimate_fields.cu", "bindings.cu")
 HEADERS = ("u32.cuh",)
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-O3", "-std=c++17", ARCH, "-fmad=false", "-prec-div=true",
@@ -143,6 +144,13 @@ def library() -> ctypes.CDLL:
                                                      ptr, i32, i32, i32, i32,
                                                      i32, ptr, ptr]
         lib.repro_linear_estimate_fields.restype = i32
+        lib.repro_dmh_sketch.argtypes = [ptr, ptr, ptr, i32, i32, i32, u32,
+                                         i32, ptr, ptr, ptr, ptr, ptr]
+        lib.repro_dmh_sketch.restype = i32
+        lib.repro_sample_estimate_fields.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
+            ptr, i32, i32, i32, i32, ptr, ptr]
+        lib.repro_sample_estimate_fields.restype = i32
         lib.repro_error_string.argtypes = [i32]
         lib.repro_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -10,14 +10,19 @@ low 32 bits come out exact.  The CUDA kernels carry the same functions
 in ``csrc/u32.cuh`` on native ``uint32_t``.
 
 The stream ids equal the JAX registry's ICWS draws
-(``repro/kernels/common.py:34-39``) and its CountSketch and JL draws
-(``:43-45``) one for one; the port keeps them as ``ICWS_STREAM_<draw>``,
-``CS_STREAM_<draw>`` and ``JL_STREAM_<draw>`` so its sources name no
-constant of that registry.
+(``repro/kernels/common.py:34-39``), its CountSketch and JL draws
+(``:43-45``), its sample hash (``:48``) and its DMH draws (``:56-63``) one
+for one; the port keeps them as ``<FAMILY>_STREAM_<draw>`` (``ICWS_``,
+``CS_``, ``JL_``, ``SAMPLE_``, ``DMH_``) so its sources name no constant of
+that registry.
 """
 from __future__ import annotations
 
 import torch
+
+# salt stream of the TS/PS coordinated sample hash (one draw per key; id
+# 41), defined beside the host samplers that draw it
+from repro_torch.core.sampling import SAMPLE_STREAM_HASH  # noqa: F401
 
 _MASK = 0xFFFFFFFF
 _M1 = 0x85EBCA6B
@@ -38,6 +43,17 @@ ICWS_STREAM_FP = 9
 CS_STREAM_BUCKET = 21
 CS_STREAM_SIGN = 22
 JL_STREAM_SIGN = 31
+# salt streams of DMH: the bin of each key, the ICWS-style variates drawn
+# at t = bin, the (key, level) fingerprint salt per bin, and the reseeded
+# densification probes
+DMH_STREAM_BIN = 51
+DMH_STREAM_R1 = 52
+DMH_STREAM_R2 = 53
+DMH_STREAM_C1 = 54
+DMH_STREAM_C2 = 55
+DMH_STREAM_BETA = 56
+DMH_STREAM_FP = 57
+DMH_STREAM_DENSIFY = 58
 
 # masked-lane hash value of the sketch argmin (a python float, also the
 # empty-row marker: amin >= BIG)
@@ -48,6 +64,13 @@ BIG = 3.0e38
 # the estimate guard ``fq >= 0`` keeps both out of every sum
 QUERY_PAD_FP = -1
 CORPUS_PAD_FP = -2
+
+
+def densify_probes(m: int) -> int:
+    """Probe budget of the DMH densification epilogue, a function of m
+    alone (``repro/kernels/common.py:65``): sketches of different vectors
+    must probe identically or borrowed bins stop colliding."""
+    return min(1024, 128 * -(-4 * int(m) // 128))
 
 
 def as_u32(x: torch.Tensor) -> torch.Tensor:

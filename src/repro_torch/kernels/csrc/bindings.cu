@@ -24,6 +24,15 @@ cudaError_t launch_linear_estimate_fields(const float* tq, const float* tc,
                                           const int* qmap, const int* cmap, int G,
                                           int Q, int P, int R, int W, float* out,
                                           cudaStream_t stream);
+cudaError_t launch_dmh_sketch(const float* w, const int* keys, const float* vals,
+                              int B, int N, int m, uint32_t seed, int J, int* fp,
+                              float* val, float* amin, int* argkey,
+                              cudaStream_t stream);
+cudaError_t launch_sample_estimate_fields(
+    const int* kq, const float* vq, const float* aq, const int* kc, const float* vc,
+    const float* ac, long long kc_fs, long long kc_rs, long long vc_fs,
+    long long vc_rs, long long ac_fs, long long ac_rs, const int* qmap,
+    const int* cmap, int G, int Q, int P, int S, float* out, cudaStream_t stream);
 }  // namespace repro
 
 extern "C" {
@@ -64,6 +73,24 @@ int repro_linear_estimate_fields(const float* tq, const float* tc, long long tc_
   return (int)repro::launch_linear_estimate_fields(tq, tc, tc_fs, tc_ps, qmap, cmap, G,
                                                    Q, P, R, W, out,
                                                    (cudaStream_t)stream);
+}
+
+int repro_dmh_sketch(const float* w, const int* keys, const float* vals, int B,
+                     int N, int m, uint32_t seed, int J, int* fp, float* val,
+                     float* amin, int* argkey, void* stream) {
+  return (int)repro::launch_dmh_sketch(w, keys, vals, B, N, m, seed, J, fp, val,
+                                       amin, argkey, (cudaStream_t)stream);
+}
+
+int repro_sample_estimate_fields(const int* kq, const float* vq, const float* aq,
+                                 const int* kc, const float* vc, const float* ac,
+                                 long long kc_fs, long long kc_rs, long long vc_fs,
+                                 long long vc_rs, long long ac_fs, long long ac_rs,
+                                 const int* qmap, const int* cmap, int G, int Q,
+                                 int P, int S, float* out, void* stream) {
+  return (int)repro::launch_sample_estimate_fields(
+      kq, vq, aq, kc, vc, ac, kc_fs, kc_rs, vc_fs, vc_rs, ac_fs, ac_rs, qmap, cmap,
+      G, Q, P, S, out, (cudaStream_t)stream);
 }
 
 const char* repro_error_string(int err) {

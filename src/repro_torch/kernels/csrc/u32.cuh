@@ -18,6 +18,17 @@ constexpr uint32_t ICWS_STREAM_FP = 9u;
 constexpr uint32_t CS_STREAM_BUCKET = 21u;
 constexpr uint32_t CS_STREAM_SIGN = 22u;
 constexpr uint32_t JL_STREAM_SIGN = 31u;
+// salt stream of the TS/PS sample hash (host-built rows; listed for the map)
+constexpr uint32_t SAMPLE_STREAM_HASH = 41u;
+// salt streams of DMH (same ids as kernels/common.py)
+constexpr uint32_t DMH_STREAM_BIN = 51u;
+constexpr uint32_t DMH_STREAM_R1 = 52u;
+constexpr uint32_t DMH_STREAM_R2 = 53u;
+constexpr uint32_t DMH_STREAM_C1 = 54u;
+constexpr uint32_t DMH_STREAM_C2 = 55u;
+constexpr uint32_t DMH_STREAM_BETA = 56u;
+constexpr uint32_t DMH_STREAM_FP = 57u;
+constexpr uint32_t DMH_STREAM_DENSIFY = 58u;
 
 // masked-lane hash value; a row whose minimum is >= BIG is empty
 constexpr float BIG = 3.0e38f;

@@ -7,7 +7,8 @@ launch is refused.  There is no fallback from the kernel to the plain
 version.  Launch counts live on the kernel wrappers
 (``icws_sketch_cuda.launches``, ``estimate_fields_cuda.launches``,
 ``countsketch_sparse_cuda.launches``, ``jl_sketch_cuda.launches``,
-``linear_estimate_fields_cuda.launches``).
+``linear_estimate_fields_cuda.launches``, ``dmh_sketch_cuda.launches``,
+``sample_estimate_fields_cuda.launches``).
 """
 from __future__ import annotations
 
@@ -16,11 +17,15 @@ from typing import Sequence
 import torch
 
 from .countsketch import countsketch_sparse_cuda, countsketch_sparse_plain
+from .dmh_sketch import dmh_sketch_cuda, dmh_sketch_plain
 from .estimate import (estimate_fields_cuda, estimate_fields_plain,
                        linear_estimate_fields_cuda,
                        linear_estimate_fields_plain)
 from .icws_sketch import icws_sketch_cuda, icws_sketch_plain
 from .jl_sketch import jl_sketch_cuda, jl_sketch_plain
+from .sample_estimate import (sample_estimate_fields_cuda,
+                              sample_estimate_fields_plain,
+                              sample_inclusion_probs)
 
 
 def _route(x: torch.Tensor, plain, kernel):
@@ -35,6 +40,13 @@ def icws_sketch(w, keys, vals, *, m: int, seed: int = 0):
     """ICWS sketch of a padded sparse batch.
     [B, N] -> (fp, val, amin, argkey) [B, m]."""
     fn = _route(w, icws_sketch_plain, icws_sketch_cuda)
+    return fn(w, keys, vals, m=m, seed=seed)
+
+
+def dmh_sketch(w, keys, vals, *, m: int, seed: int = 0):
+    """DMH sketch of a padded (replicated) sparse batch, in the ICWS wire
+    layout.  [B, N] -> (fp, val, amin, argkey) [B, m]."""
+    fn = _route(w, dmh_sketch_plain, dmh_sketch_cuda)
     return fn(w, keys, vals, m=m, seed=seed)
 
 
@@ -98,3 +110,20 @@ def linear_estimate_fields(tq, tc, *, qmap: Sequence[int],
     """
     fn = _route(tq, linear_estimate_fields_plain, linear_estimate_fields_cuda)
     return _median_reps(fn(tq, tc, qmap=qmap, cmap=cmap))
+
+
+def sample_estimate_fields(kq, vq, tq, kc, vc, tc, *, qmap: Sequence[int],
+                           cmap: Sequence[int]):
+    """Fused multi-field sampling-sketch (TS/PS) estimates, ONE kernel launch.
+
+    Args: kq/vq [F, Q, S] per-field query sample keys/values, tq [F, Q]
+    probability scales; kc/vc [C, P, S] / tc [C, P] the corpus samples.
+    Returns [G, Q, P] f32 inverse-inclusion-probability estimates.  The
+    prologue reconstructs both sides' probabilities ``min(1, S v^2 / tau)``
+    elementwise (the stored layout stays (key, val, tau)); the key-match
+    launch follows.
+    """
+    aq = sample_inclusion_probs(vq, tq)
+    ac = sample_inclusion_probs(vc, tc)
+    fn = _route(kq, sample_estimate_fields_plain, sample_estimate_fields_cuda)
+    return fn(kq, vq, aq, kc, vc, ac, qmap=qmap, cmap=cmap)

@@ -1,0 +1,186 @@
+"""Key-match estimation for the sampling families (TS/PS): the inclusion
+probability prologue, a CUDA kernel and its plain twin.
+
+Replaces the TPU kernel
+``repro/kernels/sample_estimate.py::_sample_fields_kernel`` (launcher
+``sample_estimate_fields_pallas``).  Contract::
+
+    kq/vq/aq [F, Q, S], kc/vc/ac [C, P, S], static qmap/cmap -> [G, Q, P] f32
+
+    est[g, q, p] = sum_{t, u} 1[kq == kc and kq >= 0 and min(aq, ac) > 0]
+                   * vq * vc / min(aq, ac)
+
+for each field pair ``g = (qmap[g], cmap[g])``, with ``a`` the inclusion
+probability of a slot (:func:`sample_inclusion_probs`).  Slots are not
+aligned: query slot t and corpus slot u hold the same coordinate iff their
+keys are equal, wherever they sit.
+
+**Row layout contract** (``repro_torch.core.sampling``,
+``data/ingest.pad_sample_batch``): the live keys (``>= 0``, 31-bit) of a
+row are unique and strictly ascending in its leading slots, and every slot
+after that prefix holds a negative key (query pad -1, corpus pad and spare
+rows -2).  The CUDA kernel relies on it: per (g, q, p) it walks the query's
+live slots in ascending t and advances a pointer through the corpus row's
+prefix (a two-pointer merge), O(S) work per pair instead of the TPU
+kernel's O(S^2) key-equality cross.  :func:`sorted_prefix_ok` checks the
+contract.
+
+Port contract: each (g, q, p) sum adds one f32 term per query slot t in
+ascending t, a separate multiply and an IEEE divide (``vq * vc / p``).  The
+plain version evaluates the full cross (no contract needed), sums each t's
+row over u, then adds over t in order: with unique keys each t has at most
+one non-zero term and adding +0 changes no bit, so the kernel and the plain
+version agree bit for bit on the card, and the plain version stays an
+independent check of the sorted shortcut.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Sequence
+
+import torch
+
+from . import build
+from .common import CORPUS_PAD_FP, QUERY_PAD_FP
+from .estimate import MAX_PAIRS, _check_maps
+
+# sampling rows share the estimate kernels' pad sentinels
+SAMPLE_QUERY_PAD_KEY = QUERY_PAD_FP
+SAMPLE_CORPUS_PAD_KEY = CORPUS_PAD_FP
+
+# slots one block can stage: 32 corpus rows of S + 1 keys in 227 KB of
+# shared memory (``kSampleRows`` in csrc/sample_estimate_fields.cu)
+MAX_SLOTS = 1_815
+# corpus rows per plain-version chunk: one [Q, rows, S] cross at a time
+_PLAIN_ROWS = 1 << 10
+
+
+def sample_inclusion_probs(vals: torch.Tensor, tau: torch.Tensor
+                           ) -> torch.Tensor:
+    """Per-slot inclusion probabilities from the stored row layout.
+
+    ``vals [..., S]`` f32 sampled values (0 marks an empty slot), ``tau
+    [...]`` f32 probability scales -> ``[..., S]`` f32 ``min(1, (S * v) * v
+    / tau)``, probability 1 where ``tau <= 0`` and 0 on empty slots.  The
+    operations and their order are ``jnp``'s in
+    ``repro.kernels.sample_estimate.sample_inclusion_probs``, with ``S`` the
+    true slot count of the row, so the two agree bit for bit.
+    """
+    S = vals.shape[-1]
+    v = vals.to(torch.float32)
+    t = tau.to(torch.float32)[..., None]
+    num = float(S) * v * v
+    pos = t > 0
+    p = torch.where(pos, torch.clamp_max(num / torch.where(pos, t, 1.0), 1.0),
+                    1.0)
+    return torch.where(v != 0, p, 0.0)
+
+
+def sorted_prefix_ok(keys: torch.Tensor) -> bool:
+    """Whether every row of ``keys [..., S]`` satisfies the layout contract:
+    live keys (``>= 0``) strictly ascending in a leading prefix, negative
+    keys after it."""
+    live = keys >= 0
+    if keys.shape[-1] < 2:
+        return True
+    no_gap = ~(live[..., 1:] & ~live[..., :-1]).any()
+    ascending = ~(live[..., 1:] & (keys[..., 1:] <= keys[..., :-1])).any()
+    return bool(no_gap & ascending)
+
+
+def _check_inputs(kq, vq, aq, kc, vc, ac, qmap, cmap):
+    if kq.dim() != 3 or kc.dim() != 3 or vq.shape != kq.shape \
+            or aq.shape != kq.shape or vc.shape != kc.shape \
+            or ac.shape != kc.shape or kq.shape[2] != kc.shape[2]:
+        raise ValueError(f"expected kq/vq/aq [F, Q, S] and kc/vc/ac [C, P, S]; "
+                         f"got {tuple(kq.shape)}, {tuple(vq.shape)}, "
+                         f"{tuple(aq.shape)}, {tuple(kc.shape)}, "
+                         f"{tuple(vc.shape)}, {tuple(ac.shape)}")
+    if (kq.dtype, kc.dtype) != (torch.int32, torch.int32) or any(
+            x.dtype != torch.float32 for x in (vq, aq, vc, ac)):
+        raise TypeError("sample estimate takes int32 keys and f32 values and "
+                        "probabilities")
+    if len({x.device for x in (kq, vq, aq, kc, vc, ac)}) != 1:
+        raise ValueError("query and corpus planes must lie on one device")
+    return _check_maps(qmap, cmap, kq.shape[0], kc.shape[0])
+
+
+def sample_estimate_fields_plain(kq: torch.Tensor, vq: torch.Tensor,
+                                 aq: torch.Tensor, kc: torch.Tensor,
+                                 vc: torch.Tensor, ac: torch.Tensor, *,
+                                 qmap: Sequence[int], cmap: Sequence[int]
+                                 ) -> torch.Tensor:
+    """Eager-PyTorch key-match estimates: for each field pair and chunk of
+    corpus rows, a loop over query slots t evaluates the ``[Q, rows, S]``
+    key-equality cross of slot t against every corpus slot, sums it over
+    the corpus slots and adds it to the running ``[Q, rows]`` sum."""
+    qmap, cmap = _check_inputs(kq, vq, aq, kc, vc, ac, qmap, cmap)
+    G, Q, P, S = len(qmap), kq.shape[1], kc.shape[1], kq.shape[2]
+    dev = kq.device
+    out = torch.empty((G, Q, P), dtype=torch.float32, device=dev)
+    for g, (qf, cf) in enumerate(zip(qmap, cmap)):
+        for lo in range(0, P, _PLAIN_ROWS):
+            hi = min(P, lo + _PLAIN_ROWS)
+            kcc = kc[cf, lo:hi][None]                      # [1, rows, S]
+            vcc = vc[cf, lo:hi][None]
+            acc_ = ac[cf, lo:hi][None]
+            acc = torch.zeros((Q, hi - lo), dtype=torch.float32, device=dev)
+            for t in range(S):
+                k = kq[qf, :, t, None, None]                # [Q, 1, 1]
+                p = torch.minimum(aq[qf, :, t, None, None], acc_)
+                live = (k == kcc) & (k >= 0) & (p > 0)      # [Q, rows, S]
+                term = torch.where(
+                    live, vq[qf, :, t, None, None] * vcc
+                    / torch.where(live, p, 1.0), 0.0)
+                acc = acc + term.sum(2)
+            out[g, :, lo:hi] = acc
+    return out
+
+
+def sample_estimate_fields_cuda(kq: torch.Tensor, vq: torch.Tensor,
+                                aq: torch.Tensor, kc: torch.Tensor,
+                                vc: torch.Tensor, ac: torch.Tensor, *,
+                                qmap: Sequence[int], cmap: Sequence[int]
+                                ) -> torch.Tensor:
+    """Launch the CUDA key-match kernel on PyTorch's current stream.
+
+    Rows must satisfy the layout contract of the module docstring (what
+    ``pad_sample_batch`` builds); the kernel does not check it.  Takes CUDA
+    tensors only; the query planes are made contiguous (they are small),
+    the corpus planes are read in place through their field and row
+    strides (a tenant slice of the store's ``[3, cap, S]`` buffers is
+    passed as is).  Adds one to ``sample_estimate_fields_cuda.launches``
+    per launch.
+    """
+    qmap, cmap = _check_inputs(kq, vq, aq, kc, vc, ac, qmap, cmap)
+    if kq.device.type != "cuda":
+        raise ValueError(f"sample_estimate_fields_cuda takes CUDA tensors; "
+                         f"got {kq.device}")
+    if len(qmap) > MAX_PAIRS:
+        raise ValueError(f"at most {MAX_PAIRS} field pairs per launch")
+    G, Q, P, S = len(qmap), kq.shape[1], kc.shape[1], kq.shape[2]
+    if S > MAX_SLOTS:
+        raise ValueError(f"sample_estimate_fields_cuda stages at most "
+                         f"{MAX_SLOTS} slots per row; got {S}")
+    if any(x.stride(2) != 1 for x in (kc, vc, ac)):
+        raise ValueError("corpus planes need a contiguous last dimension")
+    kq, vq, aq = kq.contiguous(), vq.contiguous(), aq.contiguous()
+    out = torch.empty((G, Q, P), dtype=torch.float32, device=kq.device)
+    if Q == 0 or P == 0 or S == 0:
+        return out.zero_()
+    lib = build.library()
+    qarr = (ctypes.c_int * G)(*qmap)
+    carr = (ctypes.c_int * G)(*cmap)
+    with torch.cuda.device(kq.device):
+        stream = torch.cuda.current_stream(kq.device).cuda_stream
+        err = lib.repro_sample_estimate_fields(
+            kq.data_ptr(), vq.data_ptr(), aq.data_ptr(), kc.data_ptr(),
+            vc.data_ptr(), ac.data_ptr(), kc.stride(0), kc.stride(1),
+            vc.stride(0), vc.stride(1), ac.stride(0), ac.stride(1), qarr,
+            carr, G, Q, P, S, out.data_ptr(), stream)
+    build.check(err, "sample_estimate_fields")
+    sample_estimate_fields_cuda.launches += 1
+    return out
+
+
+sample_estimate_fields_cuda.launches = 0

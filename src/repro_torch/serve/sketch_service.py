@@ -3,10 +3,11 @@
 
 Wraps :class:`repro_torch.data.DatasetSearchIndex` in the shape a query
 service needs: named-table ingestion, ``search`` / ``search_batch``
-endpoints and request accounting.  Every query, single or batched, is one
-``[3Q, N]`` sketch launch of the index's family (ICWS, CountSketch or JL)
-plus one fused multi-field estimate launch off the index's store buffers; ``search_batch`` amortizes both across a
-micro-batch.  The JAX service's observability spans, counters and
+endpoints and request accounting.  Every query, single or batched, builds
+its ``3Q`` field rows with the index's family (one sketch launch for ICWS,
+DMH, CountSketch and JL; host-built sample rows for TS and PS) plus one
+fused multi-field estimate launch off the index's store buffers;
+``search_batch`` amortizes both across a micro-batch.  The JAX service's observability spans, counters and
 estimator audit (``audit_every``) are not ported yet (``ROADMAP.md``
 Queue A 15).
 """
@@ -108,7 +109,8 @@ class SketchSearchService:
 
     Runs on the card (``device="cuda"``, the default) unless the caller
     passes ``device="cpu"``.  Ported: ``family`` in ``("icws", "cs",
-    "jl")``, each sized to the storage of an ``m``-sample ICWS sketch, with
+    "jl", "ts", "ps", "dmh")`` (``FAMILY_NAMES``), each sized to the
+    storage of an ``m``-sample ICWS sketch, with
     ``backend="device"``, ``packed=False`` and ``mesh=None``; other values
     raise ``NotImplementedError`` naming their ROADMAP.md item.
     """

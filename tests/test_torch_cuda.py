@@ -5,13 +5,21 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.dmh import dmh_replication, replicate_keys
 from repro_torch.core.types import SparseVec
-from repro_torch.data.ingest import pad_linear_batch, pad_sparse_batch
+from repro_torch.data.ingest import (pad_linear_batch, pad_sample_batch,
+                                     pad_sparse_batch)
 from repro_torch.kernels import countsketch as port_cs
+from repro_torch.kernels import dmh_sketch as port_dmh
 from repro_torch.kernels import estimate as port_est
 from repro_torch.kernels import icws_sketch as port_sketch
 from repro_torch.kernels import jl_sketch as port_jl
 from repro_torch.kernels import ops
+from repro_torch.kernels import sample_estimate as port_se
+
+# small shapes: one intra-op thread per test process, so that parallel
+# test workers do not oversubscribe the cores
+torch.set_num_threads(1)
 
 QMAP = (0, 1, 0, 2, 0, 1)
 CMAP = (0, 0, 1, 0, 2, 1)
@@ -152,7 +160,68 @@ def test_linear_fields_kernel_matches_plain_version_bitwise(cuda, R, W):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["icws", "cs", "jl"])
+@pytest.mark.parametrize("m", [128, 200, 512])
+def test_dmh_kernel_matches_plain_version_bitwise(cuda, m):
+    """The packed (a, lane) atomicMin and the plain version's two
+    scatter-mins pick the same winner: every plane equal, also for one row
+    alone; the empty row gives the sentinels."""
+    w, keys, vals, _ = pad_sparse_batch(_vectors(7))
+    c = dmh_replication(m)
+    keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
+    args = [torch.from_numpy(a).to(cuda) for a in (
+        np.tile(w, (1, c)), keys, np.tile(vals, (1, c)))]
+    before = port_dmh.dmh_sketch_cuda.launches
+    got = ops.dmh_sketch(*args, m=m, seed=3)
+    torch.cuda.synchronize()
+    assert port_dmh.dmh_sketch_cuda.launches == before + 1
+    want = port_dmh.dmh_sketch_plain(*args, m=m, seed=3)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    assert torch.all(got[0][-1] == -1) and torch.all(got[0][:-1] >= 0)
+    one = ops.dmh_sketch(*(a[2:3] for a in args), m=m, seed=3)
+    for x, y in zip(one, got):
+        assert torch.equal(x[0], y[2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, slots", [("ts", 96), ("ps", 768)])
+def test_sample_kernel_matches_plain_version_bitwise(cuda, method, slots):
+    """The sorted merge and the plain version's full cross add the same
+    terms in the same t order: bit for bit, also on a strided slice of
+    the corpus planes and at Q = 1."""
+    vecs = _vectors(8, count=40)
+    rng = np.random.default_rng(9)
+    keys, vals, taus = pad_sample_batch(vecs, slots=slots, method=method,
+                                        seed=2)
+    keys, vals, taus = (torch.from_numpy(a).to(cuda) for a in
+                        (keys, vals, taus))
+    assert port_se.sorted_prefix_ok(keys)
+    q = (keys[:12].reshape(3, 4, slots), vals[:12].reshape(3, 4, slots),
+         taus[:12].reshape(3, 4))
+    pick = torch.from_numpy(rng.integers(0, 41, size=(3, 300))).to(cuda)
+    c = [keys[pick].clone(), vals[pick].clone(), taus[pick].clone()]
+    c[0][:, -5:], c[1][:, -5:], c[2][:, -5:] = -2, 0.0, 0.0
+    aq = port_se.sample_inclusion_probs(q[1], q[2])
+    ac = port_se.sample_inclusion_probs(c[1], c[2])
+    sl = slice(7, 290)
+    before = port_se.sample_estimate_fields_cuda.launches
+    got = ops.sample_estimate_fields(*q, *(x[:, sl] for x in c), qmap=QMAP,
+                                     cmap=CMAP)
+    torch.cuda.synchronize()
+    assert port_se.sample_estimate_fields_cuda.launches == before + 1
+    want = port_se.sample_estimate_fields_plain(
+        q[0], q[1], aq, c[0][:, sl], c[1][:, sl], ac[:, sl], qmap=QMAP,
+        cmap=CMAP)
+    assert torch.count_nonzero(got).item() > 0
+    assert torch.equal(got, want)
+    one = port_se.sample_estimate_fields_cuda(
+        q[0][:, 1:2], q[1][:, 1:2], aq[:, 1:2], c[0][:, sl], c[1][:, sl],
+        ac[:, sl], qmap=QMAP, cmap=CMAP)
+    assert torch.equal(one[:, 0], got[:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["icws", "cs", "jl", "ts", "ps", "dmh"])
 def test_service_on_the_card_matches_the_cpu_service(cuda, family):
     rng = np.random.default_rng(3)
     from repro_torch import SketchSearchService

@@ -13,6 +13,10 @@ from repro.kernels.estimate import estimate_fields_pallas
 from repro_torch.kernels import estimate as port_est
 from repro_torch.kernels import ops
 
+# small shapes: one intra-op thread per test process, so that parallel
+# test workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 QMAP = (0, 1, 0, 2, 0, 1)
 CMAP = (0, 0, 1, 0, 2, 1)
 M = 128

@@ -15,6 +15,10 @@ from repro_torch.data.ingest import pad_sparse_batch
 from repro_torch.kernels import icws_sketch as port_sketch
 from repro_torch.kernels import ops
 
+# small shapes: one intra-op thread per test process, so that parallel
+# test workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 M = 128
 
 

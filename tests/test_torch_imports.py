@@ -9,6 +9,10 @@ import sys
 import pytest
 import torch
 
+# small shapes: one intra-op thread per test process, so that parallel
+# test workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 _PROBE = """

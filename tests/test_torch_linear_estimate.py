@@ -20,6 +20,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.estimate import (linear_estimate_fields_cuda,
                                           linear_estimate_fields_plain)
 
+# small shapes: one intra-op thread per test process, so that parallel
+# test workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 QMAP = (0, 1, 0, 2, 0, 1)
 CMAP = (0, 0, 1, 0, 2, 1)
 

@@ -23,6 +23,10 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.countsketch import countsketch_sparse_plain
 from repro_torch.kernels.jl_sketch import jl_sketch_plain
 
+# small shapes: one intra-op thread per test process, so that parallel
+# test workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 
 def _batch(seed, B=5, N=300, pad_from=240):
     """Keys over the whole int32 range (negative ones included), normal

@@ -17,6 +17,10 @@ from repro_torch import DatasetSearchIndex, SketchSearchService
 from repro_torch.convert import index_from_numpy
 from repro_torch.data import dataset_search as port_ds
 
+# small shapes: one intra-op thread per test process, so that parallel
+# test workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
 M = 64
 DOMAIN = 3000
 
@@ -186,6 +190,28 @@ def test_corr_scores_match_jax():
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+def test_corr_scores_round_variances_as_jax():
+    """The variances round as XLA's fused multiply-subtract, bit for bit,
+    so a table whose variance cancels exactly (``join * sum_b2`` equal to
+    ``sum_b * sum_b`` up to rounding) scores as in the JAX package: its
+    score follows the sign of the residue, 0 or 1, never a mix."""
+    from repro.data.dataset_search import _corr_scores as jax_scores
+    rng = np.random.default_rng(3)
+    a, b, c, d = (rng.normal(size=20_000).astype(np.float32)
+                  for _ in range(4))
+    fused = jax.jit(lambda a, b, c, d: a * b - c * d)
+    for args in ((a, b, c, d), (a, b, a, b), (a, b, c, c)):
+        got = port_ds._mul_sub(*map(torch.from_numpy, args)).numpy()
+        np.testing.assert_array_equal(got, np.asarray(fused(*args)))
+    est = rng.normal(size=(6, 4, 30)).astype(np.float32)
+    est[0] = np.abs(est[0]) * 5 + 1
+    est[4] = (est[2].astype(np.float64) ** 2 / est[0]).astype(np.float32)
+    got = port_ds._corr_scores(*torch.from_numpy(est), 1.0).numpy()
+    want = np.asarray(jax_scores(*jnp.asarray(est), jnp.float32(1.0)))
+    assert 0 < (want == 1.0).sum() < want.size
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
 def test_service_batch_equals_search_loop_and_accounts(lake):
     tables, queries, _ = lake
     svc = SketchSearchService(m=M, seed=5, device="cpu")
@@ -207,8 +233,8 @@ def test_service_batch_equals_search_loop_and_accounts(lake):
     ({"backend": "host"}, "Queue A 19"),
     ({"keep_host_oracle": True}, "Queue A 19"),
     ({"family": "cs", "packed": True}, "Queue A 12"),
-    ({"family": "dmh"}, "Queue A 9"),
-    ({"family": "ts"}, "Queue A 11"),
+    ({"family": "dmh", "packed": True}, "Queue A 12"),
+    ({"family": "ts", "mesh": object()}, "Queue A 14"),
     ({"packed": True}, "Queue A 12"),
     ({"mesh": object()}, "Queue A 14"),
     ({"audit_every": 4}, "Queue A 15"),

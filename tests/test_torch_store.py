@@ -6,9 +6,14 @@ import pytest
 import torch
 
 from repro.data.families import CSFamily as JaxCSFamily
+from repro.data.families import make_family as jax_make_family
 from repro.data.store import CorpusStore as JaxCorpusStore
-from repro_torch.data.families import CSFamily, JLFamily
+from repro_torch.data.families import CSFamily, JLFamily, make_family
 from repro_torch.data.store import CorpusStore
+
+# small shapes: one intra-op thread per test process, so that parallel
+# test workers do not oversubscribe the cores
+torch.set_num_threads(1)
 
 M = 16
 
@@ -113,3 +118,37 @@ def test_linear_family_store_grows_with_inert_zero_tables():
     assert port.storage_doubles() == ref.storage_doubles() == 11 * 3 * 35
     jl = CorpusStore(family=JLFamily(m=9), fields=3, device="cpu")
     assert jl.m == 9 and jl.bytes_per_row() == 36
+
+
+@pytest.mark.parametrize("family", ["ts", "ps"])
+def test_sampling_family_store_grows_with_inert_rows(family):
+    """TS/PS rows count ``slots``, not ``m``: the store takes m as None,
+    holds keys/values ``[F, cap, S]`` and taus ``[F, cap]``, grows with
+    pad keys -2, zero values and zero taus, and equals the JAX store after
+    the same appends.  At the serving budget a row is 8 S + 4 = 6,148 B,
+    as an m = 512 DMH (ICWS) row is 12 m + 4."""
+    rng = np.random.default_rng(6)
+    port = CorpusStore(family=make_family(family, storage=13.0), fields=3,
+                       min_capacity=4, device="cpu")
+    ref = JaxCorpusStore(family=jax_make_family(family, storage=13.0),
+                         fields=3, min_capacity=4)
+    assert port.m is None and port.bytes_per_row() == 8 * 12 + 4
+    for b in (3, 2, 6):
+        keys = np.sort(rng.integers(0, 99, (3, b, 12)), axis=2).astype(np.int32)
+        rows = (keys, rng.normal(size=(3, b, 12)).astype(np.float32),
+                rng.random((3, b)).astype(np.float32))
+        port.append(*rows)
+        ref.append(*rows)
+        assert port.capacity == ref.capacity
+        for got, want in zip(port.buffers(), ref.buffers()):
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    keys, vals, taus = port.buffers()
+    assert keys.shape == (3, 16, 12) and taus.shape == (3, 16)
+    assert torch.all(keys[:, 11:] == -2) and torch.all(vals[:, 11:] == 0)
+    assert torch.all(taus[:, 11:] == 0)
+    assert port.storage_doubles() == ref.storage_doubles() == 11 * 3 * 13
+    serving = {f: CorpusStore(family=make_family(f, storage=769.0),
+                              device="cpu") for f in (family, "dmh")}
+    assert serving[family].bytes_per_row() == 6_148
+    assert serving["dmh"].bytes_per_row() == 6_148
+    assert serving["dmh"].m == 512

@@ -1,5 +1,9 @@
 """The port's u32 RNG is bit-exact against the JAX package's device mixer
-(``repro.kernels.common``) and its numpy host twin (``repro.core.u32``)."""
+(``repro.kernels.common``) and its numpy host twin (``repro.core.u32``);
+so is the port's own numpy copy (``repro_torch.core.u32``), which the
+host samplers and the DMH replica salts use."""
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -7,7 +11,13 @@ import torch
 
 from repro.core import u32 as host_u32
 from repro.kernels import common as jax_common
+from repro_torch.core import dmh as port_dmh
+from repro_torch.core import u32 as port_host_u32
 from repro_torch.kernels import common
+
+# small shapes: one intra-op thread per test process, so that parallel
+# test workers do not oversubscribe the cores
+torch.set_num_threads(1)
 
 EDGE = np.array([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1, 0x9E3779B9,
                  0xFFFF, 0x10000], np.uint64)
@@ -77,14 +87,14 @@ def common_streams():
     out = {}
     for name, value in vars(common).items():
         family, sep, draw = name.partition("_STREAM_")
-        if sep and family in ("ICWS", "CS", "JL"):
+        if sep and family in ("ICWS", "CS", "JL", "SAMPLE", "DMH"):
             out[f"{family}_{draw}_STREAM"] = value
     return out
 
 
 def test_stream_ids_and_sentinels_mirror_the_jax_registry():
     ported = common_streams()
-    assert len(ported) == 9
+    assert len(ported) == 18
     registry = jax_common.streams()
     for name, value in ported.items():
         assert registry[name] == value, name
@@ -106,3 +116,48 @@ def test_linear_stream_ids_equal_the_registry_by_value():
         assert getattr(common, port_name) == registry[draw + "_STREAM"]
     assert (common.CS_STREAM_BUCKET, common.CS_STREAM_SIGN,
             common.JL_STREAM_SIGN) == (21, 22, 31)
+
+
+def test_dmh_and_sample_stream_ids_equal_the_registry_by_value():
+    """The DMH draws keep the registry's ids 51-58 and the sample hash 41,
+    in the kernels' map, the CUDA header and the host sampler alike."""
+    registry = jax_common.streams()
+    draws = ("BIN", "R1", "R2", "C1", "C2", "BETA", "FP", "DENSIFY")
+    for i, draw in enumerate(draws):
+        assert getattr(common, f"DMH_STREAM_{draw}") == \
+            registry[f"DMH_{draw}_STREAM"] == 51 + i
+    from repro.core import sampling as jax_sampling
+    from repro_torch.core import sampling as port_sampling
+    assert common.SAMPLE_STREAM_HASH == port_sampling.SAMPLE_STREAM_HASH \
+        == registry["SAMPLE_HASH" + "_STREAM"] == 41
+    assert port_sampling.SAMPLE_KEY_MASK == jax_sampling.SAMPLE_KEY_MASK
+    header = (pathlib.Path(common.__file__).parent / "csrc" / "u32.cuh"
+              ).read_text()
+    for name, value in common_streams().items():
+        family, draw = name[:-len("_STREAM")].split("_", 1)
+        assert f"{family}_STREAM_{draw} = {value}u;" in header, name
+
+
+@pytest.mark.parametrize("m", [1, 31, 64, 128, 200, 512, 4096])
+def test_densify_probes_and_replication_match_jax(m):
+    from repro.core import dmh as jax_dmh
+    assert common.densify_probes(m) == jax_common.densify_probes(m)
+    assert port_dmh.dmh_replication(m) == jax_dmh.dmh_replication(m)
+    c = port_dmh.dmh_replication(m)
+    k = _keys()[:100].reshape(4, 25)
+    np.testing.assert_array_equal(port_dmh.replicate_keys(k, c),
+                                  jax_dmh.replicate_keys(k, c))
+
+
+@pytest.mark.parametrize("seed", [0, 2 ** 32 - 1])
+def test_port_numpy_mixers_match_the_jax_host_twins(seed):
+    k = _keys()
+    t = np.arange(k.size, dtype=np.uint32) % 700
+    salt = port_host_u32.salt_for(seed, 41, t)
+    np.testing.assert_array_equal(salt, host_u32.salt_for(seed, 41, t))
+    np.testing.assert_array_equal(port_host_u32.mix32(k), host_u32.mix32(k))
+    np.testing.assert_array_equal(port_host_u32.hash_u32(k, salt),
+                                  host_u32.hash_u32(k, salt))
+    u = port_host_u32.uniform01(k, salt)
+    assert u.dtype == np.float32
+    np.testing.assert_array_equal(u, host_u32.uniform01(k, salt))

@@ -3,9 +3,10 @@ of table ingest and of query micro-batches through ``repro_torch``.
 
     python3 tools/profile_port.py
 
-Builds the 16,384-table lake ``chip_smoke.py`` builds and, for each ported
-family (icws, cs, jl, as ``chip_smoke.py`` serves them), ingests it through
-``SketchSearchService.ingest``; the last 2,000 tables are traced.  The 64
+Builds the 16,384-table lake ``chip_smoke.py`` builds and, for each of the
+six families (icws, cs, jl, dmh, ts, ps, as ``chip_smoke.py`` serves them),
+ingests it through ``SketchSearchService.ingest``; the last 2,000 tables
+are traced.  The 64
 queries of ``chip_smoke.py`` then run ``search_batch`` in micro-batches of
 16 against the whole lake, traced.  The service's own
 methods run, each step of ingest and query under a profiler label of its
