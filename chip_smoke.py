@@ -4,24 +4,32 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
 each against its plain PyTorch version on the card at the serving path's
-shapes, then drives the §1.3 dataset-search service
+shapes (the packed-corpus kernels also against their unpacked twins on the
+decoded corpus), then drives the §1.3 dataset-search service
 (``repro_torch.SketchSearchService``, m = 512) with each of the six
 families -- ICWS, CountSketch, JL, DMH, threshold and priority sampling,
-storage-matched -- over one synthetic lake of 16,384 tables and checks its
+storage-matched -- over one synthetic lake of 16,384 tables, family by
+family: the unpacked store, then ``packed=True``, then both answering the
+same queries in alternating turns for their latency, and checks the
 answers; it prints each family's planted-partner recall side by side (the
-paper's head-to-head).  Imports nothing of JAX and nothing of the JAX
-package.  Exits non-zero on any failure, and at once when no card is
-present.  Each phase prints its wall time.  The line before the last is a
-JSON object with each kernel's launches on the serving runs, its error
-against the plain version, its time, the plain version's time, its bound
-and the time of one PyTorch call that computes the same function (where
-there is one); the last line is the run's device.
+paper's head-to-head).  The pack epilogue of the ICWS and DMH sketches
+(B10) is on no serving path; its own path, ``ops.*_sketch(pack_vals=
+True)``, is driven and counted apart.  Imports nothing of JAX and nothing
+of the JAX package.  Exits non-zero on any failure, and at once when no
+card is present.  Each phase prints its wall time.  The line before the
+last is a JSON object with each kernel's launches on the serving runs
+(B10 also on its own path), its error against the plain version, its
+time, the plain version's time, its bound and the time of one PyTorch
+call that computes the same function (where there is one); the last line
+is the run's device.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
+import statistics
 import subprocess
 import sys
 import time
@@ -81,6 +89,24 @@ PATH_KERNELS = {"icws": ("icws_sketch", "estimate_fields"),
                 "dmh": ("dmh_sketch", "estimate_fields"),
                 "ts": ("sample_estimate_fields",),
                 "ps": ("sample_estimate_fields",)}
+# the packed service's: the same sketch kernel (ICWS ingests the lake; the
+# others fill their store from the unpacked run's rows, so it sketches
+# only queries) and the packed estimate kernel.  The store packs with
+# pack_rows, as the JAX store does, so the pack epilogue (B10) is on no
+# serving path: its own path is the ops entry point
+PACKED_PATH_KERNELS = {
+    "icws": ("icws_sketch", "estimate_fields_packed"),
+    "cs": ("countsketch_sparse", "linear_estimate_fields_packed"),
+    "jl": ("jl_sketch", "linear_estimate_fields_packed"),
+    "dmh": ("dmh_sketch", "estimate_fields_packed"),
+    "ts": ("sample_estimate_fields_packed",),
+    "ps": ("sample_estimate_fields_packed",)}
+# B10's path: tables that ops.icws_sketch / ops.dmh_sketch(pack_vals=True)
+# sketch and pack, 16 per launch, appended by CorpusStore.append_packed
+B10_TABLES = 2_048
+B10_PATH_KERNEL = {"icws": "icws_sketch_packed", "dmh": "dmh_sketch_packed"}
+# rounds of the latency comparison, unpacked (A) and packed (B) in turn
+LATENCY_ORDER = "ABBAABBA"
 
 
 def log(msg: str) -> None:
@@ -114,7 +140,14 @@ def launch_counters():
             "linear_estimate_fields": estimate.linear_estimate_fields_cuda,
             "dmh_sketch": dmh_sketch.dmh_sketch_cuda,
             "sample_estimate_fields":
-                sample_estimate.sample_estimate_fields_cuda}
+                sample_estimate.sample_estimate_fields_cuda,
+            "icws_sketch_packed": icws_sketch.icws_sketch_packed_cuda,
+            "dmh_sketch_packed": dmh_sketch.dmh_sketch_packed_cuda,
+            "estimate_fields_packed": estimate.estimate_fields_packed_cuda,
+            "linear_estimate_fields_packed":
+                estimate.linear_estimate_fields_packed_cuda,
+            "sample_estimate_fields_packed":
+                sample_estimate.sample_estimate_fields_packed_cuda}
 
 
 def family_for(name: str):
@@ -138,24 +171,28 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, symbol: str, reps: int = 10) -> float:
+def device_ms(fn, symbol: str, reps: int = 10, traces: int = 3) -> float:
     """Device milliseconds per launch of the kernel whose name contains
     ``symbol``, from a ``torch.profiler`` trace of ``reps`` calls: the
     kernel alone, without the host's launch cost (the mean over the
-    launches the trace recorded)."""
+    launches the trace recorded).  A trace can come back without the
+    device's activity (one of the traces of one H100 run did); up to
+    ``traces`` are taken before this fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    spans = [e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and symbol in e.name]
-    if not spans:
-        raise AssertionError(f"the profiler recorded no launch of {symbol}")
-    return sum(spans) / len(spans) / 1e3
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and symbol in e.name]
+        if spans:
+            return sum(spans) / len(spans) / 1e3
+    raise AssertionError(f"the profiler recorded no launch of {symbol} in "
+                         f"{traces} traces")
 
 
 # --------------------------------------------------------------------------
@@ -230,9 +267,7 @@ def sketch_case(index, rng, B: int, nnz: int, dev):
     if err != 0.0 or not torch.equal(got[3][agree], want[3][agree]):
         raise AssertionError(f"sketch B={B}: values/argkeys differ where "
                              f"fingerprints agree (max |dval| {err})")
-    live = int((args[0] > 0).sum().item())
-    ops = ICWS_OPS_PER_DRAW * live * M
-    bytes_moved = w.nbytes * 3 + B * M * 16
+    live, ops, bytes_moved = icws_work(args)
     bound = max(ops / FP32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3
     ms = time_ms(lambda: ks.icws_sketch_cuda(*args, m=M, seed=0), reps=20)
     dev_ms = device_ms(lambda: ks.icws_sketch_cuda(*args, m=M, seed=0),
@@ -246,6 +281,15 @@ def sketch_case(index, rng, B: int, nnz: int, dev):
         f"non-zeros)")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain, "bound_ms": bound, "fp_agree": share}
+
+
+def icws_work(args):
+    """Live non-zeros, lane operations and bytes of one ICWS sketch launch
+    over ``args = (w, keys, vals)`` [B, N]: three input planes, four
+    [B, m] output planes."""
+    live = int((args[0] > 0).sum().item())
+    return (live, ICWS_OPS_PER_DRAW * live * M,
+            args[0].numel() * 12 + args[0].shape[0] * M * 16)
 
 
 def estimate_case(fq, vq, fc, vc):
@@ -390,7 +434,7 @@ def linear_kernel_phase(dev):
     sketch = {name: [linear_sketch_case(index, rng, name, B, nnz, dev)
                      for B in (3, 48) for nnz in (1000, 4000)]
               for name in ("cs", "jl")}
-    estimate = []
+    estimate, tables_for = [], {}
     g = torch.Generator(device=dev).manual_seed(6)
     for name in ("cs", "jl"):
         fam = family_for(name)
@@ -403,9 +447,8 @@ def linear_kernel_phase(dev):
         estimate += [linear_estimate_case(name, tq[:, :q], tc[:, -p:])
                      for q, p in ((16, EST_P), (1, EST_P), (16, LAKE_TABLES),
                                   (1, LAKE_TABLES))]
-        del tc
-        torch.cuda.empty_cache()
-    return sketch, estimate
+        tables_for[name] = (tq, tc)
+    return sketch, estimate, tables_for
 
 
 def kernel_phase(dev):
@@ -446,9 +489,36 @@ def kernel_phase(dev):
     estimate = [estimate_case(fq[:, :q], vq[:, :q], fc[:, -p:], vc[:, -p:])
                 for q, p in ((16, EST_P), (1, EST_P), (16, LAKE_TABLES),
                              (1, LAKE_TABLES))]
-    del fc, vc
-    torch.cuda.empty_cache()
-    return sketch, estimate
+    return sketch, estimate, (fq, vq, fc, vc)
+
+
+def dmh_work(args, got):
+    """The work one DMH launch's data needs: live lanes, occupied bins, the
+    densify probes each empty bin of a live row takes, their lane
+    operations, and the bytes (every lane's weight, the keys of live lanes,
+    the winners' values, the four output planes)."""
+    from repro_torch.kernels.common import (DMH_STREAM_BIN,
+                                            DMH_STREAM_DENSIFY, as_u32,
+                                            densify_probes, hash_u32,
+                                            salt_for)
+    dev = args[0].device
+    live = int((args[0] > 0).sum().item())
+    t = torch.arange(M, device=dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    occ = (hash_u32(as_u32(got[3]), salt_for(0, DMH_STREAM_BIN, zero)) % M
+           == t) & (got[0] >= 0)
+    J = densify_probes(M)
+    j = torch.arange(J, device=dev)
+    probe = hash_u32(t[:, None], salt_for(0, DMH_STREAM_DENSIFY, j)[None]) % M
+    firstj = torch.where(occ[:, probe], j, J - 1).amin(2)
+    need = ~occ & occ.any(1, keepdim=True)
+    probes = int((firstj + 1)[need].sum().item())
+    occupied = int(occ.sum().item())
+    ops = (DMH_OPS_PER_LANE * live + DMH_OPS_PER_BIN * occupied
+           + DMH_OPS_PER_PROBE * probes)
+    bytes_moved = 4 * (args[0].numel() + live + occupied) \
+        + args[0].shape[0] * M * 16
+    return live, occupied, probes, ops, bytes_moved
 
 
 def dmh_sketch_case(index, rng, B: int, nnz: int, dev, b1):
@@ -460,10 +530,6 @@ def dmh_sketch_case(index, rng, B: int, nnz: int, dev, b1):
     from repro_torch.core.dmh import dmh_replication, replicate_keys
     from repro_torch.data.ingest import pad_sparse_batch
     from repro_torch.kernels import dmh_sketch as kd
-    from repro_torch.kernels.common import (BIG, DMH_STREAM_BIN,
-                                            DMH_STREAM_DENSIFY, as_u32,
-                                            densify_probes, hash_u32,
-                                            salt_for)
     w, keys, vals, _ = pad_sparse_batch(field_vectors(index, rng, B, nnz))
     n_pre = w.shape[1]
     c = dmh_replication(M)
@@ -481,25 +547,7 @@ def dmh_sketch_case(index, rng, B: int, nnz: int, dev, b1):
                                  f"plain on {bad} slots")
     err = float((got[2] - want[2]).abs().max().item())
     amin_equal = torch.equal(got[2], want[2])
-    # the work this run's data needs: live lanes, occupied bins and the
-    # densify probes each empty bin of a live row takes
-    live = int((args[0] > 0).sum().item())
-    t = torch.arange(M, device=dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    occ = (hash_u32(as_u32(got[3]), salt_for(0, DMH_STREAM_BIN, zero)) % M
-           == t) & (got[0] >= 0)
-    J = densify_probes(M)
-    j = torch.arange(J, device=dev)
-    probe = hash_u32(t[:, None], salt_for(0, DMH_STREAM_DENSIFY, j)[None]) % M
-    firstj = torch.where(occ[:, probe], j, J - 1).amin(2)
-    need = ~occ & occ.any(1, keepdim=True)
-    probes = int((firstj + 1)[need].sum().item())
-    ops = (DMH_OPS_PER_LANE * live + DMH_OPS_PER_BIN * int(occ.sum().item())
-           + DMH_OPS_PER_PROBE * probes)
-    # every lane's weight, the keys of live lanes, the winners' values, the
-    # four output planes
-    bytes_moved = 4 * (args[0].numel() + live + int(occ.sum().item())) \
-        + B * M * 16
+    live, occupied, probes, ops, bytes_moved = dmh_work(args, got)
     bound_b, bound_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     bound = max(bound_b, bound_o) * 1e3
     bound_by = "bytes" if bound_b >= bound_o else "operations"
@@ -512,7 +560,7 @@ def dmh_sketch_case(index, rng, B: int, nnz: int, dev, b1):
         f"plain, amin {'equal' if amin_equal else f'max |d| {err}'}; kernel "
         f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
         f"{plain:.3f} ms, bound {bound:.5f} ms ({bound_by}: {live} live "
-        f"lanes, {int(occ.sum().item())} occupied bins, {probes} densify "
+        f"lanes, {occupied} occupied bins, {probes} densify "
         f"probes); ICWS B1 at B={B} N={n_pre}: {b1['device_ms']:.4f} ms on "
         f"the device, {b1['device_ms'] / dev_ms:.1f}x B5")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
@@ -529,6 +577,36 @@ def dmh_kernel_phase(dev, b1_cases):
     return [dmh_sketch_case(index, rng, B, nnz, dev, b1)
             for (B, nnz), b1 in zip(((3, 1000), (3, 4000), (48, 1000),
                                      (48, 4000)), b1_cases)]
+
+
+def sample_work(kq, kc, hits, *, match_bytes: int, row_bytes: int = 0):
+    """Lane operations, bytes and key matches of one key-match launch, as
+    this run's data needs them: per (pair, query, row) the merge's steps
+    over both live prefixes and the matches (``hits [6, Q, P]``); each used
+    field's live corpus keys (and the key that ends a row's prefix) read
+    once, ``match_bytes`` per corpus slot some query matches, ``row_bytes``
+    per corpus row, the queries' live slots (key, value, probability) and
+    the output."""
+    from repro_torch.data.dataset_search import CFIELD, QFIELD
+    Q, P, S = kq.shape[1], kc.shape[1], kc.shape[2]
+    live_q = (kq >= 0).sum(2).double()                 # [F, Q]
+    live_c = (kc >= 0).sum(2).double()                 # [C, P]
+    steps = sum(float(live_q[qf].sum()) * P + float(live_c[cf].sum()) * Q
+                for qf, cf in zip(QFIELD, CFIELD))
+    matches = float(hits.double().sum().item())
+    ops = SAMPLE_OPS_PER_STEP * steps + SAMPLE_OPS_PER_MATCH * matches
+    corpus_bytes = 0.0
+    for cf in sorted(set(CFIELD)):
+        qkeys = torch.cat([kq[qf][kq[qf] >= 0] for qf in
+                           {qf for qf, c in zip(QFIELD, CFIELD) if c == cf}])
+        matched = int(torch.isin(kc[cf], qkeys.unique()).sum().item())
+        corpus_bytes += 4 * (float(live_c[cf].sum())
+                             + int((live_c[cf] < S).sum().item())) \
+            + match_bytes * matched + row_bytes * P
+    bytes_moved = corpus_bytes + 12 * sum(
+        float(live_q[qf].sum()) for qf in set(QFIELD)) \
+        + 4 * len(QFIELD) * Q * P
+    return ops, bytes_moved, matches
 
 
 def sample_estimate_case(q, c, hits, *, check: bool):
@@ -562,25 +640,7 @@ def sample_estimate_case(q, c, hits, *, check: bool):
                 int(torch.count_nonzero(got).item()) == 0:
             raise AssertionError(f"sample estimate {shape}: no finite "
                                  "non-zero estimate")
-    live_q = (kq >= 0).sum(2).double()                 # [F, Q]
-    live_c = (kc >= 0).sum(2).double()                 # [C, P]
-    steps = sum(float(live_q[qf].sum()) * P + float(live_c[cf].sum()) * Q
-                for qf, cf in zip(QFIELD, CFIELD))
-    matches = float(hits.double().sum().item())
-    ops = SAMPLE_OPS_PER_STEP * steps + SAMPLE_OPS_PER_MATCH * matches
-    # what the join needs: each used field's live corpus keys (and the key
-    # that ends a row's prefix) read once, value and probability of each
-    # corpus slot some query matches, the queries' live slots, the output
-    corpus_bytes = 0.0
-    for cf in sorted(set(CFIELD)):
-        qkeys = torch.cat([kq[qf][kq[qf] >= 0] for qf in
-                           {qf for qf, c in zip(QFIELD, CFIELD) if c == cf}])
-        matched = int(torch.isin(kc[cf], qkeys.unique()).sum().item())
-        corpus_bytes += 4 * (float(live_c[cf].sum())
-                             + int((live_c[cf] < S).sum().item())) \
-            + 8 * matched
-    bytes_moved = corpus_bytes + 12 * sum(
-        float(live_q[qf].sum()) for qf in set(QFIELD)) + 4 * G * Q * P
+    ops, bytes_moved, matches = sample_work(kq, kc, hits, match_bytes=8)
     bound_b, bound_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
     bound = max(bound_b, bound_o) * 1e3
     bound_by = "bytes" if bound_b >= bound_o else "operations"
@@ -658,9 +718,7 @@ def sample_kernel_phase(dev):
                                     hits[:, :qn, -p:], check=p < EST_P)
                for qn, p in ((16, LAKE_TABLES), (1, LAKE_TABLES),
                              (16, EST_P), (1, EST_P))]
-    del kc, vc, ac, tc, hits
-    torch.cuda.empty_cache()
-    return checked
+    return checked, (q, (kc, vc, tc), hits[:, :, -LAKE_TABLES:])
 
 
 def small_reference_phase(dev, family: str):
@@ -699,6 +757,244 @@ def small_reference_phase(dev, family: str):
         f"{[r.name for r in out[1][0]]}")
 
 
+def bits_equal(a, b) -> bool:
+    """Whether two 32-bit tensors hold the same bits (so -0.0 != +0.0 and
+    a NaN equals its own bits)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def bound_of(bytes_moved: float, ops: float):
+    """(bound ms, what bounds it): the larger of bytes over the memory rate
+    and lane operations over the FP32 rate."""
+    bound_b, bound_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(bound_b, bound_o) * 1e3,
+            "bytes" if bound_b >= bound_o else "operations")
+
+
+def b10_case(index, rng, kind: str, B: int, nnz: int, dev):
+    """B10, the pack epilogue of the ICWS or DMH sketch, at a sketch shape:
+    its four planes equal the unpacked kernel's and its packed plane the
+    codec of that kernel's values, bit for bit; against the plain version,
+    every word whose two fingerprints agree equal (ICWS: at least 99% of
+    words, as B1; DMH: all)."""
+    from repro_torch.core.dmh import dmh_replication, replicate_keys
+    from repro_torch.data.ingest import pad_sparse_batch
+    from repro_torch.kernels import dmh_sketch, icws_sketch
+    from repro_torch.kernels.packed import pack_sketch_vals
+    w, keys, vals, _ = pad_sparse_batch(field_vectors(index, rng, B, nnz))
+    shape = f"B={B} N={w.shape[1]} m={M}"
+    mod = icws_sketch
+    if kind == "dmh":
+        c = dmh_replication(M)
+        keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
+        w, vals = np.tile(w, (1, c)), np.tile(vals, (1, c))
+        shape, mod = f"B={B} N={w.shape[1] // c}x{c} m={M}", dmh_sketch
+    kernel = getattr(mod, f"{kind}_sketch_packed_cuda")
+    plain = getattr(mod, f"{kind}_sketch_packed_plain")
+    args = [torch.from_numpy(a).to(dev) for a in (w, keys, vals)]
+    got = kernel(*args, m=M, seed=0)
+    base = getattr(mod, f"{kind}_sketch_cuda")(*args, m=M, seed=0)
+    torch.cuda.synchronize()
+    if not (all(bits_equal(x, y) for x, y in zip(got[:4], base))
+            and torch.equal(got[4], pack_sketch_vals(base[1], base[2]))):
+        raise AssertionError(f"{kind} sketch packed {shape}: differs from "
+                             "the unpacked kernel and the codec of its values")
+    want = plain(*args, m=M, seed=0)
+    ok = (got[0] == want[0]).reshape(B, M // 2, 2).all(2)
+    share = ok.float().mean().item()
+    if share < (0.99 if kind == "icws" else 1.0) \
+            or not torch.equal(got[4][ok], want[4][ok]):
+        raise AssertionError(f"{kind} sketch packed {shape}: packed plane "
+                             f"differs from plain (words agreeing {share})")
+    if kind == "icws":
+        _, ops, bytes_moved = icws_work(args)
+    else:
+        *_, ops, bytes_moved = dmh_work(args, got)
+    bound, bound_by = bound_of(bytes_moved + B * M * 2, ops)
+    ms = time_ms(lambda: kernel(*args, m=M, seed=0), reps=20)
+    dev_ms = device_ms(lambda: kernel(*args, m=M, seed=0),
+                       f"{kind}_sketch_kernel")
+    plain_ms = time_ms(lambda: plain(*args, m=M, seed=0), reps=3, warmup=1)
+    log(f"{kind} sketch packed {shape}: planes equal to the unpacked "
+        f"kernel's, packed plane its codec, equal to plain on {share:.6f} of "
+        f"words; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
+        f"device), plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by})")
+    return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "words_agree": share}
+
+
+def packed_estimate_case(fq, vq, fc, wc):
+    """B11 against its plain version and against B2 on the decoded corpus,
+    bit for bit."""
+    from repro_torch.data.dataset_search import CFIELD, QFIELD
+    from repro_torch.kernels import estimate as ke
+    from repro_torch.kernels.packed import unpack_halfwords_f32
+    G, Q, P = len(QFIELD), fq.shape[1], fc.shape[1]
+    shape = f"G={G} Q={Q} P={P} m={M}"
+
+    def kernel():
+        return ke.estimate_fields_packed_cuda(fq, vq, fc, wc, qmap=QFIELD,
+                                              cmap=CFIELD)
+    got = kernel()
+    b2 = ke.estimate_fields_cuda(fq, vq, fc, unpack_halfwords_f32(wc),
+                                 qmap=QFIELD, cmap=CFIELD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = ke.estimate_fields_packed_plain(fq, vq, fc, wc, qmap=QFIELD,
+                                            cmap=CFIELD)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for name, want in (("plain", plain), ("B2 on the decoded corpus", b2)):
+        if not (bits_equal(got[0], want[0]) and bits_equal(got[1], want[1])):
+            raise AssertionError(f"packed estimate {shape}: differs from "
+                                 f"{name}")
+    hits = float(got[0].double().sum().item())
+    ops = EST_OPS_PER_TEST * G * Q * P * M + EST_OPS_PER_HIT * hits
+    bytes_moved = (fq.numel() + vq.numel() + fc.numel() + wc.numel()) * 4 \
+        + 2 * G * Q * P * 4
+    bound, bound_by = bound_of(bytes_moved, ops)
+    ms = time_ms(kernel, reps=10)
+    dev_ms = device_ms(kernel, "estimate_fields_packed_kernel")
+    log(f"packed estimate {shape}: equal to plain and to B2 on the decoded "
+        f"corpus; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
+        f"device), plain {plain_ms:.1f} ms (one run), bound {bound:.4f} ms "
+        f"({bound_by}: {bytes_moved / 1e9:.3f} GB)")
+    return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+
+
+def packed_linear_case(name: str, tq, wc):
+    """B12 against its plain version and against B8 on the decoded tables
+    (over the true W), bit for bit; ``torch.bmm`` in f32 over the decoded,
+    (pair, rep)-gathered tables as the library call."""
+    from repro_torch.data.dataset_search import CFIELD, QFIELD
+    from repro_torch.kernels import estimate as ke
+    from repro_torch.kernels.packed import unpack_halfwords_f32
+    G, (Q, R, W), P = len(QFIELD), tq.shape[1:], wc.shape[1]
+    We = 2 * wc.shape[3]
+    tqe = torch.nn.functional.pad(tq, (0, We - W)).contiguous()
+    shape = f"{name} G={G} R={R} Q={Q} P={P} W={W}"
+
+    def kernel():
+        return ke.linear_estimate_fields_packed_cuda(tqe, wc, qmap=QFIELD,
+                                                     cmap=CFIELD)
+    got = kernel()
+    tc = unpack_halfwords_f32(wc)
+    b8 = ke.linear_estimate_fields_cuda(tq, tc[..., :W].contiguous(),
+                                        qmap=QFIELD, cmap=CFIELD)
+    torch.cuda.synchronize()
+    plain_ms = time_ms(lambda: ke.linear_estimate_fields_packed_plain(
+        tqe, wc, qmap=QFIELD, cmap=CFIELD), reps=1, warmup=0)
+    plain = ke.linear_estimate_fields_packed_plain(tqe, wc, qmap=QFIELD,
+                                                   cmap=CFIELD)
+    if not (bits_equal(got, plain) and bits_equal(got, b8)):
+        raise AssertionError(f"packed linear estimate {shape}: differs from "
+                             "plain or from B8 on the decoded tables")
+    del plain, b8
+    a = torch.stack([tqe[qf] for qf in QFIELD]).permute(0, 2, 1, 3).reshape(
+        G * R, Q, We).contiguous()
+    b = torch.stack([tc[cf] for cf in CFIELD]).permute(0, 2, 1, 3).reshape(
+        G * R, P, We).contiguous()
+    del tc
+    lib_ms = time_ms(lambda: torch.bmm(a, b.transpose(1, 2)), reps=10)
+    del a, b
+    # the pad column's +0 products are no work the estimate needs: the
+    # operations count the true W
+    bound, bound_by = bound_of(
+        (tq.numel() + wc.numel() + got.numel()) * 4, 2 * G * R * Q * P * W)
+    ms = time_ms(kernel, reps=10)
+    dev_ms = device_ms(kernel, "linear_estimate_fields_packed_kernel")
+    log(f"packed linear estimate {shape}: equal to plain and to B8 on the "
+        f"decoded tables; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on "
+        f"the device), plain {plain_ms:.1f} ms (one run), torch.bmm "
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+    return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_ms}
+
+
+def packed_sample_case(q, c, hits, *, check: bool):
+    """B13 against B9 on the decoded corpus (values, and probabilities by
+    the prologue) and, with ``check``, against its plain version, bit for
+    bit."""
+    from repro_torch.data.dataset_search import CFIELD, QFIELD
+    from repro_torch.kernels import sample_estimate as ks
+    from repro_torch.kernels.packed import unpack_halfwords_f32
+    kq, vq, aq = q
+    kc, wc, tc = c
+    G, Q, P, S = len(QFIELD), kq.shape[1], kc.shape[1], kq.shape[2]
+    shape = f"G={G} Q={Q} P={P} S={S}"
+
+    def kernel():
+        return ks.sample_estimate_fields_packed_cuda(kq, vq, aq, kc, wc, tc,
+                                                     qmap=QFIELD, cmap=CFIELD)
+    got = kernel()
+    vc = unpack_halfwords_f32(wc)
+    b9 = ks.sample_estimate_fields_cuda(kq, vq, aq, kc, vc,
+                                        ks.sample_inclusion_probs(vc, tc),
+                                        qmap=QFIELD, cmap=CFIELD)
+    torch.cuda.synchronize()
+    if not bits_equal(got, b9) or int(torch.count_nonzero(got).item()) == 0:
+        raise AssertionError(f"packed sample estimate {shape}: differs from "
+                             "B9 on the decoded corpus, or all zero")
+    plain_ms = None
+    if check:
+        t0 = time.perf_counter()
+        plain = ks.sample_estimate_fields_packed_plain(
+            kq, vq, aq, kc, wc, tc, qmap=QFIELD, cmap=CFIELD)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not bits_equal(got, plain):
+            raise AssertionError(f"packed sample estimate {shape}: differs "
+                                 "from plain")
+    ops, bytes_moved, matches = sample_work(kq, kc, hits, match_bytes=2,
+                                            row_bytes=4)
+    bound, bound_by = bound_of(bytes_moved, ops)
+    ms = time_ms(kernel, reps=10)
+    dev_ms = device_ms(kernel, "sample_estimate_fields_packed_kernel")
+    log(f"packed sample estimate {shape}: equal to B9 on the decoded corpus"
+        + (f" and to plain (plain {plain_ms:.1f} ms, one run)" if check
+           else "")
+        + f"; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), "
+        f"bound {bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB, "
+        f"{ops:.3e} ops, {matches:.0f} matches)")
+    return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+
+
+def packed_kernel_phase(dev, icws_data, lin_data, sample_data):
+    """B10 at the sketch shapes B = 3, N = 1,024 and B = 48, N = 4,096 (ICWS
+    and DMH); B11 at G = 6, Q = 16, P = 131,072 and Q = 1, P = 16,384; B12
+    there for CS and JL; B13 at the service's shape, Q = 16 and 1 against
+    the last 16,384 rows (spare rows included).  The corpora are the
+    unpacked kernel phases', packed."""
+    from repro_torch.data.dataset_search import DatasetSearchIndex
+    from repro_torch.kernels.packed import pack_halfwords_f32
+    rng = np.random.default_rng(10)
+    index = DatasetSearchIndex(m=M, seed=0, device=dev)
+    b10 = {kind: [b10_case(index, rng, kind, B, nnz, dev)
+                  for B, nnz in ((3, 1000), (48, 4000))]
+           for kind in ("icws", "dmh")}
+    shapes = ((16, EST_P), (1, LAKE_TABLES))
+    fq, vq, fc, vc = icws_data
+    wc = pack_halfwords_f32(vc)
+    b11 = [packed_estimate_case(fq[:, :q], vq[:, :q], fc[:, -p:], wc[:, -p:])
+           for q, p in shapes]
+    b12 = []
+    for name in ("cs", "jl"):
+        tq, tc = lin_data[name]
+        wc = pack_halfwords_f32(torch.nn.functional.pad(tc, (0, tc.shape[3] % 2)))
+        b12 += [packed_linear_case(name, tq[:, :q], wc[:, -p:])
+                for q, p in shapes]
+    q, (kc, vc, tc), hits = sample_data
+    c = (kc[:, -LAKE_TABLES:], pack_halfwords_f32(vc[:, -LAKE_TABLES:]),
+         tc[:, -LAKE_TABLES:])
+    b13 = [packed_sample_case(tuple(x[:, :qn] for x in q), c, hits[:, :qn],
+                              check=qn == 16) for qn in (16, 1)]
+    return b10, b11, b12, b13
+
+
 def lake_phase():
     rng = np.random.default_rng(4)
     tables, queries, partners = make_lake(rng, LAKE_TABLES, QUERIES)
@@ -707,32 +1003,87 @@ def lake_phase():
     return tables, queries, partners
 
 
-def service_phase(family: str, lake):
-    """One family's service over the lake: ingest every table, answer the
-    64 queries through ``search_batch`` (micro-batches of 16) and through
-    ``search``, with the launch counters set to 0 just before and read just
-    after.  Gates: batched == sequential bit for bit, finite results, the
-    launches the run needs (TS/PS build their rows on the host: only the
-    estimate kernel), for TS/PS the stored rows' sorted-prefix layout; for
-    ICWS also every planted partner in the top 10 (the other families'
-    recall is printed, not gated: losing partners is the paper's finding).
-    Returns (launches, recall)."""
-    from repro_torch import SketchSearchService
-    tables, queries, partners = lake
-    svc = SketchSearchService(m=M, seed=0, family=family)
+def reset_counters():
     counters = launch_counters()
     for fn in counters.values():
         fn.launches = 0
-    t0 = time.perf_counter()
-    svc.ingest_many(tables)
-    torch.cuda.synchronize()
-    ingest_s = time.perf_counter() - t0
+    return counters
+
+
+def serve_queries(svc, lake):
+    """The 64 queries through ``search_batch`` (micro-batches of 16) and
+    through ``search``."""
+    _, queries, _ = lake
     min_join = QUERY_ROWS / 4
     batched = svc.search_batch(queries, top_k=10, min_join=min_join,
                                micro_batch=MICRO_BATCH)
     sequential = [svc.search(k, v, top_k=10, min_join=min_join)
                   for k, v in queries]
     torch.cuda.synchronize()
+    return batched, sequential
+
+
+def check_served(label: str, family: str, svc, lake, batched, sequential,
+                 launches, need):
+    """Gates of a serving run: batched == sequential bit for bit, finite
+    results, at least the launches ``need`` names, and for ICWS every
+    planted partner in the top 10 (the other families' recall is printed,
+    not gated: losing partners is the paper's finding).  Returns recall."""
+    _, _, partners = lake
+    d = svc.describe()
+    log(f"{label} query p50 {d['query_ms_p50']:.2f} ms (search, "
+        f"{d['queries_served']} queries); batch p50 {d['batch_ms_p50']:.2f} "
+        f"ms (micro-batch of {MICRO_BATCH}, {d['batches_served']} batches; "
+        f"{d['batched_query_ms_p50']:.2f} ms per query)")
+    if sequential != batched:
+        raise AssertionError(f"{label}: batched results differ from "
+                             "sequential search")
+    in_top, first = 0, 0
+    for res, partner in zip(batched, partners):
+        for r in res:
+            if not (math.isfinite(r.join_size) and math.isfinite(r.corr)):
+                raise AssertionError(f"{label}: non-finite result {r}")
+        if partner is not None:
+            names = [r.name for r in res]
+            if family == "icws" and partner not in names:
+                raise AssertionError(f"{label}: planted {partner} not in top "
+                                     f"10: {names}")
+            in_top += partner in names
+            first += bool(names) and names[0] == partner
+    returned = sum(len(res) for res in batched) / len(batched)
+    log(f"{label} planted partners: {in_top} of {QUERIES // 2} in the top "
+        f"10, {first} ranked first; {returned:.2f} tables returned per query "
+        f"(each refined on the host); batched == sequential on {QUERIES} "
+        f"queries")
+    log(f"{label} launches on the serving run: {launches}")
+    if any(launches[k] < n for k, n in need.items()):
+        raise AssertionError(f"{label}: launch counters {launches} below "
+                             f"{need}")
+    return {"in_top10": in_top, "first": first, "planted": QUERIES // 2}
+
+
+def log_store(label: str, svc, ingest: str):
+    d = svc.describe()
+    log(f"{label} {ingest}; store {d['corpus_rows']} rows x 3 fields, "
+        f"capacity {d['corpus_capacity']}, {d['bytes_per_row']:.0f} B per "
+        f"row, {3 * d['corpus_capacity'] * d['bytes_per_row'] / 1e6:.1f} MB"
+        f"{', packed' if d['packed'] else ''}")
+
+
+def service_phase(family: str, lake):
+    """One family's service over the lake: ingest every table, answer the
+    64 queries, with the launch counters set to 0 just before and read just
+    after; the gates of :func:`check_served` and, for TS/PS, the stored
+    rows' sorted-prefix layout.  Returns (launches, recall, service)."""
+    from repro_torch import SketchSearchService
+    tables = lake[0]
+    svc = SketchSearchService(m=M, seed=0, family=family)
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    svc.ingest_many(tables)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    batched, sequential = serve_queries(svc, lake)
     launches = {name: fn.launches for name, fn in counters.items()}
 
     if family in ("ts", "ps"):
@@ -741,47 +1092,212 @@ def service_phase(family: str, lake):
             raise AssertionError(f"{family}: stored rows break the "
                                  "sorted-prefix contract")
         log(f"{family}: every stored row keeps the sorted-prefix contract")
-    d = svc.describe()
-    log(f"{family} ingest: {LAKE_TABLES / ingest_s:.1f} tables/s "
-        f"({ingest_s:.1f} s); store {d['corpus_rows']} rows x 3 fields, "
-        f"capacity {d['corpus_capacity']}, {d['bytes_per_row']:.0f} B per "
-        f"row, {3 * d['corpus_capacity'] * d['bytes_per_row'] / 1e6:.1f} MB")
-    log(f"{family} query p50 {d['query_ms_p50']:.2f} ms (search, "
-        f"{d['queries_served']} queries); batch p50 {d['batch_ms_p50']:.2f} "
-        f"ms (micro-batch of {MICRO_BATCH}, {d['batches_served']} batches; "
-        f"{d['batched_query_ms_p50']:.2f} ms per query)")
-    if sequential != batched:
-        raise AssertionError(f"{family}: batched results differ from "
-                             "sequential search")
-    in_top, first = 0, 0
-    for res, partner in zip(batched, partners):
-        for r in res:
-            if not (math.isfinite(r.join_size) and math.isfinite(r.corr)):
-                raise AssertionError(f"{family}: non-finite result {r}")
-        if partner is not None:
-            names = [r.name for r in res]
-            if family == "icws" and partner not in names:
-                raise AssertionError(f"planted {partner} not in top 10: {names}")
-            in_top += partner in names
-            first += bool(names) and names[0] == partner
-    returned = sum(len(res) for res in batched) / len(batched)
-    log(f"{family} planted partners: {in_top} of {QUERIES // 2} in the top "
-        f"10, {first} ranked first; {returned:.2f} tables returned per query "
-        f"(each refined on the host); batched == sequential on {QUERIES} "
-        f"queries")
-    n_batches = math.ceil(QUERIES / MICRO_BATCH)
+    log_store(family, svc, f"ingest: {LAKE_TABLES / ingest_s:.1f} tables/s "
+              f"({ingest_s:.1f} s)")
     # one sketch launch per ingested table and per query batch or search
     # (none for TS/PS, built on the host), one estimate launch per batch or
     # search
+    n_batches = math.ceil(QUERIES / MICRO_BATCH)
     *sketch_k, est_k = PATH_KERNELS[family]
     need = {k: LAKE_TABLES + n_batches + QUERIES for k in sketch_k}
     need[est_k] = n_batches + QUERIES
-    log(f"{family} launches on the serving run: {launches}")
-    if any(launches[k] < n for k, n in need.items()):
-        raise AssertionError(f"{family}: launch counters {launches} below "
-                             f"{need}")
-    return launches, {"in_top10": in_top, "first": first,
-                      "planted": QUERIES // 2}
+    recall = check_served(family, family, svc, lake, batched, sequential,
+                          launches, need)
+    return launches, recall, svc
+
+
+def carry(index, rows, *, packed: bool):
+    """A port index over ``rows`` (one tensor per component, ``[3, size,
+    ...]``) with ``index``'s tables, built by ``convert.index_from_numpy``."""
+    from repro_torch.convert import index_from_numpy
+    return index_from_numpy(
+        [r.cpu().numpy() for r in rows], len(index.tables),
+        tables=[(t.name, t.n_rows, (t.sample.hashes, t.sample.values))
+                for t in index.tables],
+        m=M, seed=0, family=index.family.name, packed=packed)
+
+
+def b10_path_phase(index, tables):
+    """B10's own path, the sketch-and-pack ingest of ``tables``: 16 tables'
+    48 field rows per ``ops.*_sketch(pack_vals=True)`` launch, appended as
+    they are to a packed store, which must equal ``index``'s first rows bit
+    for bit.  Launch counters set to 0 just before and read just after;
+    returns B10's launches."""
+    from repro_torch.core.dmh import dmh_replication, replicate_keys
+    from repro_torch.data.ingest import pad_sparse_batch
+    from repro_torch.data.store import CorpusStore
+    from repro_torch.kernels import ops
+    dev = index.device
+    fam = index.family
+    store = CorpusStore(family=fam, fields=3, packed=True, device=dev)
+    sketch = ops.icws_sketch if fam.name == "icws" else ops.dmh_sketch
+    counters = reset_counters()
+    for lo in range(0, len(tables), 16):
+        vecs = [v for _, k, x in tables[lo:lo + 16]
+                for v in index.vectorize(k, x)]
+        w, keys, vals, norms = pad_sparse_batch(vecs)
+        if fam.name == "dmh":
+            c = dmh_replication(M)
+            keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
+            w, vals = np.tile(w, (1, c)), np.tile(vals, (1, c))
+        fp, _, _, _, words = sketch(
+            *(torch.from_numpy(a).to(dev) for a in (w, keys, vals)), m=M,
+            seed=0, pack_vals=True)
+        norms = torch.from_numpy(norms.astype(np.float32)).to(dev)
+        store.append_packed(*(x.reshape((-1, 3) + tuple(x.shape[1:]))
+                              .transpose(0, 1) for x in (fp, words, norms)))
+    torch.cuda.synchronize()
+    launches = counters[B10_PATH_KERNEL[fam.name]].launches
+    n = len(tables)
+    for got, want in zip(store.buffers(), index.store.buffers()):
+        if not bits_equal(got[:, :n], want[:, :n]):
+            raise AssertionError(f"{fam.name}: the sketch-and-pack ingest "
+                                 "differs from the packed service's rows")
+    if launches < math.ceil(n / 16):
+        raise AssertionError(f"{fam.name}: sketch-and-pack ingest launched "
+                             f"{B10_PATH_KERNEL[fam.name]} {launches} times")
+    log(f"{fam.name} sketch-and-pack ingest (B10, ops.{fam.name}_sketch("
+        f"pack_vals=True)) of {n} tables equals the packed service's rows "
+        f"bit for bit; {launches} launches of {B10_PATH_KERNEL[fam.name]}")
+    return launches
+
+
+def roundtrip_check(label: str, svc, lake, sequential):
+    """Every estimate of the 64 queries (in micro-batches of 16) and every
+    ``search`` result equal, bit for bit, those of an unpacked index over
+    the bf16-roundtripped rows."""
+    _, queries, _ = lake
+    idx = svc.index
+    size = len(idx.store)
+    ref = carry(idx, idx.family.unpack_rows(
+        tuple(b[:, :size] for b in idx.store.buffers())), packed=False)
+    for lo in range(0, len(queries), MICRO_BATCH):
+        chunk = queries[lo:lo + MICRO_BATCH]
+        vecs = [v for k, x in chunk for v in idx.vectorize(k, x)]
+        q = tuple(c.reshape((len(chunk), 3) + tuple(c.shape[1:]))
+                  .transpose(0, 1)
+                  for c in idx.family.sketch_rows(vecs, device=idx.device))
+        got = idx._estimate(q, idx.store.buffers())[:, :, :size]
+        want = ref._estimate(q, ref.store.buffers())[:, :, :size]
+        if not bits_equal(got, want):
+            raise AssertionError(f"{label}: estimates differ from the "
+                                 "unpacked index over the roundtripped rows")
+    min_join = QUERY_ROWS / 4
+    if [ref.query(k, v, top_k=10, min_join=min_join)
+            for k, v in queries] != sequential:
+        raise AssertionError(f"{label}: results differ from the unpacked "
+                             "index over the roundtripped rows")
+    log(f"{label}: every estimate and result equals the unpacked index over "
+        f"the roundtripped rows bit for bit ({len(queries)} queries)")
+
+
+def packed_service_phase(family: str, lake, unpacked):
+    """One family's packed service (``packed=True``) over the lake, launch
+    counters set to 0 just before and read just after: ICWS ingests every
+    table through ``ingest_many``; the other families fill their packed
+    index from the rows the unpacked run sketched (``family.pack_rows``,
+    ``convert.index_from_numpy(packed=True)``); then the 64 queries.
+    Gates: :func:`check_served` and :func:`roundtrip_check`.  Returns
+    (launches, recall, service)."""
+    from repro_torch import SketchSearchService
+    label = f"{family} packed"
+    tables = lake[0]
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    svc = SketchSearchService(m=M, seed=0, family=family, packed=True)
+    if family == "icws":
+        svc.ingest_many(tables)
+    else:
+        src = unpacked.index
+        size = len(src.store)
+        svc.index = carry(src, src.family.pack_rows(
+            tuple(b[:, :size] for b in src.store.buffers())), packed=True)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    batched, sequential = serve_queries(svc, lake)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    log_store(label, svc, (f"ingest: {LAKE_TABLES / ingest_s:.1f} tables/s"
+                           if family == "icws" else "filled from the "
+                           "unpacked run's rows") + f" ({ingest_s:.1f} s)")
+    d = unpacked.describe()
+    log(f"{label}: unpacked store {d['bytes_per_row']:.0f} B per row, "
+        f"{3 * d['corpus_capacity'] * d['bytes_per_row'] / 1e6:.1f} MB")
+    n_batches = math.ceil(QUERIES / MICRO_BATCH)
+    need = {k: n_batches + QUERIES for k in PACKED_PATH_KERNELS[family]}
+    if family == "icws":
+        need["icws_sketch"] += LAKE_TABLES
+    recall = check_served(label, family, svc, lake, batched, sequential,
+                          launches, need)
+    roundtrip_check(label, svc, lake, sequential)
+    return launches, recall, svc
+
+
+def latency_phase(family: str, lake, unpacked, packed):
+    """``search`` and micro-batch latency of the family's unpacked (A) and
+    packed (B) service in the turns of ``LATENCY_ORDER``, the two services
+    alone in the process: each turn answers the 64 queries one by one and
+    in micro-batches of 16.  Returns the p50s in ms, per store."""
+    _, queries, _ = lake
+    min_join = QUERY_ROWS / 4
+    times = {"A": ([], []), "B": ([], [])}
+    turn_p50 = []
+    for turn in LATENCY_ORDER:
+        svc = unpacked if turn == "A" else packed
+        one, batch = times[turn]
+        for k, v in queries:
+            t0 = time.perf_counter()
+            svc.search(k, v, top_k=10, min_join=min_join)
+            one.append(time.perf_counter() - t0)
+        for lo in range(0, len(queries), MICRO_BATCH):
+            t0 = time.perf_counter()
+            svc.search_batch(queries[lo:lo + MICRO_BATCH], top_k=10,
+                             min_join=min_join, micro_batch=MICRO_BATCH)
+            batch.append(time.perf_counter() - t0)
+        turn_p50.append(statistics.median(one[-len(queries):]) * 1e3)
+    p50 = {store: {"search_ms": statistics.median(one) * 1e3,
+                   "batch_ms": statistics.median(batch) * 1e3,
+                   "searches": len(one), "batches": len(batch)}
+           for store, (one, batch) in (("unpacked", times["A"]),
+                                       ("packed", times["B"]))}
+    log(f"{family} latency, turns {LATENCY_ORDER} (A unpacked, B packed): "
+        + "; ".join(f"{store} search p50 {r['search_ms']:.3f} ms "
+                    f"({r['searches']}), micro-batch p50 {r['batch_ms']:.3f} "
+                    f"ms ({r['batches']})" for store, r in p50.items())
+        + "; search p50 per turn " + " ".join(
+            f"{t}:{ms:.3f}" for t, ms in zip(LATENCY_ORDER, turn_p50)))
+    return p50
+
+
+def family_phases(family: str, lake):
+    """The family's unpacked and packed serving runs, their latency turns
+    and, for ICWS and DMH, B10's path; then both services are freed, so
+    each family runs with no other family's service alive."""
+    launches, recall, svc = phase(f"service {family}", service_phase,
+                                  family, lake)
+    p_launches, p_recall, p_svc = phase(f"service packed {family}",
+                                        packed_service_phase, family, lake,
+                                        svc)
+    latency = phase(f"latency {family}", latency_phase, family, lake, svc,
+                    p_svc)
+    b10 = (phase(f"sketch-and-pack ingest {family}", b10_path_phase,
+                 p_svc.index, lake[0][:B10_TABLES])
+           if family in B10_PATH_KERNEL else None)
+    del svc, p_svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (launches, recall), (p_launches, p_recall), latency, b10
+
+
+def kernel_entry(name, source, replaces, launches, rep, shapes, **extra):
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches, "max_abs_err": rep["max_abs_err"],
+            "ms": rep["ms"], "device_ms": rep["device_ms"],
+            "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
+            "bound_by": rep.get("bound_by", "operations"),
+            "library_ms": rep.get("library_ms"), "shape": rep["shape"],
+            "all_shapes": shapes, **extra}
 
 
 def main() -> int:
@@ -801,69 +1317,70 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
     dev = torch.device("cuda")
     phase("build", build_phase)
-    sketch, estimate = phase("icws kernels", kernel_phase, dev)
-    lin_sketch, lin_estimate = phase("linear kernels", linear_kernel_phase,
-                                     dev)
+    sketch, estimate, icws_data = phase("icws kernels", kernel_phase, dev)
+    lin_sketch, lin_estimate, lin_data = phase(
+        "linear kernels", linear_kernel_phase, dev)
     dmh = phase("dmh kernel", dmh_kernel_phase, dev, sketch)
-    sample = phase("sample estimate kernel", sample_kernel_phase, dev)
+    sample, sample_data = phase("sample estimate kernel",
+                                sample_kernel_phase, dev)
+    b10, b11, b12, b13 = phase("packed kernels", packed_kernel_phase, dev,
+                               icws_data, lin_data, sample_data)
+    del icws_data, lin_data, sample_data
+    torch.cuda.empty_cache()
     for family in FAMILIES:
         phase(f"small lake {family}", small_reference_phase, dev, family)
     lake = phase("lake", lake_phase)
-    runs = {family: phase(f"service {family}", service_phase, family, lake)
-            for family in FAMILIES}
-    log("planted-partner recall, top 10 / ranked first, of "
-        f"{QUERIES // 2}: " + ", ".join(
-            f"{f} {r['in_top10']}/{r['first']}" for f, (_, r) in runs.items()))
-    # a kernel's launches: the sum over the family runs whose path it is on
-    launches = {name: sum(runs[f][0][name] for f in FAMILIES
-                          if name in PATH_KERNELS[f])
+    runs, packed_runs, latency, b10_path = {}, {}, {}, {}
+    for family in FAMILIES:
+        (runs[family], packed_runs[family], latency[family],
+         b10_path[family]) = family_phases(family, lake)
+    for label, rs in (("unpacked", runs), ("packed", packed_runs)):
+        log(f"planted-partner recall ({label}), top 10 / ranked first, of "
+            f"{QUERIES // 2}: " + ", ".join(
+                f"{f} {r[1]['in_top10']}/{r[1]['first']}"
+                for f, r in rs.items()))
+    # a kernel's launches: the sum over every serving run, unpacked and
+    # packed; B10 is on none of them, and its own path's count is
+    # "entry_point_launches"
+    launches = {name: sum(r[0][name] for rs in (runs, packed_runs)
+                          for r in rs.values())
                 for name in launch_counters()}
 
     rep = sketch[3]   # the query micro-batch launch: B = 48, N = 4096
-    lin_rep = {"countsketch_sparse": lin_sketch["cs"][3],
-               "jl_sketch": lin_sketch["jl"][3],
-               "linear_estimate_fields": lin_estimate[0],
-               "dmh_sketch": dmh[3],
-               "sample_estimate_fields": sample[0]}
     kernels = [
-        {"name": "icws_sketch", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/icws_sketch.cu",
-         "replaces": "src/repro/kernels/icws_sketch.py:40",
-         "launches": launches["icws_sketch"], "max_abs_err": rep["max_abs_err"],
-         "ms": rep["ms"], "device_ms": rep["device_ms"],
-         "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
-         "bound_by": "operations", "library_ms": None, "shape": rep["shape"],
-         "all_shapes": sketch},
-        {"name": "estimate_fields", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/estimate_fields.cu",
-         "replaces": "src/repro/kernels/estimate.py:215",
-         "launches": launches["estimate_fields"],
-         "max_abs_err": estimate[0]["max_abs_err"], "ms": estimate[0]["ms"],
-         "device_ms": estimate[0]["device_ms"],
-         "plain_ms": estimate[0]["plain_ms"],
-         "bound_ms": estimate[0]["bound_ms"],
-         "bound_by": estimate[0]["bound_by"], "library_ms": None,
-         "shape": estimate[0]["shape"], "all_shapes": estimate},
-    ]
-    for name, source, replaces, shapes in (
+        kernel_entry(name, source, replaces, launches[name], r, shapes)
+        for name, source, replaces, r, shapes in (
+            ("icws_sketch", "icws_sketch.cu", "icws_sketch.py:40", rep,
+             sketch),
+            ("estimate_fields", "estimate_fields.cu", "estimate.py:215",
+             estimate[0], estimate),
             ("countsketch_sparse", "countsketch_sparse.cu",
-             "countsketch.py:91", lin_sketch["cs"]),
-            ("jl_sketch", "jl_sketch.cu", "jl_sketch.py:28", lin_sketch["jl"]),
+             "countsketch.py:91", lin_sketch["cs"][3], lin_sketch["cs"]),
+            ("jl_sketch", "jl_sketch.cu", "jl_sketch.py:28",
+             lin_sketch["jl"][3], lin_sketch["jl"]),
             ("linear_estimate_fields", "linear_estimate_fields.cu",
-             "estimate.py:407", lin_estimate),
-            ("dmh_sketch", "dmh_sketch.cu", "dmh_sketch.py:92", dmh),
+             "estimate.py:407", lin_estimate[0], lin_estimate),
+            ("dmh_sketch", "dmh_sketch.cu", "dmh_sketch.py:92", dmh[3], dmh),
             ("sample_estimate_fields", "sample_estimate_fields.cu",
-             "sample_estimate.py:86", sample)):
-        r = lin_rep[name]
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{source}",
-            "replaces": f"src/repro/kernels/{replaces}",
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "device_ms": r["device_ms"],
-            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
-            "shape": r["shape"], "all_shapes": shapes})
+             "sample_estimate.py:86", sample[0], sample),
+            ("estimate_fields_packed", "estimate_fields_packed.cu",
+             "estimate.py:306", b11[0], b11),
+            ("linear_estimate_fields_packed",
+             "linear_estimate_fields_packed.cu", "estimate.py:500", b12[0],
+             b12),
+            ("sample_estimate_fields_packed",
+             "sample_estimate_fields_packed.cu", "sample_estimate.py:204",
+             b13[0], b13))]
+    kernels[7:7] = [
+        kernel_entry(f"{kind}_sketch_packed", f"{kind}_sketch.cu", replaces,
+                     launches[f"{kind}_sketch_packed"], b10[kind][1],
+                     b10[kind], entry_point_launches=b10_path[kind],
+                     entry_point=f"repro_torch.kernels.ops.{kind}_sketch("
+                                 "pack_vals=True)")
+        for kind, replaces in (("icws", "icws_sketch.py:96"),
+                               ("dmh", "dmh_sketch.py:157"))]
+    log("latency (unpacked; packed), p50 ms of search and of a micro-batch "
+        "of 16: " + json.dumps(latency))
     log(f"total {time.perf_counter() - t_start:.1f} s on {identity}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

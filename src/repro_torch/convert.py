@@ -18,7 +18,8 @@ caller exports them as numpy (this module imports nothing of JAX)::
 and gets a port index that serves the same sketch rows.  All six families
 are carried, one buffer per component of the family: ICWS and DMH share
 the ICWS buffers, CS and JL carry their tables, TS and PS their sample
-keys, values and taus.
+keys, values and taus.  A packed JAX index (``packed=True``) carries its
+packed buffers (``family.packed_components``), written as they are.
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
                      tenant_ranges: Optional[Dict[str, Sequence[
                          Tuple[int, int]]]] = None,
                      m: int, seed: int = 0, key_space: int = 2 ** 31,
-                     family: str = "icws", device="cuda"
-                     ) -> DatasetSearchIndex:
+                     family: str = "icws", packed: bool = False,
+                     device="cuda") -> DatasetSearchIndex:
     """A port index over the given corpus.
 
     Args:
@@ -45,21 +46,23 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
         the family: icws and dmh ``(fp [3, cap, m], val [3, cap, m], norm
         [3, cap], argkey [3, cap, m])``; cs and jl ``(tables [3, cap, R,
         W],)``; ts and ps ``(keys [3, cap, S], values [3, cap, S], taus
-        [3, cap])``.
+        [3, cap])``; with ``packed``, the family's packed components.
       size: live rows per field (the first ``size`` rows are copied).
       tables: per table ``(name, n_rows, (kmv_hashes, kmv_values))``, in
         store-row order (table i is row i).
       tenant_ranges: tenant id -> its ``[start, stop)`` row ranges.
-      m, seed, key_space, family: the JAX index's parameters (queries
-        sketch with them, so they must match the corpus).
+      m, seed, key_space, family, packed: the JAX index's parameters
+        (queries sketch with them, so they must match the corpus).
     """
     if len(tables) != size:
         raise ValueError(f"{len(tables)} tables for {size} store rows")
     index = DatasetSearchIndex(m=m, seed=seed, key_space=key_space,
-                               family=family, device=device)
+                               family=family, packed=packed, device=device)
     if size == 0:
         return index
-    specs = index.family.components
+    specs = (index.family.packed_components if packed
+             else index.family.components)
+    append = index.store.append_packed if packed else index.store.append
     if len(buffers) != len(specs):
         raise ValueError(f"{family} corpus has {len(specs)} buffers "
                          f"({', '.join(s.name for s in specs)}); got "
@@ -81,8 +84,7 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
         hi = lo + 1
         while hi < size and owner.get(hi) == owner.get(lo):
             hi += 1
-        index.store.append(*(b[:, lo:hi] for b in bufs),
-                           tenant=owner.get(lo))
+        append(*(b[:, lo:hi] for b in bufs), tenant=owner.get(lo))
         lo = hi
     for row, (name, n_rows, (hashes, values)) in enumerate(tables):
         sample = KMVSketch(hashes=np.asarray(hashes, np.int64),

@@ -13,16 +13,18 @@ storage an ``m``-sample ICWS sketch occupies.  Every query, single or
 batched, builds its 3Q field rows with one call of the family's
 ``sketch_rows`` (one sketch launch for ICWS, DMH, CS and JL; host-built
 sample rows for TS and PS) and runs ONE fused multi-field estimate launch
-straight off the store buffers (a single query is the Q = 1 case).  The
-index itself has no family-specific branch.  ``_corr_scores`` and
+straight off the store buffers (a single query is the Q = 1 case).
+``packed=True`` keeps the store in the family's packed layout and routes
+the launch to ``family.estimate_fields_packed``; its rankings equal an
+unpacked index over the bf16-roundtripped rows bit for bit.  The index
+itself has no family-specific branch.  ``_corr_scores`` and
 ``_top_k`` rank the tables on the device; the host then refines the k
 survivors' correlation from the matched KMV samples.  Per-query results of
 ``query_batch`` equal a loop of ``query`` bit for bit.
 
 Not ported yet (the constructor raises ``NotImplementedError`` naming the
 ``ROADMAP.md`` queue item): the host oracle (``backend="host"``,
-``keep_host_oracle=True``), the packed store and sharded serving
-(``mesh``).
+``keep_host_oracle=True``) and sharded serving (``mesh``).
 """
 from __future__ import annotations
 
@@ -122,9 +124,6 @@ class DatasetSearchIndex:
             raise NotImplementedError(
                 "keep_host_oracle=True (host WeightedMinHash sketches) is "
                 "not ported yet (Queue A 19 in ROADMAP.md)")
-        if packed:
-            raise NotImplementedError(
-                "packed=True is not ported yet (Queue A 12 in ROADMAP.md)")
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving (mesh) is not ported yet (Queue A 14 in "
@@ -134,6 +133,7 @@ class DatasetSearchIndex:
         self.seed = seed
         self.key_space = key_space
         self.backend = backend
+        self.packed = bool(packed)
         # every family sized to the storage an m-sample ICWS sketch
         # occupies (icws: exactly m), so the comparison is storage-matched
         self.family = make_family(family, storage=wmh_storage(m), seed=seed)
@@ -143,7 +143,7 @@ class DatasetSearchIndex:
         # row i); the store keeps the same assignment as row ranges
         self._tenant_tables: Dict[str, List[int]] = {}
         self.store = CorpusStore(family=self.family, fields=len(FIELDS),
-                                 device=self.device)
+                                 packed=self.packed, device=self.device)
 
     # -- ingestion ----------------------------------------------------------
     def vectorize(self, keys: np.ndarray, values: np.ndarray
@@ -305,8 +305,10 @@ class DatasetSearchIndex:
             for qi in range(Q)]
 
     def _estimate(self, qcomps, cbufs) -> torch.Tensor:
-        return self.family.estimate_fields(qcomps, cbufs,
-                                           qmap=QFIELD, cmap=CFIELD)
+        """The fused fields launch, its packed twin over a packed store."""
+        est = (self.family.estimate_fields_packed if self.packed
+               else self.family.estimate_fields)
+        return est(qcomps, cbufs, qmap=QFIELD, cmap=CFIELD)
 
     def _sample_corr(self, sa: KMVSketch, sb: KMVSketch,
                      min_pairs: int = 8) -> float:

@@ -8,9 +8,13 @@ serves the paper's own method, ICWS weighted MinHash, its constant-time
 ingest variant DMH (same wire layout and estimate), the two linear
 sketches it is compared with, CountSketch and JL, and the two sampling
 sketches, threshold (TS) and priority (PS) sampling, each sized to the
-same storage budget by :func:`make_family`.  Members not ported yet
-(merging, the host oracle, packed storage, sharded serving) raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+same storage budget by :func:`make_family`.  Each family also has the
+packed layout of the JAX package (``packed_components``, ``pack_rows``,
+``unpack_rows``, ``estimate_fields_packed``): every f32 value lane as
+bf16-halfword pairs in i32 words (:mod:`repro_torch.kernels.packed`), an
+odd width gaining one inert pad slot.  Members not ported yet (merging,
+the host oracle, sharded serving) raise ``NotImplementedError`` naming
+their ``ROADMAP.md`` item.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 from repro_torch.core.types import SparseVec
 from repro_torch.kernels import ops
 from repro_torch.kernels.common import CORPUS_PAD_FP
+from repro_torch.kernels.packed import pack_halfwords_f32, unpack_halfwords_f32
 
 from .ingest import (dmh_sketch_batch, linear_sketch_batch,
                      sample_sketch_batch, sketch_batch)
@@ -42,6 +47,12 @@ class ComponentSpec:
     fill: float
 
 
+def _pad_last(x, n: int, value=0) -> torch.Tensor:
+    """``x`` with its last dim padded by ``n`` elements of ``value``."""
+    x = torch.as_tensor(x)
+    return torch.nn.functional.pad(x, (0, n), value=value) if n else x
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet ({item} in "
                               "ROADMAP.md)")
@@ -56,19 +67,6 @@ class _Unported:
 
     def host_oracle(self):
         _not_ported("the host oracle", "Queue A 19")
-
-    @property
-    def packed_components(self):
-        _not_ported("packed storage", "Queue A 12")
-
-    def pack_rows(self, rows):
-        _not_ported("packed storage", "Queue A 12")
-
-    def unpack_rows(self, rows):
-        _not_ported("packed storage", "Queue A 12")
-
-    def estimate_fields_packed(self, q, c, *, qmap, cmap):
-        _not_ported("packed storage", "Queue A 12")
 
     def estimate_fields_sharded(self, q, c, *, qmap, cmap, mesh, axis):
         _not_ported("sharded serving", "Queue A 14")
@@ -118,6 +116,42 @@ class ICWSFamily(_Unported):
         [C, P, ...] -> [G, Q, P] f32 estimates."""
         return ops.icws_estimate_fields(q[0], q[1], q[2], c[0], c[1], c[2],
                                         qmap=qmap, cmap=cmap)
+
+    @property
+    def packed_components(self) -> Tuple[ComponentSpec, ...]:
+        """Fingerprints stay i32 (exact-match state), values pack two per
+        word (me = m rounded up to even), norms stay f32; the argkeys
+        sidecar is dropped: 6 me + 4 bytes per row."""
+        me = self.m + self.m % 2
+        return (ComponentSpec("fingerprints", (me,), torch.int32,
+                              CORPUS_PAD_FP),
+                ComponentSpec("packed_values", (me // 2,), torch.int32, 0.0),
+                ComponentSpec("norms", (), torch.float32, 0.0))
+
+    def pack_rows(self, rows):
+        """(fp, val, norm[, argkey]) -> packed components, any leading
+        dims: values bf16-truncated, argkeys dropped."""
+        fp = _pad_last(torch.as_tensor(rows[0]).to(torch.int32), self.m % 2,
+                       CORPUS_PAD_FP)
+        val = _pad_last(torch.as_tensor(rows[1]).to(torch.float32),
+                        self.m % 2)
+        return (fp, pack_halfwords_f32(val),
+                torch.as_tensor(rows[2]).to(torch.float32))
+
+    def unpack_rows(self, rows):
+        """Packed components -> unpacked rows (``pack(unpack(p)) == p``);
+        the argkeys come back zeroed."""
+        fp, w, norm = (torch.as_tensor(x) for x in rows)
+        return (fp[..., :self.m].to(torch.int32),
+                unpack_halfwords_f32(w)[..., :self.m], norm.to(torch.float32),
+                torch.zeros(fp.shape[:-1] + (self.m,), dtype=torch.int32,
+                            device=fp.device))
+
+    def estimate_fields_packed(self, q, c, *, qmap, cmap):
+        """:meth:`estimate_fields` over packed corpus buffers ``c = (fc, wc,
+        nc)``."""
+        return ops.icws_estimate_fields_packed(q[0], q[1], q[2], c[0], c[1],
+                                               c[2], qmap=qmap, cmap=cmap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,6 +211,25 @@ class _LinearFamily(_Unported):
         -> [G, Q, P] f32 estimates."""
         return ops.linear_estimate_fields(q[0], c[0], qmap=qmap, cmap=cmap)
 
+    @property
+    def packed_components(self) -> Tuple[ComponentSpec, ...]:
+        """Every cell bf16-truncated, two per word (an odd width gains one
+        zero column): half the unpacked bytes."""
+        we = self.width + self.width % 2
+        return (ComponentSpec("packed_tables", (self.reps, we // 2),
+                              torch.int32, 0.0),)
+
+    def pack_rows(self, rows):
+        t = torch.as_tensor(rows[0]).to(torch.float32)
+        return (pack_halfwords_f32(_pad_last(t, self.width % 2)),)
+
+    def unpack_rows(self, rows):
+        return (unpack_halfwords_f32(rows[0])[..., :self.width],)
+
+    def estimate_fields_packed(self, q, c, *, qmap, cmap):
+        """:meth:`estimate_fields` over packed corpus tables ``c = (wc,)``."""
+        return ops.linear_estimate_fields_packed(q[0], c[0], qmap=qmap,
+                                                 cmap=cmap)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -249,6 +302,35 @@ class _SamplingFamily(_Unported):
         [C, P, ...] -> [G, Q, P] f32 estimates."""
         return ops.sample_estimate_fields(q[0], q[1], q[2], c[0], c[1], c[2],
                                           qmap=qmap, cmap=cmap)
+
+    @property
+    def packed_components(self) -> Tuple[ComponentSpec, ...]:
+        """Keys stay i32 (exact-match state), values pack two per word (an
+        odd slot count gains one pad slot, key -2), taus stay f32: 6 Se + 4
+        bytes per row."""
+        se = self.slots + self.slots % 2
+        return (ComponentSpec("keys", (se,), torch.int32, CORPUS_PAD_FP),
+                ComponentSpec("packed_values", (se // 2,), torch.int32, 0.0),
+                ComponentSpec("taus", (), torch.float32, 0.0))
+
+    def pack_rows(self, rows):
+        k = _pad_last(torch.as_tensor(rows[0]).to(torch.int32),
+                      self.slots % 2, CORPUS_PAD_FP)
+        v = _pad_last(torch.as_tensor(rows[1]).to(torch.float32),
+                      self.slots % 2)
+        return (k, pack_halfwords_f32(v),
+                torch.as_tensor(rows[2]).to(torch.float32))
+
+    def unpack_rows(self, rows):
+        k, w, t = (torch.as_tensor(x) for x in rows)
+        return (k[..., :self.slots].to(torch.int32),
+                unpack_halfwords_f32(w)[..., :self.slots], t.to(torch.float32))
+
+    def estimate_fields_packed(self, q, c, *, qmap, cmap):
+        """:meth:`estimate_fields` over packed corpus buffers ``c = (kc, wc,
+        tc)``."""
+        return ops.sample_estimate_fields_packed(q[0], q[1], q[2], c[0], c[1],
+                                                 c[2], qmap=qmap, cmap=cmap)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,5 @@
 """Field-stacked sketch store with amortized in-place append (port of
-``repro.data.store.CorpusStore``, unpacked and on one device).
+``repro.data.store.CorpusStore``, on one device).
 
 All F field corpora of an index (F = 3 for the §1.3 fields) live in one
 set of preallocated per-component buffers ``[F, capacity, *trailing]``,
@@ -19,6 +19,14 @@ norms, for the linear families zero tables, for TS and PS pad keys ``-2``
 with zero values and taus (probability 0 on every slot) -- and are inert
 under the estimate launch, so queries run on the full-capacity buffers and slice the
 *estimates* to the live row count.
+
+``packed=True`` keeps the family's packed layout resident
+(``family.packed_components``: f32 values as bf16-halfword pairs in i32
+words, ICWS argkeys dropped): ``append`` still takes unpacked rows,
+validates them against the unpacked contract and packs them with
+``family.pack_rows`` before the write; the estimate launches decode the
+words inside the kernel, so the f32 values never exist on the device.
+``append_packed`` writes rows already in the packed layout as they are.
 
 Multi-tenant arena: ``append(..., tenant=...)`` records the written row
 range per tenant, so many logical corpora share one set of buffers while
@@ -43,14 +51,16 @@ class CorpusStore:
     """Growable field-stacked device store of one family's sketch rows.
 
     Args: ``m`` (an ICWS sample count) or ``family`` (any serving family),
-    ``fields`` (F), ``min_capacity``, and ``device`` (default ``"cuda"``;
-    raises if no card is present).  ``self.m`` is the family's sample count
-    where it has one (ICWS, DMH, JL) and None otherwise (CountSketch; TS
-    and PS, which count ``slots``).
+    ``fields`` (F), ``min_capacity``, ``packed`` (the resident layout), and
+    ``device`` (default ``"cuda"``; raises if no card is present).
+    ``self.m`` is the family's sample count where it has one (ICWS, DMH,
+    JL) and None otherwise (CountSketch; TS and PS, which count
+    ``slots``).
     """
 
     def __init__(self, m: "int | None" = None, fields: int = 1,
-                 min_capacity: int = 64, family=None, device="cuda"):
+                 min_capacity: int = 64, family=None, packed: bool = False,
+                 device="cuda"):
         if family is None:
             if m is None:
                 raise ValueError("provide a family or an ICWS sample count m")
@@ -64,7 +74,12 @@ class CorpusStore:
             raise ValueError("min_capacity must be >= 1")
         self.family = family
         self.device = resolve_device(device)
-        self._specs = tuple(family.components)
+        self.packed = bool(packed)
+        # append validates against the unpacked rows; the buffers hold the
+        # packed layout when packed=True
+        self._row_specs = tuple(family.components)
+        self._specs = (tuple(family.packed_components) if self.packed
+                       else self._row_specs)
         self.m = getattr(family, "m", None)
         self.fields = int(fields)
         self.min_capacity = int(min_capacity)
@@ -92,19 +107,34 @@ class CorpusStore:
     def append(self, *rows, tenant: "str | None" = None) -> None:
         """Append sketch rows, one tensor (or array) per component, each
         ``[F, b, *trailing]`` (the F axis may be omitted when ``fields ==
-        1``).  Rows are validated against each other before any write.
-        The write goes into the existing buffers in place."""
-        if len(rows) != len(self._specs):
+        1``).  Rows are validated against each other before any write, and
+        packed first when the store is packed.  The write goes into the
+        existing buffers in place."""
+        rows = self._validate(rows, self._row_specs)
+        if self.packed:
+            rows = self._validate(self.family.pack_rows(tuple(rows)),
+                                  self._specs)
+        self._write(rows, tenant)
+
+    def append_packed(self, *rows, tenant: "str | None" = None) -> None:
+        """Append rows already in the packed layout (one tensor per
+        ``family.packed_components``), written as they are."""
+        if not self.packed:
+            raise ValueError("append_packed needs a packed store")
+        self._write(self._validate(rows, self._specs), tenant)
+
+    def _validate(self, rows, specs) -> List[torch.Tensor]:
+        if len(rows) != len(specs):
             raise ValueError(
-                f"{self.family.name} rows have {len(self._specs)} "
-                f"components ({', '.join(s.name for s in self._specs)}); "
+                f"{self.family.name} rows have {len(specs)} "
+                f"components ({', '.join(s.name for s in specs)}); "
                 f"got {len(rows)}")
         rows = [torch.as_tensor(r).to(device=self.device, dtype=s.dtype)
-                for r, s in zip(rows, self._specs)]
+                for r, s in zip(rows, specs)]
         if self.fields == 1:
             rows = [r[None] if r.dim() == 1 + len(s.trailing) else r
-                    for r, s in zip(rows, self._specs)]
-        lead = self._specs[0]
+                    for r, s in zip(rows, specs)]
+        lead = specs[0]
         if (rows[0].dim() != 2 + len(lead.trailing)
                 or rows[0].shape[0] != self.fields
                 or tuple(rows[0].shape[2:]) != lead.trailing):
@@ -113,11 +143,15 @@ class CorpusStore:
                 f"{', '.join(map(str, lead.trailing))}]; "
                 f"got {tuple(rows[0].shape)}")
         b = int(rows[0].shape[1])
-        for r, s in zip(rows[1:], self._specs[1:]):
+        for r, s in zip(rows[1:], specs[1:]):
             if tuple(r.shape) != (self.fields, b) + s.trailing:
                 raise ValueError(
                     f"{s.name} rows {tuple(r.shape)} do not match "
                     f"{lead.name} rows {(self.fields, b) + s.trailing}")
+        return rows
+
+    def _write(self, rows, tenant) -> None:
+        b = int(rows[0].shape[1])
         if b == 0:
             return
         self._reserve(self._size + b)
@@ -183,7 +217,8 @@ class CorpusStore:
         """The full-capacity device buffers, one per component of the
         family: ICWS/DMH ``(fp [F, cap, m], val [F, cap, m], norm [F,
         cap], argkey [F, cap, m])``, CS/JL ``(tables [F, cap, R, W],)``,
-        TS/PS ``(keys [F, cap, S], values [F, cap, S], taus [F, cap])``.
+        TS/PS ``(keys [F, cap, S], values [F, cap, S], taus [F, cap])``; a
+        packed store holds ``family.packed_components`` instead.
 
         Unused rows are inert under the estimate launch; callers slice the
         estimates, never the corpus.  A growth replaces the buffers, so

@@ -29,8 +29,10 @@ import threading
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("icws_sketch.cu", "estimate_fields.cu", "countsketch_sparse.cu",
            "jl_sketch.cu", "linear_estimate_fields.cu", "dmh_sketch.cu",
-           "sample_estimate_fields.cu", "bindings.cu")
-HEADERS = ("u32.cuh",)
+           "sample_estimate_fields.cu", "estimate_fields_packed.cu",
+           "linear_estimate_fields_packed.cu",
+           "sample_estimate_fields_packed.cu", "bindings.cu")
+HEADERS = ("u32.cuh", "packed.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-O3", "-std=c++17", ARCH, "-fmad=false", "-prec-div=true",
          "-prec-sqrt=true", "-ftz=false", "-Xcompiler", "-fPIC",
@@ -129,7 +131,7 @@ def library() -> ctypes.CDLL:
         ptr, i32, u32, i64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
                               ctypes.c_longlong)
         lib.repro_icws_sketch.argtypes = [ptr, ptr, ptr, i32, i32, i32, u32,
-                                          i32, ptr, ptr, ptr, ptr, ptr]
+                                          i32, ptr, ptr, ptr, ptr, ptr, ptr]
         lib.repro_icws_sketch.restype = i32
         lib.repro_estimate_fields.argtypes = [ptr, ptr, ptr, ptr, i64, i64,
                                               i64, i64, ptr, ptr, i32, i32,
@@ -145,12 +147,22 @@ def library() -> ctypes.CDLL:
                                                      i32, ptr, ptr]
         lib.repro_linear_estimate_fields.restype = i32
         lib.repro_dmh_sketch.argtypes = [ptr, ptr, ptr, i32, i32, i32, u32,
-                                         i32, ptr, ptr, ptr, ptr, ptr]
+                                         i32, ptr, ptr, ptr, ptr, ptr, ptr]
         lib.repro_dmh_sketch.restype = i32
         lib.repro_sample_estimate_fields.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
             ptr, i32, i32, i32, i32, ptr, ptr]
         lib.repro_sample_estimate_fields.restype = i32
+        lib.repro_estimate_fields_packed.argtypes = \
+            lib.repro_estimate_fields.argtypes
+        lib.repro_estimate_fields_packed.restype = i32
+        lib.repro_linear_estimate_fields_packed.argtypes = \
+            lib.repro_linear_estimate_fields.argtypes
+        lib.repro_linear_estimate_fields_packed.restype = i32
+        lib.repro_sample_estimate_fields_packed.argtypes = [
+            ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
+            ptr, i32, i32, i32, i32, i32, ptr, ptr]
+        lib.repro_sample_estimate_fields_packed.restype = i32
         lib.repro_error_string.argtypes = [i32]
         lib.repro_error_string.restype = ctypes.c_char_p
         _lib = lib

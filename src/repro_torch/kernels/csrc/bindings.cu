@@ -7,7 +7,7 @@
 namespace repro {
 cudaError_t launch_icws_sketch(const float* w, const int* keys, const float* vals,
                                int B, int N, int m, uint32_t seed, int S, int* fp,
-                               float* val, float* amin, int* argkey,
+                               float* val, float* amin, int* argkey, int* packed,
                                cudaStream_t stream);
 cudaError_t launch_estimate_fields(const int* fq, const float* vq, const int* fc,
                                    const float* vc, long long fc_fs, long long fc_rs,
@@ -26,22 +26,39 @@ cudaError_t launch_linear_estimate_fields(const float* tq, const float* tc,
                                           cudaStream_t stream);
 cudaError_t launch_dmh_sketch(const float* w, const int* keys, const float* vals,
                               int B, int N, int m, uint32_t seed, int J, int* fp,
-                              float* val, float* amin, int* argkey,
+                              float* val, float* amin, int* argkey, int* packed,
                               cudaStream_t stream);
 cudaError_t launch_sample_estimate_fields(
     const int* kq, const float* vq, const float* aq, const int* kc, const float* vc,
     const float* ac, long long kc_fs, long long kc_rs, long long vc_fs,
     long long vc_rs, long long ac_fs, long long ac_rs, const int* qmap,
     const int* cmap, int G, int Q, int P, int S, float* out, cudaStream_t stream);
+cudaError_t launch_estimate_fields_packed(const int* fq, const float* vq, const int* fc,
+                                          const int* wc, long long fc_fs,
+                                          long long fc_rs, long long wc_fs,
+                                          long long wc_rs, const int* qmap,
+                                          const int* cmap, int G, int Q, int P, int m,
+                                          float* cnt, float* sw, cudaStream_t stream);
+cudaError_t launch_linear_estimate_fields_packed(const float* tq, const int* wc,
+                                                 long long wc_fs, long long wc_ps,
+                                                 const int* qmap, const int* cmap,
+                                                 int G, int Q, int P, int R, int W,
+                                                 float* out, cudaStream_t stream);
+cudaError_t launch_sample_estimate_fields_packed(
+    const int* kq, const float* vq, const float* aq, const int* kc, const int* wc,
+    const float* tc, long long kc_fs, long long kc_rs, long long wc_fs,
+    long long wc_rs, long long tc_fs, long long tc_rs, const int* qmap,
+    const int* cmap, int G, int Q, int P, int Sq, int Sc, float* out,
+    cudaStream_t stream);
 }  // namespace repro
 
 extern "C" {
 
 int repro_icws_sketch(const float* w, const int* keys, const float* vals, int B,
                       int N, int m, uint32_t seed, int S, int* fp, float* val,
-                      float* amin, int* argkey, void* stream) {
+                      float* amin, int* argkey, int* packed, void* stream) {
   return (int)repro::launch_icws_sketch(w, keys, vals, B, N, m, seed, S, fp, val,
-                                        amin, argkey, (cudaStream_t)stream);
+                                        amin, argkey, packed, (cudaStream_t)stream);
 }
 
 int repro_estimate_fields(const int* fq, const float* vq, const int* fc,
@@ -77,9 +94,9 @@ int repro_linear_estimate_fields(const float* tq, const float* tc, long long tc_
 
 int repro_dmh_sketch(const float* w, const int* keys, const float* vals, int B,
                      int N, int m, uint32_t seed, int J, int* fp, float* val,
-                     float* amin, int* argkey, void* stream) {
+                     float* amin, int* argkey, int* packed, void* stream) {
   return (int)repro::launch_dmh_sketch(w, keys, vals, B, N, m, seed, J, fp, val,
-                                       amin, argkey, (cudaStream_t)stream);
+                                       amin, argkey, packed, (cudaStream_t)stream);
 }
 
 int repro_sample_estimate_fields(const int* kq, const float* vq, const float* aq,
@@ -91,6 +108,37 @@ int repro_sample_estimate_fields(const int* kq, const float* vq, const float* aq
   return (int)repro::launch_sample_estimate_fields(
       kq, vq, aq, kc, vc, ac, kc_fs, kc_rs, vc_fs, vc_rs, ac_fs, ac_rs, qmap, cmap,
       G, Q, P, S, out, (cudaStream_t)stream);
+}
+
+int repro_estimate_fields_packed(const int* fq, const float* vq, const int* fc,
+                                 const int* wc, long long fc_fs, long long fc_rs,
+                                 long long wc_fs, long long wc_rs, const int* qmap,
+                                 const int* cmap, int G, int Q, int P, int m,
+                                 float* cnt, float* sw, void* stream) {
+  return (int)repro::launch_estimate_fields_packed(fq, vq, fc, wc, fc_fs, fc_rs, wc_fs,
+                                                   wc_rs, qmap, cmap, G, Q, P, m, cnt,
+                                                   sw, (cudaStream_t)stream);
+}
+
+int repro_linear_estimate_fields_packed(const float* tq, const int* wc, long long wc_fs,
+                                        long long wc_ps, const int* qmap,
+                                        const int* cmap, int G, int Q, int P, int R,
+                                        int W, float* out, void* stream) {
+  return (int)repro::launch_linear_estimate_fields_packed(
+      tq, wc, wc_fs, wc_ps, qmap, cmap, G, Q, P, R, W, out, (cudaStream_t)stream);
+}
+
+int repro_sample_estimate_fields_packed(const int* kq, const float* vq,
+                                        const float* aq, const int* kc, const int* wc,
+                                        const float* tc, long long kc_fs,
+                                        long long kc_rs, long long wc_fs,
+                                        long long wc_rs, long long tc_fs,
+                                        long long tc_rs, const int* qmap,
+                                        const int* cmap, int G, int Q, int P, int Sq,
+                                        int Sc, float* out, void* stream) {
+  return (int)repro::launch_sample_estimate_fields_packed(
+      kq, vq, aq, kc, wc, tc, kc_fs, kc_rs, wc_fs, wc_rs, tc_fs, tc_rs, qmap, cmap, G,
+      Q, P, Sq, Sc, out, (cudaStream_t)stream);
 }
 
 const char* repro_error_string(int err) {

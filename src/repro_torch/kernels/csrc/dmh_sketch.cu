@@ -20,9 +20,16 @@
 // same bits), hashes the fingerprint, and after a second barrier runs the
 // densify probes against the shared occupancy.  Compiled with -fmad=false
 // and IEEE divides, as the ICWS sketch: a contraction could flip a floor.
+//
+// With Pack (the TPU kernel's pack_vals epilogue, _dmh_kernel_packed) the
+// block then writes the row's bf16-halfword plane [me / 2] i32 (me = m
+// rounded up to even): after the densify loop and a barrier, one thread per
+// pair of slots reads the two densified values back and writes one word,
+// the odd-m pad slot as zero; empty rows hold value 0 and pack to zero.
 #include <cuda_runtime.h>
 #include <cstdint>
 
+#include "packed.cuh"
 #include "u32.cuh"
 
 namespace repro {
@@ -44,11 +51,13 @@ __device__ __forceinline__ float dmh_rank(uint32_t k, float wi, uint32_t seed,
   return __fdiv_rn(c, __fmul_rn(y, expf(r)));
 }
 
+template <bool Pack>
 __global__ void __launch_bounds__(kDmhThreads)
 dmh_sketch_kernel(const float* __restrict__ w, const int* __restrict__ keys,
                   const float* __restrict__ vals, int N, int m, uint32_t seed,
                   int J, int* __restrict__ fp_out, float* __restrict__ val_out,
-                  float* __restrict__ amin_out, int* __restrict__ key_out) {
+                  float* __restrict__ amin_out, int* __restrict__ key_out,
+                  int* __restrict__ packed) {
   extern __shared__ unsigned long long s_best[];           // [m] packed (a, lane)
   float* s_amin = reinterpret_cast<float*>(s_best + m);    // [m]
   int* s_fp = reinterpret_cast<int*>(s_amin + m);          // [m]
@@ -136,21 +145,31 @@ dmh_sketch_kernel(const float* __restrict__ w, const int* __restrict__ keys,
     amin_out[o + t] = s_amin[src];
     key_out[o + t] = s_key[src];
   }
+  if (Pack) {
+    __syncthreads();   // the row's densified values are written
+    const int mw = (m + 1) / 2;
+    for (int k = tid; k < mw; k += blockDim.x) {
+      const float v0 = val_out[o + 2 * k];
+      const float v1 = 2 * k + 1 < m ? val_out[o + 2 * k + 1] : 0.f;
+      packed[(long long)blockIdx.x * mw + k] = (int)(pack_half(v0, 0) | pack_half(v1, 1));
+    }
+  }
 }
 
 cudaError_t launch_dmh_sketch(const float* w, const int* keys, const float* vals,
                               int B, int N, int m, uint32_t seed, int J, int* fp,
-                              float* val, float* amin, int* argkey,
+                              float* val, float* amin, int* argkey, int* packed,
                               cudaStream_t stream) {
   if (B < 1 || N < 1 || m < 1 || J < 1) return cudaErrorInvalidValue;
   const size_t smem = (size_t)m * (sizeof(unsigned long long) + 4 * sizeof(int));
+  auto kernel = packed ? dmh_sketch_kernel<true> : dmh_sketch_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        dmh_sketch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
-  dmh_sketch_kernel<<<B, kDmhThreads, smem, stream>>>(w, keys, vals, N, m, seed, J,
-                                                      fp, val, amin, argkey);
+  kernel<<<B, kDmhThreads, smem, stream>>>(w, keys, vals, N, m, seed, J, fp, val, amin,
+                                           argkey, packed);
   return cudaGetLastError();
 }
 

@@ -15,22 +15,32 @@
 // merge.  The TPU grid's sequential N axis becomes the in-lane loop; no
 // [B, m, N] tensor exists anywhere.  Compiled with -fmad=false and IEEE
 // divides: a contraction of logw / r + beta could flip a floor.
+//
+// With Pack (the TPU kernel's pack_vals epilogue, _icws_kernel_packed) the
+// kernel also writes the bf16-halfword plane [B, me / 2] i32 (me = m rounded
+// up to even).  A row's samples are spread over groups and blocks, so the
+// lane that finishes (row, t) ORs its halfword into the word the wrapper
+// zeroed: OR is order-free, so the word's bits do not depend on which lane
+// gets there first.  Empty rows write value 0 (halfword 0), and the odd-m
+// pad slot is never written, so both stay zero as pack_rows pads them.
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
 
+#include "packed.cuh"
 #include "u32.cuh"
 
 namespace repro {
 
 constexpr int kSketchThreads = 256;
 
+template <bool Pack>
 __global__ void __launch_bounds__(kSketchThreads)
 icws_sketch_kernel(const float* __restrict__ w, const int* __restrict__ keys,
                    const float* __restrict__ vals, int B, int N, int m,
                    uint32_t seed, int S, int* __restrict__ fp_out,
                    float* __restrict__ val_out, float* __restrict__ amin_out,
-                   int* __restrict__ key_out) {
+                   int* __restrict__ key_out, int* __restrict__ packed) {
   const int groups_per_block = kSketchThreads / S;
   const long long gid = (long long)blockIdx.x * groups_per_block + threadIdx.x / S;
   const int s = threadIdx.x % S;
@@ -96,22 +106,31 @@ icws_sketch_kernel(const float* __restrict__ w, const int* __restrict__ keys,
   const uint32_t lv = (uint32_t)(int)best_lvl;
   const uint32_t bits = hash_u32((uint32_t)key ^ (lv * 0x9E3779B9u),
                                  salt_for(seed, ICWS_STREAM_FP, t));
+  const float v = vals[(long long)b * N + best_i];
   fp_out[o] = (int)(bits & 0x7FFFFFFFu);
-  val_out[o] = vals[(long long)b * N + best_i];
+  val_out[o] = v;
   key_out[o] = key;
+  if (Pack) {
+    const long long word = (long long)b * ((m + 1) / 2) + (t >> 1);
+    atomicOr(reinterpret_cast<unsigned int*>(packed) + word, pack_half(v, t & 1));
+  }
 }
 
 cudaError_t launch_icws_sketch(const float* w, const int* keys, const float* vals,
                                int B, int N, int m, uint32_t seed, int S, int* fp,
-                               float* val, float* amin, int* argkey,
+                               float* val, float* amin, int* argkey, int* packed,
                                cudaStream_t stream) {
   if (S < 1 || S > 32 || (S & (S - 1)) != 0) return cudaErrorInvalidValue;
   const long long groups = (long long)B * m;
   const long long per_block = kSketchThreads / S;
   const long long blocks = (groups + per_block - 1) / per_block;
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
-  icws_sketch_kernel<<<(unsigned)blocks, kSketchThreads, 0, stream>>>(
-      w, keys, vals, B, N, m, seed, S, fp, val, amin, argkey);
+  if (packed)
+    icws_sketch_kernel<true><<<(unsigned)blocks, kSketchThreads, 0, stream>>>(
+        w, keys, vals, B, N, m, seed, S, fp, val, amin, argkey, packed);
+  else
+    icws_sketch_kernel<false><<<(unsigned)blocks, kSketchThreads, 0, stream>>>(
+        w, keys, vals, B, N, m, seed, S, fp, val, amin, argkey, packed);
   return cudaGetLastError();
 }
 

@@ -3,7 +3,9 @@ kernel and plain twin.
 
 Replaces the TPU kernel ``repro/kernels/dmh_sketch.py::_dmh_kernel`` and
 its ``_densify`` epilogue (launcher ``dmh_sketch_pallas`` at
-``pack_vals=False``).  Contract::
+``pack_vals=False``) and, as ``dmh_sketch_packed_*``,
+``_dmh_kernel_packed`` (``pack_vals=True``: the bf16-halfword plane of the
+densified values as a fifth output).  Contract::
 
     [B, N] (w f32, keys i32, vals f32) -> (fp i32, val f32, amin f32, argkey i32) [B, m]
 
@@ -40,6 +42,7 @@ from .common import (BIG, DMH_STREAM_BETA, DMH_STREAM_BIN, DMH_STREAM_C1,
                      DMH_STREAM_C2, DMH_STREAM_DENSIFY, DMH_STREAM_FP,
                      DMH_STREAM_R1, DMH_STREAM_R2, as_u32, densify_probes,
                      hash_u32, mul32, salt_for, uniform01)
+from .packed import pack_sketch_vals
 
 # bins one block may hold: 24 bytes of shared memory per bin, of the
 # 227 KB a block can use
@@ -132,6 +135,39 @@ def dmh_sketch_plain(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
             amin, torch.where(empty, 0, key_sel))
 
 
+def _launch(w, keys, vals, m: int, seed: int, pack: bool):
+    """One launch of ``csrc/dmh_sketch.cu``; with ``pack`` its Pack variant
+    and a fifth output."""
+    _check_inputs(w, keys, vals, m)
+    if w.device.type != "cuda":
+        raise ValueError(f"the CUDA DMH sketch takes CUDA tensors; got "
+                         f"{w.device}")
+    if m > MAX_BINS:
+        raise ValueError(f"dmh_sketch_cuda holds at most {MAX_BINS} bins in "
+                         f"shared memory; got m={m}")
+    w, keys, vals = w.contiguous(), keys.contiguous(), vals.contiguous()
+    B, N = w.shape
+    out = (torch.empty((B, m), dtype=torch.int32, device=w.device),
+           torch.empty((B, m), dtype=torch.float32, device=w.device),
+           torch.empty((B, m), dtype=torch.float32, device=w.device),
+           torch.empty((B, m), dtype=torch.int32, device=w.device))
+    if pack:
+        out += (torch.empty((B, (m + 1) // 2), dtype=torch.int32,
+                            device=w.device),)
+    if B == 0:
+        return out
+    lib = build.library()
+    with torch.cuda.device(w.device):
+        stream = torch.cuda.current_stream(w.device).cuda_stream
+        err = lib.repro_dmh_sketch(
+            w.data_ptr(), keys.data_ptr(), vals.data_ptr(), B, N, m,
+            seed & 0xFFFFFFFF, densify_probes(m),
+            *(o.data_ptr() for o in out[:4]),
+            out[4].data_ptr() if pack else None, stream)
+    build.check(err, "dmh_sketch")
+    return out
+
+
 def dmh_sketch_cuda(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
                     *, m: int, seed: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
@@ -142,30 +178,25 @@ def dmh_sketch_cuda(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
     the empty-row fixup happen inside the kernel.  Adds one to
     ``dmh_sketch_cuda.launches`` per launch.
     """
-    _check_inputs(w, keys, vals, m)
-    if w.device.type != "cuda":
-        raise ValueError(f"dmh_sketch_cuda takes CUDA tensors; got {w.device}")
-    if m > MAX_BINS:
-        raise ValueError(f"dmh_sketch_cuda holds at most {MAX_BINS} bins in "
-                         f"shared memory; got m={m}")
-    w, keys, vals = w.contiguous(), keys.contiguous(), vals.contiguous()
-    B, N = w.shape
-    out = (torch.empty((B, m), dtype=torch.int32, device=w.device),
-           torch.empty((B, m), dtype=torch.float32, device=w.device),
-           torch.empty((B, m), dtype=torch.float32, device=w.device),
-           torch.empty((B, m), dtype=torch.int32, device=w.device))
-    if B == 0:
-        return out
-    lib = build.library()
-    with torch.cuda.device(w.device):
-        stream = torch.cuda.current_stream(w.device).cuda_stream
-        err = lib.repro_dmh_sketch(
-            w.data_ptr(), keys.data_ptr(), vals.data_ptr(), B, N, m,
-            seed & 0xFFFFFFFF, densify_probes(m), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), out[3].data_ptr(), stream)
-    build.check(err, "dmh_sketch")
+    out = _launch(w, keys, vals, m, seed, pack=False)
     dmh_sketch_cuda.launches += 1
     return out
 
 
+def dmh_sketch_packed_plain(w, keys, vals, *, m: int, seed: int):
+    """The plain DMH sketch, then its ``pack_vals`` plane: five outputs."""
+    out = dmh_sketch_plain(w, keys, vals, m=m, seed=seed)
+    return out + (pack_sketch_vals(out[1], out[2]),)
+
+
+def dmh_sketch_packed_cuda(w, keys, vals, *, m: int, seed: int):
+    """Launch the CUDA DMH sketch with its pack epilogue: the four outputs
+    plus the packed value plane.  Adds one to
+    ``dmh_sketch_packed_cuda.launches`` per launch."""
+    out = _launch(w, keys, vals, m, seed, pack=True)
+    dmh_sketch_packed_cuda.launches += 1
+    return out
+
+
 dmh_sketch_cuda.launches = 0
+dmh_sketch_packed_cuda.launches = 0

@@ -1,10 +1,15 @@
 """Fused multi-field estimate launches: CUDA kernels and plain twins.
 
-Two kernels live here.  The ICWS collision partials replace the TPU kernel
+Four kernels live here.  The ICWS collision partials replace the TPU kernel
 ``repro/kernels/estimate.py::_fields_kernel`` (launcher
 ``estimate_fields_pallas``); the linear-sketch dots replace
 ``_linear_fields_kernel`` (launcher ``linear_estimate_fields_pallas``,
-see :func:`linear_estimate_fields_plain`).  The ICWS contract::
+see :func:`linear_estimate_fields_plain`); and each has a packed twin over
+the packed store's bf16-halfword corpus words (``_fields_packed_kernel``,
+``_linear_fields_packed_kernel``), which decodes the corpus values inside
+the kernel and otherwise keeps its unpacked twin's tiles and sum order, so
+it gives the unpacked kernel's bits on the decoded corpus.  The ICWS
+contract::
 
     fq/vq [F, Q, m], fc/vc [C, P, m], static qmap/cmap -> (cnt, sw) [G, Q, P] f32
 
@@ -33,10 +38,21 @@ from typing import Sequence, Tuple
 import torch
 
 from . import build
+from .packed import unpack_halfwords_f32
 
-MAX_PAIRS = 16                 # kMaxPairs in both csrc/*estimate_fields.cu
+MAX_PAIRS = 16                 # kMaxPairs in csrc/*estimate_fields*.cu
 # corpus rows per plain-version chunk: one [Q, rows] accumulator pair at a time
 _PLAIN_ROWS = 1 << 16
+
+
+def _launch(kernel: str, x: torch.Tensor, *args) -> None:
+    """Call ``repro_<kernel>`` on PyTorch's current stream of ``x``'s card
+    and raise if the launch was refused."""
+    lib = build.library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = getattr(lib, "repro_" + kernel)(*args, stream)
+    build.check(err, kernel)
 
 
 def _check_maps(qmap, cmap, F: int, C: int):
@@ -125,16 +141,11 @@ def estimate_fields_cuda(fq: torch.Tensor, vq: torch.Tensor,
     sw = torch.empty((G, Q, P), dtype=torch.float32, device=fq.device)
     if Q == 0 or P == 0 or m == 0:
         return cnt.zero_(), sw.zero_()
-    lib = build.library()
-    qarr = (ctypes.c_int * len(qmap))(*qmap)
-    carr = (ctypes.c_int * len(cmap))(*cmap)
-    with torch.cuda.device(fq.device):
-        stream = torch.cuda.current_stream(fq.device).cuda_stream
-        err = lib.repro_estimate_fields(
-            fq.data_ptr(), vq.data_ptr(), fc.data_ptr(), vc.data_ptr(),
-            fc.stride(0), fc.stride(1), vc.stride(0), vc.stride(1),
-            qarr, carr, G, Q, P, m, cnt.data_ptr(), sw.data_ptr(), stream)
-    build.check(err, "estimate_fields")
+    _launch("estimate_fields", fq, fq.data_ptr(), vq.data_ptr(),
+            fc.data_ptr(), vc.data_ptr(), fc.stride(0), fc.stride(1),
+            vc.stride(0), vc.stride(1), (ctypes.c_int * G)(*qmap),
+            (ctypes.c_int * G)(*cmap), G, Q, P, m, cnt.data_ptr(),
+            sw.data_ptr())
     estimate_fields_cuda.launches += 1
     return cnt, sw
 
@@ -214,17 +225,133 @@ def linear_estimate_fields_cuda(tq: torch.Tensor, tc: torch.Tensor, *,
                       device=tq.device)
     if Q == 0 or P == 0 or R == 0 or W == 0:
         return out.zero_()
-    lib = build.library()
-    qarr = (ctypes.c_int * len(qmap))(*qmap)
-    carr = (ctypes.c_int * len(cmap))(*cmap)
-    with torch.cuda.device(tq.device):
-        stream = torch.cuda.current_stream(tq.device).cuda_stream
-        err = lib.repro_linear_estimate_fields(
-            tq.data_ptr(), tc.data_ptr(), tc.stride(0), tc.stride(1), qarr,
-            carr, len(qmap), Q, P, R, W, out.data_ptr(), stream)
-    build.check(err, "linear_estimate_fields")
+    _launch("linear_estimate_fields", tq, tq.data_ptr(), tc.data_ptr(),
+            tc.stride(0), tc.stride(1), (ctypes.c_int * len(qmap))(*qmap),
+            (ctypes.c_int * len(cmap))(*cmap), len(qmap), Q, P, R, W,
+            out.data_ptr())
     linear_estimate_fields_cuda.launches += 1
     return out
 
 
 linear_estimate_fields_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Packed corpus: the values (tables) as bf16-halfword words, decoded on chip
+# ---------------------------------------------------------------------------
+def _check_packed(fq, vq, fc, wc, qmap, cmap):
+    if wc.dim() != 3 or wc.dtype != torch.int32 \
+            or tuple(wc.shape) != (fc.shape[0], fc.shape[1], fc.shape[2] // 2) \
+            or fc.shape[2] % 2:
+        raise ValueError(f"expected fc [C, P, me] with me even and wc [C, P, "
+                         f"me / 2] int32; got {tuple(fc.shape)}, "
+                         f"{tuple(wc.shape)} {wc.dtype}")
+    # the unpacked launch's checks, with a value-shaped stand-in (a
+    # broadcast scalar: nothing is allocated) for the corpus values
+    stand_in = torch.zeros((), dtype=torch.float32, device=fc.device)
+    return _check_inputs(fq, vq, fc, stand_in.expand(fc.shape), qmap, cmap)
+
+
+def estimate_fields_packed_plain(fq, vq, fc, wc, *, qmap, cmap):
+    """The plain fused field partials over a packed corpus: ``wc [C, P, me
+    / 2]`` i32 words in place of ``vc [C, P, me]`` (``me`` even; the query
+    padded to it), decoded a chunk of rows at a time, then
+    :func:`estimate_fields_plain` on the decoded chunk."""
+    qmap, cmap = _check_packed(fq, vq, fc, wc, qmap, cmap)
+    G, Q, P = len(qmap), fq.shape[1], fc.shape[1]
+    cnt = torch.empty((G, Q, P), dtype=torch.float32, device=fq.device)
+    sw = torch.empty((G, Q, P), dtype=torch.float32, device=fq.device)
+    for lo in range(0, P, _PLAIN_ROWS):
+        hi = min(P, lo + _PLAIN_ROWS)
+        cnt[:, :, lo:hi], sw[:, :, lo:hi] = estimate_fields_plain(
+            fq, vq, fc[:, lo:hi], unpack_halfwords_f32(wc[:, lo:hi]),
+            qmap=qmap, cmap=cmap)
+    return cnt, sw
+
+
+def estimate_fields_packed_cuda(fq, vq, fc, wc, *, qmap, cmap):
+    """Launch the packed fields kernel (``csrc/estimate_fields_packed.cu``)
+    on PyTorch's current stream; CUDA tensors only, the corpus read in
+    place through its strides.  Adds one to
+    ``estimate_fields_packed_cuda.launches`` per launch."""
+    qmap, cmap = _check_packed(fq, vq, fc, wc, qmap, cmap)
+    if fq.device.type != "cuda":
+        raise ValueError(f"estimate_fields_packed_cuda takes CUDA tensors; "
+                         f"got {fq.device}")
+    if len(qmap) > MAX_PAIRS:
+        raise ValueError(f"at most {MAX_PAIRS} field pairs per launch")
+    if fc.stride(2) != 1 or wc.stride(2) != 1:
+        raise ValueError("corpus planes need a contiguous last dimension")
+    fq, vq = fq.contiguous(), vq.contiguous()
+    G, Q, P, m = len(qmap), fq.shape[1], fc.shape[1], fq.shape[2]
+    cnt = torch.empty((G, Q, P), dtype=torch.float32, device=fq.device)
+    sw = torch.empty((G, Q, P), dtype=torch.float32, device=fq.device)
+    if Q == 0 or P == 0 or m == 0:
+        return cnt.zero_(), sw.zero_()
+    _launch("estimate_fields_packed", fq, fq.data_ptr(), vq.data_ptr(),
+            fc.data_ptr(), wc.data_ptr(), fc.stride(0), fc.stride(1),
+            wc.stride(0), wc.stride(1), (ctypes.c_int * G)(*qmap),
+            (ctypes.c_int * G)(*cmap), G, Q, P, m, cnt.data_ptr(),
+            sw.data_ptr())
+    estimate_fields_packed_cuda.launches += 1
+    return cnt, sw
+
+
+estimate_fields_packed_cuda.launches = 0
+
+
+def _check_linear_packed(tq, wc, qmap, cmap):
+    if wc.dim() != 4 or wc.dtype != torch.int32 or tq.dim() != 4 \
+            or tuple(tq.shape[2:]) != (wc.shape[2], 2 * wc.shape[3]):
+        raise ValueError(f"expected tq [F, Q, R, We] and wc [C, P, R, We / 2] "
+                         f"int32; got {tuple(tq.shape)}, {tuple(wc.shape)} "
+                         f"{wc.dtype}")
+    return _check_linear(tq, tq.new_empty((wc.shape[0], 0) + tuple(tq.shape[2:])),
+                         qmap, cmap)
+
+
+def linear_estimate_fields_packed_plain(tq, wc, *, qmap, cmap):
+    """The plain per-rep dots over packed corpus tables: ``wc [C, P, R, We
+    / 2]`` i32 words (``We`` even; the query padded to it), decoded a chunk
+    of rows at a time, then :func:`linear_estimate_fields_plain`."""
+    qmap, cmap = _check_linear_packed(tq, wc, qmap, cmap)
+    Q, P, R = tq.shape[1], wc.shape[1], wc.shape[2]
+    out = torch.empty((len(qmap), R, Q, P), dtype=torch.float32,
+                      device=tq.device)
+    for lo in range(0, P, _PLAIN_ROWS):
+        hi = min(P, lo + _PLAIN_ROWS)
+        out[:, :, :, lo:hi] = linear_estimate_fields_plain(
+            tq, unpack_halfwords_f32(wc[:, lo:hi]), qmap=qmap, cmap=cmap)
+    return out
+
+
+def linear_estimate_fields_packed_cuda(tq, wc, *, qmap, cmap):
+    """Launch the packed linear-fields kernel
+    (``csrc/linear_estimate_fields_packed.cu``) on PyTorch's current
+    stream; CUDA tensors only, each corpus row's ``[R, We / 2]`` words
+    contiguous.  Adds one to ``linear_estimate_fields_packed_cuda.launches``
+    per launch."""
+    qmap, cmap = _check_linear_packed(tq, wc, qmap, cmap)
+    if tq.device.type != "cuda":
+        raise ValueError(f"linear_estimate_fields_packed_cuda takes CUDA "
+                         f"tensors; got {tq.device}")
+    if len(qmap) > MAX_PAIRS:
+        raise ValueError(f"at most {MAX_PAIRS} field pairs per launch")
+    Q, P, R, W = tq.shape[1], wc.shape[1], wc.shape[2], tq.shape[3]
+    if wc.stride(3) != 1 or wc.stride(2) != W // 2:
+        raise ValueError("each corpus row's [R, We / 2] words must be "
+                         "contiguous")
+    tq = tq.contiguous()
+    out = torch.empty((len(qmap), R, Q, P), dtype=torch.float32,
+                      device=tq.device)
+    if Q == 0 or P == 0 or R == 0 or W == 0:
+        return out.zero_()
+    _launch("linear_estimate_fields_packed", tq, tq.data_ptr(), wc.data_ptr(),
+            wc.stride(0), wc.stride(1), (ctypes.c_int * len(qmap))(*qmap),
+            (ctypes.c_int * len(cmap))(*cmap), len(qmap), Q, P, R, W,
+            out.data_ptr())
+    linear_estimate_fields_packed_cuda.launches += 1
+    return out
+
+
+linear_estimate_fields_packed_cuda.launches = 0

@@ -1,7 +1,11 @@
 """Batched ICWS (weighted MinHash) sketch: CUDA kernel and plain twin.
 
 Replaces the TPU kernel ``repro/kernels/icws_sketch.py::_icws_kernel``
-(launcher ``icws_sketch_pallas`` at ``pack_vals=False``).  Contract::
+(launcher ``icws_sketch_pallas`` at ``pack_vals=False``) and, as
+``icws_sketch_packed_*``, ``_icws_kernel_packed`` (``pack_vals=True``),
+which appends the bf16-halfword plane ``[B, (m + m % 2) // 2]`` i32 of the
+value output (:func:`~repro_torch.kernels.packed.pack_sketch_vals`).
+Contract::
 
     [B, N] (w f32, keys i32, vals f32) -> (fp i32, val f32, amin f32, argkey i32) [B, m]
 
@@ -33,6 +37,7 @@ from . import build
 from .common import (BIG, ICWS_STREAM_BETA, ICWS_STREAM_C1, ICWS_STREAM_C2,
                      ICWS_STREAM_FP, ICWS_STREAM_R1, ICWS_STREAM_R2, as_u32,
                      hash_u32, mul32, salt_for, uniform01)
+from .packed import pack_sketch_vals
 
 # elements of one [rows, m, N] intermediate the plain version holds at a time
 _PLAIN_CHUNK = 1 << 22
@@ -120,25 +125,23 @@ def _group_size(B: int, m: int, N: int) -> int:
     return s
 
 
-def icws_sketch_cuda(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
-                     *, m: int, seed: int
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                                torch.Tensor]:
-    """Launch the CUDA ICWS sketch on PyTorch's current stream.
-
-    Takes contiguous CUDA tensors only and raises on anything else; the
-    empty-row fixup happens inside the kernel.  Adds one to
-    ``icws_sketch_cuda.launches`` per launch.
-    """
+def _launch(w, keys, vals, m: int, seed: int, pack: bool):
+    """One launch of ``csrc/icws_sketch.cu``; with ``pack`` its Pack
+    variant, whose fifth output the kernel ORs halfwords into (zeroed
+    here)."""
     _check_inputs(w, keys, vals, m)
     if w.device.type != "cuda":
-        raise ValueError(f"icws_sketch_cuda takes CUDA tensors; got {w.device}")
+        raise ValueError(f"the CUDA ICWS sketch takes CUDA tensors; got "
+                         f"{w.device}")
     w, keys, vals = w.contiguous(), keys.contiguous(), vals.contiguous()
     B, N = w.shape
     out = (torch.empty((B, m), dtype=torch.int32, device=w.device),
            torch.empty((B, m), dtype=torch.float32, device=w.device),
            torch.empty((B, m), dtype=torch.float32, device=w.device),
            torch.empty((B, m), dtype=torch.int32, device=w.device))
+    if pack:
+        out += (torch.zeros((B, (m + 1) // 2), dtype=torch.int32,
+                            device=w.device),)
     if B == 0:
         return out
     lib = build.library()
@@ -147,11 +150,41 @@ def icws_sketch_cuda(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
         err = lib.repro_icws_sketch(
             w.data_ptr(), keys.data_ptr(), vals.data_ptr(), B, N, m,
             seed & 0xFFFFFFFF, _group_size(B, m, N),
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            out[3].data_ptr(), stream)
+            *(o.data_ptr() for o in out[:4]),
+            out[4].data_ptr() if pack else None, stream)
     build.check(err, "icws_sketch")
+    return out
+
+
+def icws_sketch_cuda(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
+                     *, m: int, seed: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Launch the CUDA ICWS sketch on PyTorch's current stream.
+
+    Takes CUDA tensors only and raises on anything else; the empty-row
+    fixup happens inside the kernel.  Adds one to
+    ``icws_sketch_cuda.launches`` per launch.
+    """
+    out = _launch(w, keys, vals, m, seed, pack=False)
     icws_sketch_cuda.launches += 1
     return out
 
 
+def icws_sketch_packed_plain(w, keys, vals, *, m: int, seed: int):
+    """The plain sketch, then its ``pack_vals`` plane: five outputs."""
+    out = icws_sketch_plain(w, keys, vals, m=m, seed=seed)
+    return out + (pack_sketch_vals(out[1], out[2]),)
+
+
+def icws_sketch_packed_cuda(w, keys, vals, *, m: int, seed: int):
+    """Launch the CUDA ICWS sketch with its pack epilogue: the four
+    outputs plus the packed value plane.  Adds one to
+    ``icws_sketch_packed_cuda.launches`` per launch."""
+    out = _launch(w, keys, vals, m, seed, pack=True)
+    icws_sketch_packed_cuda.launches += 1
+    return out
+
+
 icws_sketch_cuda.launches = 0
+icws_sketch_packed_cuda.launches = 0

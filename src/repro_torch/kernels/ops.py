@@ -8,22 +8,40 @@ version.  Launch counts live on the kernel wrappers
 (``icws_sketch_cuda.launches``, ``estimate_fields_cuda.launches``,
 ``countsketch_sparse_cuda.launches``, ``jl_sketch_cuda.launches``,
 ``linear_estimate_fields_cuda.launches``, ``dmh_sketch_cuda.launches``,
-``sample_estimate_fields_cuda.launches``).
+``sample_estimate_fields_cuda.launches``, and the packed twins'
+``*_packed_cuda.launches``).
+
+The packed-corpus ops mirror their unpacked twins -- the same epilogue,
+the true sketch width in every formula -- with the corpus values arriving
+as bf16-halfword words (:mod:`.packed`).  Queries are sketched fresh and
+stay unpacked; where the stored width gained a pad slot (an odd width
+rounded up to even), the query is padded here with the sentinels the
+kernels already treat as dead.  So a packed estimate equals the unpacked
+one on ``family.unpack_rows(family.pack_rows(rows))`` bit for bit.
 """
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
+from .common import QUERY_PAD_FP
 from .countsketch import countsketch_sparse_cuda, countsketch_sparse_plain
-from .dmh_sketch import dmh_sketch_cuda, dmh_sketch_plain
-from .estimate import (estimate_fields_cuda, estimate_fields_plain,
+from .dmh_sketch import (dmh_sketch_cuda, dmh_sketch_packed_cuda,
+                         dmh_sketch_packed_plain, dmh_sketch_plain)
+from .estimate import (estimate_fields_cuda, estimate_fields_packed_cuda,
+                       estimate_fields_packed_plain, estimate_fields_plain,
                        linear_estimate_fields_cuda,
+                       linear_estimate_fields_packed_cuda,
+                       linear_estimate_fields_packed_plain,
                        linear_estimate_fields_plain)
-from .icws_sketch import icws_sketch_cuda, icws_sketch_plain
+from .icws_sketch import (icws_sketch_cuda, icws_sketch_packed_cuda,
+                          icws_sketch_packed_plain, icws_sketch_plain)
 from .jl_sketch import jl_sketch_cuda, jl_sketch_plain
 from .sample_estimate import (sample_estimate_fields_cuda,
+                              sample_estimate_fields_packed_cuda,
+                              sample_estimate_fields_packed_plain,
                               sample_estimate_fields_plain,
                               sample_inclusion_probs)
 
@@ -36,17 +54,24 @@ def _route(x: torch.Tensor, plain, kernel):
     raise ValueError(f"no kernel for device {x.device}")
 
 
-def icws_sketch(w, keys, vals, *, m: int, seed: int = 0):
+def icws_sketch(w, keys, vals, *, m: int, seed: int = 0,
+                pack_vals: bool = False):
     """ICWS sketch of a padded sparse batch.
-    [B, N] -> (fp, val, amin, argkey) [B, m]."""
-    fn = _route(w, icws_sketch_plain, icws_sketch_cuda)
+    [B, N] -> (fp, val, amin, argkey) [B, m]; ``pack_vals=True`` appends
+    the packed value plane ``[B, (m + m % 2) // 2]`` i32, packed in the
+    kernel."""
+    fn = (_route(w, icws_sketch_packed_plain, icws_sketch_packed_cuda)
+          if pack_vals else _route(w, icws_sketch_plain, icws_sketch_cuda))
     return fn(w, keys, vals, m=m, seed=seed)
 
 
-def dmh_sketch(w, keys, vals, *, m: int, seed: int = 0):
+def dmh_sketch(w, keys, vals, *, m: int, seed: int = 0,
+               pack_vals: bool = False):
     """DMH sketch of a padded (replicated) sparse batch, in the ICWS wire
-    layout.  [B, N] -> (fp, val, amin, argkey) [B, m]."""
-    fn = _route(w, dmh_sketch_plain, dmh_sketch_cuda)
+    layout.  [B, N] -> (fp, val, amin, argkey) [B, m]; ``pack_vals=True``
+    appends the packed value plane as :func:`icws_sketch` does."""
+    fn = (_route(w, dmh_sketch_packed_plain, dmh_sketch_packed_cuda)
+          if pack_vals else _route(w, dmh_sketch_plain, dmh_sketch_cuda))
     return fn(w, keys, vals, m=m, seed=seed)
 
 
@@ -66,8 +91,27 @@ def icws_estimate_fields(fq, vq, nq, fpc, vc, nc, *, qmap: Sequence[int],
     the partials, then the ``m~ = 2 / (1 + j^)`` norm epilogue, with zero
     where either norm is zero.
     """
-    m = fpc.shape[2]
     cnt, sw = estimate_partials_fields(fq, vq, fpc, vc, qmap=qmap, cmap=cmap)
+    return _icws_epilogue(cnt, sw, nq, nc, fq.shape[2], qmap, cmap)
+
+
+def icws_estimate_fields_packed(fq, vq, nq, fpc, wc, nc, *,
+                                qmap: Sequence[int], cmap: Sequence[int]):
+    """Packed-corpus :func:`icws_estimate_fields`: fpc ``[C, P, me]`` i32,
+    wc ``[C, P, me // 2]`` i32 packed values (me = m rounded up to even),
+    nc ``[C, P]``.  The query pads to me; the epilogue runs over the true
+    m.  Returns [G, Q, P] f32."""
+    m, me = fq.shape[2], fpc.shape[2]
+    fq = F.pad(fq, (0, me - m), value=QUERY_PAD_FP)
+    vq = F.pad(vq, (0, me - m))
+    fn = _route(fq, estimate_fields_packed_plain, estimate_fields_packed_cuda)
+    cnt, sw = fn(fq, vq, fpc, wc, qmap=qmap, cmap=cmap)
+    return _icws_epilogue(cnt, sw, nq, nc, m, qmap, cmap)
+
+
+def _icws_epilogue(cnt, sw, nq, nc, m: int, qmap, cmap):
+    """``est = nq * nc * (m~ / m) * sw`` with ``m~ = 2 / (1 + cnt / m)``,
+    zero where either norm is zero."""
     j_hat = cnt / m
     m_tilde = 2.0 / (1.0 + j_hat)
     nqg = torch.stack([nq[qf] for qf in qmap])[:, :, None]    # [G, Q, 1]
@@ -112,6 +156,17 @@ def linear_estimate_fields(tq, tc, *, qmap: Sequence[int],
     return _median_reps(fn(tq, tc, qmap=qmap, cmap=cmap))
 
 
+def linear_estimate_fields_packed(tq, wc, *, qmap: Sequence[int],
+                                  cmap: Sequence[int]):
+    """Packed-corpus :func:`linear_estimate_fields`: wc ``[C, P, R, We //
+    2]`` i32 packed tables (We = W rounded up to even); the query gains
+    zero columns to We, which add +0 to every sum and change no bit."""
+    tq = F.pad(tq, (0, 2 * wc.shape[3] - tq.shape[3]))
+    fn = _route(tq, linear_estimate_fields_packed_plain,
+                linear_estimate_fields_packed_cuda)
+    return _median_reps(fn(tq, wc, qmap=qmap, cmap=cmap))
+
+
 def sample_estimate_fields(kq, vq, tq, kc, vc, tc, *, qmap: Sequence[int],
                            cmap: Sequence[int]):
     """Fused multi-field sampling-sketch (TS/PS) estimates, ONE kernel launch.
@@ -127,3 +182,16 @@ def sample_estimate_fields(kq, vq, tq, kc, vc, tc, *, qmap: Sequence[int],
     ac = sample_inclusion_probs(vc, tc)
     fn = _route(kq, sample_estimate_fields_plain, sample_estimate_fields_cuda)
     return fn(kq, vq, aq, kc, vc, ac, qmap=qmap, cmap=cmap)
+
+
+def sample_estimate_fields_packed(kq, vq, tq, kc, wc, tc, *,
+                                  qmap: Sequence[int], cmap: Sequence[int]):
+    """Packed-corpus :func:`sample_estimate_fields`: kc ``[C, P, Se]`` i32
+    keys, wc ``[C, P, Se // 2]`` i32 packed values (Se = slots rounded up
+    to even), tc ``[C, P]`` taus.  The query's probabilities are the
+    prologue's; the corpus's are computed in the kernel from the decoded
+    value and tau, with the query's (true) slot count."""
+    aq = sample_inclusion_probs(vq, tq)
+    fn = _route(kq, sample_estimate_fields_packed_plain,
+                sample_estimate_fields_packed_cuda)
+    return fn(kq, vq, aq, kc, wc, tc, qmap=qmap, cmap=cmap)

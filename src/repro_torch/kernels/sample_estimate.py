@@ -32,6 +32,13 @@ row over u, then adds over t in order: with unique keys each t has at most
 one non-zero term and adding +0 changes no bit, so the kernel and the plain
 version agree bit for bit on the card, and the plain version stays an
 independent check of the sorted shortcut.
+
+The packed twin (``_sample_fields_packed_kernel``, launcher
+``sample_estimate_fields_packed_pallas``) takes the corpus as the packed
+store holds it: keys ``kc [C, P, Se]``, values as bf16-halfword words ``wc
+[C, P, Se / 2]`` and one tau per row ``tc [C, P]``; it decodes a matched
+value and computes its probability on chip (:func:`_inclusion_probs` with
+the scheme's slot count), so there is no corpus probability plane.
 """
 from __future__ import annotations
 
@@ -40,9 +47,9 @@ from typing import Sequence
 
 import torch
 
-from . import build
 from .common import CORPUS_PAD_FP, QUERY_PAD_FP
-from .estimate import MAX_PAIRS, _check_maps
+from .estimate import MAX_PAIRS, _check_maps, _launch
+from .packed import unpack_halfwords_f32
 
 # sampling rows share the estimate kernels' pad sentinels
 SAMPLE_QUERY_PAD_KEY = QUERY_PAD_FP
@@ -55,25 +62,29 @@ MAX_SLOTS = 1_815
 _PLAIN_ROWS = 1 << 10
 
 
-def sample_inclusion_probs(vals: torch.Tensor, tau: torch.Tensor
-                           ) -> torch.Tensor:
-    """Per-slot inclusion probabilities from the stored row layout.
-
-    ``vals [..., S]`` f32 sampled values (0 marks an empty slot), ``tau
-    [...]`` f32 probability scales -> ``[..., S]`` f32 ``min(1, (S * v) * v
-    / tau)``, probability 1 where ``tau <= 0`` and 0 on empty slots.  The
-    operations and their order are ``jnp``'s in
-    ``repro.kernels.sample_estimate.sample_inclusion_probs``, with ``S`` the
-    true slot count of the row, so the two agree bit for bit.
-    """
-    S = vals.shape[-1]
-    v = vals.to(torch.float32)
-    t = tau.to(torch.float32)[..., None]
-    num = float(S) * v * v
+def _inclusion_probs(v: torch.Tensor, t: torch.Tensor, s_total: int
+                     ) -> torch.Tensor:
+    """``min(1, (s_total * v) * v / t)``, 1 where ``t <= 0``, 0 where ``v ==
+    0``: f32 values ``v`` and taus ``t`` broadcast against them, with
+    ``s_total`` the scheme's slot count (not a padded width).  The one
+    definition of the probability: the unpacked prologue, the packed plain
+    version and ``csrc/sample_estimate_fields_packed.cu`` all evaluate it in
+    this order, ``jnp``'s in ``repro.kernels.sample_estimate``."""
+    num = float(s_total) * v * v
     pos = t > 0
     p = torch.where(pos, torch.clamp_max(num / torch.where(pos, t, 1.0), 1.0),
                     1.0)
     return torch.where(v != 0, p, 0.0)
+
+
+def sample_inclusion_probs(vals: torch.Tensor, tau: torch.Tensor
+                           ) -> torch.Tensor:
+    """Per-slot inclusion probabilities from the stored row layout:
+    ``vals [..., S]`` f32 sampled values (0 marks an empty slot), ``tau
+    [...]`` f32 probability scales -> ``[..., S]`` f32, with ``S`` the
+    true slot count of the row (:func:`_inclusion_probs`)."""
+    return _inclusion_probs(vals.to(torch.float32),
+                            tau.to(torch.float32)[..., None], vals.shape[-1])
 
 
 def sorted_prefix_ok(keys: torch.Tensor) -> bool:
@@ -115,25 +126,35 @@ def sample_estimate_fields_plain(kq: torch.Tensor, vq: torch.Tensor,
     key-equality cross of slot t against every corpus slot, sums it over
     the corpus slots and adds it to the running ``[Q, rows]`` sum."""
     qmap, cmap = _check_inputs(kq, vq, aq, kc, vc, ac, qmap, cmap)
-    G, Q, P, S = len(qmap), kq.shape[1], kc.shape[1], kq.shape[2]
-    dev = kq.device
-    out = torch.empty((G, Q, P), dtype=torch.float32, device=dev)
+    G, Q, P = len(qmap), kq.shape[1], kc.shape[1]
+    out = torch.empty((G, Q, P), dtype=torch.float32, device=kq.device)
+    for lo in range(0, P, _PLAIN_ROWS):
+        hi = min(P, lo + _PLAIN_ROWS)
+        out[:, :, lo:hi] = _cross(kq, vq, aq, kc[:, lo:hi], vc[:, lo:hi],
+                                  ac[:, lo:hi], qmap, cmap)
+    return out
+
+
+def _cross(kq, vq, aq, kc, vc, ac, qmap, cmap) -> torch.Tensor:
+    """The plain version's key-equality cross over a few corpus rows; the
+    query and corpus slot counts may differ."""
+    Q, rows, S = kq.shape[1], kc.shape[1], kq.shape[2]
+    out = torch.empty((len(qmap), Q, rows), dtype=torch.float32,
+                      device=kq.device)
     for g, (qf, cf) in enumerate(zip(qmap, cmap)):
-        for lo in range(0, P, _PLAIN_ROWS):
-            hi = min(P, lo + _PLAIN_ROWS)
-            kcc = kc[cf, lo:hi][None]                      # [1, rows, S]
-            vcc = vc[cf, lo:hi][None]
-            acc_ = ac[cf, lo:hi][None]
-            acc = torch.zeros((Q, hi - lo), dtype=torch.float32, device=dev)
-            for t in range(S):
-                k = kq[qf, :, t, None, None]                # [Q, 1, 1]
-                p = torch.minimum(aq[qf, :, t, None, None], acc_)
-                live = (k == kcc) & (k >= 0) & (p > 0)      # [Q, rows, S]
-                term = torch.where(
-                    live, vq[qf, :, t, None, None] * vcc
-                    / torch.where(live, p, 1.0), 0.0)
-                acc = acc + term.sum(2)
-            out[g, :, lo:hi] = acc
+        kcc = kc[cf][None]                             # [1, rows, Sc]
+        vcc = vc[cf][None]
+        acc_ = ac[cf][None]
+        acc = torch.zeros((Q, rows), dtype=torch.float32, device=kq.device)
+        for t in range(S):
+            k = kq[qf, :, t, None, None]                # [Q, 1, 1]
+            p = torch.minimum(aq[qf, :, t, None, None], acc_)
+            live = (k == kcc) & (k >= 0) & (p > 0)      # [Q, rows, Sc]
+            term = torch.where(
+                live, vq[qf, :, t, None, None] * vcc
+                / torch.where(live, p, 1.0), 0.0)
+            acc = acc + term.sum(2)
+        out[g] = acc
     return out
 
 
@@ -168,19 +189,88 @@ def sample_estimate_fields_cuda(kq: torch.Tensor, vq: torch.Tensor,
     out = torch.empty((G, Q, P), dtype=torch.float32, device=kq.device)
     if Q == 0 or P == 0 or S == 0:
         return out.zero_()
-    lib = build.library()
-    qarr = (ctypes.c_int * G)(*qmap)
-    carr = (ctypes.c_int * G)(*cmap)
-    with torch.cuda.device(kq.device):
-        stream = torch.cuda.current_stream(kq.device).cuda_stream
-        err = lib.repro_sample_estimate_fields(
-            kq.data_ptr(), vq.data_ptr(), aq.data_ptr(), kc.data_ptr(),
-            vc.data_ptr(), ac.data_ptr(), kc.stride(0), kc.stride(1),
-            vc.stride(0), vc.stride(1), ac.stride(0), ac.stride(1), qarr,
-            carr, G, Q, P, S, out.data_ptr(), stream)
-    build.check(err, "sample_estimate_fields")
+    _launch("sample_estimate_fields", kq, kq.data_ptr(), vq.data_ptr(),
+            aq.data_ptr(), kc.data_ptr(), vc.data_ptr(), ac.data_ptr(),
+            kc.stride(0), kc.stride(1), vc.stride(0), vc.stride(1),
+            ac.stride(0), ac.stride(1), (ctypes.c_int * G)(*qmap),
+            (ctypes.c_int * G)(*cmap), G, Q, P, S, out.data_ptr())
     sample_estimate_fields_cuda.launches += 1
     return out
 
 
 sample_estimate_fields_cuda.launches = 0
+
+
+def _check_packed(kq, vq, aq, kc, wc, tc, qmap, cmap):
+    C, P, Sc = kc.shape if kc.dim() == 3 else (0, 0, 1)
+    if Sc % 2 or wc.dtype != torch.int32 or tuple(wc.shape) != (C, P, Sc // 2) \
+            or tc.dtype != torch.float32 or tuple(tc.shape) != (C, P):
+        raise ValueError(f"expected kc [C, P, Se] with Se even, wc [C, P, "
+                         f"Se / 2] int32 and tc [C, P] f32; got "
+                         f"{tuple(kc.shape)}, {tuple(wc.shape)} {wc.dtype}, "
+                         f"{tuple(tc.shape)} {tc.dtype}")
+    if kc.shape[2] not in (kq.shape[2], kq.shape[2] + 1):
+        raise ValueError(f"{Sc} stored slots do not hold {kq.shape[2]} "
+                         "query slots")
+    # the unpacked launch's checks, with query-shaped stand-ins for the
+    # corpus planes (broadcast scalars: nothing is allocated)
+    stand_in = torch.zeros((), dtype=torch.float32, device=kc.device)
+    shape = (C, P, kq.shape[2])
+    return _check_inputs(kq, vq, aq, kc[:, :, :kq.shape[2]],
+                         stand_in.expand(shape), stand_in.expand(shape),
+                         qmap, cmap)
+
+
+def sample_estimate_fields_packed_plain(kq, vq, aq, kc, wc, tc, *, qmap,
+                                        cmap):
+    """The plain key-match estimates over a packed corpus: keys ``kc [C, P,
+    Se]``, values ``wc [C, P, Se / 2]`` i32 words, taus ``tc [C, P]``.  A
+    chunk of rows at a time, the values are decoded, their probabilities
+    computed with the query's slot count (:func:`_inclusion_probs`), and
+    the plain cross runs on them."""
+    qmap, cmap = _check_packed(kq, vq, aq, kc, wc, tc, qmap, cmap)
+    G, Q, P, S = len(qmap), kq.shape[1], kc.shape[1], kq.shape[2]
+    out = torch.empty((G, Q, P), dtype=torch.float32, device=kq.device)
+    for lo in range(0, P, _PLAIN_ROWS):
+        hi = min(P, lo + _PLAIN_ROWS)
+        vc = unpack_halfwords_f32(wc[:, lo:hi])
+        ac = _inclusion_probs(vc, tc[:, lo:hi, None], S)
+        out[:, :, lo:hi] = _cross(kq, vq, aq, kc[:, lo:hi], vc, ac, qmap,
+                                  cmap)
+    return out
+
+
+def sample_estimate_fields_packed_cuda(kq, vq, aq, kc, wc, tc, *, qmap,
+                                       cmap):
+    """Launch the packed key-match kernel
+    (``csrc/sample_estimate_fields_packed.cu``) on PyTorch's current
+    stream.  Rows must keep the layout contract; CUDA tensors only, the
+    corpus read in place through its strides.  Adds one to
+    ``sample_estimate_fields_packed_cuda.launches`` per launch."""
+    qmap, cmap = _check_packed(kq, vq, aq, kc, wc, tc, qmap, cmap)
+    if kq.device.type != "cuda":
+        raise ValueError(f"sample_estimate_fields_packed_cuda takes CUDA "
+                         f"tensors; got {kq.device}")
+    if len(qmap) > MAX_PAIRS:
+        raise ValueError(f"at most {MAX_PAIRS} field pairs per launch")
+    G, Q, P, Sq, Sc = (len(qmap), kq.shape[1], kc.shape[1], kq.shape[2],
+                       kc.shape[2])
+    if Sc > MAX_SLOTS:
+        raise ValueError(f"sample_estimate_fields_packed_cuda stages at most "
+                         f"{MAX_SLOTS} slots per row; got {Sc}")
+    if kc.stride(2) != 1 or wc.stride(2) != 1:
+        raise ValueError("corpus planes need a contiguous last dimension")
+    kq, vq, aq = kq.contiguous(), vq.contiguous(), aq.contiguous()
+    out = torch.empty((G, Q, P), dtype=torch.float32, device=kq.device)
+    if Q == 0 or P == 0:
+        return out.zero_()
+    _launch("sample_estimate_fields_packed", kq, kq.data_ptr(), vq.data_ptr(),
+            aq.data_ptr(), kc.data_ptr(), wc.data_ptr(), tc.data_ptr(),
+            kc.stride(0), kc.stride(1), wc.stride(0), wc.stride(1),
+            tc.stride(0), tc.stride(1), (ctypes.c_int * G)(*qmap),
+            (ctypes.c_int * G)(*cmap), G, Q, P, Sq, Sc, out.data_ptr())
+    sample_estimate_fields_packed_cuda.launches += 1
+    return out
+
+
+sample_estimate_fields_packed_cuda.launches = 0

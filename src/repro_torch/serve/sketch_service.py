@@ -110,9 +110,9 @@ class SketchSearchService:
     Runs on the card (``device="cuda"``, the default) unless the caller
     passes ``device="cpu"``.  Ported: ``family`` in ``("icws", "cs",
     "jl", "ts", "ps", "dmh")`` (``FAMILY_NAMES``), each sized to the
-    storage of an ``m``-sample ICWS sketch, with
-    ``backend="device"``, ``packed=False`` and ``mesh=None``; other values
-    raise ``NotImplementedError`` naming their ROADMAP.md item.
+    storage of an ``m``-sample ICWS sketch, unpacked or ``packed=True``,
+    with ``backend="device"`` and ``mesh=None``; other values raise
+    ``NotImplementedError`` naming their ROADMAP.md item.
     """
 
     def __init__(self, m: int = 256, seed: int = 0,
@@ -231,7 +231,7 @@ class SketchSearchService:
             "family": self.index.family.name,
             "backend": self.index.backend,
             "device": str(self.index.device),
-            "packed": False,
+            "packed": store.packed,
             "bytes_per_row": float(store.bytes_per_row()),
             "tables": len(self.index.tables),
             "tenants": len(self.index.tenants()),

@@ -16,6 +16,8 @@ from repro_torch.kernels import icws_sketch as port_sketch
 from repro_torch.kernels import jl_sketch as port_jl
 from repro_torch.kernels import ops
 from repro_torch.kernels import sample_estimate as port_se
+from repro_torch.kernels.packed import (pack_halfwords_f32, pack_sketch_vals,
+                                        unpack_halfwords_f32)
 
 # small shapes: one intra-op thread per test process, so that parallel
 # test workers do not oversubscribe the cores
@@ -234,6 +236,149 @@ def test_service_on_the_card_matches_the_cpu_service(cuda, family):
     out = []
     for device in ("cpu", "cuda"):
         svc = SketchSearchService(m=M, seed=1, family=family, device=device)
+        svc.ingest_many(tables)
+        batch = svc.search_batch(queries, top_k=3, min_join=5, micro_batch=4)
+        assert batch == [svc.search(k, v, top_k=3, min_join=5)
+                         for k, v in queries]
+        out.append(batch)
+    assert [[r.name for r in q] for q in out[0]] == \
+        [[r.name for r in q] for q in out[1]]
+
+
+def _bits_equal(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind, m", [("icws", 127), ("icws", 128),
+                                     ("dmh", 127), ("dmh", 512)])
+def test_sketch_pack_epilogue_matches_plain_version(cuda, kind, m):
+    """The packed plane is the codec of the kernel's own value output, bit
+    for bit (odd m: the pad slot zero), and the plain version's on every
+    word whose fingerprints agree (all of them for DMH)."""
+    w, keys, vals, _ = pad_sparse_batch(_vectors(10))
+    if kind == "dmh":
+        c = dmh_replication(m)
+        keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
+        w, vals = np.tile(w, (1, c)), np.tile(vals, (1, c))
+    args = [torch.from_numpy(a).to(cuda) for a in (w, keys, vals)]
+    sketch = ops.icws_sketch if kind == "icws" else ops.dmh_sketch
+    kernel = (port_sketch.icws_sketch_packed_cuda if kind == "icws"
+              else port_dmh.dmh_sketch_packed_cuda)
+    plain = (port_sketch.icws_sketch_packed_plain if kind == "icws"
+             else port_dmh.dmh_sketch_packed_plain)
+    before = kernel.launches
+    got = sketch(*args, m=m, seed=6, pack_vals=True)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert torch.equal(got[4], pack_sketch_vals(got[1], got[2]))
+    for x, y in zip(got[:4], sketch(*args, m=m, seed=6)):
+        assert _bits_equal(x, y)
+    want = plain(*args, m=m, seed=6)
+    ok = torch.nn.functional.pad(got[0] == want[0], (0, m % 2), value=True)
+    ok = ok[:, 0::2] & ok[:, 1::2]
+    assert ok.float().mean().item() >= (0.99 if kind == "icws" else 1.0)
+    assert torch.equal(got[4][ok], want[4][ok])
+
+
+def _packed_icws_rows(cuda):
+    args, _ = _batch(11, "cpu")
+    fp, val, _, _ = port_sketch.icws_sketch_plain(*args, m=M, seed=1)
+    fq, vq = fp[:12].reshape(3, 4, M), val[:12].reshape(3, 4, M)
+    rng = np.random.default_rng(12)
+    pick = torch.from_numpy(rng.integers(0, 4, size=300))
+    fc, vc = fq[:, pick].clone(), vq[:, pick].clone() * 1.5
+    fc[torch.from_numpy(rng.random((3, 300, M)) < 0.3)] = 7
+    fc[:, -5:], vc[:, -5:] = -2, 0.0
+    return [x.to(cuda) for x in (fq, vq, fc, pack_halfwords_f32(vc))]
+
+
+@pytest.mark.cuda
+def test_packed_fields_kernel_matches_plain_and_unpacked_bitwise(cuda):
+    fq, vq, fc, wc = _packed_icws_rows(cuda)
+    sl = slice(7, 290)
+    before = port_est.estimate_fields_packed_cuda.launches
+    cnt, sw = port_est.estimate_fields_packed_cuda(
+        fq, vq, fc[:, sl], wc[:, sl], qmap=QMAP, cmap=CMAP)
+    torch.cuda.synchronize()
+    assert port_est.estimate_fields_packed_cuda.launches == before + 1
+    assert cnt.sum().item() > 0
+    for want in (port_est.estimate_fields_packed_plain(
+            fq, vq, fc[:, sl], wc[:, sl], qmap=QMAP, cmap=CMAP),
+                 port_est.estimate_fields_cuda(
+            fq, vq, fc[:, sl], unpack_halfwords_f32(wc[:, sl]), qmap=QMAP,
+            cmap=CMAP)):
+        assert _bits_equal(cnt, want[0]) and _bits_equal(sw, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R, W", [(5, 153), (1, 769)])
+def test_packed_linear_kernel_matches_plain_and_unpacked_bitwise(cuda, R, W):
+    """Odd W: the query's zero column and the corpus's pad column add +0
+    and leave every sum's bits as the unpacked kernel's over W."""
+    rng = np.random.default_rng(W)
+    tq = torch.from_numpy(rng.normal(size=(3, 17, R, W)).astype(np.float32))
+    tc = torch.from_numpy(rng.normal(size=(3, 300, R, W)).astype(np.float32))
+    tc[:, -5:] = 0.0
+    tc[:, 3] = -0.0
+    wc = pack_halfwords_f32(torch.nn.functional.pad(tc, (0, W % 2)))
+    tq, wc = tq.to(cuda), wc.to(cuda)
+    tqe = torch.nn.functional.pad(tq, (0, W % 2))
+    before = port_est.linear_estimate_fields_packed_cuda.launches
+    got = port_est.linear_estimate_fields_packed_cuda(tqe, wc[:, 2:290],
+                                                      qmap=QMAP, cmap=CMAP)
+    torch.cuda.synchronize()
+    assert port_est.linear_estimate_fields_packed_cuda.launches == before + 1
+    plain = port_est.linear_estimate_fields_packed_plain(
+        tqe, wc[:, 2:290], qmap=QMAP, cmap=CMAP)
+    unpacked = port_est.linear_estimate_fields_cuda(
+        tq, unpack_halfwords_f32(wc[:, 2:290])[..., :W].contiguous(),
+        qmap=QMAP, cmap=CMAP)
+    assert _bits_equal(got, plain) and _bits_equal(got, unpacked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method, slots", [("ts", 97), ("ps", 768)])
+def test_packed_sample_kernel_matches_plain_and_unpacked_bitwise(
+        cuda, method, slots):
+    from repro_torch.data.families import make_family
+    fam = make_family(method, storage=slots + 1.0)
+    keys, vals, taus = (torch.from_numpy(a).to(cuda) for a in pad_sample_batch(
+        _vectors(13, count=40), slots=slots, method=method, seed=2))
+    q = (keys[:12].reshape(3, 4, slots), vals[:12].reshape(3, 4, slots),
+         taus[:12].reshape(3, 4))
+    pick = torch.from_numpy(
+        np.random.default_rng(14).integers(0, 41, size=(3, 300))).to(cuda)
+    c = fam.pack_rows((keys[pick], vals[pick], taus[pick]))
+    c = tuple(x[:, 7:290] for x in c)
+    before = port_se.sample_estimate_fields_packed_cuda.launches
+    got = ops.sample_estimate_fields_packed(*q, *c, qmap=QMAP, cmap=CMAP)
+    torch.cuda.synchronize()
+    assert port_se.sample_estimate_fields_packed_cuda.launches == before + 1
+    assert torch.count_nonzero(got).item() > 0
+    aq = port_se.sample_inclusion_probs(q[1], q[2])
+    plain = port_se.sample_estimate_fields_packed_plain(
+        q[0], q[1], aq, *c, qmap=QMAP, cmap=CMAP)
+    unpacked = ops.sample_estimate_fields(*q, *fam.unpack_rows(c), qmap=QMAP,
+                                          cmap=CMAP)
+    assert _bits_equal(got, plain) and _bits_equal(got, unpacked)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["icws", "cs", "jl", "ts", "ps", "dmh"])
+def test_packed_service_on_the_card_matches_the_cpu_service(cuda, family):
+    from repro_torch import SketchSearchService
+    rng = np.random.default_rng(15)
+    keys = np.arange(500)
+    signal = rng.normal(size=500)
+    tables = [("corr", keys, signal + 0.1 * rng.normal(size=500)),
+              ("noise", keys, rng.normal(size=500)),
+              ("half", np.arange(250, 750), rng.normal(size=500))]
+    queries = [(keys, signal), (np.arange(100, 600), rng.normal(size=500))]
+    out = []
+    for device in ("cpu", "cuda"):
+        svc = SketchSearchService(m=M - 1, seed=1, family=family, packed=True,
+                                  device=device)
         svc.ingest_many(tables)
         batch = svc.search_batch(queries, top_k=3, min_join=5, micro_batch=4)
         assert batch == [svc.search(k, v, top_k=3, min_join=5)

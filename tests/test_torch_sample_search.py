@@ -235,7 +235,6 @@ def test_service_serves_the_family_storage_matched(lake, family, shapes, m):
 
 @pytest.mark.parametrize("family", FAMILIES)
 @pytest.mark.parametrize("kwargs, item", [
-    ({"packed": True}, "Queue A 12"),
     ({"mesh": object()}, "Queue A 14"),
     ({"backend": "host"}, "Queue A 19"),
 ])
@@ -250,8 +249,6 @@ def test_unported_family_members_name_their_queue_item(family):
     fam = make_family(family, storage=97.0)
     for call, item in ((lambda: fam.merge_rows(None, None), "Queue A 13"),
                        (fam.host_oracle, "Queue A 19"),
-                       (lambda: fam.packed_components, "Queue A 12"),
-                       (lambda: fam.pack_rows(None), "Queue A 12"),
                        (lambda: fam.estimate_fields_sharded(
                            None, None, qmap=(), cmap=(), mesh=None, axis=0),
                         "Queue A 14")):

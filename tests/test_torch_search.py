@@ -232,13 +232,21 @@ def test_service_batch_equals_search_loop_and_accounts(lake):
 @pytest.mark.parametrize("kwargs, item", [
     ({"backend": "host"}, "Queue A 19"),
     ({"keep_host_oracle": True}, "Queue A 19"),
-    ({"family": "cs", "packed": True}, "Queue A 12"),
-    ({"family": "dmh", "packed": True}, "Queue A 12"),
     ({"family": "ts", "mesh": object()}, "Queue A 14"),
-    ({"packed": True}, "Queue A 12"),
     ({"mesh": object()}, "Queue A 14"),
     ({"audit_every": 4}, "Queue A 15"),
 ])
 def test_unported_options_raise_naming_their_queue_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         SketchSearchService(m=M, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("family", ["icws", "cs", "jl", "ts", "ps", "dmh"])
+def test_packed_sharded_serving_names_its_queue_item(family):
+    from repro_torch.data import make_family
+    with pytest.raises(NotImplementedError, match="Queue A 14"):
+        SketchSearchService(m=M, family=family, packed=True, mesh=object(),
+                            device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue A 14"):
+        make_family(family, storage=97.0).estimate_fields_packed_sharded(
+            None, None, qmap=(), cmap=(), mesh=None, axis=0)

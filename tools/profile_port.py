@@ -1,19 +1,23 @@
 """Where the port's serving time goes on the card: a torch.profiler trace
-of table ingest and of query micro-batches through ``repro_torch``.
+of table ingest, of query micro-batches and of single searches through
+``repro_torch``.
 
-    python3 tools/profile_port.py
+    python3 tools/profile_port.py [--packed] [--family NAME]
 
 Builds the 16,384-table lake ``chip_smoke.py`` builds and, for each of the
 six families (icws, cs, jl, dmh, ts, ps, as ``chip_smoke.py`` serves them),
 ingests it through ``SketchSearchService.ingest``; the last 2,000 tables
 are traced.  The 64
 queries of ``chip_smoke.py`` then run ``search_batch`` in micro-batches of
-16 against the whole lake, traced.  The service's own
+16 against the whole lake, traced, and then one by one through
+``search`` (Q = 1), traced.  The service's own
 methods run, each step of ingest and query under a profiler label of its
 method's name (the label wraps the method the service calls; nothing of
 the path is copied here).  Prints, per phase, the wall time, the host time
 per label, the device time per kernel and the device's busy share (kernel
-and copy time over wall time).  Needs one card.
+and copy time over wall time).  With ``--packed`` every service keeps its
+store packed (``packed=True``); ``--family`` profiles that family alone.
+Needs one card.
 """
 from __future__ import annotations
 
@@ -86,11 +90,15 @@ def main() -> int:
                             QUERY_ROWS, card_identity, make_lake)
     from repro_torch import SketchSearchService
 
-    print(card_identity())
+    args = sys.argv[1:]
+    packed = "--packed" in args
+    families = ((args[args.index("--family") + 1],) if "--family" in args
+                else FAMILIES)
+    print(card_identity() + (", packed stores" if packed else ""))
     rng = np.random.default_rng(4)
     tables, queries, _ = make_lake(rng, LAKE_TABLES, QUERIES)
-    for family in FAMILIES:
-        svc = SketchSearchService(m=M, seed=0, family=family)
+    for family in families:
+        svc = SketchSearchService(m=M, seed=0, family=family, packed=packed)
         idx = svc.index
         split = len(tables) - TRACED
         svc.ingest_many(tables[:split])          # builds and warms up
@@ -99,9 +107,11 @@ def main() -> int:
         torch.cuda.synchronize()
 
         labels = (label_calls(svc, ["ingest"])
-                  + label_calls(idx, ["add_table", "query_batch", "vectorize",
-                                      "_register_table"])
-                  + label_calls(idx.family, ["sketch_rows", "estimate_fields"])
+                  + label_calls(idx, ["add_table", "query", "query_batch",
+                                      "vectorize", "_register_table",
+                                      "_estimate", "_assemble_results"])
+                  + label_calls(idx.family, ["sketch_rows", "estimate_fields",
+                                             "estimate_fields_packed"])
                   + label_calls(idx.store, ["append"])
                   + label_calls(idx.kmv, ["sketch"]))
         with profile(activities=[ProfilerActivity.CPU,
@@ -122,6 +132,16 @@ def main() -> int:
         report(f"{family}: {QUERIES // MICRO_BATCH} micro-batches of "
                f"{MICRO_BATCH} queries against {len(idx.tables)} tables",
                prof, wall, labels)
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for keys, values in queries:
+                svc.search(keys, values, top_k=10, min_join=QUERY_ROWS / 4)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        report(f"{family}: {QUERIES} searches (Q = 1) against "
+               f"{len(idx.tables)} tables", prof, wall, labels)
         del svc, idx
         torch.cuda.empty_cache()
     return 0
