@@ -14,12 +14,17 @@ same queries in alternating turns for their latency, and checks the
 answers; it prints each family's planted-partner recall side by side (the
 paper's head-to-head).  The pack epilogue of the ICWS and DMH sketches
 (B10) is on no serving path; its own path, ``ops.*_sketch(pack_vals=
-True)``, is driven and counted apart.  Imports nothing of JAX and nothing
-of the JAX package.  Exits non-zero on any failure, and at once when no
-card is present.  Each phase prints its wall time.  The line before the
-last is a JSON object with each kernel's launches on the serving runs
-(B10 also on its own path), its error against the plain version, its
-time, the plain version's time, its bound and the time of one PyTorch
+True)``, is driven and counted apart.  Before the service, the ``corpus``
+phase drives the library surface on the same lake:
+``repro_torch.SketchCorpus`` ingests its 49,152 field vectors and answers
+64 queries one at a time (B3's one-vs-many route) and 16 at a time (B4),
+bit for bit equal and within 10 ppm of the host ICWS estimator, and
+``ops.icws_estimate`` runs B3's pairwise route.  Imports nothing of JAX
+and nothing of the JAX package.  Exits non-zero on any failure, and at
+once when no card is present.  Each phase prints its wall time.  The line
+before the last is a JSON object with each kernel's launches on the
+serving runs (B10 also on its own path; B3 and B4 on the corpus path),
+its error against the plain version, its time, the plain version's time, its bound and the time of one PyTorch
 call that computes the same function (where there is one); the last line
 is the run's device.
 """
@@ -107,6 +112,13 @@ B10_TABLES = 2_048
 B10_PATH_KERNEL = {"icws": "icws_sketch_packed", "dmh": "dmh_sketch_packed"}
 # rounds of the latency comparison, unpacked (A) and packed (B) in turn
 LATENCY_ORDER = "ABBAABBA"
+# the corpus path: SketchCorpus ingests every field vector of the lake in
+# batches of 48 and answers the first field vector of each query; its
+# estimates are held against the host ICWS estimator on 1,024 rows
+CORPUS_BATCH = 48
+CORPUS_HOST_ROWS = 1_024
+CORPUS_KERNELS = ("icws_sketch", "estimate_pairs", "estimate_one_vs_many",
+                  "estimate_many")
 
 
 def log(msg: str) -> None:
@@ -144,6 +156,9 @@ def launch_counters():
             "icws_sketch_packed": icws_sketch.icws_sketch_packed_cuda,
             "dmh_sketch_packed": dmh_sketch.dmh_sketch_packed_cuda,
             "estimate_fields_packed": estimate.estimate_fields_packed_cuda,
+            "estimate_pairs": estimate.estimate_partials_cuda,
+            "estimate_one_vs_many": estimate.estimate_one_vs_many_cuda,
+            "estimate_many": estimate.estimate_many_vs_many_cuda,
             "linear_estimate_fields_packed":
                 estimate.linear_estimate_fields_packed_cuda,
             "sample_estimate_fields_packed":
@@ -995,6 +1010,191 @@ def packed_kernel_phase(dev, icws_data, lin_data, sample_data):
     return b10, b11, b12, b13
 
 
+def pair_case(label, kernel, plain, args, *, tests, bytes_moved, symbol):
+    """One B3 or B4 launch at the corpus path's width against its plain
+    version, bit for bit; timed against its bound (bytes: every input read
+    once, the two outputs written once; operations: 2 per test and 8 per
+    collision of this data).  Returns (report, the kernel's output)."""
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    if not (bits_equal(got[0], want[0]) and bits_equal(got[1], want[1])):
+        raise AssertionError(f"{label}: kernel differs from plain")
+    del want
+    hits = float(got[0].double().sum().item())
+    bound, bound_by = bound_of(bytes_moved, EST_OPS_PER_TEST * tests
+                               + EST_OPS_PER_HIT * hits)
+    ms = time_ms(lambda: kernel(*args), reps=10)
+    dev_ms = device_ms(lambda: kernel(*args), symbol)
+    log(f"{label}: equal to plain, {hits:.0f} collisions of {tests} tests; "
+        f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
+        f"{plain_ms:.1f} ms (one run), bound {bound:.4f} ms ({bound_by}: "
+        f"{bytes_moved / 1e9:.3f} GB)")
+    return ({"shape": label.split(" ", 1)[1], "max_abs_err": 0.0, "ms": ms,
+             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": bound_by}, got)
+
+
+def corpus_kernel_phase(icws_data):
+    """B3 (pairwise, one-vs-many) and B4 (Q = 16 and 1) at m = 512 against
+    P = 131,072 rows: field 0 of the icws kernel phase's corpus (rows that
+    copy a query's samples with a per-row share, the last 1,024 spare),
+    each against its plain version bit for bit; then, on the card, row 0 of
+    B4 at Q = 1, the one-vs-many route, the pairwise route on query 0 tiled
+    to P rows and B2 with qmap = cmap = (0,) give the same bits."""
+    from repro_torch.kernels import estimate as ke
+    fq, vq, fc, vc = icws_data
+    fq, vq, fc, vc = fq[0], vq[0], fc[0], vc[0]
+    P = fc.shape[0]
+    plane = P * M * 8
+    ta = fq[0].expand(P, M).contiguous()
+    tv = vq[0].expand(P, M).contiguous()
+    pairs, got_p = pair_case(
+        f"B3 pairwise P={P} m={M}", ke.estimate_partials_cuda,
+        ke.estimate_partials_plain, (ta, tv, fc, vc), tests=P * M,
+        bytes_moved=2 * plane + 2 * P * 4, symbol="estimate_pairs_kernel")
+    del ta, tv
+    one, got_1 = pair_case(
+        f"B3 one-vs-many P={P} m={M}", ke.estimate_one_vs_many_cuda,
+        ke.estimate_one_vs_many_plain, (fq[0], vq[0], fc, vc), tests=P * M,
+        bytes_moved=M * 8 + plane + 2 * P * 4, symbol="estimate_pairs_kernel")
+    many = []
+    for q in (16, 1):
+        rep, got = pair_case(
+            f"B4 Q={q} P={P} m={M}", ke.estimate_many_vs_many_cuda,
+            ke.estimate_many_vs_many_plain, (fq[:q], vq[:q], fc, vc),
+            tests=q * P * M, bytes_moved=q * M * 8 + plane + 2 * q * P * 4,
+            symbol="estimate_many_kernel")
+        many.append(rep)
+    b2 = ke.estimate_fields_cuda(fq[None, :1], vq[None, :1], fc[None],
+                                 vc[None], qmap=(0,), cmap=(0,))
+    torch.cuda.synchronize()
+    for i in range(2):
+        row = got[i][0]
+        if not all(bits_equal(row, x) for x in (got_1[i], got_p[i],
+                                                b2[i][0, 0])):
+            raise AssertionError("B4 row 0, B3 one-vs-many, B3 pairwise on "
+                                 "the tiled query and B2 at G = 1 differ")
+    log(f"B4 row 0 (Q=1) == B3 one-vs-many == B3 pairwise on the tiled query "
+        f"== B2 at qmap=cmap=(0,), bit for bit, P={P} m={M}")
+    return pairs, one, many
+
+
+def corpus_phase(lake):
+    """The corpus path: ``SketchCorpus(m=512)`` on the card ingests every
+    field vector of the lake (vectorized as the service does it) through
+    ``add_batch`` in batches of 48, answers the first field vector of each
+    of the 64 queries with ``estimate_vec`` one at a time and with
+    ``estimate_vecs`` in 4 batches of 16 (bit for bit equal), then pulls
+    1,024 rows (the 32 planted partners' among them) and the queries back
+    with ``arrays()``: the card's estimates there are held against the
+    host ICWS estimator in f64 (< 10 ppm, ``perf_sketch.py``'s gate) and
+    ``ops.icws_estimate`` on those (query, row) pairs against them bit for
+    bit.  Counters set to 0 just before the ingest and read just after the
+    pairwise estimate.  Returns the launches."""
+    from repro_torch import SketchCorpus
+    from repro_torch.core import ICWS, StackedICWS
+    from repro_torch.data.dataset_search import DatasetSearchIndex
+    from repro_torch.data.ingest import sketch_batch
+    from repro_torch.kernels import ops
+    tables, queries, partners = lake
+    index = DatasetSearchIndex(m=M, seed=0)
+    t0 = time.perf_counter()
+    vecs = [v for _, k, x in tables for v in index.vectorize(k, x)]
+    qvecs = [index.vectorize(k, x)[0] for k, x in queries]
+    log(f"corpus: {len(vecs)} field vectors of {len(tables)} tables and "
+        f"{len(qvecs)} query vectors vectorized in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    corpus = SketchCorpus(m=M, seed=0)
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    for lo in range(0, len(vecs), CORPUS_BATCH):
+        corpus.add_batch(vecs[lo:lo + CORPUS_BATCH])
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    seq, one_ms = [], []
+    for v in qvecs:
+        t0 = time.perf_counter()
+        seq.append(corpus.estimate_vec(v))
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    batched, batch_ms = [], []
+    for lo in range(0, len(qvecs), MICRO_BATCH):
+        t0 = time.perf_counter()
+        batched.append(corpus.estimate_vecs(qvecs[lo:lo + MICRO_BATCH]))
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+    seq, batched = torch.stack(seq), torch.cat(batched)
+    n = len(corpus)
+    if seq.shape != (QUERIES, n) or not bits_equal(batched, seq):
+        raise AssertionError("corpus: estimate_vecs differs from estimate_vec")
+    if not bool(torch.isfinite(seq).all()):
+        raise AssertionError("corpus: non-finite estimate")
+
+    pos = {name: i for i, (name, _, _) in enumerate(tables)}
+    partner_rows = np.array([3 * pos[p] for p in partners if p is not None])
+    others = np.setdiff1d(np.arange(0, n, 47), partner_rows)
+    rows = np.sort(np.concatenate(
+        [partner_rows, others[:CORPUS_HOST_ROWS - partner_rows.size]]))
+    fpc, vc, nc, _ = corpus.arrays()
+    ri = torch.from_numpy(rows).to(fpc.device)
+    fq, vq, nq, _ = sketch_batch(qvecs, m=M, seed=0, device=fpc.device)
+    qi = torch.arange(QUERIES, device=fpc.device).repeat_interleave(ri.numel())
+    pair_est = ops.icws_estimate(fq[qi], vq[qi], nq[qi], fpc[ri.repeat(
+        QUERIES)], vc[ri.repeat(QUERIES)], nc[ri.repeat(QUERIES)])
+    torch.cuda.synchronize()
+    launches = {k: counters[k].launches for k in CORPUS_KERNELS}
+    card = seq[:, ri]
+    if not bits_equal(pair_est.reshape(QUERIES, -1), card):
+        raise AssertionError("corpus: ops.icws_estimate on (query, row) pairs "
+                             "differs from the corpus estimates")
+    rows_h = StackedICWS(fingerprints=fpc[ri].cpu().numpy(),
+                         values=vc[ri].cpu().numpy().astype(np.float64),
+                         norm=nc[ri].cpu().numpy().astype(np.float64))
+    fq_h, vq_h, nq_h = (x.cpu().numpy() for x in (fq, vq, nq))
+    host = np.stack([ICWS(m=M, seed=0).estimate_batch(StackedICWS(
+        fingerprints=np.repeat(fq_h[q:q + 1], rows.size, 0),
+        values=np.repeat(vq_h[q:q + 1].astype(np.float64), rows.size, 0),
+        norm=np.full(rows.size, float(nq_h[q]))), rows_h)
+        for q in range(QUERIES)])
+    dev64 = card.cpu().numpy().astype(np.float64)
+    scale = np.maximum(np.maximum(np.abs(host), np.abs(dev64)), 1e-12)
+    rel_ppm = float(np.max(np.abs(dev64 - host) / scale)) * 1e6
+    live = int(np.count_nonzero(host))
+    if rel_ppm >= 10.0 or live == 0:
+        raise AssertionError(f"corpus: card vs host ICWS estimator "
+                             f"{rel_ppm:.3f} ppm (gate 10), {live} non-zero")
+    # each query against the tables' first field (rows 0, 3, 6, ...)
+    top = seq[:QUERIES // 2, 0::3].argmax(1).cpu().numpy()
+    found = int(sum(t == pos[p] for t, p in zip(top, partners)))
+    need = {"icws_sketch": math.ceil(n / CORPUS_BATCH) + QUERIES
+            + QUERIES // MICRO_BATCH + 1, "estimate_pairs": 1,
+            "estimate_one_vs_many": QUERIES,
+            "estimate_many": QUERIES // MICRO_BATCH}
+    log(f"corpus: {n} rows (capacity {corpus.capacity}), "
+        f"{corpus._store.bytes_per_row()} B per row, "
+        f"{corpus.capacity * corpus._store.bytes_per_row() / 1e6:.1f} MB "
+        f"resident; ingest {n / ingest_s:.1f} vectors/s ({ingest_s:.1f} s, "
+        f"add_batch of {CORPUS_BATCH}); estimate_vec p50 "
+        f"{statistics.median(one_ms):.3f} ms ({len(one_ms)}), estimate_vecs "
+        f"p50 {statistics.median(batch_ms):.3f} ms ({len(batch_ms)} batches "
+        f"of {MICRO_BATCH}); estimate_vecs == estimate_vec bit for bit; card "
+        f"vs host ICWS estimator on {rows.size} rows x {QUERIES} queries: max "
+        f"{rel_ppm:.4f} ppm ({live} non-zero), ops.icws_estimate on those "
+        f"pairs equal bit for bit; planted partner ranked first among the "
+        f"tables' first fields for {found} of {QUERIES // 2} queries; "
+        f"launches {launches} on {card_identity()}")
+    if any(launches[k] < v for k, v in need.items()):
+        raise AssertionError(f"corpus: launches {launches} below {need}")
+    del corpus
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def lake_phase():
     rng = np.random.default_rng(4)
     tables, queries, partners = make_lake(rng, LAKE_TABLES, QUERIES)
@@ -1325,11 +1525,14 @@ def main() -> int:
                                 sample_kernel_phase, dev)
     b10, b11, b12, b13 = phase("packed kernels", packed_kernel_phase, dev,
                                icws_data, lin_data, sample_data)
+    b3_pairs, b3_one, b4 = phase("corpus kernels", corpus_kernel_phase,
+                                 icws_data)
     del icws_data, lin_data, sample_data
     torch.cuda.empty_cache()
     for family in FAMILIES:
         phase(f"small lake {family}", small_reference_phase, dev, family)
     lake = phase("lake", lake_phase)
+    corpus_launches = phase("corpus", corpus_phase, lake)
     runs, packed_runs, latency, b10_path = {}, {}, {}, {}
     for family in FAMILIES:
         (runs[family], packed_runs[family], latency[family],
@@ -1363,7 +1566,7 @@ def main() -> int:
             ("dmh_sketch", "dmh_sketch.cu", "dmh_sketch.py:92", dmh[3], dmh),
             ("sample_estimate_fields", "sample_estimate_fields.cu",
              "sample_estimate.py:86", sample[0], sample),
-            ("estimate_fields_packed", "estimate_fields_packed.cu",
+            ("estimate_fields_packed", "estimate_fields.cu",
              "estimate.py:306", b11[0], b11),
             ("linear_estimate_fields_packed",
              "linear_estimate_fields_packed.cu", "estimate.py:500", b12[0],
@@ -1379,6 +1582,18 @@ def main() -> int:
                                  "pack_vals=True)")
         for kind, replaces in (("icws", "icws_sketch.py:96"),
                                ("dmh", "dmh_sketch.py:157"))]
+    # B3 and B4 run on the corpus path (SketchCorpus, ops.icws_estimate),
+    # not on the service's: their launches are that path's
+    kernels[2:2] = [
+        kernel_entry(name, source, replaces, corpus_launches[name], r, shapes)
+        for name, source, replaces, r, shapes in (
+            ("estimate_pairs", "estimate_pairs.cu", "estimate.py:49", b3_pairs,
+             [b3_pairs]),
+            ("estimate_one_vs_many", "estimate_pairs.cu", "estimate.py:49",
+             b3_one, [b3_one]),
+            ("estimate_many", "estimate_fields.cu", "estimate.py:153", b4[0],
+             b4))]
+    kernels[0]["corpus_path_launches"] = corpus_launches["icws_sketch"]
     log("latency (unpacked; packed), p50 ms of search and of a micro-batch "
         "of 16: " + json.dumps(latency))
     log(f"total {time.perf_counter() - t_start:.1f} s on {identity}")

@@ -7,10 +7,14 @@ backend="device")`` on one device for all six families of the JAX package
 (ICWS, DMH, CountSketch, JL, threshold and priority sampling), with
 hand-written CUDA kernels for each family's sketch (the sampling rows are
 built on the host) and fused multi-field estimate
-(``repro_torch.kernels``).  Entry points run on
-the card unless the caller passes ``device="cpu"``.
+(``repro_torch.kernels``), and the paper's library surface
+``SketchCorpus`` (one ICWS field: pairwise, one-vs-many and many-vs-many
+estimates).  Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
+from .data.corpus import SketchCorpus
 from .data.dataset_search import DatasetSearchIndex, SearchResult
 from .serve.sketch_service import SketchSearchService
 
-__all__ = ["DatasetSearchIndex", "SearchResult", "SketchSearchService"]
+__all__ = ["DatasetSearchIndex", "SearchResult", "SketchCorpus",
+           "SketchSearchService"]

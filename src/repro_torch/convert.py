@@ -20,6 +20,12 @@ are carried, one buffer per component of the family: ICWS and DMH share
 the ICWS buffers, CS and JL carry their tables, TS and PS their sample
 keys, values and taus.  A packed JAX index (``packed=True``) carries its
 packed buffers (``family.packed_components``), written as they are.
+
+A JAX ``SketchCorpus`` is carried the same way, from its exact-size rows::
+
+    corpus = corpus_from_numpy(*[np.asarray(a) for a in jax_corpus.arrays()],
+                               m=jax_corpus.m, seed=jax_corpus.seed,
+                               device="cuda")
 """
 from __future__ import annotations
 
@@ -28,7 +34,19 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.core import KMVSketch
+from repro_torch.data.corpus import SketchCorpus
 from repro_torch.data.dataset_search import DatasetSearchIndex
+
+
+def corpus_from_numpy(fp: np.ndarray, val: np.ndarray, norm: np.ndarray,
+                      argkey: np.ndarray, *, m: int, seed: int = 0,
+                      device="cuda") -> SketchCorpus:
+    """A port corpus over the given sketch rows (``fp``, ``val``,
+    ``argkey`` ``[P, m]``, ``norm`` ``[P]``), queried with the JAX corpus's
+    ``m`` and ``seed``; the store validates the rows."""
+    corpus = SketchCorpus(m=m, seed=seed, device=device)
+    corpus.add_sketches(*(np.array(a) for a in (fp, val, norm, argkey)))
+    return corpus
 
 
 def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,

@@ -1,6 +1,8 @@
-"""Host-side numpy pieces the serving path needs (copies of the JAX
-package's ``repro.core`` types, hashing and KMV sampling)."""
+"""Host-side numpy pieces of the port (copies of the JAX package's
+``repro.core`` types, hashing, KMV sampling and the host ICWS sketch)."""
+from .icws import ICWS, ICWSSketch, StackedICWS, stack_icws
 from .kmv import KMV, KMVSketch
 from .types import SparseVec
 
-__all__ = ["KMV", "KMVSketch", "SparseVec"]
+__all__ = ["ICWS", "ICWSSketch", "KMV", "KMVSketch", "SparseVec",
+           "StackedICWS", "stack_icws"]

@@ -1,7 +1,7 @@
 """Sparse vectors over a huge key domain (copy of ``repro.core.types``).
 
-Only what the serving path uses is kept: construction from (index, value)
-pairs with duplicate aggregation, ``nnz`` and the L2 norm.
+Only what the port uses is kept: construction from (index, value) pairs
+with duplicate aggregation or from a dense array, ``nnz`` and the L2 norm.
 """
 from __future__ import annotations
 
@@ -28,6 +28,12 @@ class SparseVec:
 
     def norm(self) -> float:
         return float(np.sqrt(np.sum(self.values ** 2)))
+
+    @staticmethod
+    def from_dense(a: np.ndarray) -> "SparseVec":
+        a = np.asarray(a, dtype=np.float64)
+        idx = np.nonzero(a)[0].astype(np.int64)
+        return SparseVec(indices=idx, values=a[idx], n=int(a.shape[0]))
 
     @staticmethod
     def from_pairs(indices, values, n: int,

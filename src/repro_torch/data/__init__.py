@@ -1,5 +1,6 @@
-"""Ingest, sketch family, corpus store and dataset-search index of the
-port's serving path."""
+"""Ingest, sketch family, corpus store, dataset-search index and the
+single-field ICWS ``SketchCorpus`` of the port."""
+from .corpus import SketchCorpus
 from .dataset_search import DatasetSearchIndex, SearchResult
 from .families import (FAMILY_NAMES, CSFamily, DMHFamily, ICWSFamily,
                        JLFamily, PSFamily, TSFamily, make_family, wmh_storage)
@@ -7,4 +8,5 @@ from .store import CorpusStore
 
 __all__ = ["CSFamily", "CorpusStore", "DMHFamily", "DatasetSearchIndex",
            "FAMILY_NAMES", "ICWSFamily", "JLFamily", "PSFamily",
-           "SearchResult", "TSFamily", "make_family", "wmh_storage"]
+           "SearchResult", "SketchCorpus", "TSFamily", "make_family",
+           "wmh_storage"]

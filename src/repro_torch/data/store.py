@@ -228,6 +228,17 @@ class CorpusStore:
             raise ValueError("empty corpus")
         return self._bufs
 
+    def arrays(self) -> Tuple[torch.Tensor, ...]:
+        """Exact-size ``[F, P, *trailing]`` component slices (the leading F
+        axis is dropped when ``fields == 1``): views of the buffers, for
+        host cross-checks and tests; query paths use :meth:`buffers`."""
+        if self._size == 0:
+            raise ValueError("empty corpus")
+        out = tuple(b[:, :self._size] for b in self._bufs)
+        if self.fields == 1:
+            return tuple(o[0] for o in out)
+        return out
+
     def bytes_per_row(self) -> int:
         """Resident device bytes per stored row (one field)."""
         return int(sum(_ELEMENT_BYTES[s.dtype]

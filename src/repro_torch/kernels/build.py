@@ -27,10 +27,10 @@ import tempfile
 import threading
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("icws_sketch.cu", "estimate_fields.cu", "countsketch_sparse.cu",
-           "jl_sketch.cu", "linear_estimate_fields.cu", "dmh_sketch.cu",
-           "sample_estimate_fields.cu", "estimate_fields_packed.cu",
-           "linear_estimate_fields_packed.cu",
+SOURCES = ("icws_sketch.cu", "estimate_fields.cu", "estimate_pairs.cu",
+           "countsketch_sparse.cu", "jl_sketch.cu",
+           "linear_estimate_fields.cu", "dmh_sketch.cu",
+           "sample_estimate_fields.cu", "linear_estimate_fields_packed.cu",
            "sample_estimate_fields_packed.cu", "bindings.cu")
 HEADERS = ("u32.cuh", "packed.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -156,6 +156,13 @@ def library() -> ctypes.CDLL:
         lib.repro_estimate_fields_packed.argtypes = \
             lib.repro_estimate_fields.argtypes
         lib.repro_estimate_fields_packed.restype = i32
+        lib.repro_estimate_many.argtypes = [ptr, ptr, ptr, ptr, i64, i64, i32,
+                                            i32, i32, ptr, ptr, ptr]
+        lib.repro_estimate_many.restype = i32
+        lib.repro_estimate_pairs.argtypes = [ptr, ptr, ptr, ptr, i64, i64,
+                                             i64, i64, i32, i32, ptr, ptr,
+                                             ptr]
+        lib.repro_estimate_pairs.restype = i32
         lib.repro_linear_estimate_fields_packed.argtypes = \
             lib.repro_linear_estimate_fields.argtypes
         lib.repro_linear_estimate_fields_packed.restype = i32

@@ -39,6 +39,14 @@ cudaError_t launch_estimate_fields_packed(const int* fq, const float* vq, const 
                                           long long wc_rs, const int* qmap,
                                           const int* cmap, int G, int Q, int P, int m,
                                           float* cnt, float* sw, cudaStream_t stream);
+cudaError_t launch_estimate_many(const int* fq, const float* vq, const int* fc,
+                                 const float* vc, long long fc_rs, long long vc_rs,
+                                 int Q, int P, int m, float* cnt, float* sw,
+                                 cudaStream_t stream);
+cudaError_t launch_estimate_pairs(const int* fa, const float* va, const int* fb,
+                                  const float* vb, long long fa_rs, long long va_rs,
+                                  long long fb_rs, long long vb_rs, int P, int m,
+                                  float* cnt, float* sw, cudaStream_t stream);
 cudaError_t launch_linear_estimate_fields_packed(const float* tq, const int* wc,
                                                  long long wc_fs, long long wc_ps,
                                                  const int* qmap, const int* cmap,
@@ -118,6 +126,21 @@ int repro_estimate_fields_packed(const int* fq, const float* vq, const int* fc,
   return (int)repro::launch_estimate_fields_packed(fq, vq, fc, wc, fc_fs, fc_rs, wc_fs,
                                                    wc_rs, qmap, cmap, G, Q, P, m, cnt,
                                                    sw, (cudaStream_t)stream);
+}
+
+int repro_estimate_many(const int* fq, const float* vq, const int* fc,
+                        const float* vc, long long fc_rs, long long vc_rs, int Q,
+                        int P, int m, float* cnt, float* sw, void* stream) {
+  return (int)repro::launch_estimate_many(fq, vq, fc, vc, fc_rs, vc_rs, Q, P, m, cnt,
+                                          sw, (cudaStream_t)stream);
+}
+
+int repro_estimate_pairs(const int* fa, const float* va, const int* fb,
+                         const float* vb, long long fa_rs, long long va_rs,
+                         long long fb_rs, long long vb_rs, int P, int m, float* cnt,
+                         float* sw, void* stream) {
+  return (int)repro::launch_estimate_pairs(fa, va, fb, vb, fa_rs, va_rs, fb_rs, vb_rs,
+                                           P, m, cnt, sw, (cudaStream_t)stream);
 }
 
 int repro_linear_estimate_fields_packed(const float* tq, const int* wc, long long wc_fs,

@@ -1,34 +1,41 @@
-"""Fused multi-field estimate launches: CUDA kernels and plain twins.
+"""Estimate launches: CUDA kernels and plain twins.
 
-Four kernels live here.  The ICWS collision partials replace the TPU kernel
-``repro/kernels/estimate.py::_fields_kernel`` (launcher
-``estimate_fields_pallas``); the linear-sketch dots replace
-``_linear_fields_kernel`` (launcher ``linear_estimate_fields_pallas``,
-see :func:`linear_estimate_fields_plain`); and each has a packed twin over
-the packed store's bf16-halfword corpus words (``_fields_packed_kernel``,
-``_linear_fields_packed_kernel``), which decodes the corpus values inside
-the kernel and otherwise keeps its unpacked twin's tiles and sum order, so
-it gives the unpacked kernel's bits on the decoded corpus.  The ICWS
-contract::
+Seven kernels live here.  The ICWS collision partials of many queries
+against a corpus replace the TPU kernels
+``repro/kernels/estimate.py::_fields_kernel`` (B2, launcher
+``estimate_fields_pallas``), ``_fields_packed_kernel`` (B11, over the
+packed store's bf16-halfword corpus words) and ``_mvm_kernel`` (B4,
+launcher ``estimate_many_vs_many_pallas``); the three are one CUDA body
+(``csrc/estimate_fields.cu``).  The pair partials replace ``_est_kernel``
+(B3: ``estimate_partials_pallas`` and ``estimate_one_vs_many_pallas``,
+``csrc/estimate_pairs.cu``).  The linear-sketch dots replace
+``_linear_fields_kernel`` (B8) and ``_linear_fields_packed_kernel`` (B12;
+see :func:`linear_estimate_fields_plain`).  The ICWS contract::
 
     fq/vq [F, Q, m], fc/vc [C, P, m], static qmap/cmap -> (cnt, sw) [G, Q, P] f32
 
 with ``cnt = sum_t 1[fq == fc and fq >= 0]`` and ``sw = sum_t 1[...] * vq *
 vc / min(vq^2, vc^2)`` (IEEE divide, the safe denominator of the JAX
-``_mvm_body``), for each field pair ``g = (qmap[g], cmap[g])``.
+``_mvm_body``), for each field pair ``g = (qmap[g], cmap[g])``; B4 is the
+same function on one plane pair (``[Q, m] x [P, m] -> [Q, P]``), B3 on
+row pairs (``[P, m] x [P, m] -> [P]``) or one query against every row
+(``[m] x [P, m] -> [P]``).  A packed twin decodes the corpus values inside
+the kernel and gives its unpacked twin's bits on the decoded corpus.
 
 Port contract: each (q, p) sum runs over ``t = 0 .. m-1`` in order, one
 f32 add at a time, in both versions -- so the result does not depend on
-Q, P or any tiling (batched and sequential queries agree bit for bit), and
-the CUDA kernel and the plain version do the same IEEE operations in the
-same order.  The field pair is read through ``qmap``/``cmap``; neither
-version builds per-pair copies or a ``[Q, P, m]`` tensor.  The corpus
-planes may be any strided view whose last dimension is contiguous (a
-tenant's slice of the store's ``[3, cap, m]`` buffers is passed as is).
+Q, P or any tiling (batched and sequential queries agree bit for bit; a
+row of B4, B3's one-vs-many route and B3's pairwise route on the tiled
+query give the same bits), and the CUDA kernel and the plain version do
+the same IEEE operations in the same order.  The field pair is read
+through ``qmap``/``cmap``; neither version builds per-pair copies, a tiled
+query or a ``[Q, P, m]`` tensor.  The corpus planes may be any strided
+view whose last dimension is contiguous (a tenant's slice of the store's
+``[3, cap, m]`` buffers, or field 0 of a ``[1, cap, m]`` buffer, is passed
+as is).
 
-The CUDA kernels (``csrc/estimate_fields.cu``,
-``csrc/linear_estimate_fields.cu``) are bound by the bytes of the corpus
-planes they read; see the sources for their design.
+The CUDA kernels are bound by the bytes of the corpus planes they read;
+see the sources for their design.
 """
 from __future__ import annotations
 
@@ -81,6 +88,18 @@ def _check_inputs(fq, vq, fc, vc, qmap, cmap):
     return _check_maps(qmap, cmap, fq.shape[0], fc.shape[0])
 
 
+def _add_hits(n, s, a, x, f, v):
+    """One step t of every collision sum in the plain versions: query
+    fingerprints/values ``a``/``x`` against corpus ``f``/``v`` (shapes that
+    broadcast), the hit's count and weight added to ``n`` and ``s`` -- the
+    kernels' IEEE operations in their order."""
+    hit = (a == f) & (a >= 0)
+    q = torch.minimum(x * x, v * v)
+    safe = torch.where(hit & (q > 0), q, 1.0)
+    return (n + torch.where(hit, 1.0, 0.0),
+            s + torch.where(hit, x * v / safe, 0.0))
+
+
 def estimate_fields_plain(fq: torch.Tensor, vq: torch.Tensor,
                           fc: torch.Tensor, vc: torch.Tensor, *,
                           qmap: Sequence[int], cmap: Sequence[int]
@@ -93,8 +112,6 @@ def estimate_fields_plain(fq: torch.Tensor, vq: torch.Tensor,
     dev = fq.device
     cnt = torch.empty((G, Q, P), dtype=torch.float32, device=dev)
     sw = torch.empty((G, Q, P), dtype=torch.float32, device=dev)
-    one = torch.ones((), dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
     for g, (qf, cf) in enumerate(zip(qmap, cmap)):
         fqg, vqg = fq[qf], vq[qf]                          # [Q, m]
         for lo in range(0, P, _PLAIN_ROWS):
@@ -104,14 +121,8 @@ def estimate_fields_plain(fq: torch.Tensor, vq: torch.Tensor,
             n = torch.zeros((Q, hi - lo), dtype=torch.float32, device=dev)
             s = torch.zeros((Q, hi - lo), dtype=torch.float32, device=dev)
             for t in range(m):
-                a = fqg[:, t:t + 1]                        # [Q, 1]
-                x = vqg[:, t:t + 1]
-                v = vct[t][None, :]                        # [1, rows]
-                hit = (a == fct[t][None, :]) & (a >= 0)    # [Q, rows]
-                q = torch.minimum(x * x, v * v)
-                safe = torch.where(hit & (q > 0), q, one)
-                n = n + torch.where(hit, one, zero)
-                s = s + torch.where(hit, x * v / safe, zero)
+                n, s = _add_hits(n, s, fqg[:, t:t + 1], vqg[:, t:t + 1],
+                                 fct[t][None, :], vct[t][None, :])
             cnt[g, :, lo:hi] = n
             sw[g, :, lo:hi] = s
     return cnt, sw
@@ -151,6 +162,149 @@ def estimate_fields_cuda(fq: torch.Tensor, vq: torch.Tensor,
 
 
 estimate_fields_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One plane pair: sketch pairs, one query vs many rows (B3), many vs many (B4)
+# ---------------------------------------------------------------------------
+def _check_pair(fa, va, fb, vb, lead: str):
+    """fb/vb ``[P, m]``; fa/va ``lead`` rows of the same m, int32 / f32, on
+    one device."""
+    if fb.dim() != 2 or vb.shape != fb.shape or fa.dim() != 2 \
+            or va.shape != fa.shape or fa.shape[1] != fb.shape[1]:
+        raise ValueError(f"expected fa/va [{lead}, m] and fb/vb [P, m]; got "
+                         f"{tuple(fa.shape)}, {tuple(va.shape)}, "
+                         f"{tuple(fb.shape)}, {tuple(vb.shape)}")
+    if (fa.dtype, va.dtype, fb.dtype, vb.dtype) != (
+            torch.int32, torch.float32, torch.int32, torch.float32):
+        raise TypeError("estimate takes int32 fingerprints and f32 values")
+    if not (fa.device == va.device == fb.device == vb.device):
+        raise ValueError("both sides must lie on one device")
+
+
+def _check_pairwise(fpa, va, fpb, vb):
+    _check_pair(fpa, va, fpb, vb, "P")
+    if fpa.shape[0] != fpb.shape[0]:
+        raise ValueError(f"pairwise sides differ in rows: {fpa.shape[0]} "
+                         f"and {fpb.shape[0]}")
+
+
+def _query_row(fq, vq, fpc, vc):
+    """The one query of a one-vs-many launch as ``[1, m]`` views
+    (``[1, m]`` or ``[m]`` given), checked against the corpus."""
+    if fq.dim() not in (1, 2) or fq.numel() != fpc.shape[-1]:
+        raise ValueError(f"expected one query sketch [1, m] or [m] with the "
+                         f"corpus's m; got {tuple(fq.shape)} against "
+                         f"{tuple(fpc.shape)}")
+    fq, vq = fq.reshape(1, -1), vq.reshape(1, -1)
+    _check_pair(fq, vq, fpc, vc, "1")
+    return fq, vq
+
+
+def _check_cuda(x: torch.Tensor, name: str, *planes) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} takes CUDA tensors; got {x.device}")
+    if any(p.stride(-1) != 1 for p in planes):
+        raise ValueError("sketch planes need a contiguous last dimension")
+
+
+def estimate_partials_plain(fpa, va, fpb, vb):
+    """Plain pairwise partials: row p of A against row p of B, ``[P, m]``
+    each -> ``(cnt, sw) [P]`` f32, a loop over t adding one ``[P]`` term
+    at a time (the guard on side A)."""
+    _check_pairwise(fpa, va, fpb, vb)
+    P, m = fpb.shape
+    n = torch.zeros(P, dtype=torch.float32, device=fpb.device)
+    s = torch.zeros(P, dtype=torch.float32, device=fpb.device)
+    for t in range(m):
+        n, s = _add_hits(n, s, fpa[:, t], va[:, t], fpb[:, t], vb[:, t])
+    return n, s
+
+
+def estimate_partials_cuda(fpa, va, fpb, vb):
+    """Launch B3's pairwise route (``csrc/estimate_pairs.cu``) on PyTorch's
+    current stream; CUDA tensors only, both sides read in place through
+    their row strides.  Adds one to ``estimate_partials_cuda.launches``."""
+    _check_pairwise(fpa, va, fpb, vb)
+    _check_cuda(fpb, "estimate_partials_cuda", fpa, va, fpb, vb)
+    return _launch_pairs(estimate_partials_cuda, fpa, va, fpa.stride(0),
+                         va.stride(0), fpb, vb)
+
+
+estimate_partials_cuda.launches = 0
+
+
+def estimate_one_vs_many_plain(fq, vq, fpc, vc):
+    """Plain one-vs-many partials: one query ``[1, m]`` (or ``[m]``)
+    against every row of ``[P, m]`` -> ``(cnt, sw) [P]`` f32, the query
+    broadcast (never tiled), a loop over t adding one ``[P]`` term at a
+    time."""
+    fq, vq = _query_row(fq, vq, fpc, vc)
+    P, m = fpc.shape
+    n = torch.zeros(P, dtype=torch.float32, device=fpc.device)
+    s = torch.zeros(P, dtype=torch.float32, device=fpc.device)
+    for t in range(m):
+        n, s = _add_hits(n, s, fq[0, t], vq[0, t], fpc[:, t], vc[:, t])
+    return n, s
+
+
+def estimate_one_vs_many_cuda(fq, vq, fpc, vc):
+    """Launch B3's one-vs-many route (``csrc/estimate_pairs.cu`` with side
+    A's row stride 0: the query staged once per block and broadcast) on
+    PyTorch's current stream; CUDA tensors only, the corpus read in place.
+    Adds one to ``estimate_one_vs_many_cuda.launches``."""
+    fq, vq = _query_row(fq, vq, fpc, vc)
+    _check_cuda(fpc, "estimate_one_vs_many_cuda", fq, vq, fpc, vc)
+    return _launch_pairs(estimate_one_vs_many_cuda, fq, vq, 0, 0, fpc, vc)
+
+
+estimate_one_vs_many_cuda.launches = 0
+
+
+def _launch_pairs(wrapper, fa, va, fa_rs, va_rs, fb, vb):
+    P, m = fb.shape
+    cnt = torch.empty(P, dtype=torch.float32, device=fb.device)
+    sw = torch.empty(P, dtype=torch.float32, device=fb.device)
+    if P == 0 or m == 0:
+        return cnt.zero_(), sw.zero_()
+    _launch("estimate_pairs", fb, fa.data_ptr(), va.data_ptr(), fb.data_ptr(),
+            vb.data_ptr(), fa_rs, va_rs, fb.stride(0), vb.stride(0), P, m,
+            cnt.data_ptr(), sw.data_ptr())
+    wrapper.launches += 1
+    return cnt, sw
+
+
+def estimate_many_vs_many_plain(fq, vq, fpc, vc):
+    """Plain many-vs-many partials, ``[Q, m] x [P, m] -> (cnt, sw) [Q,
+    P]``: :func:`estimate_fields_plain` on the one plane pair (views, no
+    copy) -- B4 is B2's function at G = 1."""
+    _check_pair(fq, vq, fpc, vc, "Q")
+    cnt, sw = estimate_fields_plain(fq[None], vq[None], fpc[None], vc[None],
+                                    qmap=(0,), cmap=(0,))
+    return cnt[0], sw[0]
+
+
+def estimate_many_vs_many_cuda(fq, vq, fpc, vc):
+    """Launch B4 (``estimate_many_kernel`` of ``csrc/estimate_fields.cu``)
+    on PyTorch's current stream; CUDA tensors only, the queries made
+    contiguous (they are small), the corpus read in place through its row
+    stride.  Adds one to ``estimate_many_vs_many_cuda.launches``."""
+    _check_pair(fq, vq, fpc, vc, "Q")
+    _check_cuda(fpc, "estimate_many_vs_many_cuda", fpc, vc)
+    fq, vq = fq.contiguous(), vq.contiguous()
+    (Q, m), P = fq.shape, fpc.shape[0]
+    cnt = torch.empty((Q, P), dtype=torch.float32, device=fpc.device)
+    sw = torch.empty((Q, P), dtype=torch.float32, device=fpc.device)
+    if Q == 0 or P == 0 or m == 0:
+        return cnt.zero_(), sw.zero_()
+    _launch("estimate_many", fpc, fq.data_ptr(), vq.data_ptr(),
+            fpc.data_ptr(), vc.data_ptr(), fpc.stride(0), vc.stride(0), Q, P,
+            m, cnt.data_ptr(), sw.data_ptr())
+    estimate_many_vs_many_cuda.launches += 1
+    return cnt, sw
+
+
+estimate_many_vs_many_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -270,10 +424,10 @@ def estimate_fields_packed_plain(fq, vq, fc, wc, *, qmap, cmap):
 
 
 def estimate_fields_packed_cuda(fq, vq, fc, wc, *, qmap, cmap):
-    """Launch the packed fields kernel (``csrc/estimate_fields_packed.cu``)
-    on PyTorch's current stream; CUDA tensors only, the corpus read in
-    place through its strides.  Adds one to
-    ``estimate_fields_packed_cuda.launches`` per launch."""
+    """Launch the packed fields kernel (``estimate_fields_packed_kernel``
+    of ``csrc/estimate_fields.cu``) on PyTorch's current stream; CUDA
+    tensors only, the corpus read in place through its strides.  Adds one
+    to ``estimate_fields_packed_cuda.launches`` per launch."""
     qmap, cmap = _check_packed(fq, vq, fc, wc, qmap, cmap)
     if fq.device.type != "cuda":
         raise ValueError(f"estimate_fields_packed_cuda takes CUDA tensors; "

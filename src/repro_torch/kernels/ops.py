@@ -6,6 +6,8 @@ hand-written kernel -- or raises, if the kernel does not build or its
 launch is refused.  There is no fallback from the kernel to the plain
 version.  Launch counts live on the kernel wrappers
 (``icws_sketch_cuda.launches``, ``estimate_fields_cuda.launches``,
+``estimate_partials_cuda.launches``, ``estimate_one_vs_many_cuda.launches``,
+``estimate_many_vs_many_cuda.launches``,
 ``countsketch_sparse_cuda.launches``, ``jl_sketch_cuda.launches``,
 ``linear_estimate_fields_cuda.launches``, ``dmh_sketch_cuda.launches``,
 ``sample_estimate_fields_cuda.launches``, and the packed twins'
@@ -32,6 +34,9 @@ from .dmh_sketch import (dmh_sketch_cuda, dmh_sketch_packed_cuda,
                          dmh_sketch_packed_plain, dmh_sketch_plain)
 from .estimate import (estimate_fields_cuda, estimate_fields_packed_cuda,
                        estimate_fields_packed_plain, estimate_fields_plain,
+                       estimate_many_vs_many_cuda, estimate_many_vs_many_plain,
+                       estimate_one_vs_many_cuda, estimate_one_vs_many_plain,
+                       estimate_partials_cuda, estimate_partials_plain,
                        linear_estimate_fields_cuda,
                        linear_estimate_fields_packed_cuda,
                        linear_estimate_fields_packed_plain,
@@ -75,6 +80,81 @@ def dmh_sketch(w, keys, vals, *, m: int, seed: int = 0,
     return fn(w, keys, vals, m=m, seed=seed)
 
 
+def estimate_partials(fpa, va, fpb, vb):
+    """Algorithm-5 partial sums for P sketch pairs: ``[P, m]`` each ->
+    ``(cnt, sw) [P]``."""
+    fn = _route(fpb, estimate_partials_plain, estimate_partials_cuda)
+    return fn(fpa, va, fpb, vb)
+
+
+def estimate_partials_one_vs_many(fq, vq, fpc, vc):
+    """Partial sums of one query sketch (``[1, m]`` or ``[m]``) against a
+    ``[P, m]`` corpus, the query broadcast: ``(cnt, sw) [P]``."""
+    fn = _route(fpc, estimate_one_vs_many_plain, estimate_one_vs_many_cuda)
+    return fn(fq, vq, fpc, vc)
+
+
+def estimate_partials_many_vs_many(fq, vq, fpc, vc):
+    """Partial sums of ``[Q, m]`` queries against a ``[P, m]`` corpus in
+    one launch: ``(cnt, sw) [Q, P]``."""
+    fn = _route(fpc, estimate_many_vs_many_plain, estimate_many_vs_many_cuda)
+    return fn(fq, vq, fpc, vc)
+
+
+def _norm_epilogue(cnt, sw, na, nb, m: int):
+    """``est = na * nb * (m~ / m) * sw`` with ``m~ = 2 / (1 + cnt / m)``,
+    zero where either norm is zero (the JAX package's operand order; the
+    norms broadcast against ``cnt``)."""
+    m_tilde = 2.0 / (1.0 + cnt / m)
+    est = na * nb * (m_tilde / m) * sw
+    return torch.where((na == 0) | (nb == 0), 0.0, est)
+
+
+def icws_estimate(fpa, va, na, fpb, vb, nb):
+    """ICWS inner-product estimates of P sketch pairs: fp ``[P, m]`` i32,
+    v ``[P, m]`` f32, norms ``[P]`` f32 -> ``[P]`` f32."""
+    cnt, sw = estimate_partials(fpa, va, fpb, vb)
+    return _norm_epilogue(cnt, sw, na, nb, fpa.shape[1])
+
+
+def icws_estimate_corpus(fq, vq, nq, fpc, vc, nc):
+    """ICWS inner-product estimates of one query against a whole corpus.
+
+    Args: fq/vq ``[1, m]`` (or ``[m]``) query, nq its norm (a 0-d tensor
+    or a float); fpc/vc ``[P, m]`` corpus, nc ``[P]`` norms.  Returns
+    ``[P]`` f32; the query is broadcast inside the kernel, never tiled.
+    """
+    cnt, sw = estimate_partials_one_vs_many(fq, vq, fpc, vc)
+    nq = torch.as_tensor(nq, dtype=torch.float32, device=fpc.device)
+    return _norm_epilogue(cnt, sw, nq, nc, fpc.shape[1])
+
+
+def icws_estimate_many(fq, vq, nq, fpc, vc, nc):
+    """ICWS inner-product estimates of Q queries against a whole corpus:
+    fq/vq ``[Q, m]``, nq ``[Q]``; fpc/vc ``[P, m]``, nc ``[P]``.  Returns
+    ``[Q, P]`` f32 from ONE many-vs-many launch."""
+    cnt, sw = estimate_partials_many_vs_many(fq, vq, fpc, vc)
+    return _norm_epilogue(cnt, sw, nq[:, None], nc[None, :], fpc.shape[1])
+
+
+def icws_estimate_corpus_stacked(fq, vq, nq, fpb, vb, nb):
+    """One query against field 0 of stacked ``[1, cap, m]`` store buffers,
+    read in place (a view, no ``[cap, m]`` copy).  Unused capacity rows
+    (pad fingerprints, zero norms) estimate to zero; callers slice the
+    result to the live row count."""
+    return icws_estimate_corpus(fq, vq, nq, fpb[0], vb[0], nb[0])
+
+
+def icws_estimate_many_stacked(fq, vq, nq, fpb, vb, nb):
+    """Q queries against field 0 of stacked ``[1, cap, m]`` store buffers."""
+    return icws_estimate_many(fq, vq, nq, fpb[0], vb[0], nb[0])
+
+
+def icws_estimate_many_sharded(fq, vq, nq, fpb, vb, nb, *, mesh, axis):
+    raise NotImplementedError("sharded corpus estimates are not ported yet "
+                              "(Queue A 14 in ROADMAP.md)")
+
+
 def estimate_partials_fields(fq, vq, fpc, vc, *, qmap: Sequence[int],
                              cmap: Sequence[int]):
     """Fused multi-field partial sums: one launch for all field pairs."""
@@ -110,14 +190,10 @@ def icws_estimate_fields_packed(fq, vq, nq, fpc, wc, nc, *,
 
 
 def _icws_epilogue(cnt, sw, nq, nc, m: int, qmap, cmap):
-    """``est = nq * nc * (m~ / m) * sw`` with ``m~ = 2 / (1 + cnt / m)``,
-    zero where either norm is zero."""
-    j_hat = cnt / m
-    m_tilde = 2.0 / (1.0 + j_hat)
+    """:func:`_norm_epilogue` with each field pair's norms."""
     nqg = torch.stack([nq[qf] for qf in qmap])[:, :, None]    # [G, Q, 1]
     ncg = torch.stack([nc[cf] for cf in cmap])[:, None, :]    # [G, 1, P]
-    est = nqg * ncg * (m_tilde / m) * sw
-    return torch.where((nqg == 0) | (ncg == 0), 0.0, est)
+    return _norm_epilogue(cnt, sw, nqg, ncg, m)
 
 
 def countsketch_sparse(keys, vals, *, width: int, reps: int = 5,

@@ -386,3 +386,49 @@ def test_packed_service_on_the_card_matches_the_cpu_service(cuda, family):
         out.append(batch)
     assert [[r.name for r in q] for q in out[0]] == \
         [[r.name for r in q] for q in out[1]]
+
+
+@pytest.mark.cuda
+def test_pair_and_many_kernels_match_plain_versions_bitwise(cuda):
+    """B3 (pairwise and one-vs-many) and B4 against their plain versions
+    bit for bit on field 0 of a [1, cap, m] buffer with spare rows (a view
+    read through its row stride); on the card, a row of B4, the one-vs-many
+    route, the pairwise route on the tiled query and B2 at G = 1 agree."""
+    args, _ = _batch(13, "cpu")
+    fp, val, _, _ = port_sketch.icws_sketch_plain(*args, m=M, seed=1)
+    fq, vq = fp[:5].to(cuda), val[:5].to(cuda)
+    rng = np.random.default_rng(14)
+    pick = torch.from_numpy(rng.integers(0, 5, size=300))
+    fc = torch.full((1, 320, M), -2, dtype=torch.int32)
+    vc = torch.zeros((1, 320, M))
+    fc[0, :300], vc[0, :300] = fp[:5][pick], val[:5][pick] * 1.5
+    fc[0, :300][torch.from_numpy(rng.random((300, M)) < 0.3)] = 7
+    fc, vc = fc.to(cuda)[0], vc.to(cuda)[0]
+    counters = (port_est.estimate_partials_cuda,
+                port_est.estimate_one_vs_many_cuda,
+                port_est.estimate_many_vs_many_cuda)
+    before = [c.launches for c in counters]
+    many = ops.estimate_partials_many_vs_many(fq, vq, fc, vc)
+    one = ops.estimate_partials_one_vs_many(fq[2], vq[2], fc, vc)
+    tiled = ops.estimate_partials(fq[2].expand(320, -1).contiguous(),
+                                  vq[2].expand(320, -1).contiguous(), fc, vc)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [b + 1 for b in before]
+    assert many[0].sum().item() > 0 and torch.all(many[0][:, 300:] == 0)
+    b2 = port_est.estimate_fields_cuda(fq[None], vq[None], fc[None], vc[None],
+                                       qmap=(0,), cmap=(0,))
+    for i in range(2):
+        assert _bits_equal(many[i], port_est.estimate_many_vs_many_plain(
+            fq, vq, fc, vc)[i])
+        assert _bits_equal(one[i], port_est.estimate_one_vs_many_plain(
+            fq[2], vq[2], fc, vc)[i])
+        assert _bits_equal(tiled[i], port_est.estimate_partials_plain(
+            fq[2].expand(320, -1), vq[2].expand(320, -1), fc, vc)[i])
+        for other in (one[i], tiled[i], b2[i][0, 2]):
+            assert _bits_equal(many[i][2], other)
+    # a strided pairwise side A (every other row of a [640, m] tensor)
+    wide_f = torch.stack([fc, fc], 1).reshape(640, M)[::2]
+    wide_v = torch.stack([vc, vc], 1).reshape(640, M)[::2]
+    got = ops.estimate_partials(wide_f, wide_v, fc, vc)
+    want = port_est.estimate_partials_plain(wide_f, wide_v, fc, vc)
+    assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])

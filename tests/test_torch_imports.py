@@ -40,11 +40,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
 
 
 def test_entry_points_default_to_the_card():
-    from repro_torch import DatasetSearchIndex, SketchSearchService
+    from repro_torch import (DatasetSearchIndex, SketchCorpus,
+                             SketchSearchService)
     from repro_torch.data.store import CorpusStore
     for make in (lambda: SketchSearchService(m=8),
                  lambda: DatasetSearchIndex(m=8),
-                 lambda: CorpusStore(m=8)):
+                 lambda: CorpusStore(m=8),
+                 lambda: SketchCorpus(m=8)):
         if torch.cuda.is_available():
             assert make() is not None
         else:
