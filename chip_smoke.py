@@ -19,17 +19,25 @@ phase drives the library surface on the same lake:
 ``repro_torch.SketchCorpus`` ingests its 49,152 field vectors and answers
 64 queries one at a time (B3's one-vs-many route) and 16 at a time (B4),
 bit for bit equal and within 10 ppm of the host ICWS estimator, and
-``ops.icws_estimate`` runs B3's pairwise route.  Imports nothing of JAX
+``ops.icws_estimate`` runs B3's pairwise route.  Before the lake, the
+gradient-compression path (``repro_torch.optim.compression``) runs eight
+``compressed_update`` steps on the card at one TinyLlama-1.1B layer's
+gradient (44,044,288 values), through the dense CountSketch kernel (B14),
+and the flash-attention entry point (``repro_torch.kernels.
+flash_attention.flash_attention``) runs TinyLlama's attention shape (B15),
+each kernel first held against its plain version.  Imports nothing of JAX
 and nothing of the JAX package.  Exits non-zero on any failure, and at
 once when no card is present.  Each phase prints its wall time.  The line
 before the last is a JSON object with each kernel's launches on the
-serving runs (B10 also on its own path; B3 and B4 on the corpus path),
+serving runs (B10 also on its own path; B3 and B4 on the corpus path; B14
+and B15 on theirs),
 its error against the plain version, its time, the plain version's time, its bound and the time of one PyTorch
 call that computes the same function (where there is one); the last line
 is the run's device.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -119,6 +127,37 @@ CORPUS_BATCH = 48
 CORPUS_HOST_ROWS = 1_024
 CORPUS_KERNELS = ("icws_sketch", "estimate_pairs", "estimate_one_vs_many",
                   "estimate_many")
+# the gradient-compression path sketches the gradient of one TinyLlama-1.1B
+# decoder layer (repro/configs/tinyllama_1_1b.py: d_model 2048, 32 heads,
+# 4 KV heads, head_dim 64, d_ff 5632): q, k, v and o projections, the
+# SwiGLU MLP's three matrices and the two RMSNorm scales, 44,044,288
+# values, with CompressionConfig's defaults (width 4096, 5 reps, seed 17)
+TL_D_MODEL, TL_HEADS, TL_KV_HEADS, TL_HEAD_DIM, TL_D_FF = 2048, 32, 4, 64, 5632
+GRAD_T = (TL_D_MODEL * (2 * TL_HEADS + 2 * TL_KV_HEADS) * TL_HEAD_DIM
+          + 3 * TL_D_MODEL * TL_D_FF + 2 * TL_D_MODEL)
+COMPRESS_STEPS = 8
+# flash attention at TinyLlama's attention (B = 1, T = S = 4,096), and one
+# case at Mistral-NeMo's heads (repro/configs/mistral_nemo_12b.py: 32
+# heads, 8 KV heads, head_dim 128): label, H, K, D, dtype, window, and the
+# (rtol, atol) against the plain version: f32 the JAX tests' 5e-5; bf16 one
+# bf16 rounding step, since both compute in f32 from the same inputs and
+# differ only where the f32 results round to neighbouring bf16 values
+FLASH_T = 4096
+F32_TOL, BF16_TOL = (5e-5, 5e-5), (2 ** -7, 1e-5)
+FLASH_CASES = (
+    ("causal f32", TL_HEADS, TL_KV_HEADS, TL_HEAD_DIM, torch.float32, 0,
+     F32_TOL),
+    ("causal bf16", TL_HEADS, TL_KV_HEADS, TL_HEAD_DIM, torch.bfloat16, 0,
+     BF16_TOL),
+    ("causal f32 window 1024", TL_HEADS, TL_KV_HEADS, TL_HEAD_DIM,
+     torch.float32, 1024, F32_TOL),
+    ("causal f32 D=128", 32, 8, 128, torch.float32, 0, F32_TOL))
+# the flash_attention entry point against the port's chunked_attention
+# (scale after the product, bf16 p before p v): the JAX tests' tolerances
+ORACLE_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
+# dense bf16 rate of the tensor cores, the bound B15 would have with bf16
+# products (it takes f32 products, as the TPU kernel does)
+BF16_TC_OPS_PER_S = 989e12
 
 
 def log(msg: str) -> None:
@@ -186,28 +225,47 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, symbol: str, reps: int = 10, traces: int = 3) -> float:
-    """Device milliseconds per launch of the kernel whose name contains
-    ``symbol``, from a ``torch.profiler`` trace of ``reps`` calls: the
-    kernel alone, without the host's launch cost (the mean over the
-    launches the trace recorded).  A trace can come back without the
-    device's activity (one of the traces of one H100 run did); up to
-    ``traces`` are taken before this fails."""
+def device_ms(fn, symbols, reps: int = 10, traces: int = 4):
+    """Device milliseconds per call of ``fn``, from a ``torch.profiler``
+    trace of ``reps`` calls: for each name in ``symbols`` (one or a tuple,
+    where a call launches several kernels) the mean over the launches of
+    the kernel whose name contains it, summed over the names; the kernels
+    alone, without the host's launch cost.  A trace can come back without
+    the device's activity (on an H100, late in a long run, every trace of
+    one kernel has); after ``traces`` such traces, each logged, the time
+    comes from CUDA events around single calls of ``fn`` instead (the
+    median of ``reps``, which also counts the launches' own latency).
+    Returns (ms, source), source ``"profiler"`` or ``"events"``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    symbols = (symbols,) if isinstance(symbols, str) else tuple(symbols)
     fn()
     torch.cuda.synchronize()
-    for _ in range(traces):
+    for attempt in range(traces):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA and symbol in e.name]
-        if spans:
-            return sum(spans) / len(spans) / 1e3
-    raise AssertionError(f"the profiler recorded no launch of {symbol} in "
-                         f"{traces} traces")
+        spans = {sym: [e.time_range.elapsed_us() for e in prof.events()
+                       if e.device_type == DeviceType.CUDA and sym in e.name]
+                 for sym in symbols}
+        if all(spans.values()):
+            return sum(sum(v) / len(v) for v in spans.values()) / 1e3, \
+                "profiler"
+        log(f"device_ms: trace {attempt + 1} recorded no launch of "
+            + ", ".join(sym for sym, v in spans.items() if not v))
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    log(f"device_ms: {', '.join(symbols)} timed with CUDA events around "
+        f"single calls, the profiler having recorded none of its launches")
+    return statistics.median(times), "events"
 
 
 # --------------------------------------------------------------------------
@@ -285,8 +343,8 @@ def sketch_case(index, rng, B: int, nnz: int, dev):
     live, ops, bytes_moved = icws_work(args)
     bound = max(ops / FP32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S) * 1e3
     ms = time_ms(lambda: ks.icws_sketch_cuda(*args, m=M, seed=0), reps=20)
-    dev_ms = device_ms(lambda: ks.icws_sketch_cuda(*args, m=M, seed=0),
-                       "icws_sketch_kernel")
+    dev_ms, dev_src = device_ms(
+        lambda: ks.icws_sketch_cuda(*args, m=M, seed=0), "icws_sketch_kernel")
     plain = time_ms(lambda: ks.icws_sketch_plain(*args, m=M, seed=0), reps=3,
                     warmup=1)
     shape = f"B={B} N={w.shape[1]} m={M}"
@@ -295,6 +353,7 @@ def sketch_case(index, rng, B: int, nnz: int, dev):
         f"{plain:.3f} ms, bound {bound:.4f} ms (operations, {live} live "
         f"non-zeros)")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src,
             "plain_ms": plain, "bound_ms": bound, "fp_agree": share}
 
 
@@ -337,7 +396,7 @@ def estimate_case(fq, vq, fc, vc):
     bound_by = "bytes" if bound_bytes >= bound_ops else "operations"
     ms = time_ms(lambda: ke.estimate_fields_cuda(fq, vq, fc, vc, qmap=QFIELD,
                                                  cmap=CFIELD), reps=10)
-    dev_ms = device_ms(lambda: ke.estimate_fields_cuda(
+    dev_ms, dev_src = device_ms(lambda: ke.estimate_fields_cuda(
         fq, vq, fc, vc, qmap=QFIELD, cmap=CFIELD), "estimate_fields_kernel")
     log(f"estimate {shape}: {hits:.0f} collisions of {tests} tests, cnt "
         f"equal, max |dsw| {err}, kernel {ms:.4f} ms per call ({dev_ms:.4f} "
@@ -345,6 +404,7 @@ def estimate_case(fq, vq, fc, vc):
         f"{bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB, "
         f"{ops:.3e} ops)")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src,
             "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by}
 
 
@@ -382,12 +442,13 @@ def linear_sketch_case(index, rng, name: str, B: int, nnz: int, dev):
     bound = max(bound_b, bound_o) * 1e3
     bound_by = "bytes" if bound_b >= bound_o else "operations"
     ms = time_ms(lambda: kernel(keys, vals, **kw), reps=20)
-    dev_ms = device_ms(lambda: kernel(keys, vals, **kw), symbol)
+    dev_ms, dev_src = device_ms(lambda: kernel(keys, vals, **kw), symbol)
     plain_ms = time_ms(lambda: plain(keys, vals, **kw), reps=3, warmup=1)
     log(f"{name} sketch {shape}: equal to plain, kernel {ms:.4f} ms per call "
         f"({dev_ms:.4f} ms on the device), plain {plain_ms:.3f} ms, bound "
         f"{bound:.5f} ms ({bound_by}, {live} live non-zeros)")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
@@ -412,7 +473,7 @@ def linear_estimate_case(name: str, tq, tc):
     del want
     ms = time_ms(lambda: ke.linear_estimate_fields_cuda(
         tq, tc, qmap=QFIELD, cmap=CFIELD), reps=10)
-    dev_ms = device_ms(lambda: ke.linear_estimate_fields_cuda(
+    dev_ms, dev_src = device_ms(lambda: ke.linear_estimate_fields_cuda(
         tq, tc, qmap=QFIELD, cmap=CFIELD), "linear_estimate_fields_kernel")
     torch.backends.cuda.matmul.allow_tf32 = False
     a = torch.stack([tq[qf] for qf in QFIELD]).permute(0, 2, 1, 3).reshape(
@@ -434,6 +495,7 @@ def linear_estimate_case(name: str, tq, tc):
         f"{lib_err:.3g} against the kernel), bound {bound:.4f} ms "
         f"({bound_by}: {bytes_moved / 1e9:.3f} GB, {ops:.3e} ops)")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib_ms}
 
@@ -567,8 +629,8 @@ def dmh_sketch_case(index, rng, B: int, nnz: int, dev, b1):
     bound = max(bound_b, bound_o) * 1e3
     bound_by = "bytes" if bound_b >= bound_o else "operations"
     ms = time_ms(lambda: kd.dmh_sketch_cuda(*args, m=M, seed=0), reps=20)
-    dev_ms = device_ms(lambda: kd.dmh_sketch_cuda(*args, m=M, seed=0),
-                       "dmh_sketch_kernel")
+    dev_ms, dev_src = device_ms(
+        lambda: kd.dmh_sketch_cuda(*args, m=M, seed=0), "dmh_sketch_kernel")
     plain = time_ms(lambda: kd.dmh_sketch_plain(*args, m=M, seed=0), reps=3,
                     warmup=1)
     log(f"dmh sketch {shape}: fingerprints, values and argkeys equal to "
@@ -579,6 +641,7 @@ def dmh_sketch_case(index, rng, B: int, nnz: int, dev, b1):
         f"probes); ICWS B1 at B={B} N={n_pre}: {b1['device_ms']:.4f} ms on "
         f"the device, {b1['device_ms'] / dev_ms:.1f}x B5")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src,
             "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
             "amin_equal": amin_equal, "b1_device_ms": b1["device_ms"]}
 
@@ -660,7 +723,7 @@ def sample_estimate_case(q, c, hits, *, check: bool):
     bound = max(bound_b, bound_o) * 1e3
     bound_by = "bytes" if bound_b >= bound_o else "operations"
     ms = time_ms(kernel, reps=10)
-    dev_ms = device_ms(kernel, "sample_estimate_fields_kernel")
+    dev_ms, dev_src = device_ms(kernel, "sample_estimate_fields_kernel")
     log(f"sample estimate {shape}: "
         + (f"equal to plain (plain {plain_ms:.1f} ms, one run), " if check
            else "")
@@ -668,6 +731,7 @@ def sample_estimate_case(q, c, hits, *, check: bool):
         f"bound {bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB, "
         f"{ops:.3e} ops, {matches:.0f} matches)")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
@@ -827,14 +891,15 @@ def b10_case(index, rng, kind: str, B: int, nnz: int, dev):
         *_, ops, bytes_moved = dmh_work(args, got)
     bound, bound_by = bound_of(bytes_moved + B * M * 2, ops)
     ms = time_ms(lambda: kernel(*args, m=M, seed=0), reps=20)
-    dev_ms = device_ms(lambda: kernel(*args, m=M, seed=0),
-                       f"{kind}_sketch_kernel")
+    dev_ms, dev_src = device_ms(lambda: kernel(*args, m=M, seed=0),
+                                f"{kind}_sketch_kernel")
     plain_ms = time_ms(lambda: plain(*args, m=M, seed=0), reps=3, warmup=1)
     log(f"{kind} sketch packed {shape}: planes equal to the unpacked "
         f"kernel's, packed plane its codec, equal to plain on {share:.6f} of "
         f"words; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
         f"device), plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by})")
     return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "words_agree": share}
 
@@ -870,12 +935,13 @@ def packed_estimate_case(fq, vq, fc, wc):
         + 2 * G * Q * P * 4
     bound, bound_by = bound_of(bytes_moved, ops)
     ms = time_ms(kernel, reps=10)
-    dev_ms = device_ms(kernel, "estimate_fields_packed_kernel")
+    dev_ms, dev_src = device_ms(kernel, "estimate_fields_packed_kernel")
     log(f"packed estimate {shape}: equal to plain and to B2 on the decoded "
         f"corpus; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
         f"device), plain {plain_ms:.1f} ms (one run), bound {bound:.4f} ms "
         f"({bound_by}: {bytes_moved / 1e9:.3f} GB)")
     return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
@@ -919,12 +985,13 @@ def packed_linear_case(name: str, tq, wc):
     bound, bound_by = bound_of(
         (tq.numel() + wc.numel() + got.numel()) * 4, 2 * G * R * Q * P * W)
     ms = time_ms(kernel, reps=10)
-    dev_ms = device_ms(kernel, "linear_estimate_fields_packed_kernel")
+    dev_ms, dev_src = device_ms(kernel, "linear_estimate_fields_packed_kernel")
     log(f"packed linear estimate {shape}: equal to plain and to B8 on the "
         f"decoded tables; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on "
         f"the device), plain {plain_ms:.1f} ms (one run), torch.bmm "
         f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
     return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib_ms}
 
@@ -967,7 +1034,7 @@ def packed_sample_case(q, c, hits, *, check: bool):
                                             row_bytes=4)
     bound, bound_by = bound_of(bytes_moved, ops)
     ms = time_ms(kernel, reps=10)
-    dev_ms = device_ms(kernel, "sample_estimate_fields_packed_kernel")
+    dev_ms, dev_src = device_ms(kernel, "sample_estimate_fields_packed_kernel")
     log(f"packed sample estimate {shape}: equal to B9 on the decoded corpus"
         + (f" and to plain (plain {plain_ms:.1f} ms, one run)" if check
            else "")
@@ -975,6 +1042,7 @@ def packed_sample_case(q, c, hits, *, check: bool):
         f"bound {bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB, "
         f"{ops:.3e} ops, {matches:.0f} matches)")
     return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
@@ -1028,14 +1096,15 @@ def pair_case(label, kernel, plain, args, *, tests, bytes_moved, symbol):
     bound, bound_by = bound_of(bytes_moved, EST_OPS_PER_TEST * tests
                                + EST_OPS_PER_HIT * hits)
     ms = time_ms(lambda: kernel(*args), reps=10)
-    dev_ms = device_ms(lambda: kernel(*args), symbol)
+    dev_ms, dev_src = device_ms(lambda: kernel(*args), symbol)
     log(f"{label}: equal to plain, {hits:.0f} collisions of {tests} tests; "
         f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
         f"{plain_ms:.1f} ms (one run), bound {bound:.4f} ms ({bound_by}: "
         f"{bytes_moved / 1e9:.3f} GB)")
     return ({"shape": label.split(" ", 1)[1], "max_abs_err": 0.0, "ms": ms,
-             "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound,
-             "bound_by": bound_by}, got)
+             "device_ms": dev_ms, "device_ms_source": dev_src,
+             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by},
+            got)
 
 
 def corpus_kernel_phase(icws_data):
@@ -1193,6 +1262,214 @@ def corpus_phase(lake):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def compression_kernel_phase():
+    """B14 at one TinyLlama-1.1B layer's gradient (T = 44,044,288, W =
+    4096, R = 5, seed 17) against its plain version bit for bit, and at
+    T = L (one chunk) against B6 on keys ``o + arange(L)``, both the
+    kernels and the plain versions; timed against its bound (bytes: x read
+    once, the table written once; operations: 46 per (element, rep))."""
+    from repro_torch.kernels import countsketch as kcs
+    from repro_torch.optim.compression import CompressionConfig
+    cfg = CompressionConfig()
+    kw = dict(width=cfg.width, reps=cfg.reps, seed=cfg.seed)
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.standard_t(3, GRAD_T).astype(np.float32)).cuda()
+    reports = []
+    L, off = kcs.DENSE_CHUNK, 1 << 20
+    for label, xs, offset in ((f"T={GRAD_T} W={cfg.width} R={cfg.reps}", x,
+                               0),
+                              (f"T=L={L} W={cfg.width} R={cfg.reps}", x[:L],
+                               off)):
+        fn = functools.partial(kcs.countsketch_dense_cuda, xs, **kw,
+                               offset=offset)
+        got = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = kcs.countsketch_dense_plain(xs, **kw, offset=offset)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not bits_equal(got, want):
+            raise AssertionError(f"B14 {label}: kernel differs from plain")
+        T = xs.shape[0]
+        bound, bound_by = bound_of(4 * T + 4 * cfg.reps * cfg.width,
+                                   CS_OPS_PER_TERM * T * cfg.reps)
+        ms = time_ms(fn, reps=10)
+        dev_ms, dev_src = device_ms(
+            fn, tuple(f"countsketch_dense_{k}" for k in (
+                ("partial", "reduce") if T > L else ("partial",))))
+        log(f"B14 {label}: equal to plain; kernel {ms:.4f} ms per call "
+            f"({dev_ms:.4f} ms on the device), plain {plain_ms:.1f} ms (one "
+            f"run), bound {bound:.4f} ms ({bound_by})")
+        reports.append({"shape": label, "max_abs_err": 0.0, "ms": ms,
+                        "device_ms": dev_ms, "device_ms_source": dev_src,
+                        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                        "library_ms": None})
+    keys = (off + torch.arange(L, dtype=torch.int32, device="cuda"))[None]
+    b6 = kcs.countsketch_sparse_cuda(keys, x[None, :L], **kw)[0]
+    b6_plain = kcs.countsketch_sparse_plain(keys, x[None, :L], **kw)[0]
+    if not (bits_equal(got, b6) and bits_equal(want, b6_plain)):
+        raise AssertionError("B14 at T = L differs from B6 on keys o + arange(L)")
+    log(f"B14 at T = L = {L}, offset {off} == B6 on keys offset + arange(L), "
+        f"kernels and plain versions, bit for bit")
+    return reports
+
+
+def compression_phase():
+    """The gradient-compression path: ``compressed_update`` with
+    ``CompressionConfig``'s defaults on the card, COMPRESS_STEPS steps of EF-SGD on the quadratic
+    ``|x - target|^2 / 2`` at one TinyLlama-1.1B layer's size, the target
+    heavy-tailed (65,536 coordinates t(2)-distributed, times 3, over
+    N(0, 0.01^2) noise).  B14's counter is set to 0 just before the steps
+    and read just after.  Returns its launches."""
+    from repro_torch.kernels.countsketch import countsketch_dense_cuda
+    from repro_torch.optim.compression import (CompressionConfig,
+                                               compressed_update)
+    cfg = CompressionConfig()
+    rng = np.random.default_rng(18)
+    target = 0.01 * rng.standard_normal(GRAD_T, dtype=np.float32)
+    heavy = np.unique(rng.integers(0, GRAD_T, 65_536))
+    target[heavy] += 3 * rng.standard_t(2, heavy.size).astype(np.float32)
+    target = torch.from_numpy(target).cuda()
+    x = torch.zeros_like(target)
+    residual = torch.zeros_like(target)
+    torch.cuda.synchronize()
+    countsketch_dense_cuda.launches = 0
+    steps = []
+    for _ in range(COMPRESS_STEPS):
+        t0 = time.perf_counter()
+        delta, residual = compressed_update(x - target, residual, None, cfg,
+                                            lr=0.3)
+        x = x - delta
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    launches = countsketch_dense_cuda.launches
+    rel = float(torch.linalg.vector_norm(x - target)
+                / torch.linalg.vector_norm(target))
+    log(f"compression: {COMPRESS_STEPS} compressed_update steps of "
+        f"T={GRAD_T}, width {cfg.width}, reps {cfg.reps}; B14 launches "
+        f"{launches}; relative error to the target {rel:.6f} (1 at the "
+        f"start); ms per step " + ", ".join(f"{t:.1f}" for t in steps))
+    if launches != COMPRESS_STEPS or not 0.0 < rel < 1.0:
+        raise AssertionError(f"compression path: {launches} B14 launches, "
+                             f"relative error {rel}")
+    return launches
+
+
+def visible_pairs(T: int, window: int) -> int:
+    """(query, key) pairs a causal mask (and a window) leave, T = S."""
+    return sum(min(t + 1, window or t + 1) for t in range(T))
+
+
+def flash_attention_kernel_phase():
+    """B15 at TinyLlama's attention shape against its plain version (f32
+    within 5e-5, bf16 within one bf16 rounding step), a launch per head ==
+    the batched launch
+    and a repeat, bit for bit; timed against its bound (operations: 4 per
+    visible (query, key) pair and dim at the f32 rate; bytes: q, k, v, o
+    once) and against one ``scaled_dot_product_attention`` call (k/v
+    expanded to every head before the call; the window case with a
+    boolean mask).  Then the entry point ``flash_attention`` (model layout)
+    runs the four cases, its counter set to 0 just before and read just
+    after; each output equals the batched launch bit for bit and lies
+    within ORACLE_TOL of the port's ``chunked_attention``, B15's oracle.
+    Returns (reports, the entry point's launches)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models.attention import chunked_attention
+    rng = np.random.default_rng(19)
+    reports, layouts = [], []
+    for label, H, K, D, dtype, window, (rtol, atol) in FLASH_CASES:
+        q, k, v = (torch.from_numpy(rng.standard_normal(
+            (1, FLASH_T, n, D), dtype=np.float32)).cuda().to(dtype)
+                   for n in (H, K, K))
+        qf, kf, vf = (a[0].transpose(0, 1).contiguous() for a in (q, k, v))
+        kw = dict(group=H // K, causal=True, window=window)
+        fn = functools.partial(kfa.flash_attention_cuda, qf, kf, vf, **kw)
+        got = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = kfa.flash_attention_plain(qf, kf, vf, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = (got.float() - want.float()).abs()
+        if not bool((err <= atol + rtol * want.float().abs()).all()):
+            raise AssertionError(f"B15 {label}: kernel differs from plain by "
+                                 f"{err.max().item()} (rtol {rtol}, atol "
+                                 f"{atol})")
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(fn().view(bits), got.view(bits)):
+            raise AssertionError(f"B15 {label}: two runs differ")
+        if label in ("causal f32", "causal bf16"):
+            for h in range(H):
+                one = kfa.flash_attention_cuda(
+                    qf[h:h + 1], kf[h // kw["group"]][None],
+                    vf[h // kw["group"]][None], **dict(kw, group=1))
+                if not torch.equal(one[0].view(bits), got[h].view(bits)):
+                    raise AssertionError(f"B15 {label}: head {h} alone "
+                                         "differs from the batched launch")
+        ops = 4 * H * visible_pairs(FLASH_T, window) * D
+        bytes_moved = (2 * H + 2 * K) * FLASH_T * D * got.element_size()
+        bound, bound_by = bound_of(bytes_moved, ops)
+        ms = time_ms(fn, reps=5)
+        dev_ms, dev_src = device_ms(fn, "flash_attention_kernel", reps=5)
+        qs, ks, vs = (a.transpose(1, 2).repeat_interleave(
+            H // n, dim=1).contiguous() for a, n in ((q, H), (k, K), (v, K)))
+        if window:
+            pos = torch.arange(FLASH_T, device="cuda")
+            mask = (pos[None] <= pos[:, None]) & (pos[None] > pos[:, None]
+                                                  - window)
+            sdpa = functools.partial(F.scaled_dot_product_attention, qs, ks,
+                                     vs, attn_mask=mask)
+        else:
+            sdpa = functools.partial(F.scaled_dot_product_attention, qs, ks,
+                                     vs, is_causal=True)
+        lib_ms = time_ms(sdpa, reps=5)
+        lib_err = (sdpa()[0].float() - got.float()).abs().max().item()
+        del qs, ks, vs
+        rep = {"shape": f"{label} B=1 T=S={FLASH_T} H={H} K={K} D={D}",
+               "max_abs_err": err.max().item(), "ms": ms, "device_ms": dev_ms,
+               "device_ms_source": dev_src,
+               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": lib_ms, "library": "scaled_dot_product_attention"}
+        if dtype == torch.bfloat16:
+            rep["bound_ms_bf16_tensor_cores"] = ops / BF16_TC_OPS_PER_S * 1e3
+        log(f"B15 {label}: max |kernel - plain| {rep['max_abs_err']:.3g} "
+            f"(rtol {rtol:.3g}, atol {atol:.3g}), repeat and per-head bit for "
+            f"bit; kernel "
+            f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
+            f"{plain_ms:.1f} ms (one run), bound {bound:.4f} ms ({bound_by}), "
+            f"SDPA {lib_ms:.4f} ms (max |SDPA - kernel| {lib_err:.3g})")
+        reports.append(rep)
+        layouts.append((q, k, v, window, got))
+    torch.cuda.synchronize()
+    kfa.flash_attention_cuda.launches = 0
+    outs = [kfa.flash_attention(q, k, v, causal=True, window=window)
+            for q, k, v, window, _ in layouts]
+    torch.cuda.synchronize()
+    launches = kfa.flash_attention_cuda.launches
+    oracle_err = []
+    for out, (q, k, v, window, got) in zip(outs, layouts):
+        bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(out[0].transpose(0, 1).contiguous().view(bits),
+                           got.view(bits)):
+            raise AssertionError("flash_attention (model layout) differs "
+                                 "from the [BH, T, D] launch")
+        want = chunked_attention(q, k, v, causal=True, window=window).float()
+        tol = ORACLE_TOL[got.dtype]
+        err = (out.float() - want).abs()
+        oracle_err.append(err.max().item())
+        if not bool((err <= tol + tol * want.abs()).all()):
+            raise AssertionError(f"flash_attention differs from "
+                                 f"chunked_attention by {oracle_err[-1]} "
+                                 f"(tolerance {tol})")
+        del want, err
+    log(f"flash_attention entry point: {len(outs)} calls, B15 launches "
+        f"{launches}, each equal to its [BH, T, D] launch bit for bit; max "
+        f"|flash_attention - chunked_attention| "
+        + ", ".join(f"{e:.3g}" for e in oracle_err))
+    return reports, launches
 
 
 def lake_phase():
@@ -1494,6 +1771,7 @@ def kernel_entry(name, source, replaces, launches, rep, shapes, **extra):
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": launches, "max_abs_err": rep["max_abs_err"],
             "ms": rep["ms"], "device_ms": rep["device_ms"],
+            "device_ms_source": rep["device_ms_source"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep.get("bound_by", "operations"),
             "library_ms": rep.get("library_ms"), "shape": rep["shape"],
@@ -1511,10 +1789,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     t_start = time.perf_counter()
+    # f32 products in full f32 (the flash-attention tolerance rules out TF32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     identity = card_identity()
     log(identity)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
-        f"{torch.cuda.get_device_name(0)}")
+        f"{torch.cuda.get_device_name(0)}; allow_tf32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32}, cudnn "
+        f"{torch.backends.cudnn.allow_tf32}")
     dev = torch.device("cuda")
     phase("build", build_phase)
     sketch, estimate, icws_data = phase("icws kernels", kernel_phase, dev)
@@ -1528,6 +1811,13 @@ def main() -> int:
     b3_pairs, b3_one, b4 = phase("corpus kernels", corpus_kernel_phase,
                                  icws_data)
     del icws_data, lin_data, sample_data
+    torch.cuda.empty_cache()
+    b14 = phase("compression kernel", compression_kernel_phase)
+    torch.cuda.empty_cache()
+    compression_launches = phase("compression", compression_phase)
+    torch.cuda.empty_cache()
+    b15, flash_launches = phase("flash attention kernel",
+                                flash_attention_kernel_phase)
     torch.cuda.empty_cache()
     for family in FAMILIES:
         phase(f"small lake {family}", small_reference_phase, dev, family)
@@ -1594,6 +1884,17 @@ def main() -> int:
             ("estimate_many", "estimate_fields.cu", "estimate.py:153", b4[0],
              b4))]
     kernels[0]["corpus_path_launches"] = corpus_launches["icws_sketch"]
+    # B14 and B15 run on their own paths: compressed_update and the
+    # flash_attention entry point
+    kernels += [
+        kernel_entry("countsketch_dense", "countsketch_dense.cu",
+                     "countsketch.py:35", compression_launches, b14[0], b14,
+                     entry_point="repro_torch.optim.compression."
+                                 "compressed_update"),
+        kernel_entry("flash_attention", "flash_attention.cu",
+                     "flash_attention.py:28", flash_launches, b15[0], b15,
+                     entry_point="repro_torch.kernels.flash_attention."
+                                 "flash_attention")]
     log("latency (unpacked; packed), p50 ms of search and of a micro-batch "
         "of 16: " + json.dumps(latency))
     log(f"total {time.perf_counter() - t_start:.1f} s on {identity}")

@@ -10,7 +10,11 @@ built on the host) and fused multi-field estimate
 (``repro_torch.kernels``), and the paper's library surface
 ``SketchCorpus`` (one ICWS field: pairwise, one-vs-many and many-vs-many
 estimates).  Entry points run on the card unless the caller passes
-``device="cpu"``.
+``device="cpu"``.  Beside the search path: sketch-based gradient
+compression (``repro_torch.optim.compression``, the dense CountSketch
+kernel) and flash attention (``repro_torch.kernels.flash_attention``,
+with its oracle ``repro_torch.models.attention.chunked_attention``); they
+run where their tensors lie.
 """
 from .data.corpus import SketchCorpus
 from .data.dataset_search import DatasetSearchIndex, SearchResult

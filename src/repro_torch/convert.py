@@ -26,6 +26,11 @@ A JAX ``SketchCorpus`` is carried the same way, from its exact-size rows::
     corpus = corpus_from_numpy(*[np.asarray(a) for a in jax_corpus.arrays()],
                                m=jax_corpus.m, seed=jax_corpus.seed,
                                device="cuda")
+
+Gradient compression and flash attention carry no state to convert: the
+compression's only state is the flat error-feedback residual, which passes
+as a tensor (``torch.from_numpy(np.asarray(residual))``), and attention has
+no parameters.
 """
 from __future__ import annotations
 

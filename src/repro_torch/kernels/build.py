@@ -13,7 +13,8 @@ launch, never at import.
 Flags: ``-O3``, no ``--use_fast_math``; ``-fmad=false`` with IEEE divides
 and square roots and no flush-to-zero, because XLA contracts none of the
 sketch's ``logw / r + beta`` or ``c / (y * exp(r))`` and a contraction
-could flip a floor or an argmin.
+could flip a floor or an argmin.  The flash-attention kernel's dot
+products call ``__fmaf_rn`` explicitly, so they fuse all the same.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ SOURCES = ("icws_sketch.cu", "estimate_fields.cu", "estimate_pairs.cu",
            "countsketch_sparse.cu", "jl_sketch.cu",
            "linear_estimate_fields.cu", "dmh_sketch.cu",
            "sample_estimate_fields.cu", "linear_estimate_fields_packed.cu",
-           "sample_estimate_fields_packed.cu", "bindings.cu")
+           "sample_estimate_fields_packed.cu", "countsketch_dense.cu",
+           "flash_attention.cu", "bindings.cu")
 HEADERS = ("u32.cuh", "packed.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-O3", "-std=c++17", ARCH, "-fmad=false", "-prec-div=true",
@@ -170,6 +172,13 @@ def library() -> ctypes.CDLL:
             ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
             ptr, i32, i32, i32, i32, i32, ptr, ptr]
         lib.repro_sample_estimate_fields_packed.restype = i32
+        lib.repro_countsketch_dense.argtypes = [ptr, i64, i32, i32, u32, u32,
+                                                i32, ptr, ptr, ptr]
+        lib.repro_countsketch_dense.restype = i32
+        lib.repro_flash_attention.argtypes = [
+            ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, i32, i64,
+            i64, ctypes.c_float, ptr]
+        lib.repro_flash_attention.restype = i32
         lib.repro_error_string.argtypes = [i32]
         lib.repro_error_string.restype = ctypes.c_char_p
         _lib = lib

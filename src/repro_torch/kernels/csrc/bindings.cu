@@ -58,6 +58,13 @@ cudaError_t launch_sample_estimate_fields_packed(
     long long wc_rs, long long tc_fs, long long tc_rs, const int* qmap,
     const int* cmap, int G, int Q, int P, int Sq, int Sc, float* out,
     cudaStream_t stream);
+cudaError_t launch_countsketch_dense(const float* x, long long T, int W, int R,
+                                     uint32_t seed, uint32_t offset, int chunk,
+                                     float* scratch, float* out, cudaStream_t stream);
+cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, void* o,
+                                   int bf16, int BH, int T, int S, int D, int group,
+                                   int causal, int window, long long q_offset,
+                                   long long k_offset, float scale, cudaStream_t stream);
 }  // namespace repro
 
 extern "C" {
@@ -162,6 +169,22 @@ int repro_sample_estimate_fields_packed(const int* kq, const float* vq,
   return (int)repro::launch_sample_estimate_fields_packed(
       kq, vq, aq, kc, wc, tc, kc_fs, kc_rs, wc_fs, wc_rs, tc_fs, tc_rs, qmap, cmap, G,
       Q, P, Sq, Sc, out, (cudaStream_t)stream);
+}
+
+int repro_countsketch_dense(const float* x, long long T, int W, int R, uint32_t seed,
+                            uint32_t offset, int chunk, float* scratch, float* out,
+                            void* stream) {
+  return (int)repro::launch_countsketch_dense(x, T, W, R, seed, offset, chunk, scratch,
+                                              out, (cudaStream_t)stream);
+}
+
+int repro_flash_attention(const void* q, const void* k, const void* v, void* o, int bf16,
+                          int BH, int T, int S, int D, int group, int causal, int window,
+                          long long q_offset, long long k_offset, float scale,
+                          void* stream) {
+  return (int)repro::launch_flash_attention(q, k, v, o, bf16, BH, T, S, D, group, causal,
+                                            window, q_offset, k_offset, scale,
+                                            (cudaStream_t)stream);
 }
 
 const char* repro_error_string(int err) {

@@ -1,0 +1,152 @@
+"""Forward flash attention: CUDA kernel and plain twin.
+
+Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
+(launcher ``flash_attention_pallas``, model-layout wrapper
+``flash_attention``).  Contract of :func:`flash_attention_bh`::
+
+    q [BH, T, D], k/v [BH // group, S, D], f32 or bf16 -> o [BH, T, D]
+
+in the input dtype, q head ``bh`` reading kv head ``bh // group``.  Per
+row, as the TPU kernel computes it: q scaled by ``1/sqrt(D)`` in f32
+*before* the q k^T product, masked scores ``-1e30`` (causal ``k_pos <=
+q_pos``, window ``k_pos > q_pos - window``, positions ``q_offset + t`` and
+``k_offset + s``), an online softmax over key chunks from a running max of
+-inf, all math in f32 (also ``p v`` for bf16 inputs), and ``acc / max(l,
+1e-30)``.  A row that sees no key returns the mean of v, not NaN.
+``qc``/``kc`` must divide T/S as the TPU launcher asserts; the plain twin
+chunks by them, the CUDA kernel by its own tiles (64 query rows, 32 or 64
+keys), so the two agree to f32 tolerance, as the JAX package's
+block-size invariance test holds different chunkings.  Head dims 1..256.
+
+The CUDA kernel (``csrc/flash_attention.cu``) gives each (head, 64 query
+rows) one block with f32 products on the CUDA cores (no TF32, no tensor
+cores) and sums in an order fixed by its tiles: a head gives the same bits
+alone or in a batch, and repeated runs the same bits.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import build
+from .ops import _route
+
+NEG = -1e30
+MAX_HEAD_DIM = 256
+
+
+def _check_inputs(q, k, v, group: int, qc: int, kc: int):
+    if q.dim() != 3 or k.dim() != 3 or v.shape != k.shape:
+        raise ValueError(f"flash attention takes q [BH, T, D] and k/v "
+                         f"[BH // group, S, D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or \
+            not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"q, k and v must share one dtype, f32 or bf16; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if not q.device == k.device == v.device:
+        raise ValueError("q, k and v must lie on one device")
+    BH, T, D = q.shape
+    S = k.shape[1]
+    if group < 1 or BH % group or k.shape[0] != BH // group or k.shape[2] != D:
+        raise ValueError(f"k/v must be [BH // group, S, D] = [{BH} // "
+                         f"{group}, S, {D}]; got {tuple(k.shape)}")
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D} is outside 1..{MAX_HEAD_DIM}")
+    if T < 1 or S < 1 or T % min(qc, T) or S % min(kc, S):
+        raise ValueError(f"qc={qc} and kc={kc} must divide T={T} and S={S}")
+    return BH, T, S, D
+
+
+def flash_attention_plain(q, k, v, *, group: int = 1, causal: bool = True,
+                          window: int = 0, qc: int = 512, kc: int = 512,
+                          q_offset: int = 0, k_offset: int = 0):
+    """Eager-PyTorch flash attention in the TPU kernel's arithmetic: per
+    query chunk of ``qc`` rows, the online softmax over key chunks of
+    ``kc``.  Run it with TF32 off on a card."""
+    BH, T, S, D = _check_inputs(q, k, v, group, qc, kc)
+    qc, kc = min(qc, T), min(kc, S)
+    dev = q.device
+    scale = 1.0 / (D ** 0.5)
+    heads = torch.arange(BH, device=dev) // group
+    out = torch.empty_like(q)
+    for q0 in range(0, T, qc):
+        qs = q[:, q0:q0 + qc].float() * scale
+        q_pos = q_offset + q0 + torch.arange(qc, device=dev)
+        m = torch.full((BH, qc), -math.inf, device=dev)
+        l = torch.zeros((BH, qc), device=dev)
+        acc = torch.zeros((BH, qc, D), device=dev)
+        for k0 in range(0, S, kc):
+            kb = k[heads, k0:k0 + kc].float()
+            vb = v[heads, k0:k0 + kc].float()
+            s = torch.matmul(qs, kb.transpose(1, 2))
+            k_pos = k_offset + k0 + torch.arange(kc, device=dev)
+            mask = torch.ones((qc, kc), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= k_pos[None, :] <= q_pos[:, None]
+            if window:
+                mask &= k_pos[None, :] > q_pos[:, None] - window
+            s = torch.where(mask, s, NEG)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.matmul(p, vb)
+            m = m_new
+        out[:, q0:q0 + qc] = (acc / torch.clamp(l, min=1e-30)[..., None]
+                              ).to(q.dtype)
+    return out
+
+
+def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
+                         window: int = 0, qc: int = 512, kc: int = 512,
+                         q_offset: int = 0, k_offset: int = 0):
+    """Launch the CUDA flash-attention kernel on PyTorch's current stream.
+
+    Takes CUDA tensors only and raises on anything else.  Adds one to
+    ``flash_attention_cuda.launches`` per launch."""
+    BH, T, S, D = _check_inputs(q, k, v, group, qc, kc)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_cuda takes CUDA tensors; got "
+                         f"{q.device}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    lib = build.library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), BH, T, S, D, group, int(causal),
+            window, q_offset, k_offset, 1.0 / (D ** 0.5), stream)
+    build.check(err, "flash_attention")
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0
+
+
+def flash_attention_bh(q, k, v, *, group: int = 1, causal: bool = True,
+                       window: int = 0, qc: int = 512, kc: int = 512,
+                       q_offset: int = 0, k_offset: int = 0):
+    """q [BH, T, D]; k/v [BH // group, S, D] -> o [BH, T, D]: the kernel on
+    CUDA tensors, the plain twin on CPU tensors."""
+    fn = _route(q, flash_attention_plain, flash_attention_cuda)
+    return fn(q, k, v, group=group, causal=causal, window=window, qc=qc,
+              kc=kc, q_offset=q_offset, k_offset=k_offset)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    qc: int = 512, kc: int = 512, q_offset: int = 0,
+                    k_offset: int = 0):
+    """Model-layout wrapper: q [B,T,H,D], k/v [B,S,K,D] -> [B,T,H,D]."""
+    B, T, H, D = q.shape
+    S, K = k.shape[1], k.shape[2]
+    qf = q.permute(0, 2, 1, 3).reshape(B * H, T, D)
+    kf = k.permute(0, 2, 1, 3).reshape(B * K, S, D)
+    vf = v.permute(0, 2, 1, 3).reshape(B * K, S, D)
+    of = flash_attention_bh(qf, kf, vf, group=H // K, causal=causal,
+                            window=window, qc=qc, kc=kc, q_offset=q_offset,
+                            k_offset=k_offset)
+    return of.reshape(B, H, T, D).permute(0, 2, 1, 3)

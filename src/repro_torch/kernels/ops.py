@@ -8,7 +8,8 @@ version.  Launch counts live on the kernel wrappers
 (``icws_sketch_cuda.launches``, ``estimate_fields_cuda.launches``,
 ``estimate_partials_cuda.launches``, ``estimate_one_vs_many_cuda.launches``,
 ``estimate_many_vs_many_cuda.launches``,
-``countsketch_sparse_cuda.launches``, ``jl_sketch_cuda.launches``,
+``countsketch_sparse_cuda.launches``, ``countsketch_dense_cuda.launches``,
+``jl_sketch_cuda.launches``,
 ``linear_estimate_fields_cuda.launches``, ``dmh_sketch_cuda.launches``,
 ``sample_estimate_fields_cuda.launches``, and the packed twins'
 ``*_packed_cuda.launches``).
@@ -29,7 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from .common import QUERY_PAD_FP
-from .countsketch import countsketch_sparse_cuda, countsketch_sparse_plain
+from .countsketch import (_bucket_sign, countsketch_dense_cuda,
+                          countsketch_dense_plain, countsketch_sparse_cuda,
+                          countsketch_sparse_plain)
 from .dmh_sketch import (dmh_sketch_cuda, dmh_sketch_packed_cuda,
                          dmh_sketch_packed_plain, dmh_sketch_plain)
 from .estimate import (estimate_fields_cuda, estimate_fields_packed_cuda,
@@ -201,6 +204,26 @@ def countsketch_sparse(keys, vals, *, width: int, reps: int = 5,
     """CountSketch of a padded sparse batch.  [B, N] -> [B, reps, width]."""
     fn = _route(keys, countsketch_sparse_plain, countsketch_sparse_cuda)
     return fn(keys, vals, width=width, reps=reps, seed=seed)
+
+
+def countsketch(x, *, width: int, reps: int = 5, seed: int = 0,
+                offset: int = 0):
+    """CountSketch table ``[reps, width]`` of a dense f32 vector ``[T]``;
+    element i hashes as the u32 ``offset + i``."""
+    fn = _route(x, countsketch_dense_plain, countsketch_dense_cuda)
+    return fn(x, width=width, reps=reps, seed=seed, offset=offset)
+
+
+def countsketch_decode(table, indices, *, seed: int = 0):
+    """Median-of-reps point query of a ``[reps, width]`` table at
+    ``indices [n]``: each rep's bucket times its sign, then the median over
+    reps as :func:`_median_reps` takes it.  A gather; no kernel (the JAX
+    package has none either)."""
+    reps, width = table.shape
+    bucket, sign = _bucket_sign(indices[None], width=width, reps=reps,
+                                seed=seed)                     # [1, R, n]
+    est = torch.gather(table, 1, bucket[0]) * sign[0]          # [R, n]
+    return _median_reps(est.T)
 
 
 def jl_sketch(keys, vals, *, m: int, seed: int = 0):

@@ -221,3 +221,74 @@ def test_port_and_jax_corpora_agree_on_fingerprints(source):
     fp, fp_j = corpus.arrays()[0].numpy(), np.asarray(jax_corpus.arrays()[0])
     assert np.mean(fp == fp_j) >= 0.99
     assert corpus.storage_doubles() == jax_corpus.storage_doubles()
+
+
+def _ppm(a, ref):
+    scale = np.maximum(np.maximum(np.abs(ref), np.abs(a)), 1e-12)
+    return float(np.max(np.abs(a - ref) / scale)) * 1e6
+
+
+def test_f32_corpus_estimates_match_the_jax_kernel_on_host_sketches():
+    """Why f32 corpus estimates sit some ppm from the f64 host estimator:
+    the port's plain one-vs-many route (B3) and the JAX package's (the
+    Pallas kernel, interpret mode on the CPU) agree within 10 ppm (the
+    gate ``chip_smoke.py`` holds the card to against the host) on rows
+    sketched by the host ICWS, half of them planted partners of the
+    queries, the rest sharing keys with them by chance.  Run with ``-s``
+    to print each route's distance from the host."""
+    import jax.numpy as jnp
+    from repro.kernels import ops as jax_ops
+    from repro_torch.kernels import ops
+    # a domain small enough that unrelated rows share keys with the
+    # queries: weak, cancelling estimates, where f32 rounding shows most
+    m, domain = 512, 1 << 13
+    rng = np.random.default_rng(4)
+    queries = [np.unique(rng.integers(0, domain, 600)) for _ in range(4)]
+    queries = [(k, rng.normal(size=k.size)) for k in queries]
+    rows = []
+    for i in range(48):
+        if i % 2 == 0:
+            keys, vals = queries[(i // 2) % 4]
+            keep = rng.random(keys.size) < 0.85
+            extra = np.setdiff1d(rng.integers(0, domain, 150), keys)
+            k = np.concatenate([keys[keep], extra])
+            v = np.concatenate([3.0 * vals[keep]
+                                + 0.3 * rng.normal(size=keep.sum()),
+                                rng.normal(0.0, 3.0, extra.size)])
+        else:
+            k = np.unique(rng.integers(0, domain, int(rng.integers(100, 1500))))
+            v = rng.normal(100.0, 15.0, k.size)
+        order = np.argsort(k)
+        rows.append((k[order], v[order]))
+    icws = ICWS(m=m, seed=0)
+
+    def stored(pairs):
+        sk = [icws.sketch(SparseVec.from_pairs(k, v, domain))
+              for k, v in pairs]
+        return (np.stack([s.fingerprints for s in sk]),
+                np.stack([s.values for s in sk]).astype(np.float32),
+                np.array([s.norm for s in sk], np.float32))
+
+    (fq, vq, nq), (fc, vc, nc) = stored(queries), stored(rows)
+    rows_h = StackedICWS(fingerprints=fc, values=vc.astype(np.float64),
+                         norm=nc.astype(np.float64))
+    host, port, jax = [], [], []
+    for q in range(len(queries)):
+        host.append(icws.estimate_batch(StackedICWS(
+            fingerprints=np.repeat(fq[q:q + 1], len(rows), 0),
+            values=np.repeat(vq[q:q + 1].astype(np.float64), len(rows), 0),
+            norm=np.full(len(rows), float(nq[q]))), rows_h))
+        port.append(ops.icws_estimate_corpus(
+            *map(torch.from_numpy, (fq[q], vq[q])), float(nq[q]),
+            *map(torch.from_numpy, (fc, vc, nc))).numpy())
+        jax.append(np.asarray(jax_ops.icws_estimate_corpus(
+            jnp.asarray(fq[q]), jnp.asarray(vq[q]), jnp.float32(nq[q]),
+            *map(jnp.asarray, (fc, vc, nc)))))
+    host, port, jax = (np.stack(a).astype(np.float64)
+                       for a in (host, port, jax))
+    # every planted partner collides with its query
+    assert np.count_nonzero(host) >= len(rows) // 2
+    port_jax = _ppm(port, jax)
+    print(f"port vs host {_ppm(port, host):.4f} ppm, JAX vs host "
+          f"{_ppm(jax, host):.4f} ppm, port vs JAX {port_jax:.4f} ppm")
+    assert port_jax < 10.0

@@ -432,3 +432,145 @@ def test_pair_and_many_kernels_match_plain_versions_bitwise(cuda):
     got = ops.estimate_partials(wide_f, wide_v, fc, vc)
     want = port_est.estimate_partials_plain(wide_f, wide_v, fc, vc)
     assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, chunk, width, offset", [
+    (5000, 1024, 153, 7),                 # five chunks, the last ragged
+    (70_000, port_cs.DENSE_CHUNK, 4096, 0),
+    (3000, 3000, 10_000, 2 ** 32 - 1000),  # two bucket tiles, u32 wrap
+])
+def test_dense_countsketch_kernel_matches_plain_bitwise(cuda, monkeypatch, T,
+                                                        chunk, width, offset):
+    monkeypatch.setattr(port_cs, "DENSE_CHUNK", chunk)
+    rng = np.random.default_rng(T)
+    x = torch.from_numpy(rng.standard_t(2, T).astype(np.float32)).to(cuda)
+    before = port_cs.countsketch_dense_cuda.launches
+    got = port_cs.countsketch_dense_cuda(x, width=width, reps=5, seed=17,
+                                         offset=offset)
+    torch.cuda.synchronize()
+    assert port_cs.countsketch_dense_cuda.launches == before + 1
+    want = port_cs.countsketch_dense_plain(x, width=width, reps=5, seed=17,
+                                           offset=offset)
+    assert _bits_equal(got, want)
+    assert _bits_equal(want.cpu(), port_cs.countsketch_dense_plain(
+        x.cpu(), width=width, reps=5, seed=17, offset=offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, offset", [(4096, 0), (1000, 2 ** 31 - 500)])
+def test_dense_countsketch_equals_sparse_kernel_bitwise(cuda, T, offset):
+    """For T <= L, B14 of x at offset o equals B6 of keys o + arange(T)."""
+    rng = np.random.default_rng(T)
+    x = rng.normal(size=T).astype(np.float32)
+    x[rng.random(T) < 0.2] = 0.0
+    keys = ((offset + np.arange(T)) % 2 ** 32).astype(np.uint32) \
+        .view(np.int32)
+    xd = torch.from_numpy(x).to(cuda)
+    dense = ops.countsketch(xd, width=311, reps=5, seed=4, offset=offset)
+    sparse = ops.countsketch_sparse(torch.from_numpy(keys[None]).to(cuda),
+                                    xd[None], width=311, reps=5, seed=4)[0]
+    assert _bits_equal(dense, sparse)
+
+
+@pytest.mark.cuda
+def test_compressed_update_on_the_card_launches_the_kernel(cuda):
+    from repro_torch.optim.compression import (CompressionConfig,
+                                               compressed_update)
+    rng = np.random.default_rng(2)
+    g = rng.standard_t(2, 50_000).astype(np.float32)
+    # both settings of the JAX package's use_kernel field launch B14 on
+    # CUDA tensors, the default (False) included, with the same bits
+    runs = []
+    for use_kernel in (False, True):
+        cfg = CompressionConfig(width=512, use_kernel=use_kernel)
+        before = port_cs.countsketch_dense_cuda.launches
+        runs.append(compressed_update(torch.from_numpy(g).to(cuda),
+                                      torch.zeros(50_000, device=cuda), None,
+                                      cfg, lr=0.3))
+        torch.cuda.synchronize()
+        assert port_cs.countsketch_dense_cuda.launches == before + 1
+    (delta, res), (delta_k, res_k) = runs
+    assert _bits_equal(delta, delta_k) and _bits_equal(res, res_k)
+    d_cpu, r_cpu = compressed_update(torch.from_numpy(g),
+                                     torch.zeros(50_000), None, cfg, lr=0.3)
+    # the card's and the host's norms sum in other orders: a coordinate on
+    # the edge of the mask may fall either way
+    same = delta.cpu() == d_cpu
+    assert (~same).sum().item() <= 4 and delta.abs().sum().item() > 0
+    torch.testing.assert_close(res.cpu()[same], r_cpu[same], rtol=1e-5,
+                               atol=1e-5)
+
+
+def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(BH, T, D)).astype(np.float32)
+    k, v = (rng.normal(size=(BH // group, S, D)).astype(np.float32)
+            for _ in "kv")
+    return [torch.from_numpy(a).to(device=device, dtype=dtype)
+            for a in (q, k, v)]
+
+
+@pytest.mark.cuda
+# bf16: kernel and plain version take the same inputs and compute in f32,
+# so their outputs differ by at most one bf16 rounding step (2^-7 relative)
+@pytest.mark.parametrize("dtype, rtol, atol", [(torch.float32, 5e-5, 5e-5),
+                                               (torch.bfloat16, 2 ** -7, 1e-5)])
+@pytest.mark.parametrize("D, T, S, kw", [
+    (64, 256, 256, dict(causal=True)),
+    (28, 96, 80, dict(causal=True, window=17, qc=32, kc=16)),
+    (128, 128, 192, dict(causal=False, qc=64, kc=64)),
+    (256, 64, 64, dict(causal=True, q_offset=5, k_offset=3, qc=32, kc=32)),
+    # rows 0-39 see no key: the mean of v
+    (16, 64, 64, dict(causal=True, k_offset=40, qc=32, kc=32)),
+])
+def test_flash_kernel_matches_plain_version(cuda, dtype, rtol, atol, D, T, S,
+                                           kw):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v = _attention_inputs(D + T, 8, T, S, D, 4, dtype, cuda)
+    from repro_torch.kernels import flash_attention as port_fa
+    before = port_fa.flash_attention_cuda.launches
+    got = port_fa.flash_attention_bh(q, k, v, group=4, **kw)
+    torch.cuda.synchronize()
+    assert port_fa.flash_attention_cuda.launches == before + 1
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    want = port_fa.flash_attention_plain(q, k, v, group=4, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-4),
+                                        (torch.bfloat16, 3e-2)])
+def test_flash_attention_matches_chunked_attention_on_the_card(cuda, dtype,
+                                                               tol):
+    """The model-layout entry point against its oracle, both on the card
+    (the JAX tests' tolerances; bf16 casts p before p v in the oracle)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.attention import chunked_attention
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.normal(size=(2, 256, n, 64))
+                                .astype(np.float32)).to(cuda, dtype)
+               for n in (8, 2, 2))
+    kw = dict(causal=True, window=100, q_offset=3)
+    got = flash_attention(q, k, v, **kw)
+    want = chunked_attention(q, k, v, q_chunk=64, k_chunk=128, **kw)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _attention_inputs(5, 8, 200, 200, 64, 2, dtype, cuda)
+    kw = dict(group=2, causal=True, window=77, qc=40, kc=40)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    batched = flash_attention_cuda(q, k, v, **kw)
+    again = flash_attention_cuda(q, k, v, **kw)
+    assert torch.equal(batched.view(bits), again.view(bits))
+    for h in range(8):
+        one = flash_attention_cuda(q[h:h + 1], k[h // 2:h // 2 + 1],
+                                   v[h // 2:h // 2 + 1], **dict(kw, group=1))
+        assert torch.equal(one[0].view(bits), batched[h].view(bits))

@@ -1,0 +1,178 @@
+"""The port's flash attention (B15's plain version behind
+``repro_torch.kernels.flash_attention``) and its oracle
+``repro_torch.models.attention.chunked_attention`` against the JAX
+package, at the JAX tests' tolerances (``tests/test_flash_attention.py``):
+2e-4 against ``chunked_attention``, 5e-5 for f32 inputs and 3e-2 for bf16
+inputs against the f32 oracle, block sizes within 1e-5 of each other."""
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_pallas
+from repro.models.attention import chunked_attention as jax_chunked
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bh,
+                                                 flash_attention_cuda,
+                                                 flash_attention_plain)
+from repro_torch.models.attention import chunked_attention
+
+# small shapes: one intra-op thread per test process, so that parallel
+# test workers do not oversubscribe the cores
+torch.set_num_threads(1)
+
+CASES = [
+    (2, 64, 4, 2, 16, True, 0, 16, 16),
+    (1, 128, 4, 4, 32, True, 0, 64, 32),
+    (2, 64, 4, 1, 16, False, 0, 32, 64),
+    (1, 96, 6, 2, 16, True, 24, 32, 32),      # sliding window, ragged heads
+    (1, 64, 2, 2, 64, True, 0, 64, 64),       # single chunk
+]
+
+
+def _qkv(seed, B, T, H, K, D, S=None):
+    rng = np.random.default_rng(seed)
+    S = S or T
+    return tuple(rng.normal(size=s).astype(np.float32)
+                 for s in ((B, T, H, D), (B, S, K, D), (B, S, K, D)))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(case):
+    B, T, H, K, D, causal, window, _, _ = case
+    q, k, v = _qkv(B * 100 + T + H, B, T, H, K, D)
+    out = jax_chunked(*map(jnp.asarray, (q, k, v)), causal=causal,
+                      window=window, q_chunk=32, k_chunk=32)
+    return (q, k, v), np.asarray(out)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_chunked_attention_matches_jax(case):
+    (q, k, v), want = _jax_reference(case)
+    got = chunked_attention(*map(torch.from_numpy, (q, k, v)),
+                            causal=case[5], window=case[6], q_chunk=32,
+                            k_chunk=32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_flash_attention_matches_jax_chunked(case):
+    (q, k, v), want = _jax_reference(case)
+    *_, causal, window, qc, kc = case
+    got = flash_attention(*map(torch.from_numpy, (q, k, v)), causal=causal,
+                          window=window, qc=qc, kc=kc)
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("offsets", [(0, 0), (9, 4)])
+@pytest.mark.parametrize("case", CASES)
+def test_flash_attention_matches_port_chunked(case, offsets):
+    """B15's plain version against its oracle inside the port, offsets
+    included (the JAX ``chunked_attention`` takes them too)."""
+    B, T, H, K, D, causal, window, qc, kc = case
+    tq, tk, tv = map(torch.from_numpy, _qkv(B * 100 + T + H, B, T, H, K, D))
+    kw = dict(causal=causal, window=window, q_offset=offsets[0],
+              k_offset=offsets[1])
+    got = flash_attention(tq, tk, tv, qc=qc, kc=kc, **kw)
+    want = chunked_attention(tq, tk, tv, q_chunk=32, k_chunk=32, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 5e-5),
+                                        (torch.bfloat16, 3e-2)])
+def test_flash_dtypes(dtype, tol):
+    q, k, v = _qkv(7, 1, 64, 4, 2, 32)
+    want = np.asarray(jax_chunked(*map(jnp.asarray, (q, k, v)), causal=True,
+                                  q_chunk=32, k_chunk=32))
+    tq, tk, tv = (torch.from_numpy(a).to(dtype) for a in (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=True, qc=32, kc=32)
+    assert got.dtype == dtype
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+def test_chunked_attention_bf16_matches_jax():
+    """With bf16 inputs both oracles cast p to bf16 before p v."""
+    q, k, v = _qkv(8, 1, 64, 4, 2, 32)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(jax_chunked(jq, jk, jv, causal=True, q_chunk=32,
+                                  k_chunk=16), np.float32)
+    tq, tk, tv = (torch.from_numpy(np.asarray(a, np.float32))
+                  .to(torch.bfloat16) for a in (jq, jk, jv))
+    got = chunked_attention(tq, tk, tv, causal=True, q_chunk=32, k_chunk=16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=3e-2,
+                               atol=3e-2)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(causal=True, window=7, q_offset=5, k_offset=3),
+    # rows 0-19 see no key (k_offset past them): the mean of v, not NaN
+    dict(causal=True, q_offset=0, k_offset=20),
+])
+def test_flash_bh_matches_pallas_interpret(kw):
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(4, 32, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(2, 48, 16)).astype(np.float32) for _ in "kv")
+    want = np.asarray(flash_attention_pallas(
+        *map(jnp.asarray, (q, k, v)), group=2, qc=16, kc=16, interpret=True,
+        **kw))
+    got = flash_attention_bh(*map(torch.from_numpy, (q, k, v)), group=2,
+                             qc=16, kc=16, **kw).numpy()
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_fully_masked_rows_return_the_mean_of_v():
+    """k_offset >= T + q_offset, causal: no row sees a key; the -1e30 masks
+    tie, p = 1 on every key, and each row is the mean of its kv head."""
+    rng = np.random.default_rng(4)
+    q = torch.from_numpy(rng.normal(size=(4, 32, 8)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(2, 64, 8)).astype(np.float32))
+            for _ in "kv")
+    got = flash_attention_bh(q, k, v, group=2, qc=16, kc=16, causal=True,
+                             k_offset=40)
+    mean = v.mean(dim=1)[torch.arange(4) // 2]
+    np.testing.assert_allclose(got.numpy(), mean[:, None].expand(4, 32, 8),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_flash_block_size_invariance():
+    q, k, v = _qkv(9, 1, 128, 4, 2, 16)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    outs = [flash_attention(tq, tk, tv, causal=True, qc=qc, kc=kc).numpy()
+            for qc, kc in [(32, 32), (64, 16), (128, 64)]]
+    for o in outs[1:]:
+        np.testing.assert_allclose(o, outs[0], rtol=1e-5, atol=1e-5)
+
+
+def test_model_layout_equals_head_by_head():
+    """The [B,T,H,D] wrapper is the [BH,T,D] launch with q head h reading
+    kv head h // G."""
+    q, k, v = _qkv(10, 2, 32, 4, 2, 8)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = flash_attention(tq, tk, tv, causal=False, qc=16, kc=16)
+    for b in range(2):
+        for h in range(4):
+            one = flash_attention_plain(tq[b, :, h][None], tk[b, :, h // 2][None],
+                                        tv[b, :, h // 2][None], causal=False,
+                                        qc=16, kc=16)
+            assert torch.equal(got[b, :, h], one[0])
+
+
+def test_bad_inputs_raise():
+    q = torch.zeros(4, 32, 16)
+    kv = torch.zeros(2, 32, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_attention_cuda(q, kv, kv, group=2)
+    with pytest.raises(ValueError, match="must divide"):
+        flash_attention_bh(q, kv, kv, group=2, qc=12)
+    with pytest.raises(ValueError, match=r"\[BH // group, S, D\]"):
+        flash_attention_bh(q, kv, kv, group=1)
+    with pytest.raises(TypeError, match="one dtype"):
+        flash_attention_bh(q, kv.bfloat16(), kv, group=2)
+    wide = torch.zeros(1, 8, 257)
+    with pytest.raises(ValueError, match="outside 1..256"):
+        flash_attention_bh(wide, wide, wide)

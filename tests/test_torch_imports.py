@@ -23,7 +23,8 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
-print("LOADED", len([m for m in sys.modules if m.startswith("repro_torch")]))
+print("LOADED", ",".join(sorted(m for m in sys.modules
+                               if m.startswith("repro_torch"))))
 print("BAD", ",".join(bad))
 """
 
@@ -35,7 +36,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert out.returncode == 0, out.stderr
     lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
                  if line.startswith(("LOADED", "BAD")))
-    assert int(lines["LOADED"]) >= 15
+    loaded = set(lines["LOADED"].strip().split(","))
+    assert len(loaded) >= 15
+    assert {"repro_torch.optim.compression", "repro_torch.models.attention",
+            "repro_torch.kernels.flash_attention"} <= loaded
     assert lines["BAD"].strip() == ""
 
 
