@@ -57,6 +57,11 @@ SRC = pathlib.Path(__file__).resolve().parent / "src"
 # the CUDA cores, which every 32-bit lane operation here is counted at)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# FP32 instructions per second: one per lane and clock, the rate above with
+# a fused multiply-add counted as two operations.  The linear dots (B8, B12)
+# take an f32 product and an f32 add per term, never an FMA, so their
+# operations are also their instructions, and this rate is their floor
+FP32_INSTR_PER_S = FP32_OPS_PER_S / 2
 # lane operations of one (row, t, non-zero) ICWS draw: ten murmur rounds
 # (8 each), five salted hash prologues (5), five uniforms (4), and the
 # r / c / beta / level / exp / divide chain (19, one per log, exp, divide)
@@ -493,7 +498,9 @@ def linear_estimate_case(name: str, tq, tc):
         f"call ({dev_ms:.4f} ms on the device), plain {plain_ms:.1f} ms (one "
         f"run), torch.bmm {lib_ms:.4f} ms (max |d| "
         f"{lib_err:.3g} against the kernel), bound {bound:.4f} ms "
-        f"({bound_by}: {bytes_moved / 1e9:.3f} GB, {ops:.3e} ops)")
+        f"({bound_by}: {bytes_moved / 1e9:.3f} GB, {ops:.3e} ops), no-FMA "
+        f"floor {ops / FP32_INSTR_PER_S * 1e3:.4f} ms ({ops:.3e} FP32 "
+        f"instructions)")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "device_ms_source": dev_src,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
@@ -982,14 +989,17 @@ def packed_linear_case(name: str, tq, wc):
     del a, b
     # the pad column's +0 products are no work the estimate needs: the
     # operations count the true W
+    ops = 2 * G * R * Q * P * W
     bound, bound_by = bound_of(
-        (tq.numel() + wc.numel() + got.numel()) * 4, 2 * G * R * Q * P * W)
+        (tq.numel() + wc.numel() + got.numel()) * 4, ops)
     ms = time_ms(kernel, reps=10)
     dev_ms, dev_src = device_ms(kernel, "linear_estimate_fields_packed_kernel")
     log(f"packed linear estimate {shape}: equal to plain and to B8 on the "
         f"decoded tables; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on "
         f"the device), plain {plain_ms:.1f} ms (one run), torch.bmm "
-        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
+        f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}), no-FMA floor "
+        f"{ops / FP32_INSTR_PER_S * 1e3:.4f} ms ({ops:.3e} FP32 "
+        f"instructions)")
     return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
             "device_ms_source": dev_src,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
@@ -1858,9 +1868,8 @@ def main() -> int:
              "sample_estimate.py:86", sample[0], sample),
             ("estimate_fields_packed", "estimate_fields.cu",
              "estimate.py:306", b11[0], b11),
-            ("linear_estimate_fields_packed",
-             "linear_estimate_fields_packed.cu", "estimate.py:500", b12[0],
-             b12),
+            ("linear_estimate_fields_packed", "linear_estimate_fields.cu",
+             "estimate.py:500", b12[0], b12),
             ("sample_estimate_fields_packed",
              "sample_estimate_fields_packed.cu", "sample_estimate.py:204",
              b13[0], b13))]

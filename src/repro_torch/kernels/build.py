@@ -31,9 +31,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("icws_sketch.cu", "estimate_fields.cu", "estimate_pairs.cu",
            "countsketch_sparse.cu", "jl_sketch.cu",
            "linear_estimate_fields.cu", "dmh_sketch.cu",
-           "sample_estimate_fields.cu", "linear_estimate_fields_packed.cu",
-           "sample_estimate_fields_packed.cu", "countsketch_dense.cu",
-           "flash_attention.cu", "bindings.cu")
+           "sample_estimate_fields.cu", "sample_estimate_fields_packed.cu",
+           "countsketch_dense.cu", "flash_attention.cu", "bindings.cu")
 HEADERS = ("u32.cuh", "packed.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-O3", "-std=c++17", ARCH, "-fmad=false", "-prec-div=true",

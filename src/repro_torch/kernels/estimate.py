@@ -481,10 +481,10 @@ def linear_estimate_fields_packed_plain(tq, wc, *, qmap, cmap):
 
 def linear_estimate_fields_packed_cuda(tq, wc, *, qmap, cmap):
     """Launch the packed linear-fields kernel
-    (``csrc/linear_estimate_fields_packed.cu``) on PyTorch's current
-    stream; CUDA tensors only, each corpus row's ``[R, We / 2]`` words
-    contiguous.  Adds one to ``linear_estimate_fields_packed_cuda.launches``
-    per launch."""
+    (``linear_estimate_fields_packed_kernel`` of
+    ``csrc/linear_estimate_fields.cu``) on PyTorch's current stream; CUDA
+    tensors only, each corpus row's ``[R, We / 2]`` words contiguous.  Adds
+    one to ``linear_estimate_fields_packed_cuda.launches`` per launch."""
     qmap, cmap = _check_linear_packed(tq, wc, qmap, cmap)
     if tq.device.type != "cuda":
         raise ValueError(f"linear_estimate_fields_packed_cuda takes CUDA "

@@ -138,27 +138,48 @@ def test_jl_kernel_matches_plain_version_bitwise(cuda, m):
     assert torch.equal(one[0], got[3])
 
 
+# Cases of the linear-dots kernels (B8, B12): (Q, qmap, cmap, corpus rows).
+# Q = 1, 3 and 16 take the query tiles 1, 4 and 16; Q = 17 and 40 leave a
+# ragged tile.  One map has a corpus field that feeds five pairs, so its
+# group splits over two blocks; one has sixteen pairs, cmap unsorted; one
+# corpus slice has a row stride of two rows.
+FIVE_QMAP, FIVE_CMAP = (0, 1, 2, 0, 2, 1, 1), (1, 1, 0, 1, 1, 2, 1)
+G16_QMAP = (2, 0, 1, 1, 0, 2, 0, 1, 2, 2, 1, 0, 0, 1, 2, 0)
+G16_CMAP = (1, 2, 0, 2, 1, 0, 0, 2, 1, 0, 1, 2, 0, 1, 2, 1)
+LINEAR_CASES = {
+    "Q1": (1, QMAP, CMAP, slice(7, 290)),
+    "Q3": (3, QMAP, CMAP, slice(7, 290)),
+    "Q16": (16, QMAP, CMAP, slice(7, 290)),
+    "Q17": (17, QMAP, CMAP, slice(7, 290)),
+    "Q40": (40, QMAP, CMAP, slice(7, 290)),
+    "five-pairs-of-one-field": (16, FIVE_QMAP, FIVE_CMAP, slice(7, 290)),
+    "sixteen-pairs-unsorted": (5, G16_QMAP, G16_CMAP, slice(7, 290)),
+    "row-strided": (16, QMAP, CMAP, slice(3, 290, 2)),
+}
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", LINEAR_CASES)
 @pytest.mark.parametrize("R, W", [(5, 153), (1, 769)])
-def test_linear_fields_kernel_matches_plain_version_bitwise(cuda, R, W):
-    """An f32 product then an f32 add per w, in order, in both: bit for bit,
-    also on a strided slice of the corpus tables and at Q = 1."""
+def test_linear_fields_kernel_matches_plain_version_bitwise(cuda, R, W, case):
+    """An f32 product then an f32 add per w, in order, in both: bit for bit
+    at every query tile and map, on a slice of the corpus tables, and one
+    query alone equals its row of the batch."""
+    Q, qmap, cmap, rows = LINEAR_CASES[case]
     rng = np.random.default_rng(R)
-    tq = torch.from_numpy(rng.normal(size=(3, 17, R, W)).astype(np.float32))
+    tq = torch.from_numpy(rng.normal(size=(3, Q, R, W)).astype(np.float32))
     tc = torch.from_numpy(rng.normal(size=(3, 300, R, W)).astype(np.float32))
     tc[:, -5:] = 0.0
-    tq, tc = tq.to(cuda), tc.to(cuda)
+    tq, tc = tq.to(cuda), tc.to(cuda)[:, rows]
     before = port_est.linear_estimate_fields_cuda.launches
-    got = port_est.linear_estimate_fields_cuda(tq, tc[:, 7:290], qmap=QMAP,
-                                               cmap=CMAP)
+    got = port_est.linear_estimate_fields_cuda(tq, tc, qmap=qmap, cmap=cmap)
     torch.cuda.synchronize()
     assert port_est.linear_estimate_fields_cuda.launches == before + 1
-    want = port_est.linear_estimate_fields_plain(tq, tc[:, 7:290], qmap=QMAP,
-                                                 cmap=CMAP)
+    want = port_est.linear_estimate_fields_plain(tq, tc, qmap=qmap, cmap=cmap)
     assert torch.equal(got, want)
-    one = port_est.linear_estimate_fields_cuda(tq[:, 4:5], tc[:, 7:290],
-                                               qmap=QMAP, cmap=CMAP)
-    assert torch.equal(one[:, :, 0], got[:, :, 4])
+    one = port_est.linear_estimate_fields_cuda(tq[:, Q - 1:], tc, qmap=qmap,
+                                               cmap=cmap)
+    assert torch.equal(one[:, :, 0], got[:, :, Q - 1])
 
 
 @pytest.mark.cuda
@@ -312,28 +333,32 @@ def test_packed_fields_kernel_matches_plain_and_unpacked_bitwise(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", LINEAR_CASES)
 @pytest.mark.parametrize("R, W", [(5, 153), (1, 769)])
-def test_packed_linear_kernel_matches_plain_and_unpacked_bitwise(cuda, R, W):
+def test_packed_linear_kernel_matches_plain_and_unpacked_bitwise(cuda, R, W,
+                                                                 case):
     """Odd W: the query's zero column and the corpus's pad column add +0
-    and leave every sum's bits as the unpacked kernel's over W."""
+    and leave every sum's bits as the unpacked kernel's over W, at every
+    query tile and map of the unpacked kernel's cases."""
+    Q, qmap, cmap, rows = LINEAR_CASES[case]
     rng = np.random.default_rng(W)
-    tq = torch.from_numpy(rng.normal(size=(3, 17, R, W)).astype(np.float32))
+    tq = torch.from_numpy(rng.normal(size=(3, Q, R, W)).astype(np.float32))
     tc = torch.from_numpy(rng.normal(size=(3, 300, R, W)).astype(np.float32))
     tc[:, -5:] = 0.0
-    tc[:, 3] = -0.0
+    tc[:, 9] = -0.0             # a row of every case's slice
     wc = pack_halfwords_f32(torch.nn.functional.pad(tc, (0, W % 2)))
-    tq, wc = tq.to(cuda), wc.to(cuda)
+    tq, wc = tq.to(cuda), wc.to(cuda)[:, rows]
     tqe = torch.nn.functional.pad(tq, (0, W % 2))
     before = port_est.linear_estimate_fields_packed_cuda.launches
-    got = port_est.linear_estimate_fields_packed_cuda(tqe, wc[:, 2:290],
-                                                      qmap=QMAP, cmap=CMAP)
+    got = port_est.linear_estimate_fields_packed_cuda(tqe, wc, qmap=qmap,
+                                                      cmap=cmap)
     torch.cuda.synchronize()
     assert port_est.linear_estimate_fields_packed_cuda.launches == before + 1
-    plain = port_est.linear_estimate_fields_packed_plain(
-        tqe, wc[:, 2:290], qmap=QMAP, cmap=CMAP)
+    plain = port_est.linear_estimate_fields_packed_plain(tqe, wc, qmap=qmap,
+                                                         cmap=cmap)
     unpacked = port_est.linear_estimate_fields_cuda(
-        tq, unpack_halfwords_f32(wc[:, 2:290])[..., :W].contiguous(),
-        qmap=QMAP, cmap=CMAP)
+        tq, unpack_halfwords_f32(wc)[..., :W].contiguous(), qmap=qmap,
+        cmap=cmap)
     assert _bits_equal(got, plain) and _bits_equal(got, unpacked)
 
 

@@ -56,6 +56,26 @@ def test_dots_match_pallas_and_ref(seed, R, W):
     assert np.all(got[..., -2:] == 0.0)
 
 
+@pytest.mark.parametrize("qmap, cmap", [
+    ((0, 1, 2, 0, 2, 1, 1), (1, 1, 0, 1, 1, 2, 1)),
+    ((2, 0, 1, 1, 0, 2, 0, 1, 2, 2, 1, 0, 0, 1, 2, 0),
+     (1, 2, 0, 2, 1, 0, 0, 2, 1, 0, 1, 2, 0, 1, 2, 1))],
+    ids=["five-pairs-of-one-field", "sixteen-pairs-unsorted"])
+def test_dots_match_pallas_on_uneven_field_maps(qmap, cmap):
+    """Maps that the CUDA kernel groups unevenly by corpus field (a group
+    of five pairs splits over two blocks; sixteen pairs, cmap unsorted):
+    the plain version, which the card tests hold the kernel to bit for
+    bit on these maps, against the interpret-mode Pallas kernel."""
+    tq, tc = _tables(6, Q=3, P=9, R=2, W=40)
+    got = linear_estimate_fields_plain(torch.from_numpy(tq),
+                                       torch.from_numpy(tc), qmap=qmap,
+                                       cmap=cmap).numpy()
+    assert got.shape == (len(qmap), 2, 3, 9)
+    _close(got, linear_estimate_fields_pallas(
+        jnp.asarray(tq), jnp.asarray(tc), qmap=qmap, cmap=cmap,
+        interpret=True))
+
+
 @pytest.mark.parametrize("R", [5, 4, 2, 1])
 def test_median_epilogue_is_jnp_median_bit_for_bit(R):
     rng = np.random.default_rng(R)
