@@ -24,13 +24,14 @@ gradient-compression path (``repro_torch.optim.compression``) runs eight
 ``compressed_update`` steps on the card at one TinyLlama-1.1B layer's
 gradient (44,044,288 values), through the dense CountSketch kernel (B14),
 and the flash-attention entry point (``repro_torch.kernels.
-flash_attention.flash_attention``) runs TinyLlama's attention shape (B15),
-each kernel first held against its plain version.  Imports nothing of JAX
-and nothing of the JAX package.  Exits non-zero on any failure, and at
-once when no card is present.  Each phase prints its wall time.  The line
-before the last is a JSON object with each kernel's launches on the
-serving runs (B10 also on its own path; B3 and B4 on the corpus path; B14
-and B15 on theirs),
+flash_attention.flash_attention``) runs TinyLlama's attention shape and
+Mistral-NeMo's heads (B15: f32 through the f32 tile, bf16 through the
+tensor-core kernel), each kernel first held against its plain version.
+Imports nothing of JAX and nothing of the JAX package.  Exits non-zero on
+any failure, and at once when no card is present.  Each phase prints its
+wall time.  The line before the last is a JSON object with each kernel's
+launches on the serving runs (B10 also on its own path; B3 and B4 on the
+corpus path; B14 and B15 on theirs),
 its error against the plain version, its time, the plain version's time, its bound and the time of one PyTorch
 call that computes the same function (where there is one); the last line
 is the run's device.
@@ -141,12 +142,15 @@ TL_D_MODEL, TL_HEADS, TL_KV_HEADS, TL_HEAD_DIM, TL_D_FF = 2048, 32, 4, 64, 5632
 GRAD_T = (TL_D_MODEL * (2 * TL_HEADS + 2 * TL_KV_HEADS) * TL_HEAD_DIM
           + 3 * TL_D_MODEL * TL_D_FF + 2 * TL_D_MODEL)
 COMPRESS_STEPS = 8
-# flash attention at TinyLlama's attention (B = 1, T = S = 4,096), and one
-# case at Mistral-NeMo's heads (repro/configs/mistral_nemo_12b.py: 32
+# flash attention at TinyLlama's attention (B = 1, T = S = 4,096), and
+# cases at Mistral-NeMo's heads (repro/configs/mistral_nemo_12b.py: 32
 # heads, 8 KV heads, head_dim 128): label, H, K, D, dtype, window, and the
-# (rtol, atol) against the plain version: f32 the JAX tests' 5e-5; bf16 one
-# bf16 rounding step, since both compute in f32 from the same inputs and
-# differ only where the f32 results round to neighbouring bf16 values
+# (rtol, atol) against the plain version (the TPU kernel's f32 function):
+# f32 the JAX tests' 5e-5.  bf16 one bf16 rounding step: the bf16 cases
+# (D % 16 == 0, D <= 128) run the tensor-core kernel, whose s sums exact
+# bf16 products in f32 before the scale and whose p v is p_hi v + p_lo v (p
+# split into two bf16 parts), so it stays within f32 rounding of that
+# function and differs where the results round to neighbouring bf16 values
 FLASH_T = 4096
 F32_TOL, BF16_TOL = (5e-5, 5e-5), (2 ** -7, 1e-5)
 FLASH_CASES = (
@@ -156,12 +160,16 @@ FLASH_CASES = (
      BF16_TOL),
     ("causal f32 window 1024", TL_HEADS, TL_KV_HEADS, TL_HEAD_DIM,
      torch.float32, 1024, F32_TOL),
-    ("causal f32 D=128", 32, 8, 128, torch.float32, 0, F32_TOL))
+    ("causal f32 D=128", 32, 8, 128, torch.float32, 0, F32_TOL),
+    ("causal bf16 D=128", 32, 8, 128, torch.bfloat16, 0, BF16_TOL))
+# the cases held per head == batched, bit for bit
+FLASH_PER_HEAD = ("causal f32", "causal bf16", "causal bf16 D=128")
 # the flash_attention entry point against the port's chunked_attention
 # (scale after the product, bf16 p before p v): the JAX tests' tolerances
 ORACLE_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
-# dense bf16 rate of the tensor cores, the bound B15 would have with bf16
-# products (it takes f32 products, as the TPU kernel does)
+# dense bf16 rate of the tensor cores: the tensor-core kernel's bound (6
+# operations per visible (query, key) pair and dim, p v taken twice), and
+# beside it the 4-operation bound of a kernel with one bf16 p
 BF16_TC_OPS_PER_S = 989e12
 
 
@@ -1373,18 +1381,22 @@ def visible_pairs(T: int, window: int) -> int:
 
 
 def flash_attention_kernel_phase():
-    """B15 at TinyLlama's attention shape against its plain version (f32
-    within 5e-5, bf16 within one bf16 rounding step), a launch per head ==
-    the batched launch
-    and a repeat, bit for bit; timed against its bound (operations: 4 per
-    visible (query, key) pair and dim at the f32 rate; bytes: q, k, v, o
+    """B15 at TinyLlama's attention shape and Mistral-NeMo's heads against
+    its plain version (f32 within 5e-5, bf16 within one bf16 rounding
+    step), a launch per head == the batched launch
+    and a repeat, bit for bit; timed (device time under the symbol of the
+    kernel that the route takes: ``flash_attention_tc_kernel`` for bf16,
+    ``flash_attention_kernel`` for f32) against its bound (f32 tile:
+    operations, 4 per visible (query, key) pair and dim at the f32 rate;
+    tensor-core kernel: 6 at the bf16 tensor-core rate; bytes: q, k, v, o
     once) and against one ``scaled_dot_product_attention`` call (k/v
     expanded to every head before the call; the window case with a
     boolean mask).  Then the entry point ``flash_attention`` (model layout)
-    runs the four cases, its counter set to 0 just before and read just
+    runs the five cases, its counters set to 0 just before and read just
     after; each output equals the batched launch bit for bit and lies
     within ORACLE_TOL of the port's ``chunked_attention``, B15's oracle.
-    Returns (reports, the entry point's launches)."""
+    Returns (reports, the entry point's launches of the f32 tile and of
+    the tensor-core kernel)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models.attention import chunked_attention
@@ -1411,7 +1423,7 @@ def flash_attention_kernel_phase():
         bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
         if not torch.equal(fn().view(bits), got.view(bits)):
             raise AssertionError(f"B15 {label}: two runs differ")
-        if label in ("causal f32", "causal bf16"):
+        if label in FLASH_PER_HEAD:
             for h in range(H):
                 one = kfa.flash_attention_cuda(
                     qf[h:h + 1], kf[h // kw["group"]][None],
@@ -1419,11 +1431,19 @@ def flash_attention_kernel_phase():
                 if not torch.equal(one[0].view(bits), got[h].view(bits)):
                     raise AssertionError(f"B15 {label}: head {h} alone "
                                          "differs from the batched launch")
+        tc = kfa.tensor_core_route(dtype, D)
         ops = 4 * H * visible_pairs(FLASH_T, window) * D
         bytes_moved = (2 * H + 2 * K) * FLASH_T * D * got.element_size()
-        bound, bound_by = bound_of(bytes_moved, ops)
+        if tc:   # 6 operations a pair and dim at the bf16 tensor-core rate
+            split = 1.5 * ops / BF16_TC_OPS_PER_S * 1e3
+            bound = max(bytes_moved / HBM_BYTES_PER_S * 1e3, split)
+            bound_by = "operations" if bound == split else "bytes"
+        else:
+            bound, bound_by = bound_of(bytes_moved, ops)
         ms = time_ms(fn, reps=5)
-        dev_ms, dev_src = device_ms(fn, "flash_attention_kernel", reps=5)
+        symbol = ("flash_attention_tc_kernel" if tc
+                  else "flash_attention_kernel")
+        dev_ms, dev_src = device_ms(fn, symbol, reps=5)
         qs, ks, vs = (a.transpose(1, 2).repeat_interleave(
             H // n, dim=1).contiguous() for a, n in ((q, H), (k, K), (v, K)))
         if window:
@@ -1439,26 +1459,38 @@ def flash_attention_kernel_phase():
         lib_err = (sdpa()[0].float() - got.float()).abs().max().item()
         del qs, ks, vs
         rep = {"shape": f"{label} B=1 T=S={FLASH_T} H={H} K={K} D={D}",
-               "max_abs_err": err.max().item(), "ms": ms, "device_ms": dev_ms,
-               "device_ms_source": dev_src,
+               "kernel": symbol, "max_abs_err": err.max().item(), "ms": ms,
+               "device_ms": dev_ms, "device_ms_source": dev_src,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                "library_ms": lib_ms, "library": "scaled_dot_product_attention"}
         if dtype == torch.bfloat16:
             rep["bound_ms_bf16_tensor_cores"] = ops / BF16_TC_OPS_PER_S * 1e3
+        if tc:
+            rep["bound_ms_split_tensor_cores"] = split
         log(f"B15 {label}: max |kernel - plain| {rep['max_abs_err']:.3g} "
             f"(rtol {rtol:.3g}, atol {atol:.3g}), repeat and per-head bit for "
             f"bit; kernel "
-            f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
-            f"{plain_ms:.1f} ms (one run), bound {bound:.4f} ms ({bound_by}), "
+            f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device, "
+            f"{symbol}), plain {plain_ms:.1f} ms (one run), bound "
+            f"{bound:.4f} ms ({bound_by}), "
             f"SDPA {lib_ms:.4f} ms (max |SDPA - kernel| {lib_err:.3g})")
         reports.append(rep)
         layouts.append((q, k, v, window, got))
     torch.cuda.synchronize()
     kfa.flash_attention_cuda.launches = 0
+    kfa.flash_attention_cuda.tc_launches = 0
     outs = [kfa.flash_attention(q, k, v, causal=True, window=window)
             for q, k, v, window, _ in layouts]
     torch.cuda.synchronize()
     launches = kfa.flash_attention_cuda.launches
+    tc_launches = kfa.flash_attention_cuda.tc_launches
+    want_tc = sum(kfa.tensor_core_route(q.dtype, q.shape[-1])
+                  for q, *_ in layouts)
+    if launches != len(layouts) or tc_launches != want_tc or not \
+            0 < tc_launches < launches:
+        raise AssertionError(f"flash_attention: {launches} launches, "
+                             f"{tc_launches} of the tensor-core kernel, for "
+                             f"{len(layouts)} calls ({want_tc} bf16)")
     oracle_err = []
     for out, (q, k, v, window, got) in zip(outs, layouts):
         bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
@@ -1476,10 +1508,11 @@ def flash_attention_kernel_phase():
                                  f"(tolerance {tol})")
         del want, err
     log(f"flash_attention entry point: {len(outs)} calls, B15 launches "
-        f"{launches}, each equal to its [BH, T, D] launch bit for bit; max "
+        f"{launches} ({tc_launches} of flash_attention_tc_kernel), each "
+        f"equal to its [BH, T, D] launch bit for bit; max "
         f"|flash_attention - chunked_attention| "
         + ", ".join(f"{e:.3g}" for e in oracle_err))
-    return reports, launches
+    return reports, (launches - tc_launches, tc_launches)
 
 
 def lake_phase():
@@ -1901,7 +1934,15 @@ def main() -> int:
                      entry_point="repro_torch.optim.compression."
                                  "compressed_update"),
         kernel_entry("flash_attention", "flash_attention.cu",
-                     "flash_attention.py:28", flash_launches, b15[0], b15,
+                     "flash_attention.py:28", flash_launches[0], b15[0],
+                     [r for r in b15
+                      if r["kernel"] == "flash_attention_kernel"],
+                     entry_point="repro_torch.kernels.flash_attention."
+                                 "flash_attention"),
+        kernel_entry("flash_attention_tc", "flash_attention.cu",
+                     "flash_attention.py:28", flash_launches[1], b15[1],
+                     [r for r in b15
+                      if r["kernel"] == "flash_attention_tc_kernel"],
                      entry_point="repro_torch.kernels.flash_attention."
                                  "flash_attention")]
     log("latency (unpacked; packed), p50 ms of search and of a micro-batch "

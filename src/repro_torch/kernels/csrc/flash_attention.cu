@@ -1,32 +1,68 @@
-// Forward flash attention for Hopper, all math in f32.
+// Forward flash attention for Hopper: two kernels behind one launcher.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_flash_kernel
 // (launcher flash_attention_pallas).
 // q [BH, T, D], k/v [BH / group, S, D], f32 or bf16 -> o [BH, T, D] in the
-// input type; q head bh reads kv head bh / group (no kv copy).  Per row: q
-// scaled by 1/sqrt(D) in f32 before the product, scores s = q k^T, masked
-// scores -1e30 (causal: k_pos <= q_pos; window: k_pos > q_pos - window), an
-// online softmax over key tiles from m = -inf (corr = exp(m - m_new)), and
-// o = acc / max(l, 1e-30).  A row that sees no key at all gets the mean of
-// v, as on the TPU: its masked scores tie at -1e30, p = 1 on every key.
+// input type; q head bh reads kv head bh / group (no kv copy).  Per row:
+// scores s, masked scores -1e30 (causal: k_pos <= q_pos; window: k_pos >
+// q_pos - window), an online softmax over key tiles from m = -inf (corr =
+// exp(m - m_new), p = exp(s - m_new), l = l corr + sum p, all in f32), and
+// o = acc / max(l, 1e-30).  A key past S adds nothing; a row that sees no key
+// at all gets the mean of v, as on the TPU: its masked scores tie at -1e30,
+// p = 1 on every key.
 //
-// Design: one block of 256 threads per (bh, 64 query rows).  The block keeps
-// its scaled q tile in shared memory and stages each k/v tile beside it,
-// converted to f32.  Per key tile: the [64, BK] score tile (each thread a
-// 4-row by BK/16-key patch, a dot over d in order with explicit fmaf), the
-// row max, exp and sum (four threads per row, combined in a fixed order),
-// then acc = acc * corr + p v into registers (4 rows by D/16 dims a thread).
-// Every sum runs in an order fixed by the tile sizes, so a head gives the
-// same bits alone or in a batch, and every run the same bits.  A key tile
-// masked for every row of the block is skipped when every row of the block
-// sees some key: for such a row the tile adds p = 0 and multiplies by
-// corr = 1.  Otherwise (a row with no visible key) every tile is taken.
-// The CUDA cores do the products in f32 (no TF32, no tensor cores): the
-// TPU kernel's f32 math, not a bf16 product.
+// Route, static, by type and head dim (launch_flash_attention): bf16 inputs
+// with D % 16 == 0 and D <= 128 run flash_attention_tc_kernel on the tensor
+// cores; f32 inputs, and bf16 with any other D, run flash_attention_kernel on
+// the CUDA cores.  A refused launch returns its error; nothing falls back.
 //
-// Bound: operations.  4 * T * S * D per head (a multiply and an add per
-// q k^T and per p v term), halved for causal; the bytes are q, k, v read
-// once and o written once.
+// flash_attention_kernel (the CUDA-core tile): all math in f32, the TPU
+// kernel's.  q scaled by 1/sqrt(D) in f32 before the product, s = q k^T, acc
+// = acc corr + p v with f32 p.  One block of 256 threads per (bh, 64 query
+// rows) keeps its scaled q tile in shared memory and stages each k/v tile
+// beside it, converted to f32.  Per key tile: the [64, BK] score tile (each
+// thread a 4-row by BK/16-key patch, a dot over d in order with explicit
+// fmaf), the row max, exp and sum (four threads per row, combined in a fixed
+// order), then acc = acc * corr + p v into registers (4 rows by D/16 dims a
+// thread).  The products run in f32 on the CUDA cores (no TF32).
+//
+// flash_attention_tc_kernel (bf16, tensor cores): s = (q k^T) * (1/sqrt(D)),
+// the bf16 products exact in f32 and summed in f32 by wgmma, then scaled (for
+// D = 16 and 64 the scale is a power of two, so this is the TPU kernel's
+// (q scale) k^T up to the order of the sum).  The mask and softmax are the f32
+// steps above, in registers.  Then acc = acc corr + p_hi v + p_lo v, with
+// p_hi = bf16(p) and p_lo = bf16(p - p_hi): two bf16 wgmmas into one f32
+// accumulator.  The pair carries p to about 16 bits (a single bf16 cast: 8),
+// so the output stays within one bf16 rounding step of the f32 function; l
+// sums the f32 p.  One block of two warpgroups (256 threads) per (bh, 128 query rows),
+// heaviest causal rows first; each warpgroup owns 64 rows.  The unscaled q
+// tile stays in shared memory; k and v tiles of 64 keys, shared by both
+// warpgroups, are double-buffered by TMA (one thread issues a 4-d box a
+// tile, an mbarrier a stage counts its bytes; rows past S and dims past D
+// land as zeros).  Shared tiles use wgmma's unswizzled layout: 8-row by
+// 16-byte core matrices, a tile [D / 8][rows] of 16-byte chunks, which the
+// tensor map writes directly (its chunk dim strides 16 bytes, its row dim 2 D).
+// S = Q K^T is an SS wgmma m64n64k16 (K-major, D contiguous); p_hi and p_lo
+// are packed from the S accumulators straight into A-operand registers (the
+// accumulator and A fragments share their layout), and O += P V is an RS
+// wgmma m64nDPk16 with v read MN-major (the transpose flag), DP the head dim
+// rounded up to 16, 32, 64 or 128 (zero-filled dims add exact zeros).  What
+// bounds it on the card is the CUDA cores: per (query, key) pair about 20
+// instructions (scale, max, an IEEE expf, sum, the split), against 6
+// tensor-core operations per dim.
+//
+// Both kernels: every sum runs in an order fixed by the tile sizes (no float
+// atomics, no TF32, no fast math), so a head gives the same bits alone or in a
+// batch, and every run the same bits.  A key tile masked for every row of the
+// block is skipped when every row of the block sees some key: for such a row
+// the tile adds p = 0 and multiplies by corr = 1.  Otherwise (a row with no
+// visible key) every tile is taken.
+//
+// Bound: operations.  The CUDA-core tile: 4 * T * S * D per head (a multiply
+// and an add per q k^T and per p v term), halved for causal, at the f32 rate.
+// The tensor-core kernel: 6 * T * S * D (p v twice) at the bf16 tensor-core
+// rate.  The bytes are q, k, v read once and o written once.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -250,6 +286,454 @@ cudaError_t launch_flash_typed(const void* q, const void* k, const void* v, void
                                        q_offset, k_offset, scale, stream);
 }
 
+// ---------------------------------------------------------------------------
+// flash_attention_tc_kernel: bf16 on the tensor cores (see the note above).
+// ---------------------------------------------------------------------------
+constexpr int kTcKeys = 64;  // keys per tile
+constexpr int kTcGroups = 2;  // warpgroups per block, each 64 query rows
+
+// wgmma shared-memory descriptor, no swizzle: start, LBO and SBO in bytes
+__device__ __forceinline__ uint64_t tc_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32);
+}
+
+// mbarrier and TMA (cp.async.bulk.tensor) helpers
+__device__ __forceinline__ void tc_mbar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void tc_mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void tc_mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+__device__ __forceinline__ void tc_tma(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                       int c2, int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tc_wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void tc_wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void tc_wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across a wgmma
+template <int N>
+__device__ __forceinline__ void tc_fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D[64, N] (+)= A[64, 16] B[16, N], bf16 in, f32 accumulators.  SS: A and B
+// K-major in shared memory.  RS: A from registers, B MN-major (transposed).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int DP>
+__device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2], const uint32_t* a,
+                                         uint64_t b) {
+  if constexpr (DP == 16) wgmma_rs_n16(d, a, b);
+  else if constexpr (DP == 32) wgmma_rs_n32(d, a, b);
+  else if constexpr (DP == 64) wgmma_rs_n64(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+__device__ __forceinline__ uint32_t tc_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+
+// The f32 softmax step of one key tile on a warp's S fragment (rows r0 and
+// r0 + 8): scale, mask, row max over the quad, corr, p = exp(s - m_new),
+// this thread's share of the row sums, and p split into bf16 hi and lo
+// packed as wgmma A operands (phi[i] holds the pair s[2i], s[2i + 1], row r0
+// for even i).  The maxima and sums run in four interleaved parts for the
+// instruction-level parallelism, combined in a fixed order.
+template <int NS>
+__device__ __forceinline__ void tc_softmax(float (&s)[NS], uint32_t (&phi)[NS / 2],
+                                           uint32_t (&plo)[NS / 2], float& m0, float& m1,
+                                           float& l0, float& l1, float& corr0, float& corr1,
+                                           bool full, long long d0, int c0, int causal,
+                                           int window, int keys, float scale) {
+  float mx[2][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) mx[0][j] = mx[1][j] = -CUDART_INF_F;
+  if (full) {  // every row sees every key of the tile
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      s[i] = __fmul_rn(s[i], scale);
+      mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], s[i]);
+    }
+  } else {
+    // column col (less this thread's first column c0) of row r is visible
+    // iff lo_r < col <= hi_r, and a key at all iff col < kc; d0 is row r0's
+    // position less the tile's first key
+    auto bound = [&](long long x) { return (int)max(-2LL, min(x, 70LL)) - c0; };
+    const int hi0 = causal ? bound(d0) : 70, hi1 = causal ? bound(d0 + 8) : 70;
+    const int lo0 = window ? bound(d0 - window) : -70;
+    const int lo1 = window ? bound(d0 + 8 - window) : -70;
+    const int kc = keys - c0;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int col = 8 * (i / 4) + (i & 1);
+      const bool row1 = i & 2;
+      const bool visible = (row1 ? lo1 : lo0) < col && col <= (row1 ? hi1 : hi0);
+      // a key past S is no key at all: exp(-inf - m) adds nothing
+      s[i] = col >= kc ? -CUDART_INF_F : (visible ? __fmul_rn(s[i], scale) : kFaNeg);
+      mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], s[i]);
+    }
+  }
+  float mx0 = fmaxf(fmaxf(mx[0][0], mx[0][1]), fmaxf(mx[0][2], mx[0][3]));
+  float mx1 = fmaxf(fmaxf(mx[1][0], mx[1][1]), fmaxf(mx[1][2], mx[1][3]));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xFFFFFFFFu, mx0, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xFFFFFFFFu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xFFFFFFFFu, mx1, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xFFFFFFFFu, mx1, 2));
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  corr0 = expf(__fsub_rn(m0, mn0));
+  corr1 = expf(__fsub_rn(m1, mn1));
+  m0 = mn0;
+  m1 = mn1;
+  float sm[2][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sm[0][j] = sm[1][j] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS / 2; ++i) {
+    const float mn = (i & 1) ? mn1 : mn0;
+    const float pa = expf(__fsub_rn(s[2 * i], mn));
+    const float pb = expf(__fsub_rn(s[2 * i + 1], mn));
+    float& part = sm[i & 1][(i >> 1) & 3];
+    part = __fadd_rn(__fadd_rn(part, pa), pb);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(pa, pb);
+    const float2 hf = __bfloat1622float2(hi);
+    phi[i] = tc_bits(hi);
+    plo[i] = tc_bits(__floats2bfloat162_rn(__fsub_rn(pa, hf.x), __fsub_rn(pb, hf.y)));
+  }
+  l0 = __fadd_rn(__fmul_rn(l0, corr0),
+                 __fadd_rn(__fadd_rn(sm[0][0], sm[0][1]), __fadd_rn(sm[0][2], sm[0][3])));
+  l1 = __fadd_rn(__fmul_rn(l1, corr1),
+                 __fadd_rn(__fadd_rn(sm[1][0], sm[1][1]), __fadd_rn(sm[1][2], sm[1][3])));
+}
+
+// Registers: at most 128 a thread (two blocks a SM) up to DP = 64, no spill;
+// DP = 128 takes about 170 (one block), where 128 would spill.
+template <int DP>
+__global__ void __launch_bounds__(128 * kTcGroups, DP == 128 ? 1 : 2)
+flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, int group,
+                          int causal, int window, long long q_offset, long long k_offset,
+                          float scale, const __grid_constant__ CUtensorMap mq,
+                          const __grid_constant__ CUtensorMap mk,
+                          const __grid_constant__ CUtensorMap mv) {
+  constexpr int ROWS = 64 * kTcGroups;
+  constexpr int TILE = kTcKeys * DP * 2;  // bytes of a k or v tile
+  constexpr int NS = kTcKeys / 2;         // score accumulators a thread
+  constexpr int NO = DP / 2;              // output accumulators a thread
+  // shared: the q tile, two stages of a k and a v tile, an mbarrier a stage
+  extern __shared__ __align__(128) unsigned char tc_buf[];
+  const uint32_t sq = static_cast<uint32_t>(__cvta_generic_to_shared(tc_buf));
+  const uint32_t skv = sq + ROWS * DP * 2;
+  const uint32_t sbar = skv + 4 * TILE;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (tid == 0) {
+    tc_mbar_init(sbar);
+    tc_mbar_init(sbar + 8);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  const int bh = blockIdx.y, kvh = bh / group;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;  // longest causal rows first
+  const int rows = min(ROWS, T - q0);
+
+  // Tiles masked for the whole block may be skipped only if every row of
+  // the block sees some key in [k_offset, k_offset + S).
+  int sees = 1;
+  if (tid < rows) {
+    const long long qp = q_offset + q0 + tid;
+    long long lo = k_offset, hi = k_offset + S - 1;
+    if (causal) hi = min(hi, qp);
+    if (window) lo = max(lo, qp - window + 1);
+    sees = lo <= hi;
+  }
+  const bool may_skip = __syncthreads_and(sees) && window >= 0;
+  const long long qa = q_offset + q0, qb = qa + rows - 1;
+  // the tiles with a visible (row, key) pair form one run [t_lo, t_hi]
+  const int nt = (S + kTcKeys - 1) / kTcKeys;
+  auto any = [&](int t) {
+    const long long ka = k_offset + (long long)t * kTcKeys;
+    const long long kb = ka + min(kTcKeys, S - t * kTcKeys) - 1;
+    return (!causal || ka <= qb) && (!window || kb > qa - window);
+  };
+  int t_lo = 0, t_hi = nt - 1;
+  if (may_skip) {
+    while (t_lo < t_hi && !any(t_lo)) ++t_lo;
+    while (t_hi > t_lo && !any(t_hi)) --t_hi;
+  }
+  // tile t lands in stage (t - t_lo) & 1, its bytes counted by that stage's
+  // mbarrier; thread 0 issues every copy, each one TMA box
+  auto load_kv = [&](int t, uint32_t extra) {
+    const int st = (t - t_lo) & 1;
+    const uint32_t dst = skv + 2 * TILE * st, bar = sbar + 8 * st;
+    tc_mbar_expect(bar, 2 * TILE + extra);
+    tc_tma(dst, &mk, 0, t * kTcKeys, 0, kvh, bar);
+    tc_tma(dst + TILE, &mv, 0, t * kTcKeys, 0, kvh, bar);
+  };
+  if (tid == 0) {  // the q tile joins the first tile's stage
+    load_kv(t_lo, ROWS * DP * 2);
+    tc_tma(sq, &mq, 0, q0, 0, bh, sbar);
+  }
+
+  // accumulator fragment: rows r0 and r0 + 8 of the block (warpgroup
+  // warp / 4 takes rows 64 (warp / 4) ..), in each 8-column chunk c the
+  // columns 8c + c0 and 8c + c0 + 1 (registers 4c .. 4c + 3)
+  const int wg = warp >> 2;
+  const int r0 = 64 * wg + (warp & 3) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  const long long qp0 = qa + r0;  // row r0's position; r0 + 8's is qp0 + 8
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;  // l: this thread's keys
+  // wgmma descriptors, no swizzle: LBO steps along K, SBO along M or N; a
+  // step of b bytes adds b / 16 to the start field (shared addresses stay
+  // under 256 KB, so the 14-bit field never carries)
+  const uint64_t dq = tc_desc(sq + 64 * 16 * wg, ROWS * 16, 128);
+  const uint64_t dk = tc_desc(skv, kTcKeys * 16, 128);
+  const uint64_t dv = tc_desc(skv + TILE, 128, kTcKeys * 16);
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int k0 = t * kTcKeys, keys = min(kTcKeys, S - k0);
+    const uint64_t stage = (uint64_t)(2 * TILE / 16) * ((t - t_lo) & 1);
+    // tile t + 1 lands in the other stage while tile t is used
+    if (tid == 0 && t < t_hi) load_kv(t + 1, 0);
+    tc_mbar_wait(sbar + 8 * ((t - t_lo) & 1), ((t - t_lo) >> 1) & 1);
+
+    // S = Q K^T: this warpgroup's q rows and k, both K-major, 16 dims a step
+    float s[NS];
+    tc_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      wgmma_ss_n64(s, dq + kk * 2 * ROWS, dk + stage + kk * 2 * kTcKeys, kk > 0);
+    tc_wgmma_commit();
+    tc_wgmma_wait();
+    tc_fence_regs(s);
+
+    // a tile every row sees whole takes no mask
+    const long long ka = k_offset + k0, kb = ka + keys - 1;
+    const bool full =
+        keys == kTcKeys && (!causal || kb <= qa) && (!window || ka > qb - window);
+    uint32_t phi[NS / 2], plo[NS / 2];
+    float corr0, corr1;
+    tc_softmax<NS>(s, phi, plo, m0, m1, l0, l1, corr0, corr1, full, qp0 - ka, c0, causal,
+                   window, keys, scale);
+    // acc * 1 is acc: a warp whose rows all keep their max skips the rescale
+    if (__any_sync(0xFFFFFFFFu, corr0 != 1.f || corr1 != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc[i] = __fmul_rn(acc[i], (i & 2) ? corr1 : corr0);
+    }
+
+    // acc += p_hi v + p_lo v, v MN-major (transposed), 16 keys a step
+    tc_fence_regs(acc);
+    tc_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk) {
+      wgmma_rs<DP>(acc, phi + 4 * kk, dv + stage + kk * 16);
+      wgmma_rs<DP>(acc, plo + 4 * kk, dv + stage + kk * 16);
+    }
+    tc_wgmma_commit();
+    tc_wgmma_wait();
+    tc_fence_regs(acc);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // (l_0 + l_1) + (l_2 + l_3) over the quad, on all four lanes
+  l0 = __fadd_rn(l0, __shfl_xor_sync(0xFFFFFFFFu, l0, 1));
+  l0 = __fadd_rn(l0, __shfl_xor_sync(0xFFFFFFFFu, l0, 2));
+  l1 = __fadd_rn(l1, __shfl_xor_sync(0xFFFFFFFFu, l1, 1));
+  l1 = __fadd_rn(l1, __shfl_xor_sync(0xFFFFFFFFu, l1, 2));
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  __nv_bfloat16* o0 = o + ((long long)bh * T + q0 + r0) * D;
+  __nv_bfloat16* o1 = o0 + 8 * (long long)D;
+#pragma unroll
+  for (int c = 0; c < NO / 4; ++c) {
+    const int col = 8 * c + c0;
+    if (col >= D) continue;
+    if (r0 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(o0 + col) = __floats2bfloat162_rn(
+          __fdiv_rn(acc[4 * c], den0), __fdiv_rn(acc[4 * c + 1], den0));
+    if (r0 + 8 < rows)
+      *reinterpret_cast<__nv_bfloat162*>(o1 + col) = __floats2bfloat162_rn(
+          __fdiv_rn(acc[4 * c + 2], den1), __fdiv_rn(acc[4 * c + 3], den1));
+  }
+}
+
+typedef CUresult (*TcEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda)
+static TcEncodeTiled tc_encoder() {
+  static TcEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) ==
+            cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<TcEncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A [heads, rows, D] bf16 array as TMA sees it: one box is a [DP / 8][box]
+// tile of 16-byte chunks, chunk (g, i) holding row i's dims 8g .. 8g + 7 (the
+// unswizzled wgmma layout); dims past D and rows past `rows` land as zeros.
+static bool tc_tensor_map(CUtensorMap* map, const void* base, int heads, int rows, int D,
+                          int DP, int box) {
+  TcEncodeTiled encode = tc_encoder();
+  if (encode == nullptr) return false;
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  // dims, innermost first: the 8 values of a chunk, rows, chunks, heads (the
+  // chunks' stride, 16 bytes, below the rows': the box lands chunk-major)
+  const cuuint64_t dims[4] = {8, (cuuint64_t)rows, (cuuint64_t)(D / 8), (cuuint64_t)heads};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, 16, (cuuint64_t)rows * D * 2};
+  const cuuint32_t boxd[4] = {8, (cuuint32_t)box, (cuuint32_t)(DP / 8), 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                strides, boxd, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DP>
+cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, void* o, int BH,
+                            int T, int S, int D, int group, int causal, int window,
+                            long long q_offset, long long k_offset, float scale,
+                            cudaStream_t stream) {
+  constexpr int ROWS = 64 * kTcGroups;
+  CUtensorMap mq, mk, mv;
+  if (!tc_tensor_map(&mq, q, BH, T, D, DP, ROWS) ||
+      !tc_tensor_map(&mk, k, BH / group, S, D, DP, kTcKeys) ||
+      !tc_tensor_map(&mv, v, BH / group, S, D, DP, kTcKeys))
+    return cudaErrorInvalidValue;
+  // the q tile, two stages of a k and a v tile, two mbarriers
+  const size_t smem = ((size_t)ROWS + 4 * kTcKeys) * DP * 2 + 16;
+  auto kernel = flash_attention_tc_kernel<DP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((unsigned)((T + ROWS - 1) / ROWS), (unsigned)BH);
+  kernel<<<grid, 128 * kTcGroups, smem, stream>>>(
+      (__nv_bfloat16*)o, T, S, D, group, causal, window, q_offset, k_offset, scale, mq, mk,
+      mv);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    int bf16, int BH, int T, int S, int D, int group,
                                    int causal, int window, long long q_offset,
@@ -257,6 +741,20 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, 
   if (BH < 1 || BH > 65535 || T < 1 || S < 1 || D < 1 || D > 256 || group < 1 ||
       BH % group != 0)
     return cudaErrorInvalidValue;
+  if (bf16 && D % 16 == 0 && D <= 128) {  // the tensor-core route
+    if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16) return cudaErrorMisalignedAddress;
+    if (D <= 16)
+      return launch_flash_tc<16>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
+                                 k_offset, scale, stream);
+    if (D <= 32)
+      return launch_flash_tc<32>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
+                                 k_offset, scale, stream);
+    if (D <= 64)
+      return launch_flash_tc<64>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
+                                 k_offset, scale, stream);
+    return launch_flash_tc<128>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
+                                k_offset, scale, stream);
+  }
   if (bf16)
     return launch_flash_typed<__nv_bfloat16>(q, k, v, o, BH, T, S, D, group, causal,
                                              window, q_offset, k_offset, scale, stream);

@@ -1,4 +1,4 @@
-"""Forward flash attention: CUDA kernel and plain twin.
+"""Forward flash attention: CUDA kernels and plain twin.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
 (launcher ``flash_attention_pallas``, model-layout wrapper
@@ -11,16 +11,25 @@ row, as the TPU kernel computes it: q scaled by ``1/sqrt(D)`` in f32
 *before* the q k^T product, masked scores ``-1e30`` (causal ``k_pos <=
 q_pos``, window ``k_pos > q_pos - window``, positions ``q_offset + t`` and
 ``k_offset + s``), an online softmax over key chunks from a running max of
--inf, all math in f32 (also ``p v`` for bf16 inputs), and ``acc / max(l,
-1e-30)``.  A row that sees no key returns the mean of v, not NaN.
-``qc``/``kc`` must divide T/S as the TPU launcher asserts; the plain twin
-chunks by them, the CUDA kernel by its own tiles (64 query rows, 32 or 64
-keys), so the two agree to f32 tolerance, as the JAX package's
-block-size invariance test holds different chunkings.  Head dims 1..256.
+-inf, all math in f32, and ``acc / max(l, 1e-30)``.  A row that sees no
+key returns the mean of v, not NaN.  ``qc``/``kc`` must divide T/S as the
+TPU launcher asserts; the plain twin chunks by them, the CUDA kernels by
+their own tiles (64 or 128 query rows, 32 or 64 keys), so the two agree to f32
+tolerance, as the JAX package's block-size invariance test holds different
+chunkings.  Head dims 1..256.
 
-The CUDA kernel (``csrc/flash_attention.cu``) gives each (head, 64 query
-rows) one block with f32 products on the CUDA cores (no TF32, no tensor
-cores) and sums in an order fixed by its tiles: a head gives the same bits
+The CUDA launcher (``csrc/flash_attention.cu``) routes by dtype and head
+dim alone (:func:`tensor_core_route`).  f32 inputs, and bf16 inputs with
+another D, run the CUDA-core tile: the function above, f32 products, no
+TF32.  bf16 inputs with ``D % 16 == 0`` and ``D <= 128`` run the
+tensor-core kernel, whose function differs in two places: ``s = (q k^T) *
+(1/sqrt(D))``, the bf16 products exact in f32 and summed in f32, then
+scaled; and ``acc = acc corr + p_hi v + p_lo v`` with ``p_hi = bf16(p)``
+and ``p_lo = bf16(p - p_hi)``, two bf16 products into one f32 accumulator
+(``l`` sums the f32 ``p``).  A single bf16 cast of ``p`` would move the
+output by more than one bf16 rounding step; the split stays within it
+(rtol 2^-7, atol 1e-5, ``tests/test_torch_flash_attention.py``).  Both
+kernels sum in an order fixed by their tiles: a head gives the same bits
 alone or in a batch, and repeated runs the same bits.
 """
 from __future__ import annotations
@@ -57,6 +66,12 @@ def _check_inputs(q, k, v, group: int, qc: int, kc: int):
     if T < 1 or S < 1 or T % min(qc, T) or S % min(kc, S):
         raise ValueError(f"qc={qc} and kc={kc} must divide T={T} and S={S}")
     return BH, T, S, D
+
+
+def tensor_core_route(dtype, D: int) -> bool:
+    """Whether the CUDA launcher runs the tensor-core kernel: bf16 inputs
+    with a head dim that is a multiple of 16 up to 128."""
+    return dtype == torch.bfloat16 and D % 16 == 0 and D <= 128
 
 
 def flash_attention_plain(q, k, v, *, group: int = 1, causal: bool = True,
@@ -105,12 +120,16 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
     """Launch the CUDA flash-attention kernel on PyTorch's current stream.
 
     Takes CUDA tensors only and raises on anything else.  Adds one to
-    ``flash_attention_cuda.launches`` per launch."""
+    ``flash_attention_cuda.launches`` per launch, and to ``.tc_launches``
+    per launch of the tensor-core kernel."""
     BH, T, S, D = _check_inputs(q, k, v, group, qc, kc)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda takes CUDA tensors; got "
                          f"{q.device}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    # the tensor-core kernel copies 16-byte chunks: a view that starts off
+    # that alignment is copied to fresh (aligned) memory
+    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+               for t in (q.contiguous(), k.contiguous(), v.contiguous()))
     out = torch.empty_like(q)
     lib = build.library()
     with torch.cuda.device(q.device):
@@ -121,10 +140,12 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
             window, q_offset, k_offset, 1.0 / (D ** 0.5), stream)
     build.check(err, "flash_attention")
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.tc_launches += tensor_core_route(q.dtype, D)
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.tc_launches = 0
 
 
 def flash_attention_bh(q, k, v, *, group: int = 1, causal: bool = True,

@@ -537,8 +537,11 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
 
 
 @pytest.mark.cuda
-# bf16: kernel and plain version take the same inputs and compute in f32,
-# so their outputs differ by at most one bf16 rounding step (2^-7 relative)
+# bf16 with D % 16 == 0 and D <= 128 runs the tensor-core kernel: s from
+# exact bf16 products summed in f32, then scaled, and p v as p_hi v + p_lo v
+# (p split into two bf16 parts, about 16 bits of p); other bf16 head dims and
+# f32 run the f32 tile.  Either way the output is within one bf16 rounding
+# step (2^-7 relative) of the plain version's f32 function
 @pytest.mark.parametrize("dtype, rtol, atol", [(torch.float32, 5e-5, 5e-5),
                                                (torch.bfloat16, 2 ** -7, 1e-5)])
 @pytest.mark.parametrize("D, T, S, kw", [
@@ -548,6 +551,16 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
     (256, 64, 64, dict(causal=True, q_offset=5, k_offset=3, qc=32, kc=32)),
     # rows 0-39 see no key: the mean of v
     (16, 64, 64, dict(causal=True, k_offset=40, qc=32, kc=32)),
+    # T and S off the kernels' tiles (64 and 128 query rows, 64 keys)
+    (32, 200, 328, dict(causal=True, window=50, q_offset=7, k_offset=3,
+                        qc=40, kc=41)),
+    (64, 200, 328, dict(causal=True, q_offset=128, qc=100, kc=82)),
+    # rows 0-49 see no key (k_offset 150 past them): the mean of v
+    (128, 200, 328, dict(causal=True, window=90, q_offset=100, k_offset=150,
+                         qc=50, kc=41)),
+    # shorter than one tile: a single query row (a decode step), few keys
+    (64, 1, 40, dict(causal=True, q_offset=39)),
+    (128, 40, 24, dict(causal=False, qc=40, kc=24)),
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, rtol, atol, D, T, S,
                                            kw):
@@ -586,10 +599,12 @@ def test_flash_attention_matches_chunked_attention_on_the_card(cuda, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype):
+@pytest.mark.parametrize("dtype, D", [(torch.float32, 64),
+                                      (torch.bfloat16, 64),
+                                      (torch.bfloat16, 128)])
+def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype, D):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
-    q, k, v = _attention_inputs(5, 8, 200, 200, 64, 2, dtype, cuda)
+    q, k, v = _attention_inputs(5, 8, 200, 200, D, 2, dtype, cuda)
     kw = dict(group=2, causal=True, window=77, qc=40, kc=40)
     bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
     batched = flash_attention_cuda(q, k, v, **kw)
@@ -599,3 +614,34 @@ def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype):
         one = flash_attention_cuda(q[h:h + 1], k[h // 2:h // 2 + 1],
                                    v[h // 2:h // 2 + 1], **dict(kw, group=1))
         assert torch.equal(one[0].view(bits), batched[h].view(bits))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, D, symbol", [
+    (torch.bfloat16, 64, "flash_attention_tc_kernel"),
+    (torch.bfloat16, 128, "flash_attention_tc_kernel"),
+    (torch.bfloat16, 28, "flash_attention_kernel"),
+    (torch.float32, 64, "flash_attention_kernel"),
+])
+def test_flash_route_runs_the_named_kernel(cuda, dtype, D, symbol):
+    """The launcher's static route, as the profiler sees it: bf16 with D a
+    multiple of 16 up to 128 on the tensor-core kernel, the rest on the f32
+    tile (whose name is no part of the other's)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q, k, v = _attention_inputs(8, 4, 128, 128, D, 2, dtype, cuda)
+    flash_attention_cuda(q, k, v, group=2)
+    torch.cuda.synchronize()
+    for _ in range(3):   # a trace can come back without device activity
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_attention_cuda(q, k, v, group=2)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA and "flash" in e.name]
+        if names:
+            break
+    assert names and all(symbol in n for n in names), names
+    other = ({"flash_attention_tc_kernel", "flash_attention_kernel"}
+             - {symbol}).pop()
+    assert not any(other in n for n in names), names

@@ -3,8 +3,13 @@
 ``repro_torch.models.attention.chunked_attention`` against the JAX
 package, at the JAX tests' tolerances (``tests/test_flash_attention.py``):
 2e-4 against ``chunked_attention``, 5e-5 for f32 inputs and 3e-2 for bf16
-inputs against the f32 oracle, block sizes within 1e-5 of each other."""
+inputs against the f32 oracle, block sizes within 1e-5 of each other.
+The tensor-core kernel's bf16 function (``p v`` as ``p_hi v + p_lo v``) is
+emulated here in plain PyTorch and held to the card's gate of one bf16
+step (rtol 2^-7, atol 1e-5) against the plain version and the JAX
+kernel."""
 import functools
+import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -176,3 +181,80 @@ def test_bad_inputs_raise():
     wide = torch.zeros(1, 8, 257)
     with pytest.raises(ValueError, match="outside 1..256"):
         flash_attention_bh(wide, wide, wide)
+
+
+# The CUDA tensor-core kernel's function on bf16 inputs, emulated in plain
+# PyTorch: s = (q k^T) * scale from bf16 values (products exact in f32),
+# the f32 mask and online softmax over its key tiles of 64, and p v as
+# bf16(p) v + bf16(p - bf16(p)) v, or with `split=False` as the single
+# cast bf16(p) v that a FlashAttention kernel takes.
+def _tensor_core_emulation(q, k, v, *, group, causal, window, split=True,
+                           kc=64):
+    BH, T, D = q.shape
+    S = k.shape[1]
+    heads = torch.arange(BH) // group
+    qf, kf, vf = q.float(), k.float()[heads], v.float()[heads]
+    q_pos = torch.arange(T)
+    m = torch.full((BH, T), -math.inf)
+    l = torch.zeros((BH, T))
+    acc = torch.zeros((BH, T, D))
+    for k0 in range(0, S, kc):
+        kb, vb = kf[:, k0:k0 + kc], vf[:, k0:k0 + kc]
+        s = torch.matmul(qf, kb.transpose(1, 2)) * (1.0 / D ** 0.5)
+        k_pos = k0 + torch.arange(kb.shape[1])
+        mask = torch.ones(s.shape[1:], dtype=torch.bool)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        p_hi = p.bfloat16().float()
+        acc = acc * corr[..., None] + torch.matmul(p_hi, vb)
+        if split:
+            acc = acc + torch.matmul((p - p_hi).bfloat16().float(), vb)
+        m = m_new
+    return (acc / torch.clamp(l, min=1e-30)[..., None]).bfloat16()
+
+
+# D, T = S, window (causal throughout): bf16 unit-normal inputs, the scale
+# at which the gate holds for every f32 variant of the function
+TC_CASES = [(64, 256, 0), (64, 512, 128), (128, 256, 96), (128, 512, 0)]
+
+
+@functools.lru_cache(maxsize=None)
+def _tensor_core_case(case):
+    D, T, window = case
+    rng = np.random.default_rng(D + T + window)
+    q, k, v = (torch.from_numpy(rng.standard_normal((n, T, D), np.float32))
+               .bfloat16() for n in (4, 2, 2))
+    kw = dict(group=2, causal=True, window=window)
+    plain = flash_attention_plain(q, k, v, qc=128, kc=128, **kw)
+    pallas = flash_attention_pallas(
+        *(jnp.asarray(a.float().numpy(), jnp.bfloat16) for a in (q, k, v)),
+        qc=128, kc=128, interpret=True, **kw)
+    pallas = torch.from_numpy(np.asarray(pallas, np.float32))
+    return (q, k, v), kw, plain.float(), pallas
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tensor_core_function_is_one_bf16_step_from_the_f32_one(case):
+    """The split keeps p to about 16 bits: within one bf16 rounding step of
+    the plain version and of the JAX interpret-mode kernel."""
+    (q, k, v), kw, plain, pallas = _tensor_core_case(case)
+    got = _tensor_core_emulation(q, k, v, **kw).float()
+    for want in (plain, pallas):
+        torch.testing.assert_close(got, want, rtol=2 ** -7, atol=1e-5)
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_single_bf16_cast_of_p_breaks_the_gate(case):
+    """Why the kernel splits p: one bf16 cast of p before p v moves outputs
+    by more than one bf16 step from the f32 function."""
+    (q, k, v), kw, plain, _ = _tensor_core_case(case)
+    got = _tensor_core_emulation(q, k, v, split=False, **kw).float()
+    outside = (got - plain).abs() > 1e-5 + 2 ** -7 * plain.abs()
+    assert outside.sum().item() > 0
