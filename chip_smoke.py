@@ -24,9 +24,10 @@ gradient-compression path (``repro_torch.optim.compression``) runs eight
 ``compressed_update`` steps on the card at one TinyLlama-1.1B layer's
 gradient (44,044,288 values), through the dense CountSketch kernel (B14),
 and the flash-attention entry point (``repro_torch.kernels.
-flash_attention.flash_attention``) runs TinyLlama's attention shape and
-Mistral-NeMo's heads (B15: f32 through the f32 tile, bf16 through the
-tensor-core kernel), each kernel first held against its plain version.
+flash_attention.flash_attention``) runs TinyLlama's attention shape,
+Mistral-NeMo's heads and Gemma-7B's (B15: f32 up to D = 128 through the
+f32 tensor-core kernel, bf16 through the bf16 one, f32 at D = 256 through
+the CUDA-core tile), each kernel first held against its plain version.
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero on
 any failure, and at once when no card is present.  Each phase prints its
 wall time.  The line before the last is a JSON object with each kernel's
@@ -144,13 +145,17 @@ GRAD_T = (TL_D_MODEL * (2 * TL_HEADS + 2 * TL_KV_HEADS) * TL_HEAD_DIM
 COMPRESS_STEPS = 8
 # flash attention at TinyLlama's attention (B = 1, T = S = 4,096), and
 # cases at Mistral-NeMo's heads (repro/configs/mistral_nemo_12b.py: 32
-# heads, 8 KV heads, head_dim 128): label, H, K, D, dtype, window, and the
-# (rtol, atol) against the plain version (the TPU kernel's f32 function):
-# f32 the JAX tests' 5e-5.  bf16 one bf16 rounding step: the bf16 cases
-# (D % 16 == 0, D <= 128) run the tensor-core kernel, whose s sums exact
-# bf16 products in f32 before the scale and whose p v is p_hi v + p_lo v (p
-# split into two bf16 parts), so it stays within f32 rounding of that
-# function and differs where the results round to neighbouring bf16 values
+# heads, 8 KV heads, head_dim 128) and Gemma-7B's (repro/configs/
+# gemma_7b.py: 16 heads, 16 KV heads, head_dim 256, past the tensor-core
+# kernels: the f32 tile): label, H, K, D, dtype, window, and the (rtol,
+# atol) against the plain version (the TPU kernel's f32 function): f32 the
+# JAX tests' 5e-5 (the f32 tensor-core kernel splits q scale, k, v and p
+# into three bf16 parts and sums six part-products: within f32 rounding).
+# bf16 one bf16 rounding step: the bf16 cases (D % 16 == 0, D <= 128) run
+# the bf16 tensor-core kernel, whose s sums exact bf16 products in f32
+# before the scale and whose p v is p_hi v + p_lo v (p split into two bf16
+# parts), so it stays within f32 rounding of that function and differs
+# where the results round to neighbouring bf16 values
 FLASH_T = 4096
 F32_TOL, BF16_TOL = (5e-5, 5e-5), (2 ** -7, 1e-5)
 FLASH_CASES = (
@@ -161,16 +166,23 @@ FLASH_CASES = (
     ("causal f32 window 1024", TL_HEADS, TL_KV_HEADS, TL_HEAD_DIM,
      torch.float32, 1024, F32_TOL),
     ("causal f32 D=128", 32, 8, 128, torch.float32, 0, F32_TOL),
-    ("causal bf16 D=128", 32, 8, 128, torch.bfloat16, 0, BF16_TOL))
+    ("causal bf16 D=128", 32, 8, 128, torch.bfloat16, 0, BF16_TOL),
+    ("causal f32 D=256", 16, 16, 256, torch.float32, 0, F32_TOL))
 # the cases held per head == batched, bit for bit
-FLASH_PER_HEAD = ("causal f32", "causal bf16", "causal bf16 D=128")
+FLASH_PER_HEAD = ("causal f32", "causal bf16", "causal f32 window 1024",
+                  "causal f32 D=128", "causal bf16 D=128", "causal f32 D=256")
 # the flash_attention entry point against the port's chunked_attention
 # (scale after the product, bf16 p before p v): the JAX tests' tolerances
 ORACLE_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
-# dense bf16 rate of the tensor cores: the tensor-core kernel's bound (6
-# operations per visible (query, key) pair and dim, p v taken twice), and
-# beside it the 4-operation bound of a kernel with one bf16 p
+# dense bf16 rate of the tensor cores: the bound of the bf16 tensor-core
+# kernel (6 operations per visible (query, key) pair and dim, p v taken
+# twice; beside it the 4-operation bound of a kernel with one bf16 p) and of
+# the f32 one (24: six part-products each for q k^T and p v; beside it the
+# 4-operation floor of f32 FMAs on the CUDA cores)
 BF16_TC_OPS_PER_S = 989e12
+# operations per visible pair and dim, by the kernel the route takes
+FLASH_OPS = {"flash_attention_kernel": 4, "flash_attention_tc_kernel": 6,
+             "flash_attention_f32tc_kernel": 24}
 
 
 def log(msg: str) -> None:
@@ -263,6 +275,11 @@ def device_ms(fn, symbols, reps: int = 10, traces: int = 4):
                        if e.device_type == DeviceType.CUDA and sym in e.name]
                  for sym in symbols}
         if all(spans.values()):
+            for sym, v in spans.items():
+                if max(v) > 1.5 * min(v):   # a trace to look into
+                    log(f"device_ms: {len(v)} launches of {sym} in "
+                        f"{reps} calls, {min(v) / 1e3:.4f} to "
+                        f"{max(v) / 1e3:.4f} ms")
             return sum(sum(v) / len(v) for v in spans.values()) / 1e3, \
                 "profiler"
         log(f"device_ms: trace {attempt + 1} recorded no launch of "
@@ -1381,22 +1398,22 @@ def visible_pairs(T: int, window: int) -> int:
 
 
 def flash_attention_kernel_phase():
-    """B15 at TinyLlama's attention shape and Mistral-NeMo's heads against
-    its plain version (f32 within 5e-5, bf16 within one bf16 rounding
-    step), a launch per head == the batched launch
-    and a repeat, bit for bit; timed (device time under the symbol of the
-    kernel that the route takes: ``flash_attention_tc_kernel`` for bf16,
-    ``flash_attention_kernel`` for f32) against its bound (f32 tile:
+    """B15 at TinyLlama's attention shape, Mistral-NeMo's heads and
+    Gemma-7B's against its plain version (f32 within 5e-5, bf16 within one
+    bf16 rounding step), a launch per head == the batched launch and a
+    repeat, bit for bit; timed (device time under the symbol of the kernel
+    that the route takes, ``kernel_route``) against its bound (f32 tile:
     operations, 4 per visible (query, key) pair and dim at the f32 rate;
-    tensor-core kernel: 6 at the bf16 tensor-core rate; bytes: q, k, v, o
-    once) and against one ``scaled_dot_product_attention`` call (k/v
-    expanded to every head before the call; the window case with a
-    boolean mask).  Then the entry point ``flash_attention`` (model layout)
-    runs the five cases, its counters set to 0 just before and read just
-    after; each output equals the batched launch bit for bit and lies
-    within ORACLE_TOL of the port's ``chunked_attention``, B15's oracle.
-    Returns (reports, the entry point's launches of the f32 tile and of
-    the tensor-core kernel)."""
+    bf16 tensor-core kernel: 6, f32 tensor-core kernel: 24, at the bf16
+    tensor-core rate; bytes: q, k, v, o once) and against one
+    ``scaled_dot_product_attention`` call (k/v expanded to every head
+    before the call; the window case with a boolean mask).  Then the entry
+    point ``flash_attention`` (model layout) runs the six cases, its
+    counters set to 0 just before and read just after: each kernel's count
+    equals the cases routed to it, and each kernel runs; each output equals
+    the batched launch bit for bit and lies within ORACLE_TOL of the port's
+    ``chunked_attention``, B15's oracle.  Returns (reports, the entry
+    point's launches by kernel name)."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models.attention import chunked_attention
@@ -1431,18 +1448,16 @@ def flash_attention_kernel_phase():
                 if not torch.equal(one[0].view(bits), got[h].view(bits)):
                     raise AssertionError(f"B15 {label}: head {h} alone "
                                          "differs from the batched launch")
-        tc = kfa.tensor_core_route(dtype, D)
+        symbol = kfa.kernel_route(dtype, D)
         ops = 4 * H * visible_pairs(FLASH_T, window) * D
         bytes_moved = (2 * H + 2 * K) * FLASH_T * D * got.element_size()
-        if tc:   # 6 operations a pair and dim at the bf16 tensor-core rate
-            split = 1.5 * ops / BF16_TC_OPS_PER_S * 1e3
-            bound = max(bytes_moved / HBM_BYTES_PER_S * 1e3, split)
-            bound_by = "operations" if bound == split else "bytes"
-        else:
+        if symbol == kfa.TILE_KERNEL:
             bound, bound_by = bound_of(bytes_moved, ops)
+        else:   # on the tensor cores, at their bf16 rate
+            tc_ms = FLASH_OPS[symbol] / 4 * ops / BF16_TC_OPS_PER_S * 1e3
+            bound = max(bytes_moved / HBM_BYTES_PER_S * 1e3, tc_ms)
+            bound_by = "operations" if bound == tc_ms else "bytes"
         ms = time_ms(fn, reps=5)
-        symbol = ("flash_attention_tc_kernel" if tc
-                  else "flash_attention_kernel")
         dev_ms, dev_src = device_ms(fn, symbol, reps=5)
         qs, ks, vs = (a.transpose(1, 2).repeat_interleave(
             H // n, dim=1).contiguous() for a, n in ((q, H), (k, K), (v, K)))
@@ -1465,8 +1480,10 @@ def flash_attention_kernel_phase():
                "library_ms": lib_ms, "library": "scaled_dot_product_attention"}
         if dtype == torch.bfloat16:
             rep["bound_ms_bf16_tensor_cores"] = ops / BF16_TC_OPS_PER_S * 1e3
-        if tc:
-            rep["bound_ms_split_tensor_cores"] = split
+        if symbol == kfa.BF16_TC_KERNEL:
+            rep["bound_ms_split_tensor_cores"] = tc_ms
+        if symbol == kfa.F32_TC_KERNEL:
+            rep["bound_ms_f32_fma_floor"] = ops / FP32_OPS_PER_S * 1e3
         log(f"B15 {label}: max |kernel - plain| {rep['max_abs_err']:.3g} "
             f"(rtol {rtol:.3g}, atol {atol:.3g}), repeat and per-head bit for "
             f"bit; kernel "
@@ -1477,20 +1494,21 @@ def flash_attention_kernel_phase():
         reports.append(rep)
         layouts.append((q, k, v, window, got))
     torch.cuda.synchronize()
-    kfa.flash_attention_cuda.launches = 0
-    kfa.flash_attention_cuda.tc_launches = 0
+    counter = kfa.flash_attention_cuda
+    counter.launches = counter.tc_launches = counter.f32tc_launches = 0
     outs = [kfa.flash_attention(q, k, v, causal=True, window=window)
             for q, k, v, window, _ in layouts]
     torch.cuda.synchronize()
-    launches = kfa.flash_attention_cuda.launches
-    tc_launches = kfa.flash_attention_cuda.tc_launches
-    want_tc = sum(kfa.tensor_core_route(q.dtype, q.shape[-1])
-                  for q, *_ in layouts)
-    if launches != len(layouts) or tc_launches != want_tc or not \
-            0 < tc_launches < launches:
-        raise AssertionError(f"flash_attention: {launches} launches, "
-                             f"{tc_launches} of the tensor-core kernel, for "
-                             f"{len(layouts)} calls ({want_tc} bf16)")
+    launches = {kfa.BF16_TC_KERNEL: counter.tc_launches,
+                kfa.F32_TC_KERNEL: counter.f32tc_launches}
+    launches[kfa.TILE_KERNEL] = counter.launches - sum(launches.values())
+    routed = {name: sum(kfa.kernel_route(q.dtype, q.shape[-1]) == name
+                        for q, *_ in layouts) for name in launches}
+    if counter.launches != len(layouts) or launches != routed or \
+            not all(launches.values()):
+        raise AssertionError(f"flash_attention: {counter.launches} launches "
+                             f"for {len(layouts)} calls, by kernel "
+                             f"{launches}, routed {routed}")
     oracle_err = []
     for out, (q, k, v, window, got) in zip(outs, layouts):
         bits = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
@@ -1508,11 +1526,10 @@ def flash_attention_kernel_phase():
                                  f"(tolerance {tol})")
         del want, err
     log(f"flash_attention entry point: {len(outs)} calls, B15 launches "
-        f"{launches} ({tc_launches} of flash_attention_tc_kernel), each "
-        f"equal to its [BH, T, D] launch bit for bit; max "
-        f"|flash_attention - chunked_attention| "
+        f"by kernel {launches}, each equal to its [BH, T, D] launch bit for "
+        f"bit; max |flash_attention - chunked_attention| "
         + ", ".join(f"{e:.3g}" for e in oracle_err))
-    return reports, (launches - tc_launches, tc_launches)
+    return reports, launches
 
 
 def lake_phase():
@@ -1927,24 +1944,23 @@ def main() -> int:
              b4))]
     kernels[0]["corpus_path_launches"] = corpus_launches["icws_sketch"]
     # B14 and B15 run on their own paths: compressed_update and the
-    # flash_attention entry point
-    kernels += [
+    # flash_attention entry point; B15 as one entry a kernel, each with the
+    # reports of the cases routed to it (the first its headline)
+    kernels.append(
         kernel_entry("countsketch_dense", "countsketch_dense.cu",
                      "countsketch.py:35", compression_launches, b14[0], b14,
                      entry_point="repro_torch.optim.compression."
-                                 "compressed_update"),
-        kernel_entry("flash_attention", "flash_attention.cu",
-                     "flash_attention.py:28", flash_launches[0], b15[0],
-                     [r for r in b15
-                      if r["kernel"] == "flash_attention_kernel"],
-                     entry_point="repro_torch.kernels.flash_attention."
-                                 "flash_attention"),
-        kernel_entry("flash_attention_tc", "flash_attention.cu",
-                     "flash_attention.py:28", flash_launches[1], b15[1],
-                     [r for r in b15
-                      if r["kernel"] == "flash_attention_tc_kernel"],
-                     entry_point="repro_torch.kernels.flash_attention."
-                                 "flash_attention")]
+                                 "compressed_update"))
+    for name, symbol in (("flash_attention", "flash_attention_kernel"),
+                         ("flash_attention_tc", "flash_attention_tc_kernel"),
+                         ("flash_attention_f32tc",
+                          "flash_attention_f32tc_kernel")):
+        shapes = [r for r in b15 if r["kernel"] == symbol]
+        kernels.append(kernel_entry(
+            name, "flash_attention.cu", "flash_attention.py:28",
+            flash_launches[symbol], shapes[0], shapes,
+            entry_point="repro_torch.kernels.flash_attention."
+                        "flash_attention"))
     log("latency (unpacked; packed), p50 ms of search and of a micro-batch "
         "of 16: " + json.dumps(latency))
     log(f"total {time.perf_counter() - t_start:.1f} s on {identity}")

@@ -1,4 +1,4 @@
-// Forward flash attention for Hopper: two kernels behind one launcher.
+// Forward flash attention for Hopper: three kernels behind one launcher.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_flash_kernel
 // (launcher flash_attention_pallas).
@@ -11,10 +11,11 @@
 // at all gets the mean of v, as on the TPU: its masked scores tie at -1e30,
 // p = 1 on every key.
 //
-// Route, static, by type and head dim (launch_flash_attention): bf16 inputs
-// with D % 16 == 0 and D <= 128 run flash_attention_tc_kernel on the tensor
-// cores; f32 inputs, and bf16 with any other D, run flash_attention_kernel on
-// the CUDA cores.  A refused launch returns its error; nothing falls back.
+// Route, static, by type and head dim (launch_flash_attention): f32 inputs
+// with D <= 128 run flash_attention_f32tc_kernel and bf16 inputs with D % 16
+// == 0 and D <= 128 flash_attention_tc_kernel, both on the tensor cores;
+// the rest (D > 128, bf16 with another D) run flash_attention_kernel on the
+// CUDA cores.  A refused launch returns its error; nothing falls back.
 //
 // flash_attention_kernel (the CUDA-core tile): all math in f32, the TPU
 // kernel's.  q scaled by 1/sqrt(D) in f32 before the product, s = q k^T, acc
@@ -51,17 +52,46 @@
 // instructions (scale, max, an IEEE expf, sum, the split), against 6
 // tensor-core operations per dim.
 //
-// Both kernels: every sum runs in an order fixed by the tile sizes (no float
-// atomics, no TF32, no fast math), so a head gives the same bits alone or in a
-// batch, and every run the same bits.  A key tile masked for every row of the
-// block is skipped when every row of the block sees some key: for such a row
-// the tile adds p = 0 and multiplies by corr = 1.  Otherwise (a row with no
-// visible key) every tile is taken.
+// flash_attention_f32tc_kernel (f32, tensor cores): the TPU kernel's f32
+// function within f32 rounding.  q (1/sqrt(D)) in f32; q scale, k and v each
+// split into three bf16 parts (b0 = bf16(x), b1 = bf16(x - b0), b2 = bf16(x -
+// b0 - b1): for a normal x they sum to x exactly); s = the six part-products
+// b0c0, b0c1, b1c0, b0c2, b1c1, b2c0 summed in f32 wgmma accumulators (the
+// dropped ones are 2^-24 of s and below); the f32 mask and softmax as
+// above; p split the same way and acc = acc corr + its six part-products
+// with v; l sums the f32 p.  One TF32 pass, or two bf16 parts of q and k,
+// would break the 5e-5 gate against the f32 function.  One block of G
+// warpgroups per (bh, 64 G query rows): G = 4 up to DP = 64, 2 at DP = 128
+// (147 and 196 KB of shared memory, one block a SM); the grid goes out head
+// by head within each band of rows, the longest causal rows first, so the
+// last blocks to run are the shortest.  The block splits its scaled q tile
+// once into three unswizzled part tiles (the layout above); each k/v tile of
+// 64 keys is read into registers with 16-byte loads (D % 4 == 0, else by
+// value; rows past S and dims past D as zeros) while the previous tile's
+// products run, then split by the block's threads into six part tiles shared
+// by the warpgroups: the split is the only place f32 becomes bf16.  Per
+// tile: six SS wgmma m64n64k16 per 16 dims for S; the softmax; six RS
+// m64nDPk16 per 16 keys for O (p's parts packed from the S accumulators, v
+// MN-major).  The warpgroups run in step (a barrier a tile), so four (or
+// two) chains of dependent products share the tensor cores; handing the
+// tensor cores from one warpgroup to another (a producer warpgroup doing the
+// split) left one chain in flight and ran slower.  What bounds it: 24
+// tensor-core operations per visible pair and dim (0.42 ms at TinyLlama's
+// shape, under the CUDA cores' 4-op floor of 1.03 ms).
+//
+// All kernels: every sum runs in an order fixed by the tile sizes (no float
+// atomics, no TF32, no fast math), so a head gives the same bits alone or in
+// a batch, and every run the same bits.  A key tile masked for every row of
+// the block is skipped when every row of the block sees some key: for such
+// a row the tile adds p = 0 and multiplies by corr = 1.  Otherwise (a row
+// with no visible key) every tile is taken, and the row's p = 1 on every
+// key (a bf16 1 exactly), the mean of v.
 //
 // Bound: operations.  The CUDA-core tile: 4 * T * S * D per head (a multiply
 // and an add per q k^T and per p v term), halved for causal, at the f32 rate.
-// The tensor-core kernel: 6 * T * S * D (p v twice) at the bf16 tensor-core
-// rate.  The bytes are q, k, v read once and o written once.
+// The bf16 tensor-core kernel: 6 * T * S * D (p v twice), the f32 one 24 *
+// T * S * D (six products each), at the bf16 tensor-core rate.  The bytes
+// are q, k, v read once and o written once.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -449,25 +479,44 @@ __device__ __forceinline__ uint32_t tc_bits(__nv_bfloat162 x) {
 }
 
 
+// The pair (a, b) split into PARTS bf16 pairs, packed as wgmma operands (a in
+// the low half): part 0 = bf16(x), each next part the bf16 rounding of what
+// the earlier ones leave (the residuals are exact in f32), so three parts sum
+// to a normal x exactly.
+template <int PARTS>
+__device__ __forceinline__ void tc_split_pair(float a, float b, uint32_t (&w)[PARTS]) {
+#pragma unroll
+  for (int j = 0; j < PARTS; ++j) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    w[j] = tc_bits(h);
+    if (j + 1 < PARTS) {
+      const float2 f = __bfloat1622float2(h);
+      a = __fsub_rn(a, f.x);
+      b = __fsub_rn(b, f.y);
+    }
+  }
+}
+
 // The f32 softmax step of one key tile on a warp's S fragment (rows r0 and
-// r0 + 8): scale, mask, row max over the quad, corr, p = exp(s - m_new),
-// this thread's share of the row sums, and p split into bf16 hi and lo
-// packed as wgmma A operands (phi[i] holds the pair s[2i], s[2i + 1], row r0
-// for even i).  The maxima and sums run in four interleaved parts for the
-// instruction-level parallelism, combined in a fixed order.
-template <int NS>
-__device__ __forceinline__ void tc_softmax(float (&s)[NS], uint32_t (&phi)[NS / 2],
-                                           uint32_t (&plo)[NS / 2], float& m0, float& m1,
-                                           float& l0, float& l1, float& corr0, float& corr1,
-                                           bool full, long long d0, int c0, int causal,
-                                           int window, int keys, float scale) {
+// r0 + 8): scale (SCALED; the f32 kernel's q comes scaled), mask, row max over
+// the quad, corr, p = exp(s - m_new), this thread's share of the row sums, and
+// p split into PARTS bf16 parts packed as wgmma A operands (pp[j][i] holds
+// part j of the pair s[2i], s[2i + 1], row r0 for even i).  The maxima and
+// sums run in four interleaved parts for the instruction-level parallelism,
+// combined in a fixed order.
+template <int NS, int PARTS, bool SCALED>
+__device__ __forceinline__ void tc_softmax(float (&s)[NS], uint32_t (&pp)[PARTS][NS / 2],
+                                           float& m0, float& m1, float& l0, float& l1,
+                                           float& corr0, float& corr1, bool full,
+                                           long long d0, int c0, int causal, int window,
+                                           int keys, float scale) {
   float mx[2][4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) mx[0][j] = mx[1][j] = -CUDART_INF_F;
   if (full) {  // every row sees every key of the tile
 #pragma unroll
     for (int i = 0; i < NS; ++i) {
-      s[i] = __fmul_rn(s[i], scale);
+      if constexpr (SCALED) s[i] = __fmul_rn(s[i], scale);
       mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], s[i]);
     }
   } else {
@@ -484,8 +533,9 @@ __device__ __forceinline__ void tc_softmax(float (&s)[NS], uint32_t (&phi)[NS / 
       const int col = 8 * (i / 4) + (i & 1);
       const bool row1 = i & 2;
       const bool visible = (row1 ? lo1 : lo0) < col && col <= (row1 ? hi1 : hi0);
+      const float si = SCALED ? __fmul_rn(s[i], scale) : s[i];
       // a key past S is no key at all: exp(-inf - m) adds nothing
-      s[i] = col >= kc ? -CUDART_INF_F : (visible ? __fmul_rn(s[i], scale) : kFaNeg);
+      s[i] = col >= kc ? -CUDART_INF_F : (visible ? si : kFaNeg);
       mx[(i >> 1) & 1][(i >> 2) & 3] = fmaxf(mx[(i >> 1) & 1][(i >> 2) & 3], s[i]);
     }
   }
@@ -510,10 +560,10 @@ __device__ __forceinline__ void tc_softmax(float (&s)[NS], uint32_t (&phi)[NS / 
     const float pb = expf(__fsub_rn(s[2 * i + 1], mn));
     float& part = sm[i & 1][(i >> 1) & 3];
     part = __fadd_rn(__fadd_rn(part, pa), pb);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(pa, pb);
-    const float2 hf = __bfloat1622float2(hi);
-    phi[i] = tc_bits(hi);
-    plo[i] = tc_bits(__floats2bfloat162_rn(__fsub_rn(pa, hf.x), __fsub_rn(pb, hf.y)));
+    uint32_t w[PARTS];
+    tc_split_pair<PARTS>(pa, pb, w);
+#pragma unroll
+    for (int j = 0; j < PARTS; ++j) pp[j][i] = w[j];
   }
   l0 = __fadd_rn(__fmul_rn(l0, corr0),
                  __fadd_rn(__fadd_rn(sm[0][0], sm[0][1]), __fadd_rn(sm[0][2], sm[0][3])));
@@ -626,10 +676,10 @@ flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, in
     const long long ka = k_offset + k0, kb = ka + keys - 1;
     const bool full =
         keys == kTcKeys && (!causal || kb <= qa) && (!window || ka > qb - window);
-    uint32_t phi[NS / 2], plo[NS / 2];
+    uint32_t pp[2][NS / 2];  // p_hi, p_lo
     float corr0, corr1;
-    tc_softmax<NS>(s, phi, plo, m0, m1, l0, l1, corr0, corr1, full, qp0 - ka, c0, causal,
-                   window, keys, scale);
+    tc_softmax<NS, 2, true>(s, pp, m0, m1, l0, l1, corr0, corr1, full, qp0 - ka, c0, causal,
+                            window, keys, scale);
     // acc * 1 is acc: a warp whose rows all keep their max skips the rescale
     if (__any_sync(0xFFFFFFFFu, corr0 != 1.f || corr1 != 1.f)) {
 #pragma unroll
@@ -641,8 +691,8 @@ flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, in
     tc_wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTcKeys / 16; ++kk) {
-      wgmma_rs<DP>(acc, phi + 4 * kk, dv + stage + kk * 16);
-      wgmma_rs<DP>(acc, plo + 4 * kk, dv + stage + kk * 16);
+      wgmma_rs<DP>(acc, pp[0] + 4 * kk, dv + stage + kk * 16);
+      wgmma_rs<DP>(acc, pp[1] + 4 * kk, dv + stage + kk * 16);
     }
     tc_wgmma_commit();
     tc_wgmma_wait();
@@ -734,6 +784,277 @@ cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, void* o
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// flash_attention_f32tc_kernel: f32 on the tensor cores, every operand split
+// into three bf16 parts (see the note above).
+// ---------------------------------------------------------------------------
+
+// Eight f32 values of one row, dims d0 .. d0 + 7: dims past D, and a row that
+// is not `live`, read as zeros.  `vec`: D % 4 == 0 and 16-byte aligned bases,
+// so two 16-byte loads (D % 4 == 0 puts d0 + 4 < D iff d0 < D).
+__device__ __forceinline__ void fa_load8(const float* row, int d0, int D, bool vec,
+                                         bool live, float (&x)[8]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = 0.f;
+  if (!live) return;
+  if (vec) {
+    if (d0 < D) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(row + d0));
+      x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
+    }
+    if (d0 + 4 < D) {
+      const float4 b = __ldg(reinterpret_cast<const float4*>(row + d0 + 4));
+      x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (d0 + j < D) x[j] = __ldg(row + d0 + j);
+  }
+}
+
+// This thread's chunks of R rows of a [*, D] f32 array (row i at src + i D;
+// rows from `live` on as zeros).  Chunk e is row i, dims 8g .. 8g + 7: each
+// eight neighbouring threads take eight neighbouring rows (their 16-byte
+// shared stores, chunk (g, i) at (g R + i) 16, do not collide) and four such
+// groups four neighbouring chunks of those rows (a warp's 16-byte load
+// touches 8 cache lines, not 32).
+template <int R, int DP, int NT>
+__host__ __device__ constexpr int tc_chunks() {
+  return (R * DP / 8 + NT - 1) / NT;
+}
+
+template <int R, int DP>
+__device__ __forceinline__ int2 tc_chunk(int e) {
+  constexpr int GQ = DP / 8 < 4 ? DP / 8 : 4;  // chunks of a row a warp takes
+  const int rest = e / (8 * GQ);
+  return make_int2((rest % (R / 8)) * 8 + e % 8, (rest / (R / 8)) * GQ + (e / 8) % GQ);
+}
+
+template <int R, int DP, int NT>
+__device__ __forceinline__ void tc_load_tile(float (&x)[tc_chunks<R, DP, NT>()][8],
+                                             const float* src, int live, int D, bool vec,
+                                             int tid) {
+  constexpr int CHUNKS = R * DP / 8;
+#pragma unroll
+  for (int it = 0; it < tc_chunks<R, DP, NT>(); ++it) {
+    const int e = tid + it * NT;
+    const int2 c = tc_chunk<R, DP>(e);
+    fa_load8(src + (long long)c.x * D, 8 * c.y, D, vec, c.x < live && e < CHUNKS, x[it]);
+  }
+}
+
+// Those chunks, each value times `scale` if SCALE, split into three bf16 part
+// tiles at dst + j R DP 2 in the unswizzled wgmma layout: chunk (g, i), 16
+// bytes at (g R + i) 16, holds row i's dims 8g .. 8g + 7 (neighbouring
+// threads store neighbouring 16 bytes: no bank conflict).
+template <int R, int DP, int NT, bool SCALE>
+__device__ __forceinline__ void tc_store_tile(unsigned char* dst,
+                                              const float (&x)[tc_chunks<R, DP, NT>()][8],
+                                              float scale, int tid) {
+  constexpr int CHUNKS = R * DP / 8;
+#pragma unroll
+  for (int it = 0; it < tc_chunks<R, DP, NT>(); ++it) {
+    const int e = tid + it * NT;
+    if (CHUNKS % NT && e >= CHUNKS) break;
+    uint32_t w[3][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      uint32_t pw[3];
+      if constexpr (SCALE)
+        tc_split_pair<3>(__fmul_rn(x[it][2 * j], scale), __fmul_rn(x[it][2 * j + 1], scale),
+                         pw);
+      else
+        tc_split_pair<3>(x[it][2 * j], x[it][2 * j + 1], pw);
+#pragma unroll
+      for (int part = 0; part < 3; ++part) w[part][j] = pw[part];
+    }
+    const int2 c = tc_chunk<R, DP>(e);
+#pragma unroll
+    for (int part = 0; part < 3; ++part)
+      *reinterpret_cast<uint4*>(dst + part * R * DP * 2 + (c.y * R + c.x) * 16) =
+          make_uint4(w[part][0], w[part][1], w[part][2], w[part][3]);
+  }
+}
+
+// The six part-products (a, b) of a three-way split, a + b <= 2, in the
+// order b0c0, b0c1, b1c0, b0c2, b1c1, b2c0
+__device__ constexpr int tc_pa(int j) { return j == 2 || j == 4 ? 1 : j == 5 ? 2 : 0; }
+__device__ constexpr int tc_pb(int j) { return j == 1 || j == 4 ? 1 : j == 3 ? 2 : 0; }
+
+// Shared: the three q part tiles (64 G rows), then three k and three v part
+// tiles (64 keys): 3 (64 G + 128) DP 2 bytes, one block a SM.
+template <int DP, int G>
+__global__ void __launch_bounds__(128 * G, 1)
+flash_attention_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, float* __restrict__ o, int T,
+                             int S, int D, int group, int causal, int window,
+                             long long q_offset, long long k_offset, float scale, int vec) {
+  constexpr int ROWS = 64 * G, NT = 128 * G;
+  constexpr int QP = ROWS * DP * 2, KP = kTcKeys * DP * 2;  // bytes of a q, k or v part
+  constexpr int NS = kTcKeys / 2;  // score accumulators a thread
+  constexpr int NO = DP / 2;       // output accumulators a thread
+  extern __shared__ __align__(128) unsigned char tc_buf[];
+  unsigned char* bq = tc_buf;
+  unsigned char* bk = bq + 3 * QP;
+  unsigned char* bv = bk + 3 * KP;
+  const uint32_t sq = static_cast<uint32_t>(__cvta_generic_to_shared(bq));
+  const uint32_t sk = sq + 3 * QP, sv = sk + 3 * KP;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // blocks go out head by head within each band of rows, the longest causal
+  // rows first: the last blocks to run are the shortest
+  const int bh = blockIdx.x, kvh = bh / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int rows = min(ROWS, T - q0);
+
+  // Tiles masked for the whole block may be skipped only if every row of
+  // the block sees some key in [k_offset, k_offset + S).
+  int sees = 1;
+  if (tid < rows) {
+    const long long qp = q_offset + q0 + tid;
+    long long lo = k_offset, hi = k_offset + S - 1;
+    if (causal) hi = min(hi, qp);
+    if (window) lo = max(lo, qp - window + 1);
+    sees = lo <= hi;
+  }
+  const bool may_skip = __syncthreads_and(sees) && window >= 0;
+  const long long qa = q_offset + q0, qb = qa + rows - 1;
+  // the tiles with a visible (row, key) pair form one run [t_lo, t_hi]
+  const int nt = (S + kTcKeys - 1) / kTcKeys;
+  auto any = [&](int t) {
+    const long long ka = k_offset + (long long)t * kTcKeys;
+    const long long kb = ka + min(kTcKeys, S - t * kTcKeys) - 1;
+    return (!causal || ka <= qb) && (!window || kb > qa - window);
+  };
+  int t_lo = 0, t_hi = nt - 1;
+  if (may_skip) {
+    while (t_lo < t_hi && !any(t_lo)) ++t_lo;
+    while (t_hi > t_lo && !any(t_hi)) --t_hi;
+  }
+
+  // q (1/sqrt(D)) in f32, then split: the block's q parts for the whole loop
+  {
+    float xq[tc_chunks<ROWS, DP, NT>()][8];
+    tc_load_tile<ROWS, DP, NT>(xq, q + ((long long)bh * T + q0) * D, rows, D, vec, tid);
+    tc_store_tile<ROWS, DP, NT, true>(bq, xq, scale, tid);
+  }
+  const float* kh = k + (long long)kvh * S * D;
+  const float* vh = v + (long long)kvh * S * D;
+  constexpr int NC = tc_chunks<kTcKeys, DP, NT>();
+  float xk[NC][8], xv[NC][8];
+  // tile t's k and v in registers, loaded while the products of tile t - 1
+  // run and split at the top of tile t
+  auto fetch = [&](int t) {
+    const int f0 = t * kTcKeys, fk = min(kTcKeys, S - f0);
+    tc_load_tile<kTcKeys, DP, NT>(xk, kh + (long long)f0 * D, fk, D, vec, tid);
+    tc_load_tile<kTcKeys, DP, NT>(xv, vh + (long long)f0 * D, fk, D, vec, tid);
+  };
+  fetch(t_lo);
+
+  // accumulator fragment as in flash_attention_tc_kernel
+  const int wg = warp >> 2;
+  const int r0 = 64 * wg + (warp & 3) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  const long long qp0 = qa + r0;
+  float acc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
+  // descriptors of part 0; part j lies j QP (q) or j KP (k, v) bytes on
+  const uint64_t dq = tc_desc(sq + 64 * 16 * wg, ROWS * 16, 128);
+  const uint64_t dk = tc_desc(sk, kTcKeys * 16, 128);
+  const uint64_t dv = tc_desc(sv, 128, kTcKeys * 16);
+  constexpr uint64_t QJ = QP / 16, KJ = KP / 16;  // a part's step in descriptor units
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int k0 = t * kTcKeys, keys = min(kTcKeys, S - k0);
+    if (t > t_lo) __syncthreads();  // every warpgroup is done with the last tile
+    tc_store_tile<kTcKeys, DP, NT, false>(bk, xk, 1.f, tid);
+    tc_store_tile<kTcKeys, DP, NT, false>(bv, xv, 1.f, tid);
+    // the parts were written by the threads (the generic proxy); wgmma reads
+    // them through the async proxy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+
+    // S = sum of the six part-products Q_a K_b^T, K-major, 16 dims a step
+    float s[NS];
+    tc_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+        wgmma_ss_n64(s, dq + tc_pa(j) * QJ + kk * 2 * ROWS,
+                     dk + tc_pb(j) * KJ + kk * 2 * kTcKeys, kk > 0 || j > 0);
+    tc_wgmma_commit();
+    tc_wgmma_wait();
+    tc_fence_regs(s);
+
+    // a tile every row sees whole takes no mask
+    const long long ka = k_offset + k0, kb = ka + keys - 1;
+    const bool full = keys == kTcKeys && (!causal || kb <= qa) && (!window || ka > qb - window);
+    uint32_t pp[3][NS / 2];
+    float corr0, corr1;
+    tc_softmax<NS, 3, false>(s, pp, m0, m1, l0, l1, corr0, corr1, full, qp0 - ka, c0,
+                             causal, window, keys, 1.f);
+    // acc * 1 is acc: a warp whose rows all keep their max skips the rescale
+    if (__any_sync(0xFFFFFFFFu, corr0 != 1.f || corr1 != 1.f)) {
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc[i] = __fmul_rn(acc[i], (i & 2) ? corr1 : corr0);
+    }
+
+    // acc += sum of the six part-products P_a V_b, v MN-major, 16 keys a step
+    tc_fence_regs(acc);
+    tc_wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+#pragma unroll
+      for (int j = 0; j < 6; ++j)
+        wgmma_rs<DP>(acc, pp[tc_pa(j)] + 4 * kk, dv + tc_pb(j) * KJ + kk * 16);
+    tc_wgmma_commit();
+    if (t < t_hi) fetch(t + 1);
+    tc_wgmma_wait();
+    tc_fence_regs(acc);
+  }
+
+  // (l_0 + l_1) + (l_2 + l_3) over the quad, on all four lanes
+  l0 = __fadd_rn(l0, __shfl_xor_sync(0xFFFFFFFFu, l0, 1));
+  l0 = __fadd_rn(l0, __shfl_xor_sync(0xFFFFFFFFu, l0, 2));
+  l1 = __fadd_rn(l1, __shfl_xor_sync(0xFFFFFFFFu, l1, 1));
+  l1 = __fadd_rn(l1, __shfl_xor_sync(0xFFFFFFFFu, l1, 2));
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+  float* o0 = o + ((long long)bh * T + q0 + r0) * D;
+  float* o1 = o0 + 8 * (long long)D;
+#pragma unroll
+  for (int c = 0; c < NO / 4; ++c) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * c + c0 + e;
+      if (col >= D) continue;
+      if (r0 < rows) o0[col] = __fdiv_rn(acc[4 * c + e], den0);
+      if (r0 + 8 < rows) o1[col] = __fdiv_rn(acc[4 * c + 2 + e], den1);
+    }
+  }
+}
+
+template <int DP, int G>
+cudaError_t launch_flash_f32tc(const void* q, const void* k, const void* v, void* o, int BH,
+                               int T, int S, int D, int group, int causal, int window,
+                               long long q_offset, long long k_offset, float scale,
+                               cudaStream_t stream) {
+  constexpr int ROWS = 64 * G;
+  const size_t smem = (size_t)3 * (ROWS + 2 * kTcKeys) * DP * 2;
+  auto kernel = flash_attention_f32tc_kernel<DP, G>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int vec = D % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  const dim3 grid((unsigned)BH, (unsigned)((T + ROWS - 1) / ROWS));
+  kernel<<<grid, 128 * G, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
+                                          (float*)o, T, S, D, group, causal, window,
+                                          q_offset, k_offset, scale, vec);
+  return cudaGetLastError();
+}
+
 cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    int bf16, int BH, int T, int S, int D, int group,
                                    int causal, int window, long long q_offset,
@@ -741,7 +1062,22 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, 
   if (BH < 1 || BH > 65535 || T < 1 || S < 1 || D < 1 || D > 256 || group < 1 ||
       BH % group != 0)
     return cudaErrorInvalidValue;
-  if (bf16 && D % 16 == 0 && D <= 128) {  // the tensor-core route
+  if (!bf16 && D <= 128) {  // f32 on the tensor cores, three-way split
+    // four warpgroups a block up to DP = 64 (147 KB of shared memory at 64),
+    // two at 128 (196 KB)
+    if (D <= 16)
+      return launch_flash_f32tc<16, 4>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                       q_offset, k_offset, scale, stream);
+    if (D <= 32)
+      return launch_flash_f32tc<32, 4>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                       q_offset, k_offset, scale, stream);
+    if (D <= 64)
+      return launch_flash_f32tc<64, 4>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                       q_offset, k_offset, scale, stream);
+    return launch_flash_f32tc<128, 2>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                      q_offset, k_offset, scale, stream);
+  }
+  if (bf16 && D % 16 == 0 && D <= 128) {  // bf16 on the tensor cores
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16) return cudaErrorMisalignedAddress;
     if (D <= 16)
       return launch_flash_tc<16>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,

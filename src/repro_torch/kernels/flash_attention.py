@@ -14,23 +14,37 @@ q_pos``, window ``k_pos > q_pos - window``, positions ``q_offset + t`` and
 -inf, all math in f32, and ``acc / max(l, 1e-30)``.  A row that sees no
 key returns the mean of v, not NaN.  ``qc``/``kc`` must divide T/S as the
 TPU launcher asserts; the plain twin chunks by them, the CUDA kernels by
-their own tiles (64 or 128 query rows, 32 or 64 keys), so the two agree to f32
+their own tiles (64 or 128 query rows, 32 or 64 keys), so they agree to f32
 tolerance, as the JAX package's block-size invariance test holds different
 chunkings.  Head dims 1..256.
 
 The CUDA launcher (``csrc/flash_attention.cu``) routes by dtype and head
-dim alone (:func:`tensor_core_route`).  f32 inputs, and bf16 inputs with
-another D, run the CUDA-core tile: the function above, f32 products, no
-TF32.  bf16 inputs with ``D % 16 == 0`` and ``D <= 128`` run the
-tensor-core kernel, whose function differs in two places: ``s = (q k^T) *
-(1/sqrt(D))``, the bf16 products exact in f32 and summed in f32, then
-scaled; and ``acc = acc corr + p_hi v + p_lo v`` with ``p_hi = bf16(p)``
-and ``p_lo = bf16(p - p_hi)``, two bf16 products into one f32 accumulator
-(``l`` sums the f32 ``p``).  A single bf16 cast of ``p`` would move the
-output by more than one bf16 rounding step; the split stays within it
-(rtol 2^-7, atol 1e-5, ``tests/test_torch_flash_attention.py``).  Both
-kernels sum in an order fixed by their tiles: a head gives the same bits
-alone or in a batch, and repeated runs the same bits.
+dim alone (:func:`kernel_route`) to one of three kernels:
+
+- f32 with ``D <= 128``: ``flash_attention_f32tc_kernel``, on the tensor
+  cores.  ``q * (1/sqrt(D))`` in f32, then q·scale, k and v each split
+  into three bf16 parts, ``b0 = bf16(x)``, ``b1 = bf16(x - b0)``, ``b2 =
+  bf16(x - b0 - b1)`` (for normal values the parts sum to x exactly);
+  ``s`` is the sum of the six part-products b0c0, b0c1, b1c0, b0c2, b1c1,
+  b2c0 in f32 accumulators; the f32 mask and online softmax as above; p
+  split into three parts the same way and ``acc = acc corr + `` the six
+  part-products of p and v; ``l`` sums the f32 p.  Within f32 rounding of
+  the function above: the f32 gate of 5e-5 holds, where one TF32 pass or
+  a two-part split of ``q k^T`` (at larger logits) breaks it
+  (``tests/test_torch_flash_attention.py``).
+- bf16 with ``D % 16 == 0`` and ``D <= 128``: ``flash_attention_tc_kernel``,
+  on the tensor cores: ``s = (q k^T) * (1/sqrt(D))``, the bf16 products
+  exact in f32 and summed in f32, then scaled; and ``acc = acc corr + p_hi
+  v + p_lo v`` with ``p_hi = bf16(p)`` and ``p_lo = bf16(p - p_hi)``
+  (``l`` sums the f32 ``p``).  A single bf16 cast of ``p`` would move the
+  output by more than one bf16 rounding step; the split stays within it
+  (rtol 2^-7, atol 1e-5).
+- anything else (D > 128; bf16 with ``D % 16 != 0``):
+  ``flash_attention_kernel``, the CUDA-core tile: the function above, f32
+  products, no TF32.
+
+Every kernel sums in an order fixed by its tiles: a head gives the same
+bits alone or in a batch, and repeated runs the same bits.
 """
 from __future__ import annotations
 
@@ -68,10 +82,19 @@ def _check_inputs(q, k, v, group: int, qc: int, kc: int):
     return BH, T, S, D
 
 
-def tensor_core_route(dtype, D: int) -> bool:
-    """Whether the CUDA launcher runs the tensor-core kernel: bf16 inputs
-    with a head dim that is a multiple of 16 up to 128."""
-    return dtype == torch.bfloat16 and D % 16 == 0 and D <= 128
+F32_TC_KERNEL = "flash_attention_f32tc_kernel"
+BF16_TC_KERNEL = "flash_attention_tc_kernel"
+TILE_KERNEL = "flash_attention_kernel"
+
+
+def kernel_route(dtype, D: int) -> str:
+    """The kernel the CUDA launcher runs for inputs of ``dtype`` with head
+    dim ``D`` (the launcher's rule, ``launch_flash_attention``)."""
+    if dtype == torch.float32 and D <= 128:
+        return F32_TC_KERNEL
+    if dtype == torch.bfloat16 and D % 16 == 0 and D <= 128:
+        return BF16_TC_KERNEL
+    return TILE_KERNEL
 
 
 def flash_attention_plain(q, k, v, *, group: int = 1, causal: bool = True,
@@ -120,13 +143,14 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
     """Launch the CUDA flash-attention kernel on PyTorch's current stream.
 
     Takes CUDA tensors only and raises on anything else.  Adds one to
-    ``flash_attention_cuda.launches`` per launch, and to ``.tc_launches``
-    per launch of the tensor-core kernel."""
+    ``flash_attention_cuda.launches`` per launch, to ``.tc_launches`` per
+    launch of the bf16 tensor-core kernel and to ``.f32tc_launches`` per
+    launch of the f32 one (:func:`kernel_route`)."""
     BH, T, S, D = _check_inputs(q, k, v, group, qc, kc)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda takes CUDA tensors; got "
                          f"{q.device}")
-    # the tensor-core kernel copies 16-byte chunks: a view that starts off
+    # the tensor-core kernels copy 16-byte chunks: a view that starts off
     # that alignment is copied to fresh (aligned) memory
     q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
                for t in (q.contiguous(), k.contiguous(), v.contiguous()))
@@ -139,13 +163,16 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
             int(q.dtype == torch.bfloat16), BH, T, S, D, group, int(causal),
             window, q_offset, k_offset, 1.0 / (D ** 0.5), stream)
     build.check(err, "flash_attention")
+    route = kernel_route(q.dtype, D)
     flash_attention_cuda.launches += 1
-    flash_attention_cuda.tc_launches += tensor_core_route(q.dtype, D)
+    flash_attention_cuda.tc_launches += route == BF16_TC_KERNEL
+    flash_attention_cuda.f32tc_launches += route == F32_TC_KERNEL
     return out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.tc_launches = 0
+flash_attention_cuda.f32tc_launches = 0
 
 
 def flash_attention_bh(q, k, v, *, group: int = 1, causal: bool = True,

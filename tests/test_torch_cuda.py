@@ -537,11 +537,14 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
 
 
 @pytest.mark.cuda
-# bf16 with D % 16 == 0 and D <= 128 runs the tensor-core kernel: s from
-# exact bf16 products summed in f32, then scaled, and p v as p_hi v + p_lo v
-# (p split into two bf16 parts, about 16 bits of p); other bf16 head dims and
-# f32 run the f32 tile.  Either way the output is within one bf16 rounding
-# step (2^-7 relative) of the plain version's f32 function
+# f32 with D <= 128 runs the f32 tensor-core kernel (q scale, k, v and p
+# split into three bf16 parts, six part-products per product: within f32
+# rounding, so the f32 gate); bf16 with D % 16 == 0 and D <= 128 runs the
+# bf16 tensor-core kernel: s from exact bf16 products summed in f32, then
+# scaled, and p v as p_hi v + p_lo v (p split into two bf16 parts, about 16
+# bits of p); the rest (D = 256, bf16 D = 28) run the f32 tile.  bf16 output
+# is within one bf16 rounding step (2^-7 relative) of the plain version's
+# f32 function
 @pytest.mark.parametrize("dtype, rtol, atol", [(torch.float32, 5e-5, 5e-5),
                                                (torch.bfloat16, 2 ** -7, 1e-5)])
 @pytest.mark.parametrize("D, T, S, kw", [
@@ -561,6 +564,8 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
     # shorter than one tile: a single query row (a decode step), few keys
     (64, 1, 40, dict(causal=True, q_offset=39)),
     (128, 40, 24, dict(causal=False, qc=40, kc=24)),
+    # D % 4 != 0: the f32 tensor-core kernel reads its rows value by value
+    (33, 70, 90, dict(causal=True, window=20, qc=35, kc=45)),
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, rtol, atol, D, T, S,
                                            kw):
@@ -575,6 +580,22 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, rtol, atol, D, T, S,
     want = port_fa.flash_attention_plain(q, k, v, group=4, **kw)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_f32_kernel_holds_the_gate_with_larger_logits(cuda, D):
+    """q and k three times as large (logits nine times): the three-way
+    split keeps the f32 tensor-core kernel within 5e-5 of plain, where a
+    two-part split of q k^T would not (tests/test_torch_flash_attention.py
+    shows that on the CPU)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.kernels import flash_attention as port_fa
+    q, k, v = _attention_inputs(D, 8, 512, 512, D, 2, torch.float32, cuda)
+    q, k = 3 * q, 3 * k
+    got = port_fa.flash_attention_cuda(q, k, v, group=2)
+    want = port_fa.flash_attention_plain(q, k, v, group=2)
+    torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
 
 
 @pytest.mark.cuda
@@ -600,6 +621,8 @@ def test_flash_attention_matches_chunked_attention_on_the_card(cuda, dtype,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype, D", [(torch.float32, 64),
+                                      (torch.float32, 128),
+                                      (torch.float32, 256),
                                       (torch.bfloat16, 64),
                                       (torch.bfloat16, 128)])
 def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype, D):
@@ -621,15 +644,20 @@ def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype, D):
     (torch.bfloat16, 64, "flash_attention_tc_kernel"),
     (torch.bfloat16, 128, "flash_attention_tc_kernel"),
     (torch.bfloat16, 28, "flash_attention_kernel"),
-    (torch.float32, 64, "flash_attention_kernel"),
+    (torch.float32, 64, "flash_attention_f32tc_kernel"),
+    (torch.float32, 128, "flash_attention_f32tc_kernel"),
+    (torch.float32, 256, "flash_attention_kernel"),
 ])
 def test_flash_route_runs_the_named_kernel(cuda, dtype, D, symbol):
-    """The launcher's static route, as the profiler sees it: bf16 with D a
-    multiple of 16 up to 128 on the tensor-core kernel, the rest on the f32
-    tile (whose name is no part of the other's)."""
+    """The launcher's static route, as the profiler sees it: f32 up to D =
+    128 on the f32 tensor-core kernel, bf16 with D a multiple of 16 up to
+    128 on the bf16 one, the rest on the f32 tile (no kernel's name is part
+    of another's); ``kernel_route`` names the same kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.flash_attention import (flash_attention_cuda,
+                                                     kernel_route)
+    assert kernel_route(dtype, D) == symbol
     q, k, v = _attention_inputs(8, 4, 128, 128, D, 2, dtype, cuda)
     flash_attention_cuda(q, k, v, group=2)
     torch.cuda.synchronize()
@@ -642,6 +670,6 @@ def test_flash_route_runs_the_named_kernel(cuda, dtype, D, symbol):
         if names:
             break
     assert names and all(symbol in n for n in names), names
-    other = ({"flash_attention_tc_kernel", "flash_attention_kernel"}
-             - {symbol}).pop()
-    assert not any(other in n for n in names), names
+    others = {"flash_attention_f32tc_kernel", "flash_attention_tc_kernel",
+              "flash_attention_kernel"} - {symbol}
+    assert not any(other in n for other in others for n in names), names

@@ -4,10 +4,12 @@
 package, at the JAX tests' tolerances (``tests/test_flash_attention.py``):
 2e-4 against ``chunked_attention``, 5e-5 for f32 inputs and 3e-2 for bf16
 inputs against the f32 oracle, block sizes within 1e-5 of each other.
-The tensor-core kernel's bf16 function (``p v`` as ``p_hi v + p_lo v``) is
-emulated here in plain PyTorch and held to the card's gate of one bf16
-step (rtol 2^-7, atol 1e-5) against the plain version and the JAX
-kernel."""
+The tensor-core kernels' functions are emulated here in plain PyTorch:
+the bf16 one (``p v`` as ``p_hi v + p_lo v``), held to the card's gate of
+one bf16 step (rtol 2^-7, atol 1e-5), and the f32 one (every operand split
+into three bf16 parts, six part-products per product), held to the f32
+gate of 5e-5, each against the plain version and the JAX kernel; beside
+them the cheaper f32 variants that break that gate."""
 import functools
 import math
 
@@ -258,3 +260,121 @@ def test_single_bf16_cast_of_p_breaks_the_gate(case):
     got = _tensor_core_emulation(q, k, v, split=False, **kw).float()
     outside = (got - plain).abs() > 1e-5 + 2 ** -7 * plain.abs()
     assert outside.sum().item() > 0
+
+
+# The CUDA f32 tensor-core kernel's function, emulated in plain PyTorch:
+# q (1/sqrt(D)) in f32; q scale, k, v and p each split into bf16 parts, b0 =
+# bf16(x), b1 = bf16(x - b0), b2 = bf16(x - b0 - b1); each product the sum of
+# the part-products whose part indices add to less than the number of parts
+# (three parts: b0c0, b0c1, b1c0, b0c2, b1c1, b2c0), each exact in f32 and
+# summed in f32; the f32 mask and online softmax over key tiles of 64.
+# `qk_parts` / `pv_parts` = 2 is the two-part split, 0 one TF32 pass.
+def _bf16_parts(x, n):
+    parts = []
+    for _ in range(n):
+        b = x.bfloat16().float()
+        parts.append(b)
+        x = x - b
+    return parts
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest even)."""
+    i = x.view(torch.int32)
+    return ((i + 0xFFF + ((i >> 13) & 1)) & ~0x1FFF).view(torch.float32)
+
+
+def _split_matmul(a, b, parts):
+    if parts == 0:
+        return torch.matmul(_tf32(a), _tf32(b))
+    pa, pb = _bf16_parts(a, parts), _bf16_parts(b, parts)
+    out = torch.matmul(pa[0], pb[0])
+    for total in range(1, parts):
+        for i in range(total + 1):
+            out = out + torch.matmul(pa[i], pb[total - i])
+    return out
+
+
+def _f32_split_emulation(q, k, v, *, group, causal, window, qk_parts=3,
+                         pv_parts=3, kc=64):
+    BH, T, D = q.shape
+    S = k.shape[1]
+    heads = torch.arange(BH) // group
+    qs, kf, vf = q * (1.0 / D ** 0.5), k[heads], v[heads]
+    q_pos = torch.arange(T)
+    m = torch.full((BH, T), -math.inf)
+    l = torch.zeros((BH, T))
+    acc = torch.zeros((BH, T, D))
+    for k0 in range(0, S, kc):
+        kb, vb = kf[:, k0:k0 + kc], vf[:, k0:k0 + kc]
+        s = _split_matmul(qs, kb.transpose(1, 2), qk_parts)
+        k_pos = k0 + torch.arange(kb.shape[1])
+        mask = torch.ones(s.shape[1:], dtype=torch.bool)
+        if causal:
+            mask &= k_pos[None, :] <= q_pos[:, None]
+        if window:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
+        s = torch.where(mask, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + _split_matmul(p, vb, pv_parts)
+        m = m_new
+    return acc / torch.clamp(l, min=1e-30)[..., None]
+
+
+# D, T = S, window (causal throughout), and the scale of q and k (the
+# logits grow by its square): unit-normal inputs, and one case at x3
+F32_CASES = [(64, 256, 0, 1.0), (64, 512, 128, 1.0), (128, 256, 96, 1.0),
+             (128, 512, 0, 1.0), (64, 256, 0, 3.0)]
+F32_GATE = dict(rtol=5e-5, atol=5e-5)
+
+
+@functools.lru_cache(maxsize=None)
+def _f32_case(case):
+    D, T, window, scale = case
+    rng = np.random.default_rng(D + T + window + int(scale))
+    q, k, v = (rng.standard_normal((n, T, D), np.float32) for n in (4, 2, 2))
+    q, k = q * np.float32(scale), k * np.float32(scale)
+    kw = dict(group=2, causal=True, window=window)
+    q, k, v = map(torch.from_numpy, (q, k, v))
+    plain = flash_attention_plain(q, k, v, qc=128, kc=128, **kw)
+    pallas = flash_attention_pallas(*map(jnp.asarray, (q.numpy(), k.numpy(),
+                                                       v.numpy())),
+                                    qc=128, kc=128, interpret=True, **kw)
+    return (q, k, v), kw, plain, torch.from_numpy(np.array(pallas))
+
+
+def _outside_f32_gate(got, want):
+    return int((got - want).abs().gt(F32_GATE["atol"] + F32_GATE["rtol"]
+                                     * want.abs()).sum())
+
+
+@pytest.mark.parametrize("case", F32_CASES)
+def test_f32_split_function_holds_the_f32_gate(case):
+    """Three bf16 parts and six part-products carry q k^T and p v to f32
+    rounding: within 5e-5 of the plain version and of the JAX
+    interpret-mode kernel, at unit scale and with logits nine times as
+    large."""
+    (q, k, v), kw, plain, pallas = _f32_case(case)
+    got = _f32_split_emulation(q, k, v, **kw)
+    for want in (plain, pallas):
+        torch.testing.assert_close(got, want, **F32_GATE)
+
+
+def test_two_part_split_of_qk_breaks_the_f32_gate_at_larger_logits():
+    """Why q and k take three parts: with two (three part-products) the
+    error of s grows with the logits and breaks the gate at x3 scale."""
+    (q, k, v), kw, plain, _ = _f32_case(F32_CASES[-1])
+    assert _outside_f32_gate(_f32_split_emulation(q, k, v, **kw), plain) == 0
+    two = _f32_split_emulation(q, k, v, qk_parts=2, **kw)
+    assert _outside_f32_gate(two, plain) > 0
+
+
+def test_one_tf32_pass_breaks_the_f32_gate():
+    """Why the f32 kernel takes no TF32 pass: one already breaks the gate
+    at unit scale."""
+    (q, k, v), kw, plain, _ = _f32_case(F32_CASES[0])
+    tf32 = _f32_split_emulation(q, k, v, qk_parts=0, pv_parts=0, **kw)
+    assert _outside_f32_gate(tf32, plain) > 0
