@@ -146,16 +146,16 @@ COMPRESS_STEPS = 8
 # flash attention at TinyLlama's attention (B = 1, T = S = 4,096), and
 # cases at Mistral-NeMo's heads (repro/configs/mistral_nemo_12b.py: 32
 # heads, 8 KV heads, head_dim 128) and Gemma-7B's (repro/configs/
-# gemma_7b.py: 16 heads, 16 KV heads, head_dim 256, past the tensor-core
-# kernels: the f32 tile): label, H, K, D, dtype, window, and the (rtol,
-# atol) against the plain version (the TPU kernel's f32 function): f32 the
-# JAX tests' 5e-5 (the f32 tensor-core kernel splits q scale, k, v and p
-# into three bf16 parts and sums six part-products: within f32 rounding).
-# bf16 one bf16 rounding step: the bf16 cases (D % 16 == 0, D <= 128) run
-# the bf16 tensor-core kernel, whose s sums exact bf16 products in f32
-# before the scale and whose p v is p_hi v + p_lo v (p split into two bf16
-# parts), so it stays within f32 rounding of that function and differs
-# where the results round to neighbouring bf16 values
+# gemma_7b.py: 16 heads, 16 KV heads, head_dim 256; in f32 past the f32
+# tensor-core kernel: the tile): label, H, K, D, dtype, window, and the
+# (rtol, atol) against the plain version (the TPU kernel's f32 function):
+# f32 the JAX tests' 5e-5 (the f32 tensor-core kernel splits q scale, k, v
+# and p into three bf16 parts and sums six part-products: within f32
+# rounding).  bf16 one bf16 rounding step: the bf16 cases (D % 16 == 0,
+# D <= 256) run the bf16 tensor-core kernel, whose s sums exact bf16
+# products in f32 before the scale and whose p v is p_hi v + p_lo v (p
+# split into two bf16 parts), so it stays within f32 rounding of that
+# function and differs where the results round to neighbouring bf16 values
 FLASH_T = 4096
 F32_TOL, BF16_TOL = (5e-5, 5e-5), (2 ** -7, 1e-5)
 FLASH_CASES = (
@@ -167,10 +167,12 @@ FLASH_CASES = (
      torch.float32, 1024, F32_TOL),
     ("causal f32 D=128", 32, 8, 128, torch.float32, 0, F32_TOL),
     ("causal bf16 D=128", 32, 8, 128, torch.bfloat16, 0, BF16_TOL),
-    ("causal f32 D=256", 16, 16, 256, torch.float32, 0, F32_TOL))
+    ("causal f32 D=256", 16, 16, 256, torch.float32, 0, F32_TOL),
+    ("causal bf16 D=256", 16, 16, 256, torch.bfloat16, 0, BF16_TOL))
 # the cases held per head == batched, bit for bit
 FLASH_PER_HEAD = ("causal f32", "causal bf16", "causal f32 window 1024",
-                  "causal f32 D=128", "causal bf16 D=128", "causal f32 D=256")
+                  "causal f32 D=128", "causal bf16 D=128", "causal f32 D=256",
+                  "causal bf16 D=256")
 # the flash_attention entry point against the port's chunked_attention
 # (scale after the product, bf16 p before p v): the JAX tests' tolerances
 ORACLE_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
@@ -1408,7 +1410,7 @@ def flash_attention_kernel_phase():
     tensor-core rate; bytes: q, k, v, o once) and against one
     ``scaled_dot_product_attention`` call (k/v expanded to every head
     before the call; the window case with a boolean mask).  Then the entry
-    point ``flash_attention`` (model layout) runs the six cases, its
+    point ``flash_attention`` (model layout) runs the seven cases, its
     counters set to 0 just before and read just after: each kernel's count
     equals the cases routed to it, and each kernel runs; each output equals
     the batched launch bit for bit and lies within ORACLE_TOL of the port's
@@ -1478,8 +1480,9 @@ def flash_attention_kernel_phase():
                "device_ms": dev_ms, "device_ms_source": dev_src,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                "library_ms": lib_ms, "library": "scaled_dot_product_attention"}
+        tc4_ms = ops / BF16_TC_OPS_PER_S * 1e3
         if dtype == torch.bfloat16:
-            rep["bound_ms_bf16_tensor_cores"] = ops / BF16_TC_OPS_PER_S * 1e3
+            rep["bound_ms_bf16_tensor_cores"] = tc4_ms
         if symbol == kfa.BF16_TC_KERNEL:
             rep["bound_ms_split_tensor_cores"] = tc_ms
         if symbol == kfa.F32_TC_KERNEL:
@@ -1490,7 +1493,10 @@ def flash_attention_kernel_phase():
             f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device, "
             f"{symbol}), plain {plain_ms:.1f} ms (one run), bound "
             f"{bound:.4f} ms ({bound_by}), "
-            f"SDPA {lib_ms:.4f} ms (max |SDPA - kernel| {lib_err:.3g})")
+            f"SDPA {lib_ms:.4f} ms (max |SDPA - kernel| {lib_err:.3g})"
+            + (f"; bf16 tensor-core bounds {1.5 * tc4_ms:.4f} ms (6 ops a "
+               f"pair and dim), {tc4_ms:.4f} ms (4 ops)"
+               if dtype == torch.bfloat16 else ""))
         reports.append(rep)
         layouts.append((q, k, v, window, got))
     torch.cuda.synchronize()

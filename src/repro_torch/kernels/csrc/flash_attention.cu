@@ -13,9 +13,9 @@
 //
 // Route, static, by type and head dim (launch_flash_attention): f32 inputs
 // with D <= 128 run flash_attention_f32tc_kernel and bf16 inputs with D % 16
-// == 0 and D <= 128 flash_attention_tc_kernel, both on the tensor cores;
-// the rest (D > 128, bf16 with another D) run flash_attention_kernel on the
-// CUDA cores.  A refused launch returns its error; nothing falls back.
+// == 0 (up to 256) flash_attention_tc_kernel, both on the tensor cores; the
+// rest (f32 with D > 128, bf16 with another D) run flash_attention_kernel on
+// the CUDA cores.  A refused launch returns its error; nothing falls back.
 //
 // flash_attention_kernel (the CUDA-core tile): all math in f32, the TPU
 // kernel's.  q scaled by 1/sqrt(D) in f32 before the product, s = q k^T, acc
@@ -29,25 +29,29 @@
 //
 // flash_attention_tc_kernel (bf16, tensor cores): s = (q k^T) * (1/sqrt(D)),
 // the bf16 products exact in f32 and summed in f32 by wgmma, then scaled (for
-// D = 16 and 64 the scale is a power of two, so this is the TPU kernel's
+// D = 16, 64 and 256 the scale is a power of two, so this is the TPU kernel's
 // (q scale) k^T up to the order of the sum).  The mask and softmax are the f32
 // steps above, in registers.  Then acc = acc corr + p_hi v + p_lo v, with
 // p_hi = bf16(p) and p_lo = bf16(p - p_hi): two bf16 wgmmas into one f32
 // accumulator.  The pair carries p to about 16 bits (a single bf16 cast: 8),
 // so the output stays within one bf16 rounding step of the f32 function; l
-// sums the f32 p.  One block of two warpgroups (256 threads) per (bh, 128 query rows),
-// heaviest causal rows first; each warpgroup owns 64 rows.  The unscaled q
-// tile stays in shared memory; k and v tiles of 64 keys, shared by both
-// warpgroups, are double-buffered by TMA (one thread issues a 4-d box a
-// tile, an mbarrier a stage counts its bytes; rows past S and dims past D
-// land as zeros).  Shared tiles use wgmma's unswizzled layout: 8-row by
-// 16-byte core matrices, a tile [D / 8][rows] of 16-byte chunks, which the
-// tensor map writes directly (its chunk dim strides 16 bytes, its row dim 2 D).
+// sums the f32 p.  One block of two warpgroups (256 threads) per (bh, 128
+// query rows), heaviest causal rows first (at DP = 256 head by head within
+// each band of rows, about 10% faster at Gemma-7B's shape); each warpgroup
+// owns 64 rows.  The unscaled q tile stays in shared memory; k and v tiles
+// of 64 keys, shared by both warpgroups, are double-buffered by TMA (one
+// thread issues a 4-d box a tile, an mbarrier a stage counts its bytes; rows
+// past S and dims past D land as zeros).  Shared tiles use wgmma's
+// unswizzled layout: 8-row by 16-byte core matrices, a tile [D / 8][rows] of
+// 16-byte chunks, which the tensor map writes directly (its chunk dim
+// strides 16 bytes, its row dim 2 D).
 // S = Q K^T is an SS wgmma m64n64k16 (K-major, D contiguous); p_hi and p_lo
 // are packed from the S accumulators straight into A-operand registers (the
 // accumulator and A fragments share their layout), and O += P V is an RS
 // wgmma m64nDPk16 with v read MN-major (the transpose flag), DP the head dim
-// rounded up to 16, 32, 64 or 128 (zero-filled dims add exact zeros).  What
+// rounded up to 16, 32, 64, 128 or 256 (zero-filled dims add exact zeros; at
+// DP = 256, two m64n128k16 on the two halves of v, and a block's q tile and
+// two k/v stages take 196,624 bytes of shared memory, one block a SM).  What
 // bounds it on the card is the CUDA cores: per (query, key) pair about 20
 // instructions (scale, max, an IEEE expf, sum, the split), against 6
 // tensor-core operations per dim.
@@ -465,13 +469,21 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// DP = 256: two m64n128k16 on the two halves of the output dims; the second
+// half's B starts 16 SBO strides (16 groups of 8 dims, MN-major) further on
 template <int DP>
 __device__ __forceinline__ void wgmma_rs(float (&d)[DP / 2], const uint32_t* a,
                                          uint64_t b) {
   if constexpr (DP == 16) wgmma_rs_n16(d, a, b);
   else if constexpr (DP == 32) wgmma_rs_n32(d, a, b);
   else if constexpr (DP == 64) wgmma_rs_n64(d, a, b);
-  else wgmma_rs_n128(d, a, b);
+  else if constexpr (DP == 128) wgmma_rs_n128(d, a, b);
+  else {
+    static_assert(DP == 256, "head-dim tile of 16, 32, 64, 128 or 256");
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d), a, b);
+    const uint64_t sbo = (b >> 32) & 0x3FFF;  // in 16-byte units, as the start
+    wgmma_rs_n128(*reinterpret_cast<float(*)[64]>(d + 64), a, b + 16 * sbo);
+  }
 }
 
 __device__ __forceinline__ uint32_t tc_bits(__nv_bfloat162 x) {
@@ -572,9 +584,10 @@ __device__ __forceinline__ void tc_softmax(float (&s)[NS], uint32_t (&pp)[PARTS]
 }
 
 // Registers: at most 128 a thread (two blocks a SM) up to DP = 64, no spill;
-// DP = 128 takes about 170 (one block), where 128 would spill.
+// DP = 128 takes about 170 (one block), where 128 would spill; DP = 256 holds
+// 128 output accumulators a thread beside s or p's parts (one block).
 template <int DP>
-__global__ void __launch_bounds__(128 * kTcGroups, DP == 128 ? 1 : 2)
+__global__ void __launch_bounds__(128 * kTcGroups, DP >= 128 ? 1 : 2)
 flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, int group,
                           int causal, int window, long long q_offset, long long k_offset,
                           float scale, const __grid_constant__ CUtensorMap mq,
@@ -596,8 +609,13 @@ flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, in
     tc_mbar_init(sbar + 8);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const int bh = blockIdx.y, kvh = bh / group;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * ROWS;  // longest causal rows first
+  // DP = 256 sends its grid out head by head within each band of rows (x
+  // the head), the others band by band within each head; either way the
+  // longest causal rows go first
+  constexpr bool kHeadMajor = DP == 256;
+  const int bh = kHeadMajor ? blockIdx.x : blockIdx.y, kvh = bh / group;
+  const int band = kHeadMajor ? blockIdx.y : blockIdx.x;
+  const int q0 = ((kHeadMajor ? gridDim.y : gridDim.x) - 1 - band) * ROWS;
   const int rows = min(ROWS, T - q0);
 
   // Tiles masked for the whole block may be skipped only if every row of
@@ -777,7 +795,9 @@ cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, void* o
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((T + ROWS - 1) / ROWS), (unsigned)BH);
+  const unsigned bands = (unsigned)((T + ROWS - 1) / ROWS);
+  if (DP == 256 && bands > 65535) return cudaErrorInvalidValue;
+  const dim3 grid = DP == 256 ? dim3((unsigned)BH, bands) : dim3(bands, (unsigned)BH);
   kernel<<<grid, 128 * kTcGroups, smem, stream>>>(
       (__nv_bfloat16*)o, T, S, D, group, causal, window, q_offset, k_offset, scale, mq, mk,
       mv);
@@ -1077,7 +1097,7 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, 
     return launch_flash_f32tc<128, 2>(q, k, v, o, BH, T, S, D, group, causal, window,
                                       q_offset, k_offset, scale, stream);
   }
-  if (bf16 && D % 16 == 0 && D <= 128) {  // bf16 on the tensor cores
+  if (bf16 && D % 16 == 0) {  // bf16 on the tensor cores
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16) return cudaErrorMisalignedAddress;
     if (D <= 16)
       return launch_flash_tc<16>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
@@ -1088,7 +1108,10 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, 
     if (D <= 64)
       return launch_flash_tc<64>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
                                  k_offset, scale, stream);
-    return launch_flash_tc<128>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
+    if (D <= 128)
+      return launch_flash_tc<128>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
+                                  k_offset, scale, stream);
+    return launch_flash_tc<256>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
                                 k_offset, scale, stream);
   }
   if (bf16)

@@ -32,14 +32,14 @@ dim alone (:func:`kernel_route`) to one of three kernels:
   the function above: the f32 gate of 5e-5 holds, where one TF32 pass or
   a two-part split of ``q k^T`` (at larger logits) breaks it
   (``tests/test_torch_flash_attention.py``).
-- bf16 with ``D % 16 == 0`` and ``D <= 128``: ``flash_attention_tc_kernel``,
+- bf16 with ``D % 16 == 0`` (up to 256): ``flash_attention_tc_kernel``,
   on the tensor cores: ``s = (q k^T) * (1/sqrt(D))``, the bf16 products
   exact in f32 and summed in f32, then scaled; and ``acc = acc corr + p_hi
   v + p_lo v`` with ``p_hi = bf16(p)`` and ``p_lo = bf16(p - p_hi)``
   (``l`` sums the f32 ``p``).  A single bf16 cast of ``p`` would move the
   output by more than one bf16 rounding step; the split stays within it
   (rtol 2^-7, atol 1e-5).
-- anything else (D > 128; bf16 with ``D % 16 != 0``):
+- anything else (f32 with ``D > 128``; bf16 with ``D % 16 != 0``):
   ``flash_attention_kernel``, the CUDA-core tile: the function above, f32
   products, no TF32.
 
@@ -92,7 +92,7 @@ def kernel_route(dtype, D: int) -> str:
     dim ``D`` (the launcher's rule, ``launch_flash_attention``)."""
     if dtype == torch.float32 and D <= 128:
         return F32_TC_KERNEL
-    if dtype == torch.bfloat16 and D % 16 == 0 and D <= 128:
+    if dtype == torch.bfloat16 and D % 16 == 0:
         return BF16_TC_KERNEL
     return TILE_KERNEL
 

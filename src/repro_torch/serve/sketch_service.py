@@ -23,33 +23,85 @@ import numpy as np
 from repro_torch.data import DatasetSearchIndex, SearchResult
 
 
-class LatencyHistogram:
-    """Count, sum, last value and a window of the most recent values.
+# Histogram bucket layout, copied from ``repro.obs.metrics`` so that the
+# service's quantiles equal the JAX service's value for value.
+BUCKET_LO_EXP = -7          # first finite bucket starts at 1e-7
+BUCKET_HI_EXP = 3           # last finite bucket ends at 1e3
+BUCKETS_PER_DECADE = 4
+N_FINITE = (BUCKET_HI_EXP - BUCKET_LO_EXP) * BUCKETS_PER_DECADE
+RECENT_WINDOW = 128
 
-    Quantiles are order statistics of the window, exact while the window
-    still holds every observation (the JAX service's histograms interpolate
-    log buckets beyond their window instead).
+_LOG_SCALE = BUCKETS_PER_DECADE
+_LOG_SHIFT = -BUCKET_LO_EXP * BUCKETS_PER_DECADE
+
+
+def bucket_index(value: float) -> int:
+    """Map a value to [0, N_FINITE+1]: 0 = underflow, N_FINITE+1 = overflow."""
+    if value < 1e-7:            # includes 0 and negatives: underflow
+        return 0
+    i = math.floor(math.log10(value) * _LOG_SCALE) + _LOG_SHIFT
+    if i < 0:
+        return 0
+    if i >= N_FINITE:
+        return N_FINITE + 1
+    return i + 1
+
+
+def bucket_bounds(i: int) -> Tuple[float, float]:
+    """(lo, hi) of finite bucket slot ``i`` in [1, N_FINITE]."""
+    e = (i - 1 - _LOG_SHIFT) / _LOG_SCALE
+    return 10.0 ** e, 10.0 ** (e + 1.0 / _LOG_SCALE)
+
+
+class LatencyHistogram:
+    """Log-scale bucket histogram with exact count, sum, min, max and last
+    value and a window of the ``RECENT_WINDOW`` most recent values.
+
+    Quantiles are exact order statistics while the window holds every
+    observation; beyond that, the geometric midpoint of the bucket that
+    holds the quantile, clamped to the exact min and max.
     """
 
-    def __init__(self, window: int = 1024):
+    def __init__(self) -> None:
         self.count = 0
         self.sum = 0.0
+        self.min = math.inf
+        self.max = -math.inf
         self.last = 0.0
-        self.recent = collections.deque(maxlen=window)
+        self.buckets = [0] * (N_FINITE + 2)
+        self.recent = collections.deque(maxlen=RECENT_WINDOW)
 
     def record(self, value: float) -> None:
         v = float(value)
         self.count += 1
         self.sum += v
+        if v < self.min:
+            self.min = v
+        if v > self.max:
+            self.max = v
         self.last = v
+        self.buckets[bucket_index(v)] += 1
         self.recent.append(v)
 
     def quantile(self, q: float) -> float:
-        if not self.recent:
+        if self.count == 0:
             return 0.0
-        xs = sorted(self.recent)
-        k = min(len(xs) - 1, max(0, int(math.ceil(q * len(xs))) - 1))
-        return xs[k]
+        if len(self.recent) == self.count:
+            xs = sorted(self.recent)
+            k = min(len(xs) - 1, max(0, int(math.ceil(q * len(xs))) - 1))
+            return xs[k]
+        target = q * self.count
+        cum = 0
+        for i, n in enumerate(self.buckets):
+            cum += n
+            if cum >= target and n:
+                if i == 0:
+                    return self.min
+                if i == N_FINITE + 1:
+                    return self.max
+                lo, hi = bucket_bounds(i)
+                return min(max(math.sqrt(lo * hi), self.min), self.max)
+        return self.max
 
 
 class ServiceStats:

@@ -539,12 +539,12 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
 @pytest.mark.cuda
 # f32 with D <= 128 runs the f32 tensor-core kernel (q scale, k, v and p
 # split into three bf16 parts, six part-products per product: within f32
-# rounding, so the f32 gate); bf16 with D % 16 == 0 and D <= 128 runs the
+# rounding, so the f32 gate); bf16 with D % 16 == 0 (up to 256) runs the
 # bf16 tensor-core kernel: s from exact bf16 products summed in f32, then
 # scaled, and p v as p_hi v + p_lo v (p split into two bf16 parts, about 16
-# bits of p); the rest (D = 256, bf16 D = 28) run the f32 tile.  bf16 output
-# is within one bf16 rounding step (2^-7 relative) of the plain version's
-# f32 function
+# bits of p); the rest (f32 D > 128, bf16 D % 16 != 0) run the f32 tile.
+# bf16 output is within one bf16 rounding step (2^-7 relative) of the plain
+# version's f32 function
 @pytest.mark.parametrize("dtype, rtol, atol", [(torch.float32, 5e-5, 5e-5),
                                                (torch.bfloat16, 2 ** -7, 1e-5)])
 @pytest.mark.parametrize("D, T, S, kw", [
@@ -566,6 +566,12 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
     (128, 40, 24, dict(causal=False, qc=40, kc=24)),
     # D % 4 != 0: the f32 tensor-core kernel reads its rows value by value
     (33, 70, 90, dict(causal=True, window=20, qc=35, kc=45)),
+    # bf16 at DP = 256 with zero-filled dims (D = 192), and D = 256 with T
+    # and S off the tiles, a window, offsets and rows 0-49 that see no key
+    (192, 256, 320, dict(causal=True, window=100, q_offset=64, qc=64,
+                         kc=64)),
+    (256, 200, 328, dict(causal=True, window=90, q_offset=100, k_offset=150,
+                         qc=50, kc=41)),
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, rtol, atol, D, T, S,
                                            kw):
@@ -624,7 +630,8 @@ def test_flash_attention_matches_chunked_attention_on_the_card(cuda, dtype,
                                       (torch.float32, 128),
                                       (torch.float32, 256),
                                       (torch.bfloat16, 64),
-                                      (torch.bfloat16, 128)])
+                                      (torch.bfloat16, 128),
+                                      (torch.bfloat16, 256)])
 def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype, D):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     q, k, v = _attention_inputs(5, 8, 200, 200, D, 2, dtype, cuda)
@@ -643,6 +650,8 @@ def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype, D):
 @pytest.mark.parametrize("dtype, D, symbol", [
     (torch.bfloat16, 64, "flash_attention_tc_kernel"),
     (torch.bfloat16, 128, "flash_attention_tc_kernel"),
+    (torch.bfloat16, 192, "flash_attention_tc_kernel"),
+    (torch.bfloat16, 256, "flash_attention_tc_kernel"),
     (torch.bfloat16, 28, "flash_attention_kernel"),
     (torch.float32, 64, "flash_attention_f32tc_kernel"),
     (torch.float32, 128, "flash_attention_f32tc_kernel"),
@@ -651,7 +660,7 @@ def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype, D):
 def test_flash_route_runs_the_named_kernel(cuda, dtype, D, symbol):
     """The launcher's static route, as the profiler sees it: f32 up to D =
     128 on the f32 tensor-core kernel, bf16 with D a multiple of 16 up to
-    128 on the bf16 one, the rest on the f32 tile (no kernel's name is part
+    256 on the bf16 one, the rest on the f32 tile (no kernel's name is part
     of another's); ``kernel_route`` names the same kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile

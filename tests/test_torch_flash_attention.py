@@ -20,10 +20,13 @@ import torch
 
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models.attention import chunked_attention as jax_chunked
-from repro_torch.kernels.flash_attention import (flash_attention,
+from repro_torch.kernels.flash_attention import (BF16_TC_KERNEL,
+                                                 F32_TC_KERNEL, TILE_KERNEL,
+                                                 flash_attention,
                                                  flash_attention_bh,
                                                  flash_attention_cuda,
-                                                 flash_attention_plain)
+                                                 flash_attention_plain,
+                                                 kernel_route)
 from repro_torch.models.attention import chunked_attention
 
 # small shapes: one intra-op thread per test process, so that parallel
@@ -185,6 +188,20 @@ def test_bad_inputs_raise():
         flash_attention_bh(wide, wide, wide)
 
 
+@pytest.mark.parametrize("dtype, tc_dims, tile_dims", [
+    (torch.bfloat16, range(16, 257, 16), (1, 8, 28, 33, 100, 136, 200, 255)),
+    (torch.float32, range(1, 129), range(129, 257)),
+])
+def test_kernel_route_by_type_and_head_dim(dtype, tc_dims, tile_dims):
+    """bf16 with D a multiple of 16 (up to 256) and f32 up to D = 128 name
+    their tensor-core kernels; the rest name the CUDA-core tile (the CUDA
+    launcher routes the same; tests/test_torch_cuda.py reads the route from
+    a profiler trace on the card)."""
+    tc = BF16_TC_KERNEL if dtype == torch.bfloat16 else F32_TC_KERNEL
+    assert {kernel_route(dtype, D) for D in tc_dims} == {tc}
+    assert {kernel_route(dtype, D) for D in tile_dims} == {TILE_KERNEL}
+
+
 # The CUDA tensor-core kernel's function on bf16 inputs, emulated in plain
 # PyTorch: s = (q k^T) * scale from bf16 values (products exact in f32),
 # the f32 mask and online softmax over its key tiles of 64, and p v as
@@ -224,7 +241,8 @@ def _tensor_core_emulation(q, k, v, *, group, causal, window, split=True,
 
 # D, T = S, window (causal throughout): bf16 unit-normal inputs, the scale
 # at which the gate holds for every f32 variant of the function
-TC_CASES = [(64, 256, 0), (64, 512, 128), (128, 256, 96), (128, 512, 0)]
+TC_CASES = [(64, 256, 0), (64, 512, 128), (128, 256, 96), (128, 512, 0),
+            (256, 256, 0), (256, 512, 128)]
 
 
 @functools.lru_cache(maxsize=None)
