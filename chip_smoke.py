@@ -25,9 +25,10 @@ gradient-compression path (``repro_torch.optim.compression``) runs eight
 gradient (44,044,288 values), through the dense CountSketch kernel (B14),
 and the flash-attention entry point (``repro_torch.kernels.
 flash_attention.flash_attention``) runs TinyLlama's attention shape,
-Mistral-NeMo's heads and Gemma-7B's (B15: f32 up to D = 128 through the
-f32 tensor-core kernel, bf16 through the bf16 one, f32 at D = 256 through
-the CUDA-core tile), each kernel first held against its plain version.
+Mistral-NeMo's heads, Gemma-7B's and InternVL2-1B's reduced ones (B15: f32
+through the f32 tensor-core kernel, bf16 with D % 16 == 0 through the bf16
+one, bf16 at D = 28 through the CUDA-core tile), each kernel first held
+against its plain version.
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero on
 any failure, and at once when no card is present.  Each phase prints its
 wall time.  The line before the last is a JSON object with each kernel's
@@ -145,17 +146,20 @@ GRAD_T = (TL_D_MODEL * (2 * TL_HEADS + 2 * TL_KV_HEADS) * TL_HEAD_DIM
 COMPRESS_STEPS = 8
 # flash attention at TinyLlama's attention (B = 1, T = S = 4,096), and
 # cases at Mistral-NeMo's heads (repro/configs/mistral_nemo_12b.py: 32
-# heads, 8 KV heads, head_dim 128) and Gemma-7B's (repro/configs/
-# gemma_7b.py: 16 heads, 16 KV heads, head_dim 256; in f32 past the f32
-# tensor-core kernel: the tile): label, H, K, D, dtype, window, and the
-# (rtol, atol) against the plain version (the TPU kernel's f32 function):
-# f32 the JAX tests' 5e-5 (the f32 tensor-core kernel splits q scale, k, v
-# and p into three bf16 parts and sums six part-products: within f32
-# rounding).  bf16 one bf16 rounding step: the bf16 cases (D % 16 == 0,
-# D <= 256) run the bf16 tensor-core kernel, whose s sums exact bf16
-# products in f32 before the scale and whose p v is p_hi v + p_lo v (p
-# split into two bf16 parts), so it stays within f32 rounding of that
-# function and differs where the results round to neighbouring bf16 values
+# heads, 8 KV heads, head_dim 128), Gemma-7B's (repro/configs/gemma_7b.py:
+# 16 heads, 16 KV heads, head_dim 256; the f32 tensor-core kernel splits
+# the head dim between its two warpgroups there) and InternVL2-1B's reduced
+# ones (repro/configs/internvl2_1b.py REDUCED: 2 heads, 1 KV head, head_dim
+# 28, not a multiple of 16, so in bf16 the CUDA-core tile):
+# label, H, K, D, dtype, window, and the (rtol, atol) against the plain
+# version (the TPU kernel's f32 function): f32 the JAX tests' 5e-5 (the f32
+# tensor-core kernel splits q scale, k, v and p into three bf16 parts and
+# sums six part-products: within f32 rounding).  bf16 one bf16 rounding
+# step: the bf16 cases with D % 16 == 0 run the bf16 tensor-core kernel,
+# whose s sums exact bf16 products in f32 before the scale and whose p v is
+# p_hi v + p_lo v (p split into two bf16 parts), so it stays within f32
+# rounding of that function and differs where the results round to
+# neighbouring bf16 values; the tile computes that function in f32
 FLASH_T = 4096
 F32_TOL, BF16_TOL = (5e-5, 5e-5), (2 ** -7, 1e-5)
 FLASH_CASES = (
@@ -168,22 +172,25 @@ FLASH_CASES = (
     ("causal f32 D=128", 32, 8, 128, torch.float32, 0, F32_TOL),
     ("causal bf16 D=128", 32, 8, 128, torch.bfloat16, 0, BF16_TOL),
     ("causal f32 D=256", 16, 16, 256, torch.float32, 0, F32_TOL),
-    ("causal bf16 D=256", 16, 16, 256, torch.bfloat16, 0, BF16_TOL))
+    ("causal bf16 D=256", 16, 16, 256, torch.bfloat16, 0, BF16_TOL),
+    ("causal bf16 D=28", 2, 1, 28, torch.bfloat16, 0, BF16_TOL))
 # the cases held per head == batched, bit for bit
 FLASH_PER_HEAD = ("causal f32", "causal bf16", "causal f32 window 1024",
                   "causal f32 D=128", "causal bf16 D=128", "causal f32 D=256",
-                  "causal bf16 D=256")
+                  "causal bf16 D=256", "causal bf16 D=28")
 # the flash_attention entry point against the port's chunked_attention
 # (scale after the product, bf16 p before p v): the JAX tests' tolerances
 ORACLE_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
-# dense bf16 rate of the tensor cores: the bound of the bf16 tensor-core
-# kernel (6 operations per visible (query, key) pair and dim, p v taken
-# twice; beside it the 4-operation bound of a kernel with one bf16 p) and of
-# the f32 one (24: six part-products each for q k^T and p v; beside it the
-# 4-operation floor of f32 FMAs on the CUDA cores)
+# dense bf16 rate of the tensor cores: every B15 route's bound.  bf16
+# inputs (the bf16 tensor-core kernel and the tile, which serves only bf16
+# and computes the same function): 6 operations per visible (query, key)
+# pair and dim, p v taken twice; beside it the 4-operation bound of a kernel
+# with one bf16 p.  f32 inputs (the f32 tensor-core kernel): 24, six
+# part-products each for q k^T and p v.  Beside the tile's and the f32
+# kernel's bound, the 4-operation floor of f32 FMAs on the CUDA cores
 BF16_TC_OPS_PER_S = 989e12
 # operations per visible pair and dim, by the kernel the route takes
-FLASH_OPS = {"flash_attention_kernel": 4, "flash_attention_tc_kernel": 6,
+FLASH_OPS = {"flash_attention_kernel": 6, "flash_attention_tc_kernel": 6,
              "flash_attention_f32tc_kernel": 24}
 
 
@@ -1400,17 +1407,17 @@ def visible_pairs(T: int, window: int) -> int:
 
 
 def flash_attention_kernel_phase():
-    """B15 at TinyLlama's attention shape, Mistral-NeMo's heads and
-    Gemma-7B's against its plain version (f32 within 5e-5, bf16 within one
-    bf16 rounding step), a launch per head == the batched launch and a
-    repeat, bit for bit; timed (device time under the symbol of the kernel
-    that the route takes, ``kernel_route``) against its bound (f32 tile:
-    operations, 4 per visible (query, key) pair and dim at the f32 rate;
-    bf16 tensor-core kernel: 6, f32 tensor-core kernel: 24, at the bf16
-    tensor-core rate; bytes: q, k, v, o once) and against one
+    """B15 at TinyLlama's attention shape, Mistral-NeMo's heads, Gemma-7B's
+    and InternVL2-1B's reduced ones against its plain version (f32 within
+    5e-5, bf16 within one bf16 rounding step), a launch per head == the
+    batched launch and a repeat, bit for bit; timed (device time under the
+    symbol of the kernel that the route takes, ``kernel_route``) against
+    its bound (operations at the bf16 tensor-core rate, per visible (query,
+    key) pair and dim: bf16 inputs, either kernel, 6; f32 inputs, 24;
+    bytes: q, k, v, o once) and against one
     ``scaled_dot_product_attention`` call (k/v expanded to every head
     before the call; the window case with a boolean mask).  Then the entry
-    point ``flash_attention`` (model layout) runs the seven cases, its
+    point ``flash_attention`` (model layout) runs the eight cases, its
     counters set to 0 just before and read just after: each kernel's count
     equals the cases routed to it, and each kernel runs; each output equals
     the batched launch bit for bit and lies within ORACLE_TOL of the port's
@@ -1453,12 +1460,9 @@ def flash_attention_kernel_phase():
         symbol = kfa.kernel_route(dtype, D)
         ops = 4 * H * visible_pairs(FLASH_T, window) * D
         bytes_moved = (2 * H + 2 * K) * FLASH_T * D * got.element_size()
-        if symbol == kfa.TILE_KERNEL:
-            bound, bound_by = bound_of(bytes_moved, ops)
-        else:   # on the tensor cores, at their bf16 rate
-            tc_ms = FLASH_OPS[symbol] / 4 * ops / BF16_TC_OPS_PER_S * 1e3
-            bound = max(bytes_moved / HBM_BYTES_PER_S * 1e3, tc_ms)
-            bound_by = "operations" if bound == tc_ms else "bytes"
+        tc_ms = FLASH_OPS[symbol] / 4 * ops / BF16_TC_OPS_PER_S * 1e3
+        bound = max(bytes_moved / HBM_BYTES_PER_S * 1e3, tc_ms)
+        bound_by = "operations" if bound == tc_ms else "bytes"
         ms = time_ms(fn, reps=5)
         dev_ms, dev_src = device_ms(fn, symbol, reps=5)
         qs, ks, vs = (a.transpose(1, 2).repeat_interleave(
@@ -1483,9 +1487,9 @@ def flash_attention_kernel_phase():
         tc4_ms = ops / BF16_TC_OPS_PER_S * 1e3
         if dtype == torch.bfloat16:
             rep["bound_ms_bf16_tensor_cores"] = tc4_ms
-        if symbol == kfa.BF16_TC_KERNEL:
+        if symbol != kfa.F32_TC_KERNEL:
             rep["bound_ms_split_tensor_cores"] = tc_ms
-        if symbol == kfa.F32_TC_KERNEL:
+        if symbol != kfa.BF16_TC_KERNEL:
             rep["bound_ms_f32_fma_floor"] = ops / FP32_OPS_PER_S * 1e3
         log(f"B15 {label}: max |kernel - plain| {rep['max_abs_err']:.3g} "
             f"(rtol {rtol:.3g}, atol {atol:.3g}), repeat and per-head bit for "

@@ -12,20 +12,21 @@
 // p = 1 on every key.
 //
 // Route, static, by type and head dim (launch_flash_attention): f32 inputs
-// with D <= 128 run flash_attention_f32tc_kernel and bf16 inputs with D % 16
-// == 0 (up to 256) flash_attention_tc_kernel, both on the tensor cores; the
-// rest (f32 with D > 128, bf16 with another D) run flash_attention_kernel on
-// the CUDA cores.  A refused launch returns its error; nothing falls back.
+// (every D up to 256) run flash_attention_f32tc_kernel and bf16 inputs with
+// D % 16 == 0 (up to 256) flash_attention_tc_kernel, both on the tensor
+// cores; bf16 inputs with another D run flash_attention_kernel on the CUDA
+// cores.  A refused launch returns its error; nothing falls back.
 //
-// flash_attention_kernel (the CUDA-core tile): all math in f32, the TPU
-// kernel's.  q scaled by 1/sqrt(D) in f32 before the product, s = q k^T, acc
-// = acc corr + p v with f32 p.  One block of 256 threads per (bh, 64 query
-// rows) keeps its scaled q tile in shared memory and stages each k/v tile
-// beside it, converted to f32.  Per key tile: the [64, BK] score tile (each
-// thread a 4-row by BK/16-key patch, a dot over d in order with explicit
-// fmaf), the row max, exp and sum (four threads per row, combined in a fixed
-// order), then acc = acc * corr + p v into registers (4 rows by D/16 dims a
-// thread).  The products run in f32 on the CUDA cores (no TF32).
+// flash_attention_kernel (the CUDA-core tile, bf16 inputs only): all math in
+// f32, the TPU kernel's.  q scaled by 1/sqrt(D) in f32 before the product, s
+// = q k^T, acc = acc corr + p v with f32 p.  One block of 256 threads per
+// (bh, 64 query rows) keeps its scaled q tile in shared memory and stages
+// each k/v tile beside it, converted to f32.  Per key tile: the [64, BK]
+// score tile (each thread a 4-row by BK/16-key patch, a dot over d in order
+// with explicit fmaf), the row max, exp and sum (four threads per row,
+// combined in a fixed order), then acc = acc * corr + p v into registers (4
+// rows by D/16 dims a thread).  The products run in f32 on the CUDA cores
+// (no TF32).
 //
 // flash_attention_tc_kernel (bf16, tensor cores): s = (q k^T) * (1/sqrt(D)),
 // the bf16 products exact in f32 and summed in f32 by wgmma, then scaled (for
@@ -64,22 +65,38 @@
 // dropped ones are 2^-24 of s and below); the f32 mask and softmax as
 // above; p split the same way and acc = acc corr + its six part-products
 // with v; l sums the f32 p.  One TF32 pass, or two bf16 parts of q and k,
-// would break the 5e-5 gate against the f32 function.  One block of G
-// warpgroups per (bh, 64 G query rows): G = 4 up to DP = 64, 2 at DP = 128
-// (147 and 196 KB of shared memory, one block a SM); the grid goes out head
-// by head within each band of rows, the longest causal rows first, so the
-// last blocks to run are the shortest.  The block splits its scaled q tile
-// once into three unswizzled part tiles (the layout above); each k/v tile of
-// 64 keys is read into registers with 16-byte loads (D % 4 == 0, else by
-// value; rows past S and dims past D as zeros) while the previous tile's
-// products run, then split by the block's threads into six part tiles shared
-// by the warpgroups: the split is the only place f32 becomes bf16.  Per
-// tile: six SS wgmma m64n64k16 per 16 dims for S; the softmax; six RS
-// m64nDPk16 per 16 keys for O (p's parts packed from the S accumulators, v
-// MN-major).  The warpgroups run in step (a barrier a tile), so four (or
-// two) chains of dependent products share the tensor cores; handing the
-// tensor cores from one warpgroup to another (a producer warpgroup doing the
-// split) left one chain in flight and ran slower.  What bounds it: 24
+// would break the 5e-5 gate against the f32 function.  Up to DP = 128 one
+// block of G warpgroups per (bh, 64 G query rows): G = 4 up to DP = 64, 2 at
+// DP = 128 (147 and 196 KB of shared memory, one block a SM).  The block
+// splits its scaled q tile once into three unswizzled part tiles (the layout
+// above); each k/v tile of 64 keys is read into registers with 16-byte loads
+// (D % 4 == 0, else by value; rows past S and dims past D as zeros) while
+// the previous tile's products run, then split by the block's threads into
+// six part tiles shared by the warpgroups: the split is the only place f32
+// becomes bf16.  Per tile: six SS wgmma m64n64k16 per 16 dims for S; the
+// softmax; six RS m64nDPk16 per 16 keys for O (p's parts packed from the S
+// accumulators, v MN-major).  The warpgroups run in step (a barrier a tile),
+// so four (or two) chains of dependent products share the tensor cores;
+// handing the tensor cores from one warpgroup to another (a producer
+// warpgroup doing the split) left one chain in flight and ran slower.
+// 128 < D <= 256 (DP = 256, dims past D as zeros): the whole row's 256 f32
+// output accumulators do not fit one thread's registers beside the
+// prefetched k and v, nor do three q, k and v part tiles of 64 keys fit
+// shared memory, so one block of two warpgroups per (bh, 64 query rows)
+// splits the head dim: warpgroup w owns output dims [128 w, 128 w + 128)
+// (64 accumulators a thread), stages and splits its own dims of q, k and v
+// (a named barrier of its 128 threads), and over key tiles of 32 computes
+// the partial s over its dims (six SS m64n32k16 per 16 dims).  The two
+// partials meet in shared memory (double-buffered by the tile's parity, one
+// __syncthreads a tile); both warpgroups form s_0 + s_1, so both hold the
+// same bits and run the same softmax, and each takes p v on its half of v
+// (six RS m64n128k16 per 16 keys).  The loop is pipelined: v's parts are
+// split while S runs and the next tile's k parts while P V runs (3% faster
+// than splitting both before S).  The tensor work stays 24 operations a
+// pair and dim (each warpgroup taking the whole s, 36, ran 14% slower);
+// shared memory is 229,376 bytes, one block a SM.  The grid
+// goes out head by head within each band of rows, the longest causal rows
+// first, so the last blocks to run are the shortest.  What bounds it: 24
 // tensor-core operations per visible pair and dim (0.42 ms at TinyLlama's
 // shape, under the CUDA cores' 4-op floor of 1.03 ms).
 //
@@ -108,11 +125,9 @@ constexpr int kFaRows = 64;       // query rows per block
 constexpr int kFaThreads = 256;
 constexpr float kFaNeg = -1e30f;  // the TPU kernel's masked score
 
-__device__ __forceinline__ float fa_load(const float* p) { return *p; }
 __device__ __forceinline__ float fa_load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
-__device__ __forceinline__ void fa_store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void fa_store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
@@ -123,12 +138,13 @@ constexpr size_t fa_smem_floats() {
          (size_t)kFaRows * (BK + 1) + 2 * kFaRows;
 }
 
-template <typename E, int DMAX, int BK>
+template <int DMAX, int BK>
 __global__ void __launch_bounds__(kFaThreads)
-flash_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
-                       const E* __restrict__ v, E* __restrict__ o, int T, int S, int D,
-                       int group, int causal, int window, long long q_offset,
-                       long long k_offset, float scale) {
+flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                       int T, int S, int D, int group, int causal, int window,
+                       long long q_offset, long long k_offset, float scale) {
   constexpr int DP = DMAX + 1;   // padded row of the q and k tiles
   constexpr int PP = BK + 1;     // padded row of the score tile
   constexpr int KPT = BK / 16;   // keys per thread in the score tile
@@ -145,9 +161,9 @@ flash_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kFaRows;
   const int rows = min(kFaRows, T - q0);
-  const E* qh = q + ((long long)bh * T + q0) * D;
-  const E* kh = k + (long long)(bh / group) * S * D;
-  const E* vh = v + (long long)(bh / group) * S * D;
+  const __nv_bfloat16* qh = q + ((long long)bh * T + q0) * D;
+  const __nv_bfloat16* kh = k + (long long)(bh / group) * S * D;
+  const __nv_bfloat16* vh = v + (long long)(bh / group) * S * D;
 
   for (int e = tid; e < kFaRows * D; e += kFaThreads) {
     const int r = e / D, d = e % D;
@@ -274,7 +290,7 @@ flash_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
     const int r = rg + 16 * i;
     if (r >= rows) continue;
     const float den = fmaxf(sL[r], 1e-30f);
-    E* orow = o + ((long long)bh * T + q0 + r) * D;
+    __nv_bfloat16* orow = o + ((long long)bh * T + q0 + r) * D;
 #pragma unroll
     for (int j = 0; j < DPT; ++j) {
       const int d = lane16 + 16 * j;
@@ -283,41 +299,40 @@ flash_attention_kernel(const E* __restrict__ q, const E* __restrict__ k,
   }
 }
 
-template <typename E, int DMAX, int BK>
+template <int DMAX, int BK>
 cudaError_t launch_flash_tile(const void* q, const void* k, const void* v, void* o,
                               int BH, int T, int S, int D, int group, int causal,
                               int window, long long q_offset, long long k_offset,
                               float scale, cudaStream_t stream) {
   const size_t smem = fa_smem_floats<DMAX, BK>() * sizeof(float);
-  auto kernel = flash_attention_kernel<E, DMAX, BK>;
+  auto kernel = flash_attention_kernel<DMAX, BK>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((T + kFaRows - 1) / kFaRows), (unsigned)BH);
   kernel<<<grid, kFaThreads, smem, stream>>>(
-      (const E*)q, (const E*)k, (const E*)v, (E*)o, T, S, D, group, causal, window,
-      q_offset, k_offset, scale);
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)o, T, S, D, group, causal, window, q_offset, k_offset, scale);
   return cudaGetLastError();
 }
 
-template <typename E>
-cudaError_t launch_flash_typed(const void* q, const void* k, const void* v, void* o,
-                               int BH, int T, int S, int D, int group, int causal,
-                               int window, long long q_offset, long long k_offset,
-                               float scale, cudaStream_t stream) {
+cudaError_t launch_flash_tile_bf16(const void* q, const void* k, const void* v, void* o,
+                                   int BH, int T, int S, int D, int group, int causal,
+                                   int window, long long q_offset, long long k_offset,
+                                   float scale, cudaStream_t stream) {
   // the smallest head-dim tile that holds D; wide heads take narrower key
   // tiles so that a block's shared memory stays at 67-141 KB
   if (D <= 32)
-    return launch_flash_tile<E, 32, 64>(q, k, v, o, BH, T, S, D, group, causal, window,
-                                        q_offset, k_offset, scale, stream);
+    return launch_flash_tile<32, 64>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                     q_offset, k_offset, scale, stream);
   if (D <= 64)
-    return launch_flash_tile<E, 64, 64>(q, k, v, o, BH, T, S, D, group, causal, window,
-                                        q_offset, k_offset, scale, stream);
+    return launch_flash_tile<64, 64>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                     q_offset, k_offset, scale, stream);
   if (D <= 128)
-    return launch_flash_tile<E, 128, 32>(q, k, v, o, BH, T, S, D, group, causal, window,
-                                         q_offset, k_offset, scale, stream);
-  return launch_flash_tile<E, 256, 32>(q, k, v, o, BH, T, S, D, group, causal, window,
-                                       q_offset, k_offset, scale, stream);
+    return launch_flash_tile<128, 32>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                      q_offset, k_offset, scale, stream);
+  return launch_flash_tile<256, 32>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                    q_offset, k_offset, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -394,6 +409,29 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t a, uint64_t b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// SS over a key tile of N = 64 or 32
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  static_assert(N == 64 || N == 32, "key tile of 64 or 32");
+  if constexpr (N == 64) wgmma_ss_n64(d, a, b, accumulate);
+  else wgmma_ss_n32(d, a, b, accumulate);
 }
 
 __device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t* a,
@@ -833,12 +871,12 @@ __device__ __forceinline__ void fa_load8(const float* row, int d0, int D, bool v
   }
 }
 
-// This thread's chunks of R rows of a [*, D] f32 array (row i at src + i D;
-// rows from `live` on as zeros).  Chunk e is row i, dims 8g .. 8g + 7: each
-// eight neighbouring threads take eight neighbouring rows (their 16-byte
-// shared stores, chunk (g, i) at (g R + i) 16, do not collide) and four such
-// groups four neighbouring chunks of those rows (a warp's 16-byte load
-// touches 8 cache lines, not 32).
+// This thread's chunks of R rows of an f32 array (row i at src + i ld; rows
+// from `live` on, and dims from D on, as zeros).  Chunk e is row i, dims 8g
+// .. 8g + 7: each eight neighbouring threads take eight neighbouring rows
+// (their 16-byte shared stores, chunk (g, i) at (g R + i) 16, do not
+// collide) and four such groups four neighbouring chunks of those rows (a
+// warp's 16-byte load touches 8 cache lines, not 32).
 template <int R, int DP, int NT>
 __host__ __device__ constexpr int tc_chunks() {
   return (R * DP / 8 + NT - 1) / NT;
@@ -853,14 +891,14 @@ __device__ __forceinline__ int2 tc_chunk(int e) {
 
 template <int R, int DP, int NT>
 __device__ __forceinline__ void tc_load_tile(float (&x)[tc_chunks<R, DP, NT>()][8],
-                                             const float* src, int live, int D, bool vec,
-                                             int tid) {
+                                             const float* src, int live, int ld, int D,
+                                             bool vec, int tid) {
   constexpr int CHUNKS = R * DP / 8;
 #pragma unroll
   for (int it = 0; it < tc_chunks<R, DP, NT>(); ++it) {
     const int e = tid + it * NT;
     const int2 c = tc_chunk<R, DP>(e);
-    fa_load8(src + (long long)c.x * D, 8 * c.y, D, vec, c.x < live && e < CHUNKS, x[it]);
+    fa_load8(src + (long long)c.x * ld, 8 * c.y, D, vec, c.x < live && e < CHUNKS, x[it]);
   }
 }
 
@@ -902,26 +940,59 @@ __device__ __forceinline__ void tc_store_tile(unsigned char* dst,
 __device__ constexpr int tc_pa(int j) { return j == 2 || j == 4 ? 1 : j == 5 ? 2 : 0; }
 __device__ constexpr int tc_pb(int j) { return j == 1 || j == 4 ? 1 : j == 3 ? 2 : 0; }
 
-// Shared: the three q part tiles (64 G rows), then three k and three v part
-// tiles (64 keys): 3 (64 G + 128) DP 2 bytes, one block a SM.
+// The f32 kernel's shape.  Up to DP = 128 each of G warpgroups owns 64 query
+// rows and every dim, over key tiles of 64, and the block stages the q, k
+// and v parts together.  At DP = 256 (G = 2) both warpgroups own the same 64
+// rows, warpgroup w the dims [128 w, 128 w + 128), over key tiles of 32: each
+// stages its own dims of q, k and v (a unit of its 128 threads), computes
+// its partial s over them, and the two partials meet in shared memory.
+template <int DP, int G>
+struct F32tcShape {
+  static constexpr bool kHalves = DP == 256;
+  static constexpr int ROWS = kHalves ? 64 : 64 * G;   // query rows a block
+  static constexpr int KEYS = kHalves ? 32 : kTcKeys;  // keys a tile
+  static constexpr int DW = kHalves ? DP / 2 : DP;     // dims a warpgroup
+  static constexpr int UNITS = kHalves ? G : 1;        // units that stage parts
+  static constexpr int UT = 128 * G / UNITS;           // threads a unit
+  // bytes of one part of a unit's q tile and of its k or v tile
+  static constexpr int QP = ROWS * DW * 2, KP = KEYS * DW * 2;
+  // the partial s of each warpgroup, twice (by the tile's parity)
+  static constexpr int XB = kHalves ? 2 * G * 64 * KEYS * 4 : 0;
+  // shared: each unit's three q part tiles, then each unit's three k and
+  // three v part tiles, then the partials: 3 (64 G + 128) DP 2 bytes up to
+  // DP = 128, 229,376 at 256; one block a SM
+  static constexpr size_t kSmem = (size_t)UNITS * 3 * (QP + 2 * KP) + XB;
+};
+
 template <int DP, int G>
 __global__ void __launch_bounds__(128 * G, 1)
 flash_attention_f32tc_kernel(const float* __restrict__ q, const float* __restrict__ k,
                              const float* __restrict__ v, float* __restrict__ o, int T,
                              int S, int D, int group, int causal, int window,
                              long long q_offset, long long k_offset, float scale, int vec) {
-  constexpr int ROWS = 64 * G, NT = 128 * G;
-  constexpr int QP = ROWS * DP * 2, KP = kTcKeys * DP * 2;  // bytes of a q, k or v part
-  constexpr int NS = kTcKeys / 2;  // score accumulators a thread
-  constexpr int NO = DP / 2;       // output accumulators a thread
+  using Sh = F32tcShape<DP, G>;
+  constexpr bool kHalves = Sh::kHalves;
+  constexpr int ROWS = Sh::ROWS, KEYS = Sh::KEYS, DW = Sh::DW, UT = Sh::UT;
+  constexpr int QP = Sh::QP, KP = Sh::KP;
+  constexpr int NS = KEYS / 2;  // score accumulators a thread
+  constexpr int NO = DW / 2;    // output accumulators a thread
   extern __shared__ __align__(128) unsigned char tc_buf[];
-  unsigned char* bq = tc_buf;
-  unsigned char* bk = bq + 3 * QP;
-  unsigned char* bv = bk + 3 * KP;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, wg = warp >> 2;
+  // this thread's unit (the block, or at DP = 256 its warpgroup), its index
+  // there, and its warpgroup's first dim
+  const int unit = kHalves ? wg : 0, utid = kHalves ? tid & 127 : tid;
+  const int d_lo = kHalves ? DW * wg : 0;
+  unsigned char* bq = tc_buf + unit * 3 * QP;
+  unsigned char* bk = tc_buf + Sh::UNITS * 3 * QP + unit * 3 * KP;
+  unsigned char* bv = tc_buf + Sh::UNITS * 3 * (QP + KP) + unit * 3 * KP;
+  float4* bx = reinterpret_cast<float4*>(tc_buf + Sh::UNITS * 3 * (QP + 2 * KP));
   const uint32_t sq = static_cast<uint32_t>(__cvta_generic_to_shared(bq));
-  const uint32_t sk = sq + 3 * QP, sv = sk + 3 * KP;
+  const uint32_t sk = static_cast<uint32_t>(__cvta_generic_to_shared(bk));
+  const uint32_t sv = static_cast<uint32_t>(__cvta_generic_to_shared(bv));
+  // at DP = 256 a warpgroup's threads wait for each other (named barriers 1
+  // and 2; 0 is __syncthreads')
+  auto sync_warpgroup = [&] { asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory"); };
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // blocks go out head by head within each band of rows, the longest causal
   // rows first: the last blocks to run are the shortest
   const int bh = blockIdx.x, kvh = bh / group;
@@ -941,10 +1012,10 @@ flash_attention_f32tc_kernel(const float* __restrict__ q, const float* __restric
   const bool may_skip = __syncthreads_and(sees) && window >= 0;
   const long long qa = q_offset + q0, qb = qa + rows - 1;
   // the tiles with a visible (row, key) pair form one run [t_lo, t_hi]
-  const int nt = (S + kTcKeys - 1) / kTcKeys;
+  const int nt = (S + KEYS - 1) / KEYS;
   auto any = [&](int t) {
-    const long long ka = k_offset + (long long)t * kTcKeys;
-    const long long kb = ka + min(kTcKeys, S - t * kTcKeys) - 1;
+    const long long ka = k_offset + (long long)t * KEYS;
+    const long long kb = ka + min(KEYS, S - t * KEYS) - 1;
     return (!causal || ka <= qb) && (!window || kb > qa - window);
   };
   int t_lo = 0, t_hi = nt - 1;
@@ -953,65 +1024,106 @@ flash_attention_f32tc_kernel(const float* __restrict__ q, const float* __restric
     while (t_hi > t_lo && !any(t_hi)) --t_hi;
   }
 
-  // q (1/sqrt(D)) in f32, then split: the block's q parts for the whole loop
+  // q (1/sqrt(D)) in f32, then split: the unit's q parts for the whole loop
   {
-    float xq[tc_chunks<ROWS, DP, NT>()][8];
-    tc_load_tile<ROWS, DP, NT>(xq, q + ((long long)bh * T + q0) * D, rows, D, vec, tid);
-    tc_store_tile<ROWS, DP, NT, true>(bq, xq, scale, tid);
+    float xq[tc_chunks<ROWS, DW, UT>()][8];
+    tc_load_tile<ROWS, DW, UT>(xq, q + ((long long)bh * T + q0) * D + d_lo, rows, D,
+                               D - d_lo, vec, utid);
+    tc_store_tile<ROWS, DW, UT, true>(bq, xq, scale, utid);
   }
-  const float* kh = k + (long long)kvh * S * D;
-  const float* vh = v + (long long)kvh * S * D;
-  constexpr int NC = tc_chunks<kTcKeys, DP, NT>();
+  const float* kh = k + (long long)kvh * S * D + d_lo;
+  const float* vh = v + (long long)kvh * S * D + d_lo;
+  constexpr int NC = tc_chunks<KEYS, DW, UT>();
   float xk[NC][8], xv[NC][8];
   // tile t's k and v in registers, loaded while the products of tile t - 1
-  // run and split at the top of tile t
+  // run and split at the top of tile t (at DP = 256 one of them at a time)
+  auto fetch_one = [&](float (&x)[NC][8], const float* src, int t) {
+    const int f0 = t * KEYS;
+    tc_load_tile<KEYS, DW, UT>(x, src + (long long)f0 * D, min(KEYS, S - f0), D, D - d_lo,
+                               vec, utid);
+  };
   auto fetch = [&](int t) {
-    const int f0 = t * kTcKeys, fk = min(kTcKeys, S - f0);
-    tc_load_tile<kTcKeys, DP, NT>(xk, kh + (long long)f0 * D, fk, D, vec, tid);
-    tc_load_tile<kTcKeys, DP, NT>(xv, vh + (long long)f0 * D, fk, D, vec, tid);
+    const int f0 = t * KEYS, fk = min(KEYS, S - f0);
+    tc_load_tile<KEYS, DW, UT>(xk, kh + (long long)f0 * D, fk, D, D - d_lo, vec, utid);
+    tc_load_tile<KEYS, DW, UT>(xv, vh + (long long)f0 * D, fk, D, D - d_lo, vec, utid);
   };
   fetch(t_lo);
 
   // accumulator fragment as in flash_attention_tc_kernel
-  const int wg = warp >> 2;
-  const int r0 = 64 * wg + (warp & 3) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
+  const int r0 = (kHalves ? 0 : 64 * wg) + (warp & 3) * 16 + (lane >> 2), c0 = 2 * (lane & 3);
   const long long qp0 = qa + r0;
   float acc[NO];
 #pragma unroll
   for (int i = 0; i < NO; ++i) acc[i] = 0.f;
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, l0 = 0.f, l1 = 0.f;
   // descriptors of part 0; part j lies j QP (q) or j KP (k, v) bytes on
-  const uint64_t dq = tc_desc(sq + 64 * 16 * wg, ROWS * 16, 128);
-  const uint64_t dk = tc_desc(sk, kTcKeys * 16, 128);
-  const uint64_t dv = tc_desc(sv, 128, kTcKeys * 16);
+  const uint64_t dq = tc_desc(sq + (kHalves ? 0 : 64 * 16 * wg), ROWS * 16, 128);
+  const uint64_t dk = tc_desc(sk, KEYS * 16, 128);
+  const uint64_t dv = tc_desc(sv, 128, KEYS * 16);
   constexpr uint64_t QJ = QP / 16, KJ = KP / 16;  // a part's step in descriptor units
 
-  for (int t = t_lo; t <= t_hi; ++t) {
-    const int k0 = t * kTcKeys, keys = min(kTcKeys, S - k0);
-    if (t > t_lo) __syncthreads();  // every warpgroup is done with the last tile
-    tc_store_tile<kTcKeys, DP, NT, false>(bk, xk, 1.f, tid);
-    tc_store_tile<kTcKeys, DP, NT, false>(bv, xv, 1.f, tid);
-    // the parts were written by the threads (the generic proxy); wgmma reads
-    // them through the async proxy
+  // At DP = 256 the loop is pipelined: S(t) runs while v(t) is split, the
+  // partials' barrier also publishes v(t)'s parts, P V(t) runs while k(t +
+  // 1) is split, and a barrier of the warpgroup publishes k(t + 1) and frees
+  // v's parts.  The parts are written by the threads (the generic proxy);
+  // wgmma reads them through the async proxy, hence each fence.
+  if constexpr (kHalves) {
+    tc_store_tile<KEYS, DW, UT, false>(bk, xk, 1.f, utid);
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    __syncthreads();
+    sync_warpgroup();
+    if (t_lo < t_hi) fetch_one(xk, kh, t_lo + 1);
+  }
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int k0 = t * KEYS, keys = min(KEYS, S - k0);
+    if constexpr (!kHalves) {
+      if (t > t_lo) __syncthreads();  // every warpgroup is done with the last tile
+      tc_store_tile<KEYS, DW, UT, false>(bk, xk, 1.f, utid);
+      tc_store_tile<KEYS, DW, UT, false>(bv, xv, 1.f, utid);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
 
-    // S = sum of the six part-products Q_a K_b^T, K-major, 16 dims a step
+    // S = sum of the six part-products Q_a K_b^T over this warpgroup's dims,
+    // K-major, 16 dims a step
     float s[NS];
     tc_wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
+    for (int kk = 0; kk < DW / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 6; ++j)
-        wgmma_ss_n64(s, dq + tc_pa(j) * QJ + kk * 2 * ROWS,
-                     dk + tc_pb(j) * KJ + kk * 2 * kTcKeys, kk > 0 || j > 0);
+        wgmma_ss<KEYS>(s, dq + tc_pa(j) * QJ + kk * 2 * ROWS,
+                       dk + tc_pb(j) * KJ + kk * 2 * KEYS, kk > 0 || j > 0);
     tc_wgmma_commit();
+    if constexpr (kHalves) {
+      tc_store_tile<KEYS, DW, UT, false>(bv, xv, 1.f, utid);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      if (t < t_hi) fetch_one(xv, vh, t + 1);
+    }
     tc_wgmma_wait();
     tc_fence_regs(s);
+    if constexpr (kHalves) {
+      // s = s_0 + s_1: thread i of one warpgroup holds the same (row, key)
+      // entries as thread i of the other; addition commutes exactly, so
+      // both warpgroups hold the same bits, and so the same m, l and p
+      float4* mine = bx + ((t & 1) * G + wg) * (NS / 4) * UT + utid;
+      const float4* theirs = bx + ((t & 1) * G + 1 - wg) * (NS / 4) * UT + utid;
+#pragma unroll
+      for (int i = 0; i < NS / 4; ++i)
+        mine[i * UT] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < NS / 4; ++i) {
+        const float4 x = theirs[i * UT];
+        s[4 * i] = __fadd_rn(s[4 * i], x.x);
+        s[4 * i + 1] = __fadd_rn(s[4 * i + 1], x.y);
+        s[4 * i + 2] = __fadd_rn(s[4 * i + 2], x.z);
+        s[4 * i + 3] = __fadd_rn(s[4 * i + 3], x.w);
+      }
+    }
 
     // a tile every row sees whole takes no mask
     const long long ka = k_offset + k0, kb = ka + keys - 1;
-    const bool full = keys == kTcKeys && (!causal || kb <= qa) && (!window || ka > qb - window);
+    const bool full = keys == KEYS && (!causal || kb <= qa) && (!window || ka > qb - window);
     uint32_t pp[3][NS / 2];
     float corr0, corr1;
     tc_softmax<NS, 3, false>(s, pp, m0, m1, l0, l1, corr0, corr1, full, qp0 - ka, c0,
@@ -1026,14 +1138,23 @@ flash_attention_f32tc_kernel(const float* __restrict__ q, const float* __restric
     tc_fence_regs(acc);
     tc_wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kTcKeys / 16; ++kk)
+    for (int kk = 0; kk < KEYS / 16; ++kk)
 #pragma unroll
       for (int j = 0; j < 6; ++j)
-        wgmma_rs<DP>(acc, pp[tc_pa(j)] + 4 * kk, dv + tc_pb(j) * KJ + kk * 16);
+        wgmma_rs<DW>(acc, pp[tc_pa(j)] + 4 * kk, dv + tc_pb(j) * KJ + kk * 16);
     tc_wgmma_commit();
-    if (t < t_hi) fetch(t + 1);
+    if constexpr (kHalves) {
+      if (t < t_hi) {  // every S(t) was waited for before the partials' barrier
+        tc_store_tile<KEYS, DW, UT, false>(bk, xk, 1.f, utid);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        if (t + 1 < t_hi) fetch_one(xk, kh, t + 2);
+      }
+    } else {
+      if (t < t_hi) fetch(t + 1);
+    }
     tc_wgmma_wait();
     tc_fence_regs(acc);
+    if constexpr (kHalves) sync_warpgroup();
   }
 
   // (l_0 + l_1) + (l_2 + l_3) over the quad, on all four lanes
@@ -1042,14 +1163,14 @@ flash_attention_f32tc_kernel(const float* __restrict__ q, const float* __restric
   l1 = __fadd_rn(l1, __shfl_xor_sync(0xFFFFFFFFu, l1, 1));
   l1 = __fadd_rn(l1, __shfl_xor_sync(0xFFFFFFFFu, l1, 2));
   const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-  float* o0 = o + ((long long)bh * T + q0 + r0) * D;
+  float* o0 = o + ((long long)bh * T + q0 + r0) * D + d_lo;
   float* o1 = o0 + 8 * (long long)D;
 #pragma unroll
   for (int c = 0; c < NO / 4; ++c) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int col = 8 * c + c0 + e;
-      if (col >= D) continue;
+      if (col >= D - d_lo) continue;
       if (r0 < rows) o0[col] = __fdiv_rn(acc[4 * c + e], den0);
       if (r0 + 8 < rows) o1[col] = __fdiv_rn(acc[4 * c + 2 + e], den1);
     }
@@ -1061,17 +1182,19 @@ cudaError_t launch_flash_f32tc(const void* q, const void* k, const void* v, void
                                int T, int S, int D, int group, int causal, int window,
                                long long q_offset, long long k_offset, float scale,
                                cudaStream_t stream) {
-  constexpr int ROWS = 64 * G;
-  const size_t smem = (size_t)3 * (ROWS + 2 * kTcKeys) * DP * 2;
+  using Sh = F32tcShape<DP, G>;
   auto kernel = flash_attention_f32tc_kernel<DP, G>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Sh::kSmem);
   if (err != cudaSuccess) return err;
   const int vec = D % 4 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
-  const dim3 grid((unsigned)BH, (unsigned)((T + ROWS - 1) / ROWS));
-  kernel<<<grid, 128 * G, smem, stream>>>((const float*)q, (const float*)k, (const float*)v,
-                                          (float*)o, T, S, D, group, causal, window,
-                                          q_offset, k_offset, scale, vec);
+  const unsigned bands = (unsigned)((T + Sh::ROWS - 1) / Sh::ROWS);
+  if (bands > 65535) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)BH, bands);
+  kernel<<<grid, 128 * G, Sh::kSmem, stream>>>((const float*)q, (const float*)k,
+                                               (const float*)v, (float*)o, T, S, D, group,
+                                               causal, window, q_offset, k_offset, scale,
+                                               vec);
   return cudaGetLastError();
 }
 
@@ -1082,9 +1205,9 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, 
   if (BH < 1 || BH > 65535 || T < 1 || S < 1 || D < 1 || D > 256 || group < 1 ||
       BH % group != 0)
     return cudaErrorInvalidValue;
-  if (!bf16 && D <= 128) {  // f32 on the tensor cores, three-way split
+  if (!bf16) {  // f32 on the tensor cores, three-way split
     // four warpgroups a block up to DP = 64 (147 KB of shared memory at 64),
-    // two at 128 (196 KB)
+    // two at 128 (196 KB), two on the two halves of the dims at 256 (224 KB)
     if (D <= 16)
       return launch_flash_f32tc<16, 4>(q, k, v, o, BH, T, S, D, group, causal, window,
                                        q_offset, k_offset, scale, stream);
@@ -1094,10 +1217,13 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, 
     if (D <= 64)
       return launch_flash_f32tc<64, 4>(q, k, v, o, BH, T, S, D, group, causal, window,
                                        q_offset, k_offset, scale, stream);
-    return launch_flash_f32tc<128, 2>(q, k, v, o, BH, T, S, D, group, causal, window,
+    if (D <= 128)
+      return launch_flash_f32tc<128, 2>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                        q_offset, k_offset, scale, stream);
+    return launch_flash_f32tc<256, 2>(q, k, v, o, BH, T, S, D, group, causal, window,
                                       q_offset, k_offset, scale, stream);
   }
-  if (bf16 && D % 16 == 0) {  // bf16 on the tensor cores
+  if (D % 16 == 0) {  // bf16 on the tensor cores
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16) return cudaErrorMisalignedAddress;
     if (D <= 16)
       return launch_flash_tc<16>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
@@ -1114,11 +1240,9 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, 
     return launch_flash_tc<256>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
                                 k_offset, scale, stream);
   }
-  if (bf16)
-    return launch_flash_typed<__nv_bfloat16>(q, k, v, o, BH, T, S, D, group, causal,
-                                             window, q_offset, k_offset, scale, stream);
-  return launch_flash_typed<float>(q, k, v, o, BH, T, S, D, group, causal, window,
-                                   q_offset, k_offset, scale, stream);
+  // bf16 with another head dim: the CUDA-core tile
+  return launch_flash_tile_bf16(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
+                                k_offset, scale, stream);
 }
 
 }  // namespace repro

@@ -14,14 +14,14 @@ q_pos``, window ``k_pos > q_pos - window``, positions ``q_offset + t`` and
 -inf, all math in f32, and ``acc / max(l, 1e-30)``.  A row that sees no
 key returns the mean of v, not NaN.  ``qc``/``kc`` must divide T/S as the
 TPU launcher asserts; the plain twin chunks by them, the CUDA kernels by
-their own tiles (64 or 128 query rows, 32 or 64 keys), so they agree to f32
+their own tiles (64 to 256 query rows, 32 or 64 keys), so they agree to f32
 tolerance, as the JAX package's block-size invariance test holds different
 chunkings.  Head dims 1..256.
 
 The CUDA launcher (``csrc/flash_attention.cu``) routes by dtype and head
 dim alone (:func:`kernel_route`) to one of three kernels:
 
-- f32 with ``D <= 128``: ``flash_attention_f32tc_kernel``, on the tensor
+- f32 (every D up to 256): ``flash_attention_f32tc_kernel``, on the tensor
   cores.  ``q * (1/sqrt(D))`` in f32, then q·scale, k and v each split
   into three bf16 parts, ``b0 = bf16(x)``, ``b1 = bf16(x - b0)``, ``b2 =
   bf16(x - b0 - b1)`` (for normal values the parts sum to x exactly);
@@ -31,7 +31,11 @@ dim alone (:func:`kernel_route`) to one of three kernels:
   part-products of p and v; ``l`` sums the f32 p.  Within f32 rounding of
   the function above: the f32 gate of 5e-5 holds, where one TF32 pass or
   a two-part split of ``q k^T`` (at larger logits) breaks it
-  (``tests/test_torch_flash_attention.py``).
+  (``tests/test_torch_flash_attention.py``).  Past D = 128 (head dims
+  padded to 256 with zeros) the block's two warpgroups split the head
+  dim: each computes the partial ``s`` over its 128 dims, both form ``s_0
+  + s_1`` from shared memory (the same bits in both), and each writes its
+  half of the output, over key tiles of 32.
 - bf16 with ``D % 16 == 0`` (up to 256): ``flash_attention_tc_kernel``,
   on the tensor cores: ``s = (q k^T) * (1/sqrt(D))``, the bf16 products
   exact in f32 and summed in f32, then scaled; and ``acc = acc corr + p_hi
@@ -39,9 +43,8 @@ dim alone (:func:`kernel_route`) to one of three kernels:
   (``l`` sums the f32 ``p``).  A single bf16 cast of ``p`` would move the
   output by more than one bf16 rounding step; the split stays within it
   (rtol 2^-7, atol 1e-5).
-- anything else (f32 with ``D > 128``; bf16 with ``D % 16 != 0``):
-  ``flash_attention_kernel``, the CUDA-core tile: the function above, f32
-  products, no TF32.
+- bf16 with ``D % 16 != 0``: ``flash_attention_kernel``, the CUDA-core
+  tile: the function above, f32 products, no TF32.
 
 Every kernel sums in an order fixed by its tiles: a head gives the same
 bits alone or in a batch, and repeated runs the same bits.
@@ -90,7 +93,7 @@ TILE_KERNEL = "flash_attention_kernel"
 def kernel_route(dtype, D: int) -> str:
     """The kernel the CUDA launcher runs for inputs of ``dtype`` with head
     dim ``D`` (the launcher's rule, ``launch_flash_attention``)."""
-    if dtype == torch.float32 and D <= 128:
+    if dtype == torch.float32:
         return F32_TC_KERNEL
     if dtype == torch.bfloat16 and D % 16 == 0:
         return BF16_TC_KERNEL

@@ -537,14 +537,14 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
 
 
 @pytest.mark.cuda
-# f32 with D <= 128 runs the f32 tensor-core kernel (q scale, k, v and p
-# split into three bf16 parts, six part-products per product: within f32
-# rounding, so the f32 gate); bf16 with D % 16 == 0 (up to 256) runs the
-# bf16 tensor-core kernel: s from exact bf16 products summed in f32, then
-# scaled, and p v as p_hi v + p_lo v (p split into two bf16 parts, about 16
-# bits of p); the rest (f32 D > 128, bf16 D % 16 != 0) run the f32 tile.
-# bf16 output is within one bf16 rounding step (2^-7 relative) of the plain
-# version's f32 function
+# f32 (every D up to 256; past 128 the two warpgroups split the head dim)
+# runs the f32 tensor-core kernel (q scale, k, v and p split into three bf16
+# parts, six part-products per product: within f32 rounding, so the f32
+# gate); bf16 with D % 16 == 0 (up to 256) runs the bf16 tensor-core kernel:
+# s from exact bf16 products summed in f32, then scaled, and p v as p_hi v +
+# p_lo v (p split into two bf16 parts, about 16 bits of p); bf16 with D % 16
+# != 0 runs the CUDA-core tile.  bf16 output is within one bf16 rounding
+# step (2^-7 relative) of the plain version's f32 function
 @pytest.mark.parametrize("dtype, rtol, atol", [(torch.float32, 5e-5, 5e-5),
                                                (torch.bfloat16, 2 ** -7, 1e-5)])
 @pytest.mark.parametrize("D, T, S, kw", [
@@ -572,6 +572,9 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
                          kc=64)),
     (256, 200, 328, dict(causal=True, window=90, q_offset=100, k_offset=150,
                          qc=50, kc=41)),
+    # past 128 with D % 4 != 0: the f32 kernel's DP = 256 instance reads its
+    # rows value by value; bf16 runs the tile
+    (150, 200, 264, dict(causal=True, window=70, q_offset=30, qc=40, kc=44)),
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, rtol, atol, D, T, S,
                                            kw):
@@ -589,7 +592,7 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, rtol, atol, D, T, S,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_flash_f32_kernel_holds_the_gate_with_larger_logits(cuda, D):
     """q and k three times as large (logits nine times): the three-way
     split keeps the f32 tensor-core kernel within 5e-5 of plain, where a
@@ -655,13 +658,14 @@ def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype, D):
     (torch.bfloat16, 28, "flash_attention_kernel"),
     (torch.float32, 64, "flash_attention_f32tc_kernel"),
     (torch.float32, 128, "flash_attention_f32tc_kernel"),
-    (torch.float32, 256, "flash_attention_kernel"),
+    (torch.float32, 192, "flash_attention_f32tc_kernel"),
+    (torch.float32, 256, "flash_attention_f32tc_kernel"),
 ])
 def test_flash_route_runs_the_named_kernel(cuda, dtype, D, symbol):
     """The launcher's static route, as the profiler sees it: f32 up to D =
-    128 on the f32 tensor-core kernel, bf16 with D a multiple of 16 up to
-    256 on the bf16 one, the rest on the f32 tile (no kernel's name is part
-    of another's); ``kernel_route`` names the same kernel."""
+    256 on the f32 tensor-core kernel, bf16 with D a multiple of 16 up to
+    256 on the bf16 one, the rest (bf16) on the CUDA-core tile (no kernel's
+    name is part of another's); ``kernel_route`` names the same kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,

@@ -188,18 +188,18 @@ def test_bad_inputs_raise():
         flash_attention_bh(wide, wide, wide)
 
 
-@pytest.mark.parametrize("dtype, tc_dims, tile_dims", [
-    (torch.bfloat16, range(16, 257, 16), (1, 8, 28, 33, 100, 136, 200, 255)),
-    (torch.float32, range(1, 129), range(129, 257)),
+@pytest.mark.parametrize("dtype, tc_dims", [
+    (torch.bfloat16, range(16, 257, 16)),
+    (torch.float32, range(1, 257)),
 ])
-def test_kernel_route_by_type_and_head_dim(dtype, tc_dims, tile_dims):
-    """bf16 with D a multiple of 16 (up to 256) and f32 up to D = 128 name
-    their tensor-core kernels; the rest name the CUDA-core tile (the CUDA
-    launcher routes the same; tests/test_torch_cuda.py reads the route from
-    a profiler trace on the card)."""
+def test_kernel_route_by_type_and_head_dim(dtype, tc_dims):
+    """bf16 with D a multiple of 16 (up to 256) and f32 at every D up to 256
+    name their tensor-core kernels; the rest (bf16 only) name the CUDA-core
+    tile (the CUDA launcher routes the same; tests/test_torch_cuda.py reads
+    the route from a profiler trace on the card)."""
     tc = BF16_TC_KERNEL if dtype == torch.bfloat16 else F32_TC_KERNEL
-    assert {kernel_route(dtype, D) for D in tc_dims} == {tc}
-    assert {kernel_route(dtype, D) for D in tile_dims} == {TILE_KERNEL}
+    for D in range(1, 257):
+        assert kernel_route(dtype, D) == (tc if D in tc_dims else TILE_KERNEL)
 
 
 # The CUDA tensor-core kernel's function on bf16 inputs, emulated in plain
@@ -314,9 +314,13 @@ def _split_matmul(a, b, parts):
 
 
 def _f32_split_emulation(q, k, v, *, group, causal, window, qk_parts=3,
-                         pv_parts=3, kc=64):
+                         pv_parts=3):
     BH, T, D = q.shape
     S = k.shape[1]
+    # the kernel's key tile, and its two halves of the head dim past D = 128
+    # (each warpgroup's partial s over its 128 dims, then s_0 + s_1)
+    kc, halves = (32, (slice(0, 128), slice(128, D))) if D > 128 else \
+        (64, (slice(0, D),))
     heads = torch.arange(BH) // group
     qs, kf, vf = q * (1.0 / D ** 0.5), k[heads], v[heads]
     q_pos = torch.arange(T)
@@ -325,7 +329,8 @@ def _f32_split_emulation(q, k, v, *, group, causal, window, qk_parts=3,
     acc = torch.zeros((BH, T, D))
     for k0 in range(0, S, kc):
         kb, vb = kf[:, k0:k0 + kc], vf[:, k0:k0 + kc]
-        s = _split_matmul(qs, kb.transpose(1, 2), qk_parts)
+        s = sum(_split_matmul(qs[..., h], kb[..., h].transpose(1, 2), qk_parts)
+                for h in halves)
         k_pos = k0 + torch.arange(kb.shape[1])
         mask = torch.ones(s.shape[1:], dtype=torch.bool)
         if causal:
@@ -345,7 +350,8 @@ def _f32_split_emulation(q, k, v, *, group, causal, window, qk_parts=3,
 # D, T = S, window (causal throughout), and the scale of q and k (the
 # logits grow by its square): unit-normal inputs, and one case at x3
 F32_CASES = [(64, 256, 0, 1.0), (64, 512, 128, 1.0), (128, 256, 96, 1.0),
-             (128, 512, 0, 1.0), (64, 256, 0, 3.0)]
+             (128, 512, 0, 1.0), (256, 256, 0, 1.0), (256, 512, 128, 1.0),
+             (256, 256, 0, 3.0), (64, 256, 0, 3.0)]
 F32_GATE = dict(rtol=5e-5, atol=5e-5)
 
 
@@ -381,18 +387,30 @@ def test_f32_split_function_holds_the_f32_gate(case):
         torch.testing.assert_close(got, want, **F32_GATE)
 
 
+def _cheaper_split_breaks_the_gate(case, **parts):
+    (q, k, v), kw, plain, _ = _f32_case(case)
+    assert _outside_f32_gate(_f32_split_emulation(q, k, v, **kw), plain) == 0
+    cheaper = _f32_split_emulation(q, k, v, **parts, **kw)
+    assert _outside_f32_gate(cheaper, plain) > 0
+
+
 def test_two_part_split_of_qk_breaks_the_f32_gate_at_larger_logits():
     """Why q and k take three parts: with two (three part-products) the
     error of s grows with the logits and breaks the gate at x3 scale."""
-    (q, k, v), kw, plain, _ = _f32_case(F32_CASES[-1])
-    assert _outside_f32_gate(_f32_split_emulation(q, k, v, **kw), plain) == 0
-    two = _f32_split_emulation(q, k, v, qk_parts=2, **kw)
-    assert _outside_f32_gate(two, plain) > 0
+    _cheaper_split_breaks_the_gate(F32_CASES[-1], qk_parts=2)
 
 
 def test_one_tf32_pass_breaks_the_f32_gate():
     """Why the f32 kernel takes no TF32 pass: one already breaks the gate
     at unit scale."""
-    (q, k, v), kw, plain, _ = _f32_case(F32_CASES[0])
-    tf32 = _f32_split_emulation(q, k, v, qk_parts=0, pv_parts=0, **kw)
-    assert _outside_f32_gate(tf32, plain) > 0
+    _cheaper_split_breaks_the_gate(F32_CASES[0], qk_parts=0, pv_parts=0)
+
+
+@pytest.mark.parametrize("case, parts", [
+    ((256, 256, 0, 3.0), dict(qk_parts=2)),
+    ((256, 256, 0, 1.0), dict(qk_parts=0, pv_parts=0))])
+def test_cheaper_split_breaks_the_f32_gate_at_d256(case, parts):
+    """The same two witnesses at D = 256, where s is the sum of two
+    half-dim partials over key tiles of 32: the three-part function holds
+    the gate there and each cheaper split breaks it."""
+    _cheaper_split_breaks_the_gate(case, **parts)

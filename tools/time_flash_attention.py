@@ -10,17 +10,37 @@ unpacked with ``git archive`` into a git-ignored directory such as
 (``flash_attention_kernel_phase``: every case of its ``FLASH_CASES`` held
 against the plain version, per head == batched, timed under the symbol of
 the kernel its route takes, beside ``scaled_dot_product_attention``).
-Prints the card's name and power limit, each run's lines, and a table of
-device ms per case and run.  Needs one card.
+Each case's run also digests its kernel's output on inputs made from a
+seed by the case's label, so that checkouts whose kernels should agree bit
+for bit can be seen to.  Prints the card's name and power limit, each
+run's lines, and a table of device ms and output digest per case and run.
+Needs one card.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import subprocess
 import sys
+import zlib
 
 TAG = "FLASH_CASES_JSON "
+
+
+def output_digest(kfa, label, H, K, D, dtype, window, T):
+    """The first 16 hex digits of the SHA-256 of the kernel's output bits on
+    q, k, v drawn from a generator seeded by the case's label."""
+    import torch
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(zlib.crc32(label.encode()))
+    q, k, v = (torch.randn((n, T, D), generator=gen, device="cuda").to(dtype)
+               for n in (H, K, K))
+    out = kfa.flash_attention_cuda(q, k, v, group=H // K, causal=True,
+                                   window=window)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    digest = hashlib.sha256(out.view(bits).cpu().numpy().tobytes())
+    return digest.hexdigest()[:16]
 
 
 def child(root: pathlib.Path) -> None:
@@ -29,8 +49,13 @@ def child(root: pathlib.Path) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import chip_smoke
+    from repro_torch.kernels import flash_attention as kfa
     chip_smoke.build_phase()
     reports, _ = chip_smoke.flash_attention_kernel_phase()
+    for rep, (label, H, K, D, dtype, window, _) in zip(reports,
+                                                      chip_smoke.FLASH_CASES):
+        rep["bits"] = output_digest(kfa, label, H, K, D, dtype, window,
+                                    chip_smoke.FLASH_T)
     print(TAG + json.dumps(reports), flush=True)
 
 
@@ -53,7 +78,8 @@ def main(roots) -> int:
         line = next(l for l in out.stdout.splitlines() if l.startswith(TAG))
         for r in json.loads(line[len(TAG):]):
             table.setdefault(r["shape"], []).append(
-                f"{root.name} {r['kernel']} {r['device_ms']:.4f}")
+                f"{root.name} {r['kernel']} {r['device_ms']:.4f} "
+                f"{r['bits']}")
     for shape, runs in table.items():
         print(f"{shape}: " + "; ".join(runs))
     print(f"on {card}")
