@@ -26,9 +26,9 @@ gradient (44,044,288 values), through the dense CountSketch kernel (B14),
 and the flash-attention entry point (``repro_torch.kernels.
 flash_attention.flash_attention``) runs TinyLlama's attention shape,
 Mistral-NeMo's heads, Gemma-7B's and InternVL2-1B's reduced ones (B15: f32
-through the f32 tensor-core kernel, bf16 with D % 16 == 0 through the bf16
-one, bf16 at D = 28 through the CUDA-core tile), each kernel first held
-against its plain version.
+through the f32 tensor-core kernel, bf16 through the bf16 one: by TMA where
+D % 8 == 0, value by value at D = 28), each kernel first held against its
+plain version.
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero on
 any failure, and at once when no card is present.  Each phase prints its
 wall time.  The line before the last is a JSON object with each kernel's
@@ -150,16 +150,17 @@ COMPRESS_STEPS = 8
 # 16 heads, 16 KV heads, head_dim 256; the f32 tensor-core kernel splits
 # the head dim between its two warpgroups there) and InternVL2-1B's reduced
 # ones (repro/configs/internvl2_1b.py REDUCED: 2 heads, 1 KV head, head_dim
-# 28, not a multiple of 16, so in bf16 the CUDA-core tile):
+# 28, not a multiple of 8, so the bf16 kernel's by-value loads), and at
+# those heads a width of 40 (a multiple of 8, not of 16: TMA loads with the
+# head dim padded to 64 inside the kernel; no published config has it):
 # label, H, K, D, dtype, window, and the (rtol, atol) against the plain
 # version (the TPU kernel's f32 function): f32 the JAX tests' 5e-5 (the f32
 # tensor-core kernel splits q scale, k, v and p into three bf16 parts and
 # sums six part-products: within f32 rounding).  bf16 one bf16 rounding
-# step: the bf16 cases with D % 16 == 0 run the bf16 tensor-core kernel,
-# whose s sums exact bf16 products in f32 before the scale and whose p v is
-# p_hi v + p_lo v (p split into two bf16 parts), so it stays within f32
-# rounding of that function and differs where the results round to
-# neighbouring bf16 values; the tile computes that function in f32
+# step: the bf16 cases run the bf16 tensor-core kernel, whose s sums exact
+# bf16 products in f32 before the scale and whose p v is p_hi v + p_lo v (p
+# split into two bf16 parts), so it stays within f32 rounding of that
+# function and differs where the results round to neighbouring bf16 values
 FLASH_T = 4096
 F32_TOL, BF16_TOL = (5e-5, 5e-5), (2 ** -7, 1e-5)
 FLASH_CASES = (
@@ -173,24 +174,24 @@ FLASH_CASES = (
     ("causal bf16 D=128", 32, 8, 128, torch.bfloat16, 0, BF16_TOL),
     ("causal f32 D=256", 16, 16, 256, torch.float32, 0, F32_TOL),
     ("causal bf16 D=256", 16, 16, 256, torch.bfloat16, 0, BF16_TOL),
-    ("causal bf16 D=28", 2, 1, 28, torch.bfloat16, 0, BF16_TOL))
+    ("causal bf16 D=28", 2, 1, 28, torch.bfloat16, 0, BF16_TOL),
+    ("causal bf16 D=40", 2, 1, 40, torch.bfloat16, 0, BF16_TOL))
 # the cases held per head == batched, bit for bit
 FLASH_PER_HEAD = ("causal f32", "causal bf16", "causal f32 window 1024",
                   "causal f32 D=128", "causal bf16 D=128", "causal f32 D=256",
-                  "causal bf16 D=256", "causal bf16 D=28")
+                  "causal bf16 D=256", "causal bf16 D=28", "causal bf16 D=40")
 # the flash_attention entry point against the port's chunked_attention
 # (scale after the product, bf16 p before p v): the JAX tests' tolerances
 ORACLE_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}
 # dense bf16 rate of the tensor cores: every B15 route's bound.  bf16
-# inputs (the bf16 tensor-core kernel and the tile, which serves only bf16
-# and computes the same function): 6 operations per visible (query, key)
-# pair and dim, p v taken twice; beside it the 4-operation bound of a kernel
-# with one bf16 p.  f32 inputs (the f32 tensor-core kernel): 24, six
-# part-products each for q k^T and p v.  Beside the tile's and the f32
-# kernel's bound, the 4-operation floor of f32 FMAs on the CUDA cores
+# inputs (the bf16 tensor-core kernel): 6 operations per visible (query,
+# key) pair and dim, p v taken twice; beside it the 4-operation bound of a
+# kernel with one bf16 p.  f32 inputs (the f32 tensor-core kernel): 24, six
+# part-products each for q k^T and p v; beside it the 4-operation floor of
+# f32 FMAs on the CUDA cores
 BF16_TC_OPS_PER_S = 989e12
 # operations per visible pair and dim, by the kernel the route takes
-FLASH_OPS = {"flash_attention_kernel": 6, "flash_attention_tc_kernel": 6,
+FLASH_OPS = {"flash_attention_tc_kernel": 6,
              "flash_attention_f32tc_kernel": 24}
 
 
@@ -259,7 +260,7 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, symbols, reps: int = 10, traces: int = 4):
+def device_ms(fn, symbols, reps: int = 10, traces: int = 4, names=None):
     """Device milliseconds per call of ``fn``, from a ``torch.profiler``
     trace of ``reps`` calls: for each name in ``symbols`` (one or a tuple,
     where a call launches several kernels) the mean over the launches of
@@ -269,7 +270,9 @@ def device_ms(fn, symbols, reps: int = 10, traces: int = 4):
     one kernel has); after ``traces`` such traces, each logged, the time
     comes from CUDA events around single calls of ``fn`` instead (the
     median of ``reps``, which also counts the launches' own latency).
-    Returns (ms, source), source ``"profiler"`` or ``"events"``."""
+    Returns (ms, source), source ``"profiler"`` or ``"events"``; a list
+    given as ``names`` receives the traced kernels' full names (template
+    arguments included), each once."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     symbols = (symbols,) if isinstance(symbols, str) else tuple(symbols)
@@ -284,6 +287,10 @@ def device_ms(fn, symbols, reps: int = 10, traces: int = 4):
                        if e.device_type == DeviceType.CUDA and sym in e.name]
                  for sym in symbols}
         if all(spans.values()):
+            if names is not None:
+                names.extend(sorted({e.name for e in prof.events()
+                                     if e.device_type == DeviceType.CUDA
+                                     and any(s in e.name for s in symbols)}))
             for sym, v in spans.items():
                 if max(v) > 1.5 * min(v):   # a trace to look into
                     log(f"device_ms: {len(v)} launches of {sym} in "
@@ -361,6 +368,22 @@ def field_vectors(index, rng, B: int, nnz: int):
     return vecs[:B]
 
 
+@functools.lru_cache(maxsize=None)
+def icws_draw_instructions():
+    """SASS instructions of one draw of the built ICWS sketch kernel (its
+    unpacked variant's draw loop, ``tools/sass_loops.py``), or None where
+    ``cuobjdump`` is missing."""
+    sys.path.insert(0, str(SRC.parent / "tools"))
+    import sass_loops
+    from repro_torch.kernels import build
+    try:
+        found = sass_loops.draw_loop(build.library_path())
+    except (OSError, subprocess.SubprocessError) as e:
+        log(f"icws draw loop not counted: {e}")
+        return None
+    return next((n for name, n in found.items() if "ILb0E" in name), None)
+
+
 def sketch_case(index, rng, B: int, nnz: int, dev):
     """One sketch launch at the path's shapes: B field rows (3 per table or
     query) of about ``nnz`` non-zeros each, N = nnz rounded to 256."""
@@ -387,13 +410,21 @@ def sketch_case(index, rng, B: int, nnz: int, dev):
     plain = time_ms(lambda: ks.icws_sketch_plain(*args, m=M, seed=0), reps=3,
                     warmup=1)
     shape = f"B={B} N={w.shape[1]} m={M}"
+    group = ks._group_size(B, M, w.shape[1])
+    # the instruction floor: every draw's SASS instructions, one a lane and
+    # clock
+    per_draw = icws_draw_instructions()
+    floor = live * M * per_draw / FP32_INSTR_PER_S * 1e3 if per_draw else None
     log(f"sketch {shape}: fp agree {share:.6f}, max |dval| {err}, "
-        f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
+        f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device, "
+        f"{group} threads a (row, t) pair), plain "
         f"{plain:.3f} ms, bound {bound:.4f} ms (operations, {live} live "
-        f"non-zeros)")
+        f"non-zeros)" + (f", instruction floor {floor:.4f} ms ({per_draw} SASS "
+                         "instructions a draw)" if floor else ""))
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "device_ms_source": dev_src,
-            "plain_ms": plain, "bound_ms": bound, "fp_agree": share}
+            "device_ms_source": dev_src, "group_size": group,
+            "plain_ms": plain, "bound_ms": bound, "fp_agree": share,
+            "instr_per_draw": per_draw, "floor_ms_instructions": floor}
 
 
 def icws_work(args):
@@ -939,10 +970,12 @@ def b10_case(index, rng, kind: str, B: int, nnz: int, dev):
         f"kernel's, packed plane its codec, equal to plain on {share:.6f} of "
         f"words; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
         f"device), plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by})")
+    extra = {"group_size": icws_sketch._group_size(B, M, w.shape[1])} \
+        if kind == "icws" else {}
     return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
             "device_ms_source": dev_src,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "words_agree": share}
+            "words_agree": share, **extra}
 
 
 def packed_estimate_case(fq, vq, fc, wc):
@@ -1413,11 +1446,11 @@ def flash_attention_kernel_phase():
     batched launch and a repeat, bit for bit; timed (device time under the
     symbol of the kernel that the route takes, ``kernel_route``) against
     its bound (operations at the bf16 tensor-core rate, per visible (query,
-    key) pair and dim: bf16 inputs, either kernel, 6; f32 inputs, 24;
+    key) pair and dim: bf16 inputs 6; f32 inputs 24;
     bytes: q, k, v, o once) and against one
     ``scaled_dot_product_attention`` call (k/v expanded to every head
     before the call; the window case with a boolean mask).  Then the entry
-    point ``flash_attention`` (model layout) runs the eight cases, its
+    point ``flash_attention`` (model layout) runs the nine cases, its
     counters set to 0 just before and read just after: each kernel's count
     equals the cases routed to it, and each kernel runs; each output equals
     the batched launch bit for bit and lies within ORACLE_TOL of the port's
@@ -1464,7 +1497,8 @@ def flash_attention_kernel_phase():
         bound = max(bytes_moved / HBM_BYTES_PER_S * 1e3, tc_ms)
         bound_by = "operations" if bound == tc_ms else "bytes"
         ms = time_ms(fn, reps=5)
-        dev_ms, dev_src = device_ms(fn, symbol, reps=5)
+        ran = []
+        dev_ms, dev_src = device_ms(fn, symbol, reps=5, names=ran)
         qs, ks, vs = (a.transpose(1, 2).repeat_interleave(
             H // n, dim=1).contiguous() for a, n in ((q, H), (k, K), (v, K)))
         if window:
@@ -1480,22 +1514,25 @@ def flash_attention_kernel_phase():
         lib_err = (sdpa()[0].float() - got.float()).abs().max().item()
         del qs, ks, vs
         rep = {"shape": f"{label} B=1 T=S={FLASH_T} H={H} K={K} D={D}",
-               "kernel": symbol, "max_abs_err": err.max().item(), "ms": ms,
+               "kernel": symbol, "ran": ran, "max_abs_err": err.max().item(),
+               "ms": ms,
                "device_ms": dev_ms, "device_ms_source": dev_src,
                "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                "library_ms": lib_ms, "library": "scaled_dot_product_attention"}
         tc4_ms = ops / BF16_TC_OPS_PER_S * 1e3
         if dtype == torch.bfloat16:
             rep["bound_ms_bf16_tensor_cores"] = tc4_ms
-        if symbol != kfa.F32_TC_KERNEL:
             rep["bound_ms_split_tensor_cores"] = tc_ms
-        if symbol != kfa.BF16_TC_KERNEL:
+            rep["loads"] = "tma" if kfa.tma_loads(dtype, D) else "by value"
+        else:
             rep["bound_ms_f32_fma_floor"] = ops / FP32_OPS_PER_S * 1e3
         log(f"B15 {label}: max |kernel - plain| {rep['max_abs_err']:.3g} "
             f"(rtol {rtol:.3g}, atol {atol:.3g}), repeat and per-head bit for "
             f"bit; kernel "
             f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device, "
-            f"{symbol}), plain {plain_ms:.1f} ms (one run), bound "
+            f"{', '.join(ran) or symbol}"
+            + (f", {rep['loads']} loads" if "loads" in rep else "")
+            + f"), plain {plain_ms:.1f} ms (one run), bound "
             f"{bound:.4f} ms ({bound_by}), "
             f"SDPA {lib_ms:.4f} ms (max |SDPA - kernel| {lib_err:.3g})"
             + (f"; bf16 tensor-core bounds {1.5 * tc4_ms:.4f} ms (6 ops a "
@@ -1511,7 +1548,6 @@ def flash_attention_kernel_phase():
     torch.cuda.synchronize()
     launches = {kfa.BF16_TC_KERNEL: counter.tc_launches,
                 kfa.F32_TC_KERNEL: counter.f32tc_launches}
-    launches[kfa.TILE_KERNEL] = counter.launches - sum(launches.values())
     routed = {name: sum(kfa.kernel_route(q.dtype, q.shape[-1]) == name
                         for q, *_ in layouts) for name in launches}
     if counter.launches != len(layouts) or launches != routed or \
@@ -1961,8 +1997,7 @@ def main() -> int:
                      "countsketch.py:35", compression_launches, b14[0], b14,
                      entry_point="repro_torch.optim.compression."
                                  "compressed_update"))
-    for name, symbol in (("flash_attention", "flash_attention_kernel"),
-                         ("flash_attention_tc", "flash_attention_tc_kernel"),
+    for name, symbol in (("flash_attention_tc", "flash_attention_tc_kernel"),
                          ("flash_attention_f32tc",
                           "flash_attention_f32tc_kernel")):
         shapes = [r for r in b15 if r["kernel"] == symbol]

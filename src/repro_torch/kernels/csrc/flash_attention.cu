@@ -1,4 +1,4 @@
-// Forward flash attention for Hopper: three kernels behind one launcher.
+// Forward flash attention for Hopper: two kernels behind one launcher.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::_flash_kernel
 // (launcher flash_attention_pallas).
@@ -11,22 +11,10 @@
 // at all gets the mean of v, as on the TPU: its masked scores tie at -1e30,
 // p = 1 on every key.
 //
-// Route, static, by type and head dim (launch_flash_attention): f32 inputs
-// (every D up to 256) run flash_attention_f32tc_kernel and bf16 inputs with
-// D % 16 == 0 (up to 256) flash_attention_tc_kernel, both on the tensor
-// cores; bf16 inputs with another D run flash_attention_kernel on the CUDA
-// cores.  A refused launch returns its error; nothing falls back.
-//
-// flash_attention_kernel (the CUDA-core tile, bf16 inputs only): all math in
-// f32, the TPU kernel's.  q scaled by 1/sqrt(D) in f32 before the product, s
-// = q k^T, acc = acc corr + p v with f32 p.  One block of 256 threads per
-// (bh, 64 query rows) keeps its scaled q tile in shared memory and stages
-// each k/v tile beside it, converted to f32.  Per key tile: the [64, BK]
-// score tile (each thread a 4-row by BK/16-key patch, a dot over d in order
-// with explicit fmaf), the row max, exp and sum (four threads per row,
-// combined in a fixed order), then acc = acc * corr + p v into registers (4
-// rows by D/16 dims a thread).  The products run in f32 on the CUDA cores
-// (no TF32).
+// Route, static, by type alone (launch_flash_attention): f32 inputs run
+// flash_attention_f32tc_kernel and bf16 inputs flash_attention_tc_kernel,
+// both on the tensor cores, at every D up to 256.  A refused launch returns
+// its error; nothing falls back.
 //
 // flash_attention_tc_kernel (bf16, tensor cores): s = (q k^T) * (1/sqrt(D)),
 // the bf16 products exact in f32 and summed in f32 by wgmma, then scaled (for
@@ -56,6 +44,27 @@
 // bounds it on the card is the CUDA cores: per (query, key) pair about 20
 // instructions (scale, max, an IEEE expf, sum, the split), against 6
 // tensor-core operations per dim.
+//
+// Loads of flash_attention_tc_kernel.  Where D % 8 == 0 a row is D / 8 whole
+// 16-byte chunks and TMA lands the tiles as above (dims past D up to DP as
+// zero chunks).  Where D % 8 != 0 (D = 28: rows of 56 bytes) no tensor map
+// describes the rows (a row's stride, 2 D bytes, is not a multiple of 16), so
+// the BYVAL instance reads them by value: the block's threads load q, k and v
+// rows (zeros past D and past S; a 4-byte word a load where D is even and the
+// bases 4-byte aligned, else a bf16 value a load, any 2-byte aligned base)
+// and store them as 16-byte chunks into the same unswizzled layout, chunk (g,
+// i) = row i's dims 8g .. 8g + 7, each eight neighbouring threads taking
+// eight neighbouring rows so that their stores do not collide.  The q tile
+// and the first k/v tile are stored before the loop.  Each later k/v tile is
+// loaded into registers while the P V of the tile two before it runs, held
+// across that tile's barrier, and stored into its stage after the next S
+// (the stage freed by the barrier before, published by the barrier after,
+// behind a proxy fence: wgmma reads shared memory through the async proxy).
+// The loads so have P V, a barrier and S to land, and no register of them is
+// live in the softmax, where the kernel's registers peak.  No mbarrier, no
+// padded copy of q, k or v.  The function does not change: dims past D add
+// exact zeros to q k^T and give output columns that are never stored, and
+// the scale stays 1/sqrt(D) of the true D.
 //
 // flash_attention_f32tc_kernel (f32, tensor cores): the TPU kernel's f32
 // function within f32 rounding.  q (1/sqrt(D)) in f32; q scale, k and v each
@@ -108,11 +117,10 @@
 // with no visible key) every tile is taken, and the row's p = 1 on every
 // key (a bf16 1 exactly), the mean of v.
 //
-// Bound: operations.  The CUDA-core tile: 4 * T * S * D per head (a multiply
-// and an add per q k^T and per p v term), halved for causal, at the f32 rate.
-// The bf16 tensor-core kernel: 6 * T * S * D (p v twice), the f32 one 24 *
-// T * S * D (six products each), at the bf16 tensor-core rate.  The bytes
-// are q, k, v read once and o written once.
+// Bound: operations at the bf16 tensor-core rate, per head and visible (query,
+// key) pair and dim: the bf16 kernel 6 (q k^T once, p v twice), the f32 one
+// 24 (six part-products each).  The bytes are q, k, v read once and o written
+// once.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,219 +129,7 @@
 
 namespace repro {
 
-constexpr int kFaRows = 64;       // query rows per block
-constexpr int kFaThreads = 256;
 constexpr float kFaNeg = -1e30f;  // the TPU kernel's masked score
-
-__device__ __forceinline__ float fa_load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void fa_store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-template <int DMAX, int BK>
-constexpr size_t fa_smem_floats() {
-  return (size_t)kFaRows * (DMAX + 1) + (size_t)BK * (DMAX + 1) + (size_t)BK * DMAX +
-         (size_t)kFaRows * (BK + 1) + 2 * kFaRows;
-}
-
-template <int DMAX, int BK>
-__global__ void __launch_bounds__(kFaThreads)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q,
-                       const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                       int T, int S, int D, int group, int causal, int window,
-                       long long q_offset, long long k_offset, float scale) {
-  constexpr int DP = DMAX + 1;   // padded row of the q and k tiles
-  constexpr int PP = BK + 1;     // padded row of the score tile
-  constexpr int KPT = BK / 16;   // keys per thread in the score tile
-  constexpr int DPT = DMAX / 16; // dims per thread in the output tile
-  extern __shared__ float smem[];
-  float* sQ = smem;                  // [kFaRows][DP]
-  float* sK = sQ + kFaRows * DP;     // [BK][DP]
-  float* sV = sK + BK * DP;          // [BK][DMAX]
-  float* sP = sV + BK * DMAX;        // [kFaRows][PP]
-  float* sCorr = sP + kFaRows * PP;  // [kFaRows]
-  float* sL = sCorr + kFaRows;       // [kFaRows]
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kFaRows;
-  const int rows = min(kFaRows, T - q0);
-  const __nv_bfloat16* qh = q + ((long long)bh * T + q0) * D;
-  const __nv_bfloat16* kh = k + (long long)(bh / group) * S * D;
-  const __nv_bfloat16* vh = v + (long long)(bh / group) * S * D;
-
-  for (int e = tid; e < kFaRows * D; e += kFaThreads) {
-    const int r = e / D, d = e % D;
-    sQ[r * DP + d] = r < rows ? __fmul_rn(fa_load(qh + (long long)r * D + d), scale) : 0.f;
-  }
-
-  // Tiles masked for the whole block may be skipped only if every row of
-  // the block sees some key in [k_offset, k_offset + S).
-  int sees = 1;
-  if (tid < rows) {
-    const long long qp = q_offset + q0 + tid;
-    long long lo = k_offset, hi = k_offset + S - 1;
-    if (causal) hi = min(hi, qp);
-    if (window) lo = max(lo, qp - window + 1);
-    sees = lo <= hi;
-  }
-  const bool may_skip = __syncthreads_and(sees) && window >= 0;
-  const long long qa = q_offset + q0, qb = qa + rows - 1;
-
-  const int rg = tid >> 4, lane16 = tid & 15;  // score and output tiles
-  const int srow = tid >> 2, sub = tid & 3;    // softmax: four threads a row
-  float m_run = -CUDART_INF_F, l_run = 0.f;    // of row srow
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    const int keys = min(BK, S - k0);
-    if (may_skip) {
-      const long long ka = k_offset + k0, kb = ka + keys - 1;
-      // some (row, key) pair of the tile is visible
-      const bool any = (!causal || ka <= qb) && (!window || kb > qa - window);
-      if (!any) continue;
-    }
-    __syncthreads();  // the previous tile's p v is done with sK, sV and sP
-    for (int e = tid; e < BK * D; e += kFaThreads) {
-      const int j = e / D, d = e % D;
-      const long long at = (long long)(k0 + j) * D + d;
-      sK[j * DP + d] = j < keys ? fa_load(kh + at) : 0.f;
-      sV[j * DMAX + d] = j < keys ? fa_load(vh + at) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][KPT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[KPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(rg + 16 * i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) kv[j] = sK[(lane16 + 16 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < KPT; ++j) s[i][j] = __fmaf_rn(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = rg + 16 * i;
-      const long long qp = q_offset + q0 + r;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) {
-        const int c = lane16 + 16 * j;
-        const long long kp = k_offset + k0 + c;
-        const bool visible = (!causal || kp <= qp) && (!window || kp > qp - window);
-        // a key past S is no key at all: exp(-inf - m) adds nothing
-        sP[r * PP + c] = c >= keys ? -CUDART_INF_F : (visible ? s[i][j] : kFaNeg);
-      }
-    }
-    __syncthreads();
-
-    {
-      float* row = sP + srow * PP;
-      float mx = -CUDART_INF_F;
-      for (int c = sub; c < BK; c += 4) mx = fmaxf(mx, row[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xFFFFFFFFu, mx, 2));
-      const float m_new = fmaxf(m_run, mx);
-      float sum = 0.f;
-      for (int c = sub; c < BK; c += 4) {
-        const float p = expf(__fsub_rn(row[c], m_new));
-        row[c] = p;
-        sum = __fadd_rn(sum, p);
-      }
-      // (s0 + s1) + (s2 + s3) on all four lanes: additions commute exactly
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xFFFFFFFFu, sum, 1));
-      sum = __fadd_rn(sum, __shfl_xor_sync(0xFFFFFFFFu, sum, 2));
-      const float corr = expf(__fsub_rn(m_run, m_new));
-      l_run = __fadd_rn(__fmul_rn(l_run, corr), sum);
-      m_run = m_new;
-      if (sub == 0) sCorr[srow] = corr;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float corr = sCorr[rg + 16 * i];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] = __fmul_rn(acc[i][j], corr);
-    }
-    for (int c = 0; c < keys; ++c) {
-      float pv[4], vv[DPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(rg + 16 * i) * PP + c];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) vv[j] = sV[c * DMAX + lane16 + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DPT; ++j) acc[i][j] = __fmaf_rn(pv[i], vv[j], acc[i][j]);
-    }
-  }
-
-  if (sub == 0) sL[srow] = l_run;
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg + 16 * i;
-    if (r >= rows) continue;
-    const float den = fmaxf(sL[r], 1e-30f);
-    __nv_bfloat16* orow = o + ((long long)bh * T + q0 + r) * D;
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) {
-      const int d = lane16 + 16 * j;
-      if (d < D) fa_store(orow + d, __fdiv_rn(acc[i][j], den));
-    }
-  }
-}
-
-template <int DMAX, int BK>
-cudaError_t launch_flash_tile(const void* q, const void* k, const void* v, void* o,
-                              int BH, int T, int S, int D, int group, int causal,
-                              int window, long long q_offset, long long k_offset,
-                              float scale, cudaStream_t stream) {
-  const size_t smem = fa_smem_floats<DMAX, BK>() * sizeof(float);
-  auto kernel = flash_attention_kernel<DMAX, BK>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)((T + kFaRows - 1) / kFaRows), (unsigned)BH);
-  kernel<<<grid, kFaThreads, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
-      (__nv_bfloat16*)o, T, S, D, group, causal, window, q_offset, k_offset, scale);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_flash_tile_bf16(const void* q, const void* k, const void* v, void* o,
-                                   int BH, int T, int S, int D, int group, int causal,
-                                   int window, long long q_offset, long long k_offset,
-                                   float scale, cudaStream_t stream) {
-  // the smallest head-dim tile that holds D; wide heads take narrower key
-  // tiles so that a block's shared memory stays at 67-141 KB
-  if (D <= 32)
-    return launch_flash_tile<32, 64>(q, k, v, o, BH, T, S, D, group, causal, window,
-                                     q_offset, k_offset, scale, stream);
-  if (D <= 64)
-    return launch_flash_tile<64, 64>(q, k, v, o, BH, T, S, D, group, causal, window,
-                                     q_offset, k_offset, scale, stream);
-  if (D <= 128)
-    return launch_flash_tile<128, 32>(q, k, v, o, BH, T, S, D, group, causal, window,
-                                      q_offset, k_offset, scale, stream);
-  return launch_flash_tile<256, 32>(q, k, v, o, BH, T, S, D, group, causal, window,
-                                    q_offset, k_offset, scale, stream);
-}
 
 // ---------------------------------------------------------------------------
 // flash_attention_tc_kernel: bf16 on the tensor cores (see the note above).
@@ -621,28 +417,101 @@ __device__ __forceinline__ void tc_softmax(float (&s)[NS], uint32_t (&pp)[PARTS]
                  __fadd_rn(__fadd_rn(sm[1][0], sm[1][1]), __fadd_rn(sm[1][2], sm[1][3])));
 }
 
+// A thread's chunks of an R-row tile that a block of NT threads stages in the
+// unswizzled wgmma layout: chunk e is row i, dims 8g .. 8g + 7, at (g R + i)
+// 16 bytes in shared memory.  Each eight neighbouring threads take eight
+// neighbouring rows (their 16-byte shared stores do not collide) and four
+// such groups four neighbouring chunks of those rows (a warp's load touches
+// 8 rows, not 32).
+template <int R, int DP, int NT>
+__host__ __device__ constexpr int tc_chunks() {
+  return (R * DP / 8 + NT - 1) / NT;
+}
+
+template <int R, int DP>
+__device__ __forceinline__ int2 tc_chunk(int e) {
+  constexpr int GQ = DP / 8 < 4 ? DP / 8 : 4;  // chunks of a row a warp takes
+  const int rest = e / (8 * GQ);
+  return make_int2((rest % (R / 8)) * 8 + e % 8, (rest / (R / 8)) * GQ + (e / 8) % GQ);
+}
+
+// By-value loads of the bf16 kernel: this thread's chunks of R rows of a bf16
+// array (row i at src + i D), rows from `live` on and dims from D on as
+// zeros, each chunk as four words of two bf16 (the lower dim in the low half,
+// as they lie in memory).  `pairs` (D even, 4-byte aligned bases): a word a
+// load, nothing computed on the loaded value before its store; else value by
+// value (2-byte aligned bases, odd D), each word packed from two loads.
+template <int R, int DP, int NT>
+__device__ __forceinline__ void tc_load_bf16(uint32_t (&x)[tc_chunks<R, DP, NT>()][4],
+                                             const __nv_bfloat16* src, int live, int D,
+                                             bool pairs, int tid) {
+  constexpr int CHUNKS = R * DP / 8;
+#pragma unroll
+  for (int it = 0; it < tc_chunks<R, DP, NT>(); ++it) {
+    const int e = tid + it * NT;
+    const int2 c = tc_chunk<R, DP>(e);
+    const bool live_row = c.x < live && (CHUNKS % NT == 0 || e < CHUNKS);
+    const long long at = (long long)c.x * D + 8 * c.y;
+    if (pairs) {
+      const uint32_t* row = reinterpret_cast<const uint32_t*>(src + at);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[it][j] = live_row && 8 * c.y + 2 * j < D ? __ldg(row + j) : 0u;
+    } else {
+      const unsigned short* row = reinterpret_cast<const unsigned short*>(src + at);
+      uint32_t h[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) h[j] = live_row && 8 * c.y + j < D ? __ldg(row + j) : 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) x[it][j] = h[2 * j] | (h[2 * j + 1] << 16);
+    }
+  }
+}
+
+// Those chunks into the tile at dst, chunk (g, i) at (g R + i) 16 bytes.
+template <int R, int DP, int NT>
+__device__ __forceinline__ void tc_store_bf16(unsigned char* dst,
+                                              const uint32_t (&x)[tc_chunks<R, DP, NT>()][4],
+                                              int tid) {
+  constexpr int CHUNKS = R * DP / 8;
+#pragma unroll
+  for (int it = 0; it < tc_chunks<R, DP, NT>(); ++it) {
+    const int e = tid + it * NT;
+    if (CHUNKS % NT && e >= CHUNKS) break;
+    const int2 c = tc_chunk<R, DP>(e);
+    *reinterpret_cast<uint4*>(dst + (c.y * R + c.x) * 16) =
+        make_uint4(x[it][0], x[it][1], x[it][2], x[it][3]);
+  }
+}
+
 // Registers: at most 128 a thread (two blocks a SM) up to DP = 64, no spill;
 // DP = 128 takes about 170 (one block), where 128 would spill; DP = 256 holds
-// 128 output accumulators a thread beside s or p's parts (one block).
-template <int DP>
+// 128 output accumulators a thread beside s or p's parts (one block).  BYVAL:
+// the tiles arrive by value (q, k, v read; the tensor maps unused), else by
+// TMA (the tensor maps read; q, k, v unused).
+template <int DP, bool BYVAL>
 __global__ void __launch_bounds__(128 * kTcGroups, DP >= 128 ? 1 : 2)
-flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, int group,
-                          int causal, int window, long long q_offset, long long k_offset,
-                          float scale, const __grid_constant__ CUtensorMap mq,
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                          int T, int S, int D, int group, int causal, int window,
+                          long long q_offset, long long k_offset, float scale,
+                          const __grid_constant__ CUtensorMap mq,
                           const __grid_constant__ CUtensorMap mk,
                           const __grid_constant__ CUtensorMap mv) {
   constexpr int ROWS = 64 * kTcGroups;
   constexpr int TILE = kTcKeys * DP * 2;  // bytes of a k or v tile
   constexpr int NS = kTcKeys / 2;         // score accumulators a thread
   constexpr int NO = DP / 2;              // output accumulators a thread
+  constexpr int NT = 128 * kTcGroups;
   // shared: the q tile, two stages of a k and a v tile, an mbarrier a stage
+  // (TMA only)
   extern __shared__ __align__(128) unsigned char tc_buf[];
   const uint32_t sq = static_cast<uint32_t>(__cvta_generic_to_shared(tc_buf));
   const uint32_t skv = sq + ROWS * DP * 2;
   const uint32_t sbar = skv + 4 * TILE;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  if (tid == 0) {
+  if (!BYVAL && tid == 0) {
     tc_mbar_init(sbar);
     tc_mbar_init(sbar + 8);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -689,7 +558,32 @@ flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, in
     tc_tma(dst, &mk, 0, t * kTcKeys, 0, kvh, bar);
     tc_tma(dst + TILE, &mv, 0, t * kTcKeys, 0, kvh, bar);
   };
-  if (tid == 0) {  // the q tile joins the first tile's stage
+  // BYVAL: k/v tile t + 1 in registers from the P V of tile t - 1 to the S of
+  // tile t; stage_at(t): the stage tile t lands in
+  constexpr int NKV = tc_chunks<kTcKeys, DP, NT>();
+  uint32_t xk[NKV][4], xv[NKV][4];
+  const __nv_bfloat16* kh = k + (long long)kvh * S * D;
+  const __nv_bfloat16* vh = v + (long long)kvh * S * D;
+  const bool pairs = !(D & 1) && (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) & 3) == 0;
+  auto fetch = [&](int t) {
+    const int f0 = t * kTcKeys, fk = min(kTcKeys, S - f0);
+    tc_load_bf16<kTcKeys, DP, NT>(xk, kh + (long long)f0 * D, fk, D, pairs, tid);
+    tc_load_bf16<kTcKeys, DP, NT>(xv, vh + (long long)f0 * D, fk, D, pairs, tid);
+  };
+  auto stage_at = [&](int t) { return tc_buf + ROWS * DP * 2 + 2 * TILE * ((t - t_lo) & 1); };
+  if constexpr (BYVAL) {  // the q tile and tile t_lo, a barrier, tile t_lo + 1 fetched
+    {
+      uint32_t xq[tc_chunks<ROWS, DP, NT>()][4];
+      tc_load_bf16<ROWS, DP, NT>(xq, q + ((long long)bh * T + q0) * D, rows, D, pairs, tid);
+      tc_store_bf16<ROWS, DP, NT>(tc_buf, xq, tid);
+    }
+    fetch(t_lo);
+    tc_store_bf16<kTcKeys, DP, NT>(stage_at(t_lo), xk, tid);
+    tc_store_bf16<kTcKeys, DP, NT>(stage_at(t_lo) + TILE, xv, tid);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (t_lo < t_hi) fetch(t_lo + 1);
+  } else if (tid == 0) {  // the q tile joins the first tile's stage
     load_kv(t_lo, ROWS * DP * 2);
     tc_tma(sq, &mq, 0, q0, 0, bh, sbar);
   }
@@ -715,8 +609,10 @@ flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, in
     const int k0 = t * kTcKeys, keys = min(kTcKeys, S - k0);
     const uint64_t stage = (uint64_t)(2 * TILE / 16) * ((t - t_lo) & 1);
     // tile t + 1 lands in the other stage while tile t is used
-    if (tid == 0 && t < t_hi) load_kv(t + 1, 0);
-    tc_mbar_wait(sbar + 8 * ((t - t_lo) & 1), ((t - t_lo) >> 1) & 1);
+    if constexpr (!BYVAL) {
+      if (tid == 0 && t < t_hi) load_kv(t + 1, 0);
+      tc_mbar_wait(sbar + 8 * ((t - t_lo) & 1), ((t - t_lo) >> 1) & 1);
+    }
 
     // S = Q K^T: this warpgroup's q rows and k, both K-major, 16 dims a step
     float s[NS];
@@ -727,6 +623,15 @@ flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, in
     tc_wgmma_commit();
     tc_wgmma_wait();
     tc_fence_regs(s);
+    // BYVAL: tile t + 1 into the other stage, freed by the barrier that ended
+    // tile t - 1 and published by the one that ends tile t
+    if constexpr (BYVAL) {
+      if (t < t_hi) {
+        tc_store_bf16<kTcKeys, DP, NT>(stage_at(t + 1), xk, tid);
+        tc_store_bf16<kTcKeys, DP, NT>(stage_at(t + 1) + TILE, xv, tid);
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      }
+    }
 
     // a tile every row sees whole takes no mask
     const long long ka = k_offset + k0, kb = ka + keys - 1;
@@ -751,6 +656,10 @@ flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, in
       wgmma_rs<DP>(acc, pp[1] + 4 * kk, dv + stage + kk * 16);
     }
     tc_wgmma_commit();
+    // BYVAL: tile t + 2 into registers while P V runs, held across the
+    // barrier (the softmax holds none of them)
+    if constexpr (BYVAL)
+      if (t + 1 < t_hi) fetch(t + 2);
     tc_wgmma_wait();
     tc_fence_regs(acc);
     __syncthreads();  // every warp is done with this stage before it is refilled
@@ -768,6 +677,14 @@ flash_attention_tc_kernel(__nv_bfloat16* __restrict__ o, int T, int S, int D, in
   for (int c = 0; c < NO / 4; ++c) {
     const int col = 8 * c + c0;
     if (col >= D) continue;
+    if (BYVAL && (D & 1)) {  // odd D: rows start on 2-byte boundaries, col + 1 may be D
+#pragma unroll
+      for (int e = 0; e < 2 && col + e < D; ++e) {
+        if (r0 < rows) o0[col + e] = __float2bfloat16_rn(__fdiv_rn(acc[4 * c + e], den0));
+        if (r0 + 8 < rows) o1[col + e] = __float2bfloat16_rn(__fdiv_rn(acc[4 * c + 2 + e], den1));
+      }
+      continue;
+    }
     if (r0 < rows)
       *reinterpret_cast<__nv_bfloat162*>(o0 + col) = __floats2bfloat162_rn(
           __fdiv_rn(acc[4 * c], den0), __fdiv_rn(acc[4 * c + 1], den0));
@@ -816,20 +733,20 @@ static bool tc_tensor_map(CUtensorMap* map, const void* base, int heads, int row
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP>
+template <int DP, bool BYVAL>
 cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, void* o, int BH,
                             int T, int S, int D, int group, int causal, int window,
                             long long q_offset, long long k_offset, float scale,
                             cudaStream_t stream) {
   constexpr int ROWS = 64 * kTcGroups;
-  CUtensorMap mq, mk, mv;
-  if (!tc_tensor_map(&mq, q, BH, T, D, DP, ROWS) ||
-      !tc_tensor_map(&mk, k, BH / group, S, D, DP, kTcKeys) ||
-      !tc_tensor_map(&mv, v, BH / group, S, D, DP, kTcKeys))
+  CUtensorMap mq{}, mk{}, mv{};
+  if (!BYVAL && (!tc_tensor_map(&mq, q, BH, T, D, DP, ROWS) ||
+                 !tc_tensor_map(&mk, k, BH / group, S, D, DP, kTcKeys) ||
+                 !tc_tensor_map(&mv, v, BH / group, S, D, DP, kTcKeys)))
     return cudaErrorInvalidValue;
   // the q tile, two stages of a k and a v tile, two mbarriers
   const size_t smem = ((size_t)ROWS + 4 * kTcKeys) * DP * 2 + 16;
-  auto kernel = flash_attention_tc_kernel<DP>;
+  auto kernel = flash_attention_tc_kernel<DP, BYVAL>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -837,9 +754,32 @@ cudaError_t launch_flash_tc(const void* q, const void* k, const void* v, void* o
   if (DP == 256 && bands > 65535) return cudaErrorInvalidValue;
   const dim3 grid = DP == 256 ? dim3((unsigned)BH, bands) : dim3(bands, (unsigned)BH);
   kernel<<<grid, 128 * kTcGroups, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)o, T, S, D, group, causal, window, q_offset, k_offset, scale, mq, mk,
       mv);
   return cudaGetLastError();
+}
+
+// DP = D rounded up to 16, 32, 64, 128 or 256
+template <bool BYVAL>
+cudaError_t launch_flash_tc_dp(const void* q, const void* k, const void* v, void* o, int BH,
+                               int T, int S, int D, int group, int causal, int window,
+                               long long q_offset, long long k_offset, float scale,
+                               cudaStream_t stream) {
+  if (D <= 16)
+    return launch_flash_tc<16, BYVAL>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                      q_offset, k_offset, scale, stream);
+  if (D <= 32)
+    return launch_flash_tc<32, BYVAL>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                      q_offset, k_offset, scale, stream);
+  if (D <= 64)
+    return launch_flash_tc<64, BYVAL>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                      q_offset, k_offset, scale, stream);
+  if (D <= 128)
+    return launch_flash_tc<128, BYVAL>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                       q_offset, k_offset, scale, stream);
+  return launch_flash_tc<256, BYVAL>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                     q_offset, k_offset, scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -871,24 +811,8 @@ __device__ __forceinline__ void fa_load8(const float* row, int d0, int D, bool v
   }
 }
 
-// This thread's chunks of R rows of an f32 array (row i at src + i ld; rows
-// from `live` on, and dims from D on, as zeros).  Chunk e is row i, dims 8g
-// .. 8g + 7: each eight neighbouring threads take eight neighbouring rows
-// (their 16-byte shared stores, chunk (g, i) at (g R + i) 16, do not
-// collide) and four such groups four neighbouring chunks of those rows (a
-// warp's 16-byte load touches 8 cache lines, not 32).
-template <int R, int DP, int NT>
-__host__ __device__ constexpr int tc_chunks() {
-  return (R * DP / 8 + NT - 1) / NT;
-}
-
-template <int R, int DP>
-__device__ __forceinline__ int2 tc_chunk(int e) {
-  constexpr int GQ = DP / 8 < 4 ? DP / 8 : 4;  // chunks of a row a warp takes
-  const int rest = e / (8 * GQ);
-  return make_int2((rest % (R / 8)) * 8 + e % 8, (rest / (R / 8)) * GQ + (e / 8) % GQ);
-}
-
+// This thread's chunks of R rows of an f32 array (tc_chunk above; rows from
+// `live` on, and dims from D on, as zeros).
 template <int R, int DP, int NT>
 __device__ __forceinline__ void tc_load_tile(float (&x)[tc_chunks<R, DP, NT>()][8],
                                              const float* src, int live, int ld, int D,
@@ -1223,26 +1147,15 @@ cudaError_t launch_flash_attention(const void* q, const void* k, const void* v, 
     return launch_flash_f32tc<256, 2>(q, k, v, o, BH, T, S, D, group, causal, window,
                                       q_offset, k_offset, scale, stream);
   }
-  if (D % 16 == 0) {  // bf16 on the tensor cores
+  // bf16 on the tensor cores: TMA where a row is whole 16-byte chunks (16-byte
+  // aligned bases), by value otherwise
+  if (D % 8 == 0) {
     if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16) return cudaErrorMisalignedAddress;
-    if (D <= 16)
-      return launch_flash_tc<16>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
-                                 k_offset, scale, stream);
-    if (D <= 32)
-      return launch_flash_tc<32>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
-                                 k_offset, scale, stream);
-    if (D <= 64)
-      return launch_flash_tc<64>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
-                                 k_offset, scale, stream);
-    if (D <= 128)
-      return launch_flash_tc<128>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
-                                  k_offset, scale, stream);
-    return launch_flash_tc<256>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
-                                k_offset, scale, stream);
+    return launch_flash_tc_dp<false>(q, k, v, o, BH, T, S, D, group, causal, window,
+                                     q_offset, k_offset, scale, stream);
   }
-  // bf16 with another head dim: the CUDA-core tile
-  return launch_flash_tile_bf16(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
-                                k_offset, scale, stream);
+  return launch_flash_tc_dp<true>(q, k, v, o, BH, T, S, D, group, causal, window, q_offset,
+                                  k_offset, scale, stream);
 }
 
 }  // namespace repro

@@ -18,8 +18,9 @@ their own tiles (64 to 256 query rows, 32 or 64 keys), so they agree to f32
 tolerance, as the JAX package's block-size invariance test holds different
 chunkings.  Head dims 1..256.
 
-The CUDA launcher (``csrc/flash_attention.cu``) routes by dtype and head
-dim alone (:func:`kernel_route`) to one of three kernels:
+The CUDA launcher (``csrc/flash_attention.cu``) routes by dtype alone
+(:func:`kernel_route`) to one of two kernels, both on the tensor cores and
+both at every head dim up to 256:
 
 - f32 (every D up to 256): ``flash_attention_f32tc_kernel``, on the tensor
   cores.  ``q * (1/sqrt(D))`` in f32, then q·scale, k and v each split
@@ -36,15 +37,17 @@ dim alone (:func:`kernel_route`) to one of three kernels:
   dim: each computes the partial ``s`` over its 128 dims, both form ``s_0
   + s_1`` from shared memory (the same bits in both), and each writes its
   half of the output, over key tiles of 32.
-- bf16 with ``D % 16 == 0`` (up to 256): ``flash_attention_tc_kernel``,
-  on the tensor cores: ``s = (q k^T) * (1/sqrt(D))``, the bf16 products
-  exact in f32 and summed in f32, then scaled; and ``acc = acc corr + p_hi
-  v + p_lo v`` with ``p_hi = bf16(p)`` and ``p_lo = bf16(p - p_hi)``
-  (``l`` sums the f32 ``p``).  A single bf16 cast of ``p`` would move the
-  output by more than one bf16 rounding step; the split stays within it
-  (rtol 2^-7, atol 1e-5).
-- bf16 with ``D % 16 != 0``: ``flash_attention_kernel``, the CUDA-core
-  tile: the function above, f32 products, no TF32.
+- bf16: ``flash_attention_tc_kernel``: ``s = (q k^T) * (1/sqrt(D))``, the
+  bf16 products exact in f32 and summed in f32, then scaled; and ``acc =
+  acc corr + p_hi v + p_lo v`` with ``p_hi = bf16(p)`` and ``p_lo = bf16(p
+  - p_hi)`` (``l`` sums the f32 ``p``).  A single bf16 cast of ``p`` would
+  move the output by more than one bf16 rounding step; the split stays
+  within it (rtol 2^-7, atol 1e-5).  Head dims are padded with zeros to DP
+  = 16, 32, 64, 128 or 256 inside the kernel (exact zeros in ``q k^T``,
+  output columns never stored).  Where ``D % 8 == 0`` TMA lands the tiles
+  (:func:`tma_loads`); elsewhere (D = 28) the kernel's threads read the
+  rows value by value into the same shared layout, and take inputs at any
+  alignment.
 
 Every kernel sums in an order fixed by its tiles: a head gives the same
 bits alone or in a batch, and repeated runs the same bits.
@@ -87,17 +90,18 @@ def _check_inputs(q, k, v, group: int, qc: int, kc: int):
 
 F32_TC_KERNEL = "flash_attention_f32tc_kernel"
 BF16_TC_KERNEL = "flash_attention_tc_kernel"
-TILE_KERNEL = "flash_attention_kernel"
 
 
 def kernel_route(dtype, D: int) -> str:
     """The kernel the CUDA launcher runs for inputs of ``dtype`` with head
     dim ``D`` (the launcher's rule, ``launch_flash_attention``)."""
-    if dtype == torch.float32:
-        return F32_TC_KERNEL
-    if dtype == torch.bfloat16 and D % 16 == 0:
-        return BF16_TC_KERNEL
-    return TILE_KERNEL
+    return F32_TC_KERNEL if dtype == torch.float32 else BF16_TC_KERNEL
+
+
+def tma_loads(dtype, D: int) -> bool:
+    """Whether the bf16 kernel's tiles arrive by TMA (a row is whole
+    16-byte chunks) rather than value by value."""
+    return dtype == torch.bfloat16 and D % 8 == 0
 
 
 def flash_attention_plain(q, k, v, *, group: int = 1, causal: bool = True,
@@ -153,9 +157,11 @@ def flash_attention_cuda(q, k, v, *, group: int = 1, causal: bool = True,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_cuda takes CUDA tensors; got "
                          f"{q.device}")
-    # the tensor-core kernels copy 16-byte chunks: a view that starts off
-    # that alignment is copied to fresh (aligned) memory
-    q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone()
+    # TMA and the f32 kernel's vector loads copy 16-byte chunks: a view that
+    # starts off that alignment is copied to fresh (aligned) memory; the
+    # bf16 kernel's by-value loads take any alignment
+    by_value = q.dtype == torch.bfloat16 and not tma_loads(q.dtype, D)
+    q, k, v = (t if by_value or t.data_ptr() % 16 == 0 else t.clone()
                for t in (q.contiguous(), k.contiguous(), v.contiguous()))
     out = torch.empty_like(q)
     lib = build.library()

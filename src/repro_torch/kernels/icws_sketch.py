@@ -19,13 +19,16 @@ merge); its 31-bit fingerprint hashes (key, level).  Empty rows give
 
 The CUDA kernel (``csrc/icws_sketch.cu``) is bound by transcendentals and
 integer mixing, not by bytes: per (row, t, non-zero) it does about ten
-murmur rounds, three ``logf``, two ``expf`` and two IEEE divides, while
-the inputs are read once per row.  One warp lane group of ``S`` threads
-owns a (row, t) pair and strides over the non-zeros; the group then
-merges (a, index) lexicographically, which is the first-index argmin
-whatever ``S`` is, so results do not depend on the launch shape.  ``S``
-grows when ``B * m`` is too small to fill the card (single-table ingest
-sketches only three rows).
+murmur rounds, two ``logf``, two ``expf`` and two IEEE divides; the third
+``logf``, of the weight, runs once per (row, non-zero) as a block stages its
+row's non-zeros in shared memory.  A block serves one row; a group of
+``S`` threads (a power of two up to 256, a whole block) owns a (row, t)
+pair and strides over the non-zeros; the group then merges (a, index)
+lexicographically (within each warp by shuffles, then across its warps
+through shared memory), which is the first-index argmin whatever ``S`` is,
+so results do not depend on the launch shape.  ``S`` grows when ``B * m``
+is too small to fill the card (single-table ingest sketches only three
+rows).
 """
 from __future__ import annotations
 
@@ -41,8 +44,9 @@ from .packed import pack_sketch_vals
 
 # elements of one [rows, m, N] intermediate the plain version holds at a time
 _PLAIN_CHUNK = 1 << 22
-# threads the CUDA launch aims for: 132 SMs x 2048 resident threads each
-_TARGET_THREADS = 132 * 2048
+# threads the CUDA launch aims for: 132 SMs x 1,536 resident threads each
+# (six blocks of 256 at the kernel's 40 registers a thread)
+_TARGET_THREADS = 132 * 1536
 
 
 def _check_inputs(w, keys, vals, m: int):
@@ -117,10 +121,13 @@ def icws_sketch_plain(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
 
 
 def _group_size(B: int, m: int, N: int) -> int:
-    """Threads per (row, t) pair: a power of two <= 32 that brings the
-    launch near ``_TARGET_THREADS`` without exceeding the non-zero count."""
+    """Threads per (row, t) pair: a power of two that brings the launch
+    near ``_TARGET_THREADS`` without exceeding the non-zero count, and at
+    most half a block, so that each staged ``logw`` serves at least two
+    samples (the kernel takes up to 256, a whole block, where every draw
+    pays for its staged ``logf`` again)."""
     s = 1
-    while s < 32 and B * m * s < _TARGET_THREADS and 2 * s <= max(N, 1):
+    while s < 128 and B * m * s < _TARGET_THREADS and 2 * s <= max(N, 1):
         s *= 2
     return s
 

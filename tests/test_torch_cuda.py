@@ -74,6 +74,48 @@ def test_sketch_kernel_matches_plain_version(cuda, seed):
         assert torch.equal(x[0], y[0])
 
 
+def _wide_batch(seed, B, nnz, device):
+    """B rows of ``nnz`` non-zeros with keys from a 2^40 domain (the last
+    row empty when B > 3), padded as the ingest path pads them."""
+    rng = np.random.default_rng(seed)
+    vecs = [SparseVec.from_pairs(
+        np.unique(rng.integers(0, 2 ** 40, nnz + 64))[:nnz],
+        rng.normal(size=nnz), 2 ** 40) for _ in range(B - (B > 3))]
+    vecs += [SparseVec.from_pairs([], [], 10)] * (B > 3)
+    return [torch.from_numpy(a).to(device)
+            for a in pad_sparse_batch(vecs)[:3]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B, nnz", [(3, 4500), (48, 1000)])
+def test_sketch_rows_do_not_depend_on_group_size(cuda, monkeypatch, B, nnz):
+    """Groups of 1, 32, 64 and 256 threads a (row, t) pair (64 and 256 merge
+    across warps through shared memory; the row staged in chunks of 2,048
+    non-zeros at N >= 4,096) give the same bits, those of the group size
+    the launch picks; fingerprints agree with plain on at least 99% of
+    slots, values and argkeys bit for bit where they do.  The Pack variant
+    at 64 and 256 gives the same planes and the codec of its values."""
+    args = _wide_batch(B, B, nnz, cuda)
+    m = 512
+    want = port_sketch.icws_sketch_cuda(*args, m=m, seed=3)
+    want_packed = port_sketch.icws_sketch_packed_cuda(*args, m=m, seed=3)
+    for S in (1, 32, 64, 256):
+        monkeypatch.setattr(port_sketch, "_group_size", lambda B, m, N: S)
+        got = port_sketch.icws_sketch_cuda(*args, m=m, seed=3)
+        assert all(_bits_equal(x, y) for x, y in zip(got, want)), S
+        if S > 32:
+            packed = port_sketch.icws_sketch_packed_cuda(*args, m=m, seed=3)
+            assert all(_bits_equal(x, y) for x, y in zip(packed, want_packed))
+            assert torch.equal(packed[4], pack_sketch_vals(got[1], got[2]))
+    plain = port_sketch.icws_sketch_plain(*args, m=m, seed=3)
+    agree = want[0] == plain[0]
+    assert agree.float().mean().item() >= 0.99
+    assert torch.equal(want[1][agree], plain[1][agree])
+    assert torch.equal(want[3][agree], plain[3][agree])
+    if B > 3:
+        assert torch.all(want[0][-1] == -1) and torch.all(want[1][-1] == 0)
+
+
 @pytest.mark.cuda
 def test_fields_kernel_matches_plain_version_bitwise(cuda):
     """Same IEEE operations in the same t order: kernel and plain version
@@ -540,11 +582,12 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
 # f32 (every D up to 256; past 128 the two warpgroups split the head dim)
 # runs the f32 tensor-core kernel (q scale, k, v and p split into three bf16
 # parts, six part-products per product: within f32 rounding, so the f32
-# gate); bf16 with D % 16 == 0 (up to 256) runs the bf16 tensor-core kernel:
-# s from exact bf16 products summed in f32, then scaled, and p v as p_hi v +
-# p_lo v (p split into two bf16 parts, about 16 bits of p); bf16 with D % 16
-# != 0 runs the CUDA-core tile.  bf16 output is within one bf16 rounding
-# step (2^-7 relative) of the plain version's f32 function
+# gate); bf16 (every D up to 256) runs the bf16 tensor-core kernel: s from
+# exact bf16 products summed in f32, then scaled, and p v as p_hi v + p_lo v
+# (p split into two bf16 parts, about 16 bits of p), its tiles by TMA where
+# D % 8 == 0 and value by value elsewhere (D = 28, 33, 150).  bf16 output is
+# within one bf16 rounding step (2^-7 relative) of the plain version's f32
+# function
 @pytest.mark.parametrize("dtype, rtol, atol", [(torch.float32, 5e-5, 5e-5),
                                                (torch.bfloat16, 2 ** -7, 1e-5)])
 @pytest.mark.parametrize("D, T, S, kw", [
@@ -564,7 +607,8 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
     # shorter than one tile: a single query row (a decode step), few keys
     (64, 1, 40, dict(causal=True, q_offset=39)),
     (128, 40, 24, dict(causal=False, qc=40, kc=24)),
-    # D % 4 != 0: the f32 tensor-core kernel reads its rows value by value
+    # D % 4 != 0: the f32 tensor-core kernel reads its rows value by value,
+    # and so does the bf16 one (odd D: its output stored value by value)
     (33, 70, 90, dict(causal=True, window=20, qc=35, kc=45)),
     # bf16 at DP = 256 with zero-filled dims (D = 192), and D = 256 with T
     # and S off the tiles, a window, offsets and rows 0-49 that see no key
@@ -572,8 +616,8 @@ def _attention_inputs(seed, BH, T, S, D, group, dtype, device):
                          kc=64)),
     (256, 200, 328, dict(causal=True, window=90, q_offset=100, k_offset=150,
                          qc=50, kc=41)),
-    # past 128 with D % 4 != 0: the f32 kernel's DP = 256 instance reads its
-    # rows value by value; bf16 runs the tile
+    # past 128 with D % 4 != 0: both kernels' DP = 256 instances read their
+    # rows value by value
     (150, 200, 264, dict(causal=True, window=70, q_offset=30, qc=40, kc=44)),
 ])
 def test_flash_kernel_matches_plain_version(cuda, dtype, rtol, atol, D, T, S,
@@ -589,6 +633,27 @@ def test_flash_kernel_matches_plain_version(cuda, dtype, rtol, atol, D, T, S,
     want = port_fa.flash_attention_plain(q, k, v, group=4, **kw)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [28, 33])
+def test_flash_bf16_by_value_loads_take_unaligned_views(cuda, D):
+    """The bf16 kernel's by-value loads read q, k and v where they lie: a
+    view whose storage offset is not 16-byte aligned runs uncopied, within
+    one bf16 step of plain and equal to the aligned launch bit for bit."""
+    from repro_torch.kernels import flash_attention as port_fa
+    q, k, v = _attention_inputs(D, 4, 130, 150, D, 2, torch.bfloat16, cuda)
+    kw = dict(group=2, causal=True, window=60, q_offset=20)
+    big = torch.zeros(q.numel() + 3, dtype=q.dtype, device=cuda)
+    qu = big[3:].view(q.shape)
+    qu.copy_(q)
+    assert qu.data_ptr() % 16 != 0
+    got = port_fa.flash_attention_cuda(qu, k, v, **kw)
+    aligned = port_fa.flash_attention_cuda(q, k, v, **kw)
+    assert torch.equal(got.view(torch.int16), aligned.view(torch.int16))
+    want = port_fa.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=1e-5)
 
 
 @pytest.mark.cuda
@@ -634,7 +699,8 @@ def test_flash_attention_matches_chunked_attention_on_the_card(cuda, dtype,
                                       (torch.float32, 256),
                                       (torch.bfloat16, 64),
                                       (torch.bfloat16, 128),
-                                      (torch.bfloat16, 256)])
+                                      (torch.bfloat16, 256),
+                                      (torch.bfloat16, 28)])
 def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype, D):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     q, k, v = _attention_inputs(5, 8, 200, 200, D, 2, dtype, cuda)
@@ -655,7 +721,9 @@ def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype, D):
     (torch.bfloat16, 128, "flash_attention_tc_kernel"),
     (torch.bfloat16, 192, "flash_attention_tc_kernel"),
     (torch.bfloat16, 256, "flash_attention_tc_kernel"),
-    (torch.bfloat16, 28, "flash_attention_kernel"),
+    (torch.bfloat16, 28, "flash_attention_tc_kernel"),
+    (torch.bfloat16, 33, "flash_attention_tc_kernel"),
+    (torch.bfloat16, 40, "flash_attention_tc_kernel"),
     (torch.float32, 64, "flash_attention_f32tc_kernel"),
     (torch.float32, 128, "flash_attention_f32tc_kernel"),
     (torch.float32, 192, "flash_attention_f32tc_kernel"),
@@ -663,9 +731,9 @@ def test_flash_kernel_per_head_equals_batched_and_repeats(cuda, dtype, D):
 ])
 def test_flash_route_runs_the_named_kernel(cuda, dtype, D, symbol):
     """The launcher's static route, as the profiler sees it: f32 up to D =
-    256 on the f32 tensor-core kernel, bf16 with D a multiple of 16 up to
-    256 on the bf16 one, the rest (bf16) on the CUDA-core tile (no kernel's
-    name is part of another's); ``kernel_route`` names the same kernel."""
+    256 on the f32 tensor-core kernel, bf16 up to 256 on the bf16 one (D =
+    28 and 33 by value, 40 by TMA with DP = 64 past D; neither kernel's name
+    is part of the other's); ``kernel_route`` names the same kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.flash_attention import (flash_attention_cuda,
@@ -683,6 +751,6 @@ def test_flash_route_runs_the_named_kernel(cuda, dtype, D, symbol):
         if names:
             break
     assert names and all(symbol in n for n in names), names
-    others = {"flash_attention_f32tc_kernel", "flash_attention_tc_kernel",
-              "flash_attention_kernel"} - {symbol}
+    others = {"flash_attention_f32tc_kernel",
+              "flash_attention_tc_kernel"} - {symbol}
     assert not any(other in n for other in others for n in names), names

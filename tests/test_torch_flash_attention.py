@@ -21,12 +21,12 @@ import torch
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models.attention import chunked_attention as jax_chunked
 from repro_torch.kernels.flash_attention import (BF16_TC_KERNEL,
-                                                 F32_TC_KERNEL, TILE_KERNEL,
+                                                 F32_TC_KERNEL,
                                                  flash_attention,
                                                  flash_attention_bh,
                                                  flash_attention_cuda,
                                                  flash_attention_plain,
-                                                 kernel_route)
+                                                 kernel_route, tma_loads)
 from repro_torch.models.attention import chunked_attention
 
 # small shapes: one intra-op thread per test process, so that parallel
@@ -189,17 +189,18 @@ def test_bad_inputs_raise():
 
 
 @pytest.mark.parametrize("dtype, tc_dims", [
-    (torch.bfloat16, range(16, 257, 16)),
+    (torch.bfloat16, range(1, 257)),
     (torch.float32, range(1, 257)),
 ])
 def test_kernel_route_by_type_and_head_dim(dtype, tc_dims):
-    """bf16 with D a multiple of 16 (up to 256) and f32 at every D up to 256
-    name their tensor-core kernels; the rest (bf16 only) name the CUDA-core
-    tile (the CUDA launcher routes the same; tests/test_torch_cuda.py reads
-    the route from a profiler trace on the card)."""
+    """bf16 and f32 name their tensor-core kernels at every D from 1 to 256
+    (the CUDA launcher routes the same; tests/test_torch_cuda.py reads the
+    route from a profiler trace on the card); the bf16 kernel's tiles
+    arrive by TMA where D % 8 == 0 and value by value elsewhere."""
     tc = BF16_TC_KERNEL if dtype == torch.bfloat16 else F32_TC_KERNEL
-    for D in range(1, 257):
-        assert kernel_route(dtype, D) == (tc if D in tc_dims else TILE_KERNEL)
+    for D in tc_dims:
+        assert kernel_route(dtype, D) == tc
+        assert tma_loads(dtype, D) == (dtype == torch.bfloat16 and D % 8 == 0)
 
 
 # The CUDA tensor-core kernel's function on bf16 inputs, emulated in plain
@@ -240,9 +241,12 @@ def _tensor_core_emulation(q, k, v, *, group, causal, window, split=True,
 
 
 # D, T = S, window (causal throughout): bf16 unit-normal inputs, the scale
-# at which the gate holds for every f32 variant of the function
+# at which the gate holds for every f32 variant of the function.  D = 28, 33
+# and 150 are the kernel's by-value loads (padded to DP = 32, 64, 256), D =
+# 40 its TMA loads with DP = 64 past D
 TC_CASES = [(64, 256, 0), (64, 512, 128), (128, 256, 96), (128, 512, 0),
-            (256, 256, 0), (256, 512, 128)]
+            (256, 256, 0), (256, 512, 128), (28, 512, 0), (33, 256, 0),
+            (40, 256, 96), (150, 256, 0)]
 
 
 @functools.lru_cache(maxsize=None)

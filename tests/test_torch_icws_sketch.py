@@ -96,10 +96,19 @@ def test_rows_are_independent_of_batch_and_chunking(monkeypatch):
 
 
 def test_group_size_fills_the_card_within_limits():
-    assert port_sketch._group_size(3, 512, 4096) == 32
+    """Single-table ingest (B = 3) takes half a block per (row, t) pair, a
+    query micro-batch (B = 48) 16 threads; never more threads than
+    non-zeros or than half a block, never fewer than one."""
+    assert port_sketch._group_size(3, 512, 4096) == 128
+    assert port_sketch._group_size(3, 512, 1024) == 128
     assert port_sketch._group_size(48, 512, 4096) == 16
+    assert port_sketch._group_size(3, 512, 100) == 64
     assert port_sketch._group_size(3, 512, 1) == 1
     assert port_sketch._group_size(10 ** 6, 512, 4096) == 1
+    for B in (1, 3, 48, 1000):
+        for N in (1, 5, 100, 1024, 10_240):
+            S = port_sketch._group_size(B, 512, N)
+            assert 1 <= S <= min(max(N, 1), 128) and S & (S - 1) == 0
 
 
 def test_wrappers_route_by_device_and_refuse_cpu_in_the_kernel():

@@ -1,17 +1,21 @@
-"""The ICWS sketch kernel's lane groups against one thread per (row, t).
+"""The ICWS sketch kernel's group sizes, and the chosen one against one
+thread per (row, t) end to end.
 
-    python3 tools/sketch_lanes.py
+    python3 tools/sketch_lanes.py [--kernel-only]
 
-``icws_sketch_cuda`` gives each (row, t) pair a group of S lanes, S picked
-by ``_group_size`` from the launch shape.  This runs the kernel with that S
-and with S forced to 1 (one thread per (row, t), 256 pairs per block):
+``icws_sketch_cuda`` gives each (row, t) pair a group of S threads, S picked
+by ``_group_size`` from the launch shape.  This runs the kernel with every
+S of ``GROUP_SIZES`` that the row's non-zeros allow, and the chosen one:
 
-* the kernel alone at the four sketch shapes of ``chip_smoke.py``: CUDA-event
-  median of each, and a check that both give the same bits;
-* the service end to end over the lake of ``chip_smoke.py``: after 12,384
-  tables are ingested, four rounds each ingest 1,000 more tables and run the
-  64 queries through ``search``, in the order chosen S, 1, 1, chosen S.
-  Prints each round's ingest rate and ``search`` p50.
+* the kernel alone at the four sketch shapes of ``chip_smoke.py``: the
+  device time per launch of each S (``chip_smoke.device_ms``, in the order
+  of ``GROUP_SIZES`` and then in reverse), and a check that every S gives
+  the chosen S's bits;
+* unless ``--kernel-only``, the service end to end over the lake of
+  ``chip_smoke.py``: after 12,384 tables are ingested, four rounds each
+  ingest 1,000 more tables and run the 64 queries through ``search``, in
+  the order chosen S, 1, 1, chosen S.  Prints each round's ingest rate and
+  ``search`` p50.
 
 Needs one card.
 """
@@ -27,49 +31,51 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ROUND_TABLES = 1_000
+GROUP_SIZES = (1, 8, 16, 32, 64, 128, 256)
 
 
 @contextlib.contextmanager
-def one_lane():
-    """Force S = 1 in every ``icws_sketch_cuda`` launch inside the block."""
+def lanes(S: int):
+    """Force S in every ``icws_sketch_cuda`` launch inside the block."""
     from repro_torch.kernels import icws_sketch as ks
     chosen = ks._group_size
-    ks._group_size = lambda B, m, N: 1
+    ks._group_size = lambda B, m, N: S
     try:
         yield
     finally:
         ks._group_size = chosen
 
 
-def kernel_rounds(time_ms, M, KEY_DOMAIN) -> None:
+def kernel_rounds(cs) -> None:
     from repro_torch.data.dataset_search import DatasetSearchIndex
     from repro_torch.data.ingest import pad_sparse_batch
     from repro_torch.kernels import icws_sketch as ks
     rng = np.random.default_rng(1)
-    index = DatasetSearchIndex(m=M, seed=0)
+    index = DatasetSearchIndex(m=cs.M, seed=0)
     for B in (3, 48):
         for nnz in (1000, 4000):
-            vecs = []
-            while len(vecs) < B:
-                keys = rng.integers(0, KEY_DOMAIN, nnz + nnz // 64)
-                vecs.extend(index.vectorize(keys, rng.normal(0.0, 1.0, keys.size)))
-            w, keys, vals, _ = pad_sparse_batch(vecs[:B])
+            w, keys, vals, _ = pad_sparse_batch(
+                cs.field_vectors(index, rng, B, nnz))
             args = [torch.from_numpy(a).cuda() for a in (w, keys, vals)]
+            N = w.shape[1]
 
             def run():
-                return ks.icws_sketch_cuda(*args, m=M, seed=0)
-            chosen = run()
-            with one_lane():
-                single = run()
-            same = all(torch.equal(a, b) for a, b in zip(chosen, single))
-            if not same:
-                raise AssertionError(f"B={B} N={w.shape[1]}: S = 1 changes the sketch")
-            S = ks._group_size(B, M, w.shape[1])
-            ms_s = time_ms(run, reps=20)
-            with one_lane():
-                ms_1 = time_ms(run, reps=20)
-            print(f"kernel B={B} N={w.shape[1]} m={M}: S={S} {ms_s:.4f} ms, "
-                  f"S=1 {ms_1:.4f} ms ({ms_1 / ms_s:.2f}x); same bits")
+                return ks.icws_sketch_cuda(*args, m=cs.M, seed=0)
+            chosen = ks._group_size(B, cs.M, N)
+            want = run()
+            sizes = [S for S in GROUP_SIZES if S <= N]
+            ms = {S: [] for S in sizes}
+            for S in sizes + sizes[::-1]:
+                with lanes(S):
+                    if not all(torch.equal(a, b) for a, b in zip(run(), want)):
+                        raise AssertionError(f"B={B} N={N}: S={S} changes the "
+                                             "sketch")
+                    ms[S].append(cs.device_ms(run, "icws_sketch_kernel",
+                                              reps=20)[0])
+            print(f"kernel B={B} N={N} m={cs.M}: chosen S={chosen}; device ms "
+                  "per launch, two turns: " + "; ".join(
+                      f"S={S} {a:.4f} {b:.4f}" for S, (a, b) in ms.items())
+                  + "; every S the same bits", flush=True)
 
 
 def service_rounds(cs) -> None:
@@ -80,9 +86,9 @@ def service_rounds(cs) -> None:
     svc = SketchSearchService(m=cs.M, seed=0)
     svc.ingest_many(tables[:base])
     torch.cuda.synchronize()
-    for i, lanes in enumerate(("chosen", "1", "1", "chosen")):
+    for i, which in enumerate(("chosen", "1", "1", "chosen")):
         batch = tables[base + i * ROUND_TABLES:base + (i + 1) * ROUND_TABLES]
-        with one_lane() if lanes == "1" else contextlib.nullcontext():
+        with lanes(1) if which == "1" else contextlib.nullcontext():
             t0 = time.perf_counter()
             svc.ingest_many(batch)
             torch.cuda.synchronize()
@@ -92,7 +98,7 @@ def service_rounds(cs) -> None:
                 t0 = time.perf_counter()
                 svc.search(k, v, top_k=10, min_join=cs.QUERY_ROWS / 4)
                 lat.append(time.perf_counter() - t0)
-        print(f"service round {i} S={lanes}: ingest {ROUND_TABLES / ingest_s:.1f} "
+        print(f"service round {i} S={which}: ingest {ROUND_TABLES / ingest_s:.1f} "
               f"tables/s, search p50 {1e3 * float(np.median(lat)):.3f} ms "
               f"({len(lat)} queries, {len(svc.index.tables)} tables)")
 
@@ -105,8 +111,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     print(cs.card_identity())
-    kernel_rounds(cs.time_ms, cs.M, cs.KEY_DOMAIN)
-    service_rounds(cs)
+    kernel_rounds(cs)
+    if "--kernel-only" not in sys.argv[1:]:
+        service_rounds(cs)
     return 0
 
 

@@ -59,7 +59,11 @@ def child(root: pathlib.Path) -> None:
     print(TAG + json.dumps(reports), flush=True)
 
 
-def main(roots) -> int:
+def turns(script: str, roots, tag: str, row) -> int:
+    """Run ``script --child ROOT`` for each root in a fresh process, in the
+    order given and then in reverse, print each run's lines, then one line
+    per case (the ``shape`` of each report a child prints after ``tag``)
+    with ``row(root, report)`` of every run, and the card."""
     roots = [pathlib.Path(r).resolve() for r in roots]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -67,23 +71,28 @@ def main(roots) -> int:
     print(card, flush=True)
     table = {}
     for i, root in enumerate(roots + roots[::-1]):
-        out = subprocess.run([sys.executable, __file__, "--child", str(root)],
+        out = subprocess.run([sys.executable, script, "--child", str(root)],
                              capture_output=True, text=True)
         print(f"== run {i} {root} (rc {out.returncode})\n"
               + "\n".join(l for l in out.stdout.splitlines()
-                          if not l.startswith(TAG))
+                          if not l.startswith(tag))
               + "\n" + out.stderr[-2000:], flush=True)
         if out.returncode:
             return out.returncode
-        line = next(l for l in out.stdout.splitlines() if l.startswith(TAG))
-        for r in json.loads(line[len(TAG):]):
-            table.setdefault(r["shape"], []).append(
-                f"{root.name} {r['kernel']} {r['device_ms']:.4f} "
-                f"{r['bits']}")
+        line = next(l for l in out.stdout.splitlines() if l.startswith(tag))
+        for r in json.loads(line[len(tag):]):
+            table.setdefault(r["shape"], []).append(row(root, r))
     for shape, runs in table.items():
         print(f"{shape}: " + "; ".join(runs))
     print(f"on {card}")
     return 0
+
+
+def main(roots) -> int:
+    return turns(__file__, roots, TAG, lambda root, r: (
+        f"{root.name} {r['kernel']}"
+        + (f" ({r['loads']})" if "loads" in r else "")
+        + f" {r['device_ms']:.4f} {r['bits']}"))
 
 
 if __name__ == "__main__":
