@@ -81,6 +81,8 @@ EST_OPS_PER_HIT = 8
 HASH_OPS = 2 * 8 + 5
 CS_OPS_PER_TERM = 2 * HASH_OPS + 4
 JL_OPS_PER_TERM = HASH_OPS + 3
+# clocks of one dependent f32 add on Hopper: a serial sum's floor per term
+CHAIN_CLOCKS_PER_ADD = 4
 # DMH: per lane one bin hash and its modulo, the five salted ICWS variates
 # and the level chain, and the atomicMin; per occupied bin the winner's
 # level again and its fingerprint hash; per densify probe a hash, the
@@ -369,19 +371,36 @@ def field_vectors(index, rng, B: int, nnz: int):
 
 
 @functools.lru_cache(maxsize=None)
-def icws_draw_instructions():
-    """SASS instructions of one draw of the built ICWS sketch kernel (its
-    unpacked variant's draw loop, ``tools/sass_loops.py``), or None where
-    ``cuobjdump`` is missing."""
+def loop_instructions(symbol: str):
+    """{function: SASS instructions of one unit of work (a B1 draw, a B6 or
+    B7 term) in the hot loop of each built instance of the kernel
+    ``symbol`` (``tools/sass_loops.py``)}, or None where ``cuobjdump`` is
+    missing."""
     sys.path.insert(0, str(SRC.parent / "tools"))
     import sass_loops
     from repro_torch.kernels import build
     try:
-        found = sass_loops.draw_loop(build.library_path())
+        return sass_loops.per_unit(build.library_path(), symbol)
     except (OSError, subprocess.SubprocessError) as e:
-        log(f"icws draw loop not counted: {e}")
+        log(f"{symbol} loops not counted: {e}")
         return None
-    return next((n for name, n in found.items() if "ILb0E" in name), None)
+
+
+def unit_instructions(symbol: str, instance: str):
+    """The SASS instructions a unit of work of the instance of ``symbol``
+    whose mangled name holds ``instance``, or None."""
+    return next((n for name, n in (loop_instructions(symbol) or {}).items()
+                 if instance in name), None)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi``'s ``clocks.max.sm``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.split()[0]) * 1e6
 
 
 def sketch_case(index, rng, B: int, nnz: int, dev):
@@ -413,14 +432,14 @@ def sketch_case(index, rng, B: int, nnz: int, dev):
     group = ks._group_size(B, M, w.shape[1])
     # the instruction floor: every draw's SASS instructions, one a lane and
     # clock
-    per_draw = icws_draw_instructions()
+    per_draw = unit_instructions("icws_sketch_kernel", "ILb0E")
     floor = live * M * per_draw / FP32_INSTR_PER_S * 1e3 if per_draw else None
     log(f"sketch {shape}: fp agree {share:.6f}, max |dval| {err}, "
         f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device, "
         f"{group} threads a (row, t) pair), plain "
         f"{plain:.3f} ms, bound {bound:.4f} ms (operations, {live} live "
-        f"non-zeros)" + (f", instruction floor {floor:.4f} ms ({per_draw} SASS "
-                         "instructions a draw)" if floor else ""))
+        f"non-zeros)" + (f", instruction floor {floor:.4f} ms ({per_draw:g} "
+                         "SASS instructions a draw)" if floor else ""))
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "device_ms_source": dev_src, "group_size": group,
             "plain_ms": plain, "bound_ms": bound, "fp_agree": share,
@@ -480,7 +499,10 @@ def estimate_case(fq, vq, fc, vc):
 
 def linear_sketch_case(index, rng, name: str, B: int, nnz: int, dev):
     """One CountSketch or JL launch at the path's shapes against its plain
-    version: equal bit for bit (both sum over ascending n)."""
+    version: equal bit for bit (both sum over ascending n).  Beside the
+    bound, the issue floor (the live terms' SASS instructions, one a lane
+    and clock) and for JL the chain floor (N dependent adds of
+    ``CHAIN_CLOCKS_PER_ADD`` clocks at the card's highest SM clock)."""
     from repro_torch.data.ingest import pad_linear_batch
     from repro_torch.kernels import countsketch as kc
     from repro_torch.kernels import jl_sketch as kj
@@ -491,12 +513,12 @@ def linear_sketch_case(index, rng, name: str, B: int, nnz: int, dev):
         kw = dict(width=fam.width, reps=fam.reps, seed=0)
         kernel, plain = kc.countsketch_sparse_cuda, kc.countsketch_sparse_plain
         ops_per_term, terms_per_nz = CS_OPS_PER_TERM, fam.reps
-        symbol = "countsketch_sparse_kernel"
+        symbol, tile = "countsketch_sparse_kernel", None
     else:
         kw = dict(m=fam.m, seed=0)
         kernel, plain = kj.jl_sketch_cuda, kj.jl_sketch_plain
         ops_per_term, terms_per_nz = JL_OPS_PER_TERM, fam.m
-        symbol = "jl_sketch_kernel"
+        symbol, tile = "jl_sketch_kernel", kj._t_tile(B, fam.m)
     got = kernel(keys, vals, **kw)
     torch.cuda.synchronize()
     want = plain(keys, vals, **kw)
@@ -512,14 +534,29 @@ def linear_sketch_case(index, rng, name: str, B: int, nnz: int, dev):
     bound = max(bound_b, bound_o) * 1e3
     bound_by = "bytes" if bound_b >= bound_o else "operations"
     ms = time_ms(lambda: kernel(keys, vals, **kw), reps=20)
-    dev_ms, dev_src = device_ms(lambda: kernel(keys, vals, **kw), symbol)
+    names = []
+    dev_ms, dev_src = device_ms(lambda: kernel(keys, vals, **kw), symbol,
+                                names=names)
     plain_ms = time_ms(lambda: plain(keys, vals, **kw), reps=3, warmup=1)
+    per_term = unit_instructions(symbol, f"ILi{tile}E" if tile else symbol)
+    floor_issue = (live * terms_per_nz * per_term / FP32_INSTR_PER_S * 1e3
+                   if per_term else None)
+    floor_chain = (keys.shape[1] * CHAIN_CLOCKS_PER_ADD / sm_clock_hz() * 1e3
+                   if name == "jl" else None)
     log(f"{name} sketch {shape}: equal to plain, kernel {ms:.4f} ms per call "
-        f"({dev_ms:.4f} ms on the device), plain {plain_ms:.3f} ms, bound "
-        f"{bound:.5f} ms ({bound_by}, {live} live non-zeros)")
-    return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "device_ms_source": dev_src,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
+        f"({dev_ms:.4f} ms on the device, {', '.join(names) or symbol}), "
+        f"plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by}, {live} "
+        f"live non-zeros)"
+        + (f", issue floor {floor_issue:.5f} ms ({per_term:g} SASS "
+           "instructions a term)" if per_term else "")
+        + (f", chain floor {floor_chain:.5f} ms" if floor_chain else ""))
+    rep = {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+           "device_ms_source": dev_src, "kernel": ", ".join(names),
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+           "instr_per_term": per_term, "floor_ms_issue": floor_issue}
+    if name == "jl":
+        rep.update(tile=tile, floor_ms_chain=floor_chain)
+    return rep
 
 
 def linear_estimate_case(name: str, tq, tc):
@@ -574,15 +611,20 @@ def linear_estimate_case(name: str, tq, tc):
 
 def linear_kernel_phase(dev):
     """B6 and B7 at the ingest (B = 3) and query-batch (B = 48) shapes, each
-    at N = 1024 and 4096; B8 at G = 6, Q in {16, 1}, P in {131,072, 16,384}
-    for CS (R = 5, W = 153) and JL (R = 1, W = 769), over real query
-    tables and random corpus tables whose last 1,024 rows are spare."""
+    at N = 1024 and 4096, and at B = 3, N = 10,240 (the lake's largest
+    tables, about 10,000 rows); B8 at G = 6, Q in {16, 1}, P in {131,072,
+    16,384} for CS (R = 5, W = 153) and JL (R = 1, W = 769), over real
+    query tables and random corpus tables whose last 1,024 rows are
+    spare."""
     from repro_torch.data.dataset_search import DatasetSearchIndex
     rng = np.random.default_rng(5)
     index = DatasetSearchIndex(m=M, seed=0, device=dev)
     sketch = {name: [linear_sketch_case(index, rng, name, B, nnz, dev)
                      for B in (3, 48) for nnz in (1000, 4000)]
               for name in ("cs", "jl")}
+    for name, cases in sketch.items():
+        cases.append(linear_sketch_case(
+            index, np.random.default_rng((3, 10_000)), name, 3, 10_000, dev))
     estimate, tables_for = [], {}
     g = torch.Generator(device=dev).manual_seed(6)
     for name in ("cs", "jl"):

@@ -141,7 +141,8 @@ def library() -> ctypes.CDLL:
         lib.repro_countsketch_sparse.argtypes = [ptr, ptr, i32, i32, i32, i32,
                                                  u32, ptr, ptr]
         lib.repro_countsketch_sparse.restype = i32
-        lib.repro_jl_sketch.argtypes = [ptr, ptr, i32, i32, i32, u32, ptr, ptr]
+        lib.repro_jl_sketch.argtypes = [ptr, ptr, i32, i32, i32, i32, u32, ptr,
+                                        ptr]
         lib.repro_jl_sketch.restype = i32
         lib.repro_linear_estimate_fields.argtypes = [ptr, ptr, i64, i64, ptr,
                                                      ptr, i32, i32, i32, i32,

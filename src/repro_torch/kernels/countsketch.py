@@ -21,8 +21,9 @@ kernel's one-hot matmul sums in the MXU's order instead, so the port agrees
 with it to f32 tolerance.
 
 The CUDA kernel (``csrc/countsketch_sparse.cu``) gives each (row, rep) one
-block: the block hashes a chunk of non-zeros into shared memory, then each
-thread owns buckets and scans the chunk in ``n`` order.  No atomics.
+block per 256 buckets, a thread a bucket: per chunk of non-zeros the block
+groups the terms by bucket, stably in ``n`` (warp-level matches and integer
+counts), and each thread adds its bucket's run in order.  No atomics.
 
 The dense sketch (gradient compression) replaces
 ``repro/kernels/countsketch.py::_cs_kernel`` (launcher

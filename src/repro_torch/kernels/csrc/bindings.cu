@@ -18,7 +18,7 @@ cudaError_t launch_countsketch_sparse(const int* keys, const float* vals, int B,
                                       int W, int R, uint32_t seed, float* out,
                                       cudaStream_t stream);
 cudaError_t launch_jl_sketch(const int* keys, const float* vals, int B, int N, int m,
-                             uint32_t seed, float* out, cudaStream_t stream);
+                             int tile, uint32_t seed, float* out, cudaStream_t stream);
 cudaError_t launch_linear_estimate_fields(const float* tq, const float* tc,
                                           long long tc_fs, long long tc_ps,
                                           const int* qmap, const int* cmap, int G,
@@ -92,9 +92,9 @@ int repro_countsketch_sparse(const int* keys, const float* vals, int B, int N, i
                                                (cudaStream_t)stream);
 }
 
-int repro_jl_sketch(const int* keys, const float* vals, int B, int N, int m,
+int repro_jl_sketch(const int* keys, const float* vals, int B, int N, int m, int tile,
                     uint32_t seed, float* out, void* stream) {
-  return (int)repro::launch_jl_sketch(keys, vals, B, N, m, seed, out,
+  return (int)repro::launch_jl_sketch(keys, vals, B, N, m, tile, seed, out,
                                       (cudaStream_t)stream);
 }
 

@@ -42,8 +42,22 @@ __device__ __forceinline__ uint32_t mix32(uint32_t z) {
   return z;
 }
 
+// a salt's two terms in the keyed hash, for a kernel that hashes many keys
+// under one salt: hash_u32(key, salt) == hash_pre(key, salt_pre(salt))
+struct SaltPre {
+  uint32_t add, mix;
+};
+
+__device__ __forceinline__ SaltPre salt_pre(uint32_t salt) {
+  return {salt * 0x9E3779B9u, salt * 0xC2B2AE35u + 0x27D4EB2Fu};
+}
+
+__device__ __forceinline__ uint32_t hash_pre(uint32_t key, SaltPre s) {
+  return mix32(mix32(key + s.add) ^ s.mix);
+}
+
 __device__ __forceinline__ uint32_t hash_u32(uint32_t key, uint32_t salt) {
-  return mix32(mix32(key + salt * 0x9E3779B9u) ^ (salt * 0xC2B2AE35u + 0x27D4EB2Fu));
+  return hash_pre(key, salt_pre(salt));
 }
 
 // top 24 bits -> (0, 1): bits * 2^-24 + 2^-25, two roundings as in JAX

@@ -16,8 +16,10 @@ in a batch and at any padded N, and the kernel equals its plain version bit
 for bit on the card.  The TPU kernel sums in the MXU's order, so the port
 agrees with it to f32 tolerance.
 
-The CUDA kernel (``csrc/jl_sketch.cu``) gives each (b, t) one thread that
-walks the row's non-zeros, staged in shared memory per block.
+The CUDA kernel (``csrc/jl_sketch.cu``) gives a block one row and a tile
+of ``_t_tile(B, m)`` samples: eight warps hash the row's keys and store
+each signed term in shared memory, and one lane per t adds them over
+ascending n.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ from .common import JL_STREAM_SIGN, as_u32, hash_u32, salt_for
 
 # non-zeros per plain-version chunk: one [B, m, chunk] sign tensor at a time
 _PLAIN_CHUNK = 256
+# the card's SMs, and the blocks a launch should give each of them
+_SMS, _BLOCKS_PER_SM = 132, 2
 
 
 def _check_inputs(keys, vals, m: int):
@@ -64,6 +68,13 @@ def jl_sketch_plain(keys: torch.Tensor, vals: torch.Tensor, *, m: int,
                                           device=dev))
 
 
+def _t_tile(B: int, m: int) -> int:
+    """Samples t a block, 8 or 16: 16 where that launch still gives every
+    SM two blocks (more rows keep the chain warp's lanes busier), else 8,
+    so that a few rows fill the card."""
+    return 16 if B * -(-m // 16) >= _SMS * _BLOCKS_PER_SM else 8
+
+
 def jl_sketch_cuda(keys: torch.Tensor, vals: torch.Tensor, *, m: int,
                    seed: int) -> torch.Tensor:
     """Launch the CUDA JL projection on PyTorch's current stream.
@@ -84,7 +95,8 @@ def jl_sketch_cuda(keys: torch.Tensor, vals: torch.Tensor, *, m: int,
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         err = lib.repro_jl_sketch(keys.data_ptr(), vals.data_ptr(), B, N, m,
-                                  seed & 0xFFFFFFFF, out.data_ptr(), stream)
+                                  _t_tile(B, m), seed & 0xFFFFFFFF,
+                                  out.data_ptr(), stream)
     build.check(err, "jl_sketch")
     jl_sketch_cuda.launches += 1
     return out

@@ -148,36 +148,112 @@ def _linear_batch(seed, device):
     return [torch.from_numpy(a).to(device) for a in (keys, vals)]
 
 
+def _one_bucket_keys(count, *, width, seed):
+    """``count`` distinct int32 keys whose rep-0 bucket (of ``width``, under
+    ``seed``) is key 0's, found with the port's own hash."""
+    k = torch.arange(2 * count * width, dtype=torch.int64)
+    bucket, _ = port_cs._hash(k, torch.zeros(1, dtype=torch.int64),
+                              width=width, seed=seed)
+    keys = k[bucket == bucket[0]][:count]
+    assert keys.numel() == count
+    return keys.to(torch.int32)
+
+
+def _linear_rows(rows, device, *, width=153, seed=2):
+    """Padded [B, N] keys and values: the ``_vectors`` batch; or (B, nnz):
+    row 0 of ``nnz`` non-zeros, the others of nnz / 2 to nnz, the last
+    empty, keys over the int32 range, N = nnz rounded up to 256 as the
+    ingest path pads; or "one bucket": (3, 10,000) rows whose row 0 keys
+    all share one rep-0 bucket of ``width`` under ``seed``."""
+    if rows == "vectors":
+        return _linear_batch(5, device)
+    B, nnz = (3, 10_000) if rows == "one bucket" else rows
+    rng = np.random.default_rng(B * nnz)
+    N = -(-nnz // 256) * 256
+    keys = rng.integers(-2 ** 31, 2 ** 31, (B, N)).astype(np.int32)
+    vals = rng.normal(size=(B, N)).astype(np.float32)
+    sizes = rng.integers(nnz // 2, nnz + 1, B)
+    sizes[0], sizes[-1] = nnz, 0 if B > 1 else nnz
+    for b, n in enumerate(sizes):
+        keys[b, n:], vals[b, n:] = 0, 0.0
+    if rows == "one bucket":
+        keys[0, :nnz] = _one_bucket_keys(nnz, width=width, seed=seed).numpy()
+    return [torch.from_numpy(a).to(device) for a in (keys, vals)]
+
+
+def _alone(fn, keys, vals, b):
+    """Row b launched alone, padded to its own non-zeros (256 at least)."""
+    live = torch.nonzero(vals[b]).flatten()
+    n = int(live.max()) + 1 if live.numel() else 0
+    N = max(256, -(-n // 256) * 256)
+    return fn(keys[b:b + 1, :N].contiguous(), vals[b:b + 1, :N].contiguous())[0]
+
+
+# Rows of the linear sketch cases: the small vectors batch; a 10,000-row
+# table alone and three (N = 10,240, several staging chunks); micro-batches
+# of 48 rows.
 @pytest.mark.cuda
-@pytest.mark.parametrize("width, reps", [(153, 5), (300, 4)])
-def test_countsketch_kernel_matches_plain_version_bitwise(cuda, width, reps):
-    """Both sum each bucket over ascending n: the same bits, also for one
-    row alone (a batch shape does not enter the order)."""
-    keys, vals = _linear_batch(5, cuda)
+@pytest.mark.parametrize("rows, width, reps", [
+    ("vectors", 153, 5), ("vectors", 300, 4), ((1, 10_000), 153, 5),
+    ((48, 4000), 153, 5), ((3, 10_000), 1500, 5), ((48, 1000), 1500, 5),
+    ("one bucket", 153, 5)])
+def test_countsketch_kernel_matches_plain_version_bitwise(cuda, rows, width,
+                                                          reps):
+    """Both sum each bucket over ascending n: the same bits, also for a row
+    alone at its own padded N (a batch shape does not enter the order),
+    with W past one block (1,500 buckets) and with every key of a row in one
+    bucket (one thread's chain of 10,000 adds)."""
+    keys, vals = _linear_rows(rows, cuda, width=width, seed=2)
     before = port_cs.countsketch_sparse_cuda.launches
     got = ops.countsketch_sparse(keys, vals, width=width, reps=reps, seed=2)
     torch.cuda.synchronize()
     assert port_cs.countsketch_sparse_cuda.launches == before + 1
     want = port_cs.countsketch_sparse_plain(keys, vals, width=width,
                                             reps=reps, seed=2)
-    assert torch.equal(got, want) and torch.all(got[-1] == 0)
-    one = ops.countsketch_sparse(keys[2:3], vals[2:3], width=width,
-                                 reps=reps, seed=2)
-    assert torch.equal(one[0], got[2])
+    assert torch.equal(got, want)
+    B = keys.shape[0]
+    assert B == 1 or torch.all(got[-1] == 0)
+    for b in sorted({0, B // 2, max(B - 2, 0)}):
+        one = _alone(lambda k, v: ops.countsketch_sparse(
+            k, v, width=width, reps=reps, seed=2), keys, vals, b)
+        assert torch.equal(one, got[b])
+    if rows == "one bucket":
+        assert int((got[0, 0] != 0).sum()) == 1
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [769, 97])
-def test_jl_kernel_matches_plain_version_bitwise(cuda, m):
-    keys, vals = _linear_batch(6, cuda)
+@pytest.mark.parametrize("rows, m", [
+    ("vectors", 769), ("vectors", 97), ((1, 10_000), 769), ((3, 10_000), 769),
+    ((48, 4000), 769), ((48, 4000), 97), ((48, 1000), 1)])
+def test_jl_kernel_matches_plain_version_bitwise(cuda, rows, m):
+    """The same bits as plain, and for a row alone at its own padded N, at
+    sample tiles of 8 (B = 1 and 3, and m = 1) and 16 (B = 48); no m here
+    is a multiple of the tile."""
+    keys, vals = _linear_rows(rows, cuda)
     before = port_jl.jl_sketch_cuda.launches
     got = ops.jl_sketch(keys, vals, m=m, seed=4)
     torch.cuda.synchronize()
     assert port_jl.jl_sketch_cuda.launches == before + 1
     want = port_jl.jl_sketch_plain(keys, vals, m=m, seed=4)
-    assert torch.equal(got, want) and torch.all(got[-1] == 0)
-    one = ops.jl_sketch(keys[3:4], vals[3:4], m=m, seed=4)
-    assert torch.equal(one[0], got[3])
+    assert torch.equal(got, want)
+    B = keys.shape[0]
+    assert B == 1 or torch.all(got[-1] == 0)
+    for b in sorted({0, B // 2, max(B - 2, 0)}):
+        one = _alone(lambda k, v: ops.jl_sketch(k, v, m=m, seed=4), keys, vals,
+                     b)
+        assert torch.equal(one, got[b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows, m", [((3, 10_000), 769), ((48, 1000), 97)])
+def test_jl_rows_do_not_depend_on_the_sample_tile(cuda, monkeypatch, rows, m):
+    """Tiles of 8 and 16 samples a block give the same bits."""
+    keys, vals = _linear_rows(rows, cuda)
+    want = port_jl.jl_sketch_cuda(keys, vals, m=m, seed=4)
+    for tile in (8, 16):
+        monkeypatch.setattr(port_jl, "_t_tile", lambda B, m: tile)
+        assert torch.equal(port_jl.jl_sketch_cuda(keys, vals, m=m, seed=4),
+                           want), tile
 
 
 # Cases of the linear-dots kernels (B8, B12): (Q, qmap, cmap, corpus rows).

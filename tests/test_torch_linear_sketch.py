@@ -20,8 +20,8 @@ from repro.kernels.jl_sketch import jl_sketch_pallas
 from repro_torch.core.types import SparseVec
 from repro_torch.data.ingest import linear_sketch_batch, pad_linear_batch
 from repro_torch.kernels import ops
-from repro_torch.kernels.countsketch import countsketch_sparse_plain
-from repro_torch.kernels.jl_sketch import jl_sketch_plain
+from repro_torch.kernels.countsketch import _hash, countsketch_sparse_plain
+from repro_torch.kernels.jl_sketch import _t_tile, jl_sketch_plain
 
 # small shapes: one intra-op thread per test process, so that parallel
 # test workers do not oversubscribe the cores
@@ -47,10 +47,29 @@ def _close(got, want):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4 * scale)
 
 
-@pytest.mark.parametrize("seed, width, reps", [(0, 77, 5), (1, 153, 5),
-                                                (2, 19, 4), (3, 1, 1)])
-def test_countsketch_plain_matches_pallas_and_ref(seed, width, reps):
+def _one_bucket_keys(count, *, width, seed):
+    """``count`` distinct int32 keys whose rep-0 bucket (of ``width``, under
+    ``seed``) is key 0's, found with the port's own hash."""
+    k = torch.arange(2 * count * width, dtype=torch.int64)
+    bucket, _ = _hash(k, torch.zeros(1, dtype=torch.int64), width=width,
+                      seed=seed)
+    return k[bucket == bucket[0]][:count].to(torch.int32).numpy()
+
+
+@pytest.mark.parametrize("seed, width, reps, one_bucket", [
+    (0, 77, 5, False), (1, 153, 5, False), (2, 19, 4, False), (3, 1, 1, False),
+    (4, 153, 5, True)])
+def test_countsketch_plain_matches_pallas_and_ref(seed, width, reps,
+                                                  one_bucket):
+    """With ``one_bucket``, row 0's 240 keys all land in one bucket of rep 0
+    (the kernel's worst case: one thread adds every term)."""
     keys, vals = _batch(seed)
+    if one_bucket:
+        keys[0, :240] = _one_bucket_keys(240, width=width, seed=seed)
+        bucket, _ = _hash(torch.from_numpy(keys[0, :240]).long() & 0xFFFFFFFF,
+                          torch.zeros(1, dtype=torch.int64), width=width,
+                          seed=seed)
+        assert len(set(bucket.tolist())) == 1
     got = countsketch_sparse_plain(torch.from_numpy(keys),
                                    torch.from_numpy(vals), width=width,
                                    reps=reps, seed=seed).numpy()
@@ -60,6 +79,8 @@ def test_countsketch_plain_matches_pallas_and_ref(seed, width, reps):
                                           seed=seed, interpret=True))
     _close(got, ref.countsketch_sparse_ref(jk, jv, width, reps, seed))
     assert np.all(got[1] == 0.0)
+    if one_bucket:
+        assert np.count_nonzero(got[0, 0]) == 1
 
 
 @pytest.mark.parametrize("seed, m", [(0, 200), (1, 769), (2, 1)])
@@ -72,6 +93,17 @@ def test_jl_plain_matches_pallas_and_ref(seed, m):
     _close(got, jl_sketch_pallas(jk, jv, m=m, seed=seed, interpret=True))
     _close(got, ref.jl_sketch_ref(jk, jv, m, seed))
     assert np.all(got[1] == 0.0)
+
+
+@pytest.mark.parametrize("B, m, tile", [(3, 769, 8), (1, 769, 8),
+                                         (48, 769, 16), (48, 97, 16),
+                                         (6, 769, 16), (5, 769, 8),
+                                         (3, 1, 8)])
+def test_jl_sample_tile_fills_the_card(B, m, tile):
+    """16 samples a block where that launch gives each of the 132 SMs two
+    blocks, else 8."""
+    assert _t_tile(B, m) == tile
+    assert (B * -(-m // 16) >= 264) == (tile == 16)
 
 
 def _sketches(keys, vals):

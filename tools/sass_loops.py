@@ -1,19 +1,23 @@
-"""Instruction counts of a kernel's innermost loops in the built library.
+"""Instruction counts of a kernel's loops in the built library.
 
     python3 tools/sass_loops.py [SYMBOL [LIBRARY]]
 
 Disassembles LIBRARY (default: the port's library, built first if need be)
 with ``cuobjdump -sass`` and prints, for every function whose name
-contains SYMBOL (default ``icws_sketch_kernel``), each innermost loop (a
-backward branch and its target that hold no other loop): its SASS
-instructions and MUFU operations.  :func:`draw_loop` returns, per such
-function, the instructions of the innermost loop that holds two MUFU.EX2
-(the ICWS draw's two ``expf``: one draw an iteration); ``chip_smoke.py``
-reports it beside B1's bound as the kernel's instruction floor.  Needs the CUDA
-toolkit's ``cuobjdump``.
+contains SYMBOL (default ``icws_sketch_kernel``), each loop (a backward
+branch and its target): its own SASS instructions (those in no loop
+nested inside it), its nested loops, its marker operations (MUFU, VOTE,
+MATCH, FMUL, STS) and its most frequent opcodes.  :func:`per_unit` returns, per
+such function, the instructions of one unit of work in the loop whose own
+instructions hold the most of the kernel's marker opcode (``MARKERS``):
+its own instructions over its markers, times the markers a unit takes.
+``chip_smoke.py`` reports these beside the bounds as the kernels' issue
+floors: B1's draw (two MUFU.EX2, the draw's two ``expf``), B7's term and
+B6's term.  Needs the CUDA toolkit's ``cuobjdump``.
 """
 from __future__ import annotations
 
+import collections
 import pathlib
 import re
 import shutil
@@ -21,6 +25,12 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+# (marker opcode, markers a unit) of each kernel's hot loop: B1's draw
+# takes two MUFU.EX2; B7's hash loop one STS a term (its signed value's
+# store), B6's one FMUL a term (the sign times the value)
+MARKERS = {"icws_sketch_kernel": ("MUFU.EX2", 2),
+           "jl_sketch_kernel": ("STS", 1),
+           "countsketch_sparse_kernel": ("FMUL", 1)}
 
 
 def cuobjdump() -> str:
@@ -29,8 +39,15 @@ def cuobjdump() -> str:
     return str(tool) if tool.exists() else (shutil.which("cuobjdump") or "")
 
 
+def opcode(instruction: str) -> str:
+    """The opcode of one SASS instruction, past its predicate guard."""
+    words = instruction.split() or [""]
+    return words[1] if words[0].startswith("@") else words[0]
+
+
 def loops(library, symbol: str):
-    """{function: [(instructions, MUFU opcodes) per innermost loop]}."""
+    """{function: [(own opcodes, nested loops) of each loop]}, innermost
+    loops first."""
     text = subprocess.run([cuobjdump(), "-sass", str(library)],
                           capture_output=True, text=True, check=True,
                           timeout=600).stdout
@@ -41,24 +58,34 @@ def loops(library, symbol: str):
             continue
         ins = [(int(a, 16), t.strip()) for a, t in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
-        spans = [(int(m.group(1), 16), a) for a, t in ins
-                 for m in [re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", t)]
-                 if m and int(m.group(1), 16) <= a]
-        inner = [(lo, hi) for lo, hi in spans
-                 if not any((lo, hi) != (l2, h2) and lo <= l2 and h2 <= hi
-                            for l2, h2 in spans)]
-        out[name.strip()] = [
-            ([t for a, t in ins if lo <= a <= hi])
-            for lo, hi in inner]
-    return {name: [(len(body), [w for t in body for w in t.split()
-                                if w.startswith("MUFU")])
-                   for body in bodies] for name, bodies in out.items()}
+        spans = sorted({(int(m.group(1), 16), a) for a, t in ins
+                        for m in [re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", t)]
+                        if m and int(m.group(1), 16) <= a},
+                       key=lambda span: span[1] - span[0])
+        found = []
+        for lo, hi in spans:
+            inner = [(l2, h2) for l2, h2 in spans if (l2, h2) != (lo, hi)
+                     and lo <= l2 and h2 <= hi]
+            own = [opcode(t) for a, t in ins if lo <= a <= hi
+                   and not any(l2 <= a <= h2 for l2, h2 in inner)]
+            found.append((own, len(inner)))
+        out[name.strip()] = found
+    return out
 
 
-def draw_loop(library, symbol: str = "icws_sketch_kernel"):
-    """{function: instructions of its loop with two MUFU.EX2}."""
-    return {name: n for name, found in loops(library, symbol).items()
-            for n, mufu in found if mufu.count("MUFU.EX2") == 2}
+def per_unit(library, symbol: str):
+    """{function: SASS instructions a unit of work}: of the loop whose own
+    instructions hold the most opcodes that start with the symbol's marker
+    (``MARKERS``), its own instructions over its markers, times the
+    markers a unit."""
+    marker, per = MARKERS[symbol]
+    out = {}
+    for name, found in loops(library, symbol).items():
+        counts = [sum(op.startswith(marker) for op in own) for own, _ in found]
+        if counts and max(counts):
+            best = counts.index(max(counts))
+            out[name] = len(found[best][0]) * per / counts[best]
+    return out
 
 
 def main(argv) -> int:
@@ -72,9 +99,12 @@ def main(argv) -> int:
         library = build.library_path()
     for name, found in loops(library, symbol).items():
         print(name)
-        for n, mufu in found:
-            print(f"  innermost loop: {n} instructions, "
-                  f"{', '.join(mufu) or 'no MUFU'}")
+        for own, nested in found:
+            marked = collections.Counter(op for op in own if op.startswith(
+                ("MUFU", "VOTE", "MATCH", "FMUL", "STS")))
+            common = collections.Counter(own).most_common(8)
+            print(f"  loop: {len(own)} own instructions, {nested} nested "
+                  f"loops; markers {dict(marked)}; most: {dict(common)}")
     return 0
 
 

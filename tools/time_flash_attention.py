@@ -59,11 +59,11 @@ def child(root: pathlib.Path) -> None:
     print(TAG + json.dumps(reports), flush=True)
 
 
-def turns(script: str, roots, tag: str, row) -> int:
-    """Run ``script --child ROOT`` for each root in a fresh process, in the
-    order given and then in reverse, print each run's lines, then one line
-    per case (the ``shape`` of each report a child prints after ``tag``)
-    with ``row(root, report)`` of every run, and the card."""
+def turns(script: str, roots, tag: str, row, child_args=()) -> int:
+    """Run ``script --child ROOT *child_args`` for each root in a fresh
+    process, in the order given and then in reverse, print each run's lines,
+    then one line per case (the ``shape`` of each report a child prints
+    after ``tag``) with ``row(root, report)`` of every run, and the card."""
     roots = [pathlib.Path(r).resolve() for r in roots]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -71,8 +71,8 @@ def turns(script: str, roots, tag: str, row) -> int:
     print(card, flush=True)
     table = {}
     for i, root in enumerate(roots + roots[::-1]):
-        out = subprocess.run([sys.executable, script, "--child", str(root)],
-                             capture_output=True, text=True)
+        out = subprocess.run([sys.executable, script, "--child", str(root),
+                              *child_args], capture_output=True, text=True)
         print(f"== run {i} {root} (rc {out.returncode})\n"
               + "\n".join(l for l in out.stdout.splitlines()
                           if not l.startswith(tag))
