@@ -801,64 +801,97 @@ def sample_work(kq, kc, hits, *, match_bytes: int, row_bytes: int = 0):
     return ops, bytes_moved, matches
 
 
+def sample_lookups(kq, kc):
+    """Key lookups of one B9 / B13 launch at this data: for each block
+    group of (query, pair) items (``sample_estimate.block_items``) and each
+    corpus field its items read, ``CHUNK_STEPS`` a row and chunk (through
+    the chunk that holds the row's first negative key)."""
+    from repro_torch.data.dataset_search import CFIELD
+    from repro_torch.kernels import sample_estimate as ks
+    G, Q, S = len(CFIELD), kq.shape[1], kc.shape[2]
+    chunk = ks.STEP_SLOTS * ks.CHUNK_STEPS
+    steps = ks.CHUNK_STEPS * torch.clamp_max(
+        (kc >= 0).sum(2) // chunk + 1, -(-S // chunk)).double().sum(1)  # [C]
+    return sum(float(steps[cf]) for items in ks.block_items(G, Q, kq.shape[2])
+               for cf in {CFIELD[g] for _, g in items})
+
+
+def sample_floor(symbol: str, kq, kc):
+    """(SASS instructions a lookup in the chunk loop, issue floor ms): a
+    warp instruction per scheduler and clock on every SM."""
+    per = unit_instructions(symbol, symbol)
+    if per is None:
+        return None, None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return per, sample_lookups(kq, kc) * per / (4 * sms * sm_clock_hz()) \
+        * 1e3
+
+
 def sample_estimate_case(q, c, hits, *, check: bool):
     """One key-match launch: timed against its bound; with ``check`` also
-    held bit for bit against its plain version.  ``hits [6, Q, P]`` counts
-    the key matches of each (pair, query, row)."""
+    held bit for bit against its plain twin (the plain version on the
+    corpus probabilities that the kernel computes from ``tc``).  ``hits
+    [6, Q, P]`` counts the key matches of each (pair, query, row)."""
     from repro_torch.data.dataset_search import CFIELD, QFIELD
     from repro_torch.kernels import sample_estimate as ks
     kq, vq, aq = q
-    kc, vc, ac = c
+    kc, vc, tc = c
     G, Q, P, S = len(QFIELD), kq.shape[1], kc.shape[1], kq.shape[2]
     shape = f"G={G} Q={Q} P={P} S={S}"
 
     def kernel():
-        return ks.sample_estimate_fields_cuda(kq, vq, aq, kc, vc, ac,
+        return ks.sample_estimate_fields_cuda(kq, vq, aq, kc, vc, tc,
                                               qmap=QFIELD, cmap=CFIELD)
     got = kernel()
     torch.cuda.synchronize()
     err, plain_ms = None, None
     if check:
         t0 = time.perf_counter()
-        want = ks.sample_estimate_fields_plain(kq, vq, aq, kc, vc, ac,
-                                               qmap=QFIELD, cmap=CFIELD)
+        want = ks.sample_estimate_fields_taus_plain(
+            kq, vq, aq, kc, vc, tc, qmap=QFIELD, cmap=CFIELD)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         err = float((got - want).abs().max().item())
-        if not torch.equal(got, want):
+        if not bits_equal(got, want):
             raise AssertionError(f"sample estimate {shape}: kernel differs "
                                  f"from plain (max |d| {err})")
         if not bool(torch.isfinite(got).all()) or \
                 int(torch.count_nonzero(got).item()) == 0:
             raise AssertionError(f"sample estimate {shape}: no finite "
                                  "non-zero estimate")
+        del want
     ops, bytes_moved, matches = sample_work(kq, kc, hits, match_bytes=8)
-    bound_b, bound_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    bound = max(bound_b, bound_o) * 1e3
-    bound_by = "bytes" if bound_b >= bound_o else "operations"
+    bound, bound_by = bound_of(bytes_moved, ops)
     ms = time_ms(kernel, reps=10)
-    dev_ms, dev_src = device_ms(kernel, "sample_estimate_fields_kernel")
+    names = []
+    dev_ms, dev_src = device_ms(kernel, "sample_estimate_fields_kernel",
+                                names=names)
+    per, floor = sample_floor("sample_estimate_fields_kernel", kq, kc)
+    items, groups = ks.items_per_block(G, Q, S)
     log(f"sample estimate {shape}: "
         + (f"equal to plain (plain {plain_ms:.1f} ms, one run), " if check
            else "")
-        + f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), "
-        f"bound {bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB, "
-        f"{ops:.3e} ops, {matches:.0f} matches)")
+        + f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device, "
+        f"{'; '.join(names) or 'no trace'}; {groups} groups of {items} "
+        f"items), bound {bound:.4f} ms ({bound_by}: "
+        f"{bytes_moved / 1e9:.3f} GB, {ops:.3e} ops, {matches:.0f} "
+        "matches), issue floor "
+        + (f"{floor:.4f} ms ({per:.1f} SASS instructions a lookup)"
+           if per else "not counted"))
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "device_ms_source": dev_src,
+            "device_ms_source": dev_src, "kernel": names,
+            "groups": groups, "items_per_block": items,
+            "instr_per_lookup": per, "floor_ms_issue": floor,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
-def sample_kernel_phase(dev):
-    """B9 over 16 queries' real TS rows (S = 768) against P = 131,072
-    synthetic corpus rows per field that copy a random query's live keys
-    with a per-row share and fill the rest with fresh keys, sorted, cut to
-    a random live length; the last 1,024 rows are spare.  At the service's
-    shape, Q in {16, 1} against the last 16,384 rows (the store's capacity
-    on the lake, spare rows included), checked bit for bit against the
-    plain version and timed; timed also at P = 131,072."""
-    from repro_torch.data.dataset_search import (CFIELD, QFIELD,
-                                                 DatasetSearchIndex)
+def sample_rows(dev):
+    """16 queries' real TS rows (S = 768) and P = 131,072 synthetic corpus
+    rows per field that copy a random query's live keys with a per-row
+    share and fill the rest with fresh keys, sorted, cut to a random live
+    length; the last 1,024 rows are spare.  Returns ((kq, vq, aq), tq,
+    (kc, vc, tc))."""
+    from repro_torch.data.dataset_search import DatasetSearchIndex
     from repro_torch.kernels.sample_estimate import (sample_inclusion_probs,
                                                      sorted_prefix_ok)
     rng = np.random.default_rng(7)
@@ -897,7 +930,17 @@ def sample_kernel_phase(dev):
     if not sorted_prefix_ok(kc):
         raise AssertionError("synthetic corpus rows break the sorted-prefix "
                              "contract")
-    ac = sample_inclusion_probs(vc, tc)
+    return (kq, vq, aq), tq, (kc, vc, tc)
+
+
+def sample_kernel_phase(dev):
+    """B9 over :func:`sample_rows`.  At the service's shape, Q in {16, 1}
+    against the last 16,384 rows (the store's capacity on the lake, spare
+    rows included), checked bit for bit against the plain version and
+    timed; timed also at P = 131,072."""
+    from repro_torch.data.dataset_search import CFIELD, QFIELD
+    q, _, (kc, vc, tc) = sample_rows(dev)
+    kq, P = q[0], kc.shape[1]
     # key matches per (pair, query, corpus row), for the bound
     hits = torch.zeros((len(QFIELD), 16, P), dtype=torch.int32, device=dev)
     for gi, (qf, cf) in enumerate(zip(QFIELD, CFIELD)):
@@ -905,9 +948,8 @@ def sample_kernel_phase(dev):
             live = kq[qf, qi][kq[qf, qi] >= 0]
             hits[gi, qi] = torch.isin(kc[cf], live).sum(1)
     torch.cuda.empty_cache()
-    q = (kq, vq, aq)
     checked = [sample_estimate_case(tuple(x[:, :qn] for x in q),
-                                    tuple(x[:, -p:] for x in (kc, vc, ac)),
+                                    tuple(x[:, -p:] for x in (kc, vc, tc)),
                                     hits[:, :qn, -p:], check=p < EST_P)
                for qn, p in ((16, LAKE_TABLES), (1, LAKE_TABLES),
                              (16, EST_P), (1, EST_P))]
@@ -1116,9 +1158,8 @@ def packed_linear_case(name: str, tq, wc):
 
 
 def packed_sample_case(q, c, hits, *, check: bool):
-    """B13 against B9 on the decoded corpus (values, and probabilities by
-    the prologue) and, with ``check``, against its plain version, bit for
-    bit."""
+    """B13 against B9 on the decoded corpus (values and taus) and, with
+    ``check``, against its plain version, bit for bit."""
     from repro_torch.data.dataset_search import CFIELD, QFIELD
     from repro_torch.kernels import sample_estimate as ks
     from repro_torch.kernels.packed import unpack_halfwords_f32
@@ -1131,9 +1172,8 @@ def packed_sample_case(q, c, hits, *, check: bool):
         return ks.sample_estimate_fields_packed_cuda(kq, vq, aq, kc, wc, tc,
                                                      qmap=QFIELD, cmap=CFIELD)
     got = kernel()
-    vc = unpack_halfwords_f32(wc)
-    b9 = ks.sample_estimate_fields_cuda(kq, vq, aq, kc, vc,
-                                        ks.sample_inclusion_probs(vc, tc),
+    b9 = ks.sample_estimate_fields_cuda(kq, vq, aq, kc,
+                                        unpack_halfwords_f32(wc), tc,
                                         qmap=QFIELD, cmap=CFIELD)
     torch.cuda.synchronize()
     if not bits_equal(got, b9) or int(torch.count_nonzero(got).item()) == 0:
@@ -1153,15 +1193,25 @@ def packed_sample_case(q, c, hits, *, check: bool):
                                             row_bytes=4)
     bound, bound_by = bound_of(bytes_moved, ops)
     ms = time_ms(kernel, reps=10)
-    dev_ms, dev_src = device_ms(kernel, "sample_estimate_fields_packed_kernel")
+    names = []
+    dev_ms, dev_src = device_ms(kernel, "sample_estimate_fields_packed_kernel",
+                                names=names)
+    per, floor = sample_floor("sample_estimate_fields_packed_kernel", kq, kc)
+    items, groups = ks.items_per_block(G, Q, S)
     log(f"packed sample estimate {shape}: equal to B9 on the decoded corpus"
         + (f" and to plain (plain {plain_ms:.1f} ms, one run)" if check
            else "")
-        + f"; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), "
-        f"bound {bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB, "
-        f"{ops:.3e} ops, {matches:.0f} matches)")
+        + f"; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device, "
+        f"{'; '.join(names) or 'no trace'}; {groups} groups of {items} "
+        f"items), bound {bound:.4f} ms ({bound_by}: "
+        f"{bytes_moved / 1e9:.3f} GB, {ops:.3e} ops, {matches:.0f} "
+        "matches), issue floor "
+        + (f"{floor:.4f} ms ({per:.1f} SASS instructions a lookup)"
+           if per else "not counted"))
     return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
-            "device_ms_source": dev_src,
+            "device_ms_source": dev_src, "kernel": names,
+            "groups": groups, "items_per_block": items,
+            "instr_per_lookup": per, "floor_ms_issue": floor,
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
@@ -1169,7 +1219,8 @@ def packed_kernel_phase(dev, icws_data, lin_data, sample_data):
     """B10 at the sketch shapes B = 3, N = 1,024 and B = 48, N = 4,096 (ICWS
     and DMH); B11 at G = 6, Q = 16, P = 131,072 and Q = 1, P = 16,384; B12
     there for CS and JL; B13 at the service's shape, Q = 16 and 1 against
-    the last 16,384 rows (spare rows included).  The corpora are the
+    the last 16,384 rows (spare rows included), each held against B9 on
+    the decoded corpus and against its plain version.  The corpora are the
     unpacked kernel phases', packed."""
     from repro_torch.data.dataset_search import DatasetSearchIndex
     from repro_torch.kernels.packed import pack_halfwords_f32
@@ -1193,7 +1244,7 @@ def packed_kernel_phase(dev, icws_data, lin_data, sample_data):
     c = (kc[:, -LAKE_TABLES:], pack_halfwords_f32(vc[:, -LAKE_TABLES:]),
          tc[:, -LAKE_TABLES:])
     b13 = [packed_sample_case(tuple(x[:, :qn] for x in q), c, hits[:, :qn],
-                              check=qn == 16) for qn in (16, 1)]
+                              check=True) for qn in (16, 1)]
     return b10, b11, b12, b13
 
 
@@ -1913,6 +1964,18 @@ def family_phases(family: str, lake):
     return (launches, recall), (p_launches, p_recall), latency, b10
 
 
+def sample_extra(name, rep):
+    """B9 and B13 are one templated body: each entry names its kernel's
+    symbol, the traced name, and its headline case's issue floor and
+    groups.  Nothing for the other kernels."""
+    if name not in ("sample_estimate_fields", "sample_estimate_fields_packed"):
+        return {}
+    return {"symbol": name + "_kernel", "traced": rep["kernel"],
+            "floor_ms_issue": rep["floor_ms_issue"],
+            "instr_per_lookup": rep["instr_per_lookup"],
+            "groups": rep["groups"], "items_per_block": rep["items_per_block"]}
+
+
 def kernel_entry(name, source, replaces, launches, rep, shapes, **extra):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -1989,7 +2052,8 @@ def main() -> int:
 
     rep = sketch[3]   # the query micro-batch launch: B = 48, N = 4096
     kernels = [
-        kernel_entry(name, source, replaces, launches[name], r, shapes)
+        kernel_entry(name, source, replaces, launches[name], r, shapes,
+                     **sample_extra(name, r))
         for name, source, replaces, r, shapes in (
             ("icws_sketch", "icws_sketch.cu", "icws_sketch.py:40", rep,
              sketch),
@@ -2008,9 +2072,8 @@ def main() -> int:
              "estimate.py:306", b11[0], b11),
             ("linear_estimate_fields_packed", "linear_estimate_fields.cu",
              "estimate.py:500", b12[0], b12),
-            ("sample_estimate_fields_packed",
-             "sample_estimate_fields_packed.cu", "sample_estimate.py:204",
-             b13[0], b13))]
+            ("sample_estimate_fields_packed", "sample_estimate_fields.cu",
+             "sample_estimate.py:204", b13[0], b13))]
     kernels[7:7] = [
         kernel_entry(f"{kind}_sketch_packed", f"{kind}_sketch.cu", replaces,
                      launches[f"{kind}_sketch_packed"], b10[kind][1],

@@ -31,8 +31,8 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("icws_sketch.cu", "estimate_fields.cu", "estimate_pairs.cu",
            "countsketch_sparse.cu", "jl_sketch.cu",
            "linear_estimate_fields.cu", "dmh_sketch.cu",
-           "sample_estimate_fields.cu", "sample_estimate_fields_packed.cu",
-           "countsketch_dense.cu", "flash_attention.cu", "bindings.cu")
+           "sample_estimate_fields.cu", "countsketch_dense.cu",
+           "flash_attention.cu", "bindings.cu")
 HEADERS = ("u32.cuh", "packed.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-O3", "-std=c++17", ARCH, "-fmad=false", "-prec-div=true",
@@ -153,7 +153,7 @@ def library() -> ctypes.CDLL:
         lib.repro_dmh_sketch.restype = i32
         lib.repro_sample_estimate_fields.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
-            ptr, i32, i32, i32, i32, ptr, ptr]
+            ptr, i32, i32, i32, i32, i32, ptr, ptr]
         lib.repro_sample_estimate_fields.restype = i32
         lib.repro_estimate_fields_packed.argtypes = \
             lib.repro_estimate_fields.argtypes
@@ -170,7 +170,7 @@ def library() -> ctypes.CDLL:
         lib.repro_linear_estimate_fields_packed.restype = i32
         lib.repro_sample_estimate_fields_packed.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,
-            ptr, i32, i32, i32, i32, i32, ptr, ptr]
+            ptr, i32, i32, i32, i32, i32, i32, ptr, ptr]
         lib.repro_sample_estimate_fields_packed.restype = i32
         lib.repro_countsketch_dense.argtypes = [ptr, i64, i32, i32, u32, u32,
                                                 i32, ptr, ptr, ptr]

@@ -30,9 +30,10 @@ cudaError_t launch_dmh_sketch(const float* w, const int* keys, const float* vals
                               cudaStream_t stream);
 cudaError_t launch_sample_estimate_fields(
     const int* kq, const float* vq, const float* aq, const int* kc, const float* vc,
-    const float* ac, long long kc_fs, long long kc_rs, long long vc_fs,
-    long long vc_rs, long long ac_fs, long long ac_rs, const int* qmap,
-    const int* cmap, int G, int Q, int P, int S, float* out, cudaStream_t stream);
+    const float* tc, long long kc_fs, long long kc_rs, long long vc_fs,
+    long long vc_rs, long long tc_fs, long long tc_rs, const int* qmap,
+    const int* cmap, int G, int Q, int P, int S, int per, float* out,
+    cudaStream_t stream);
 cudaError_t launch_estimate_fields_packed(const int* fq, const float* vq, const int* fc,
                                           const int* wc, long long fc_fs,
                                           long long fc_rs, long long wc_fs,
@@ -56,8 +57,8 @@ cudaError_t launch_sample_estimate_fields_packed(
     const int* kq, const float* vq, const float* aq, const int* kc, const int* wc,
     const float* tc, long long kc_fs, long long kc_rs, long long wc_fs,
     long long wc_rs, long long tc_fs, long long tc_rs, const int* qmap,
-    const int* cmap, int G, int Q, int P, int Sq, int Sc, float* out,
-    cudaStream_t stream);
+    const int* cmap, int G, int Q, int P, int Sq, int Sc, int per,
+    float* out, cudaStream_t stream);
 cudaError_t launch_countsketch_dense(const float* x, long long T, int W, int R,
                                      uint32_t seed, uint32_t offset, int chunk,
                                      float* scratch, float* out, cudaStream_t stream);
@@ -115,14 +116,14 @@ int repro_dmh_sketch(const float* w, const int* keys, const float* vals, int B,
 }
 
 int repro_sample_estimate_fields(const int* kq, const float* vq, const float* aq,
-                                 const int* kc, const float* vc, const float* ac,
+                                 const int* kc, const float* vc, const float* tc,
                                  long long kc_fs, long long kc_rs, long long vc_fs,
-                                 long long vc_rs, long long ac_fs, long long ac_rs,
+                                 long long vc_rs, long long tc_fs, long long tc_rs,
                                  const int* qmap, const int* cmap, int G, int Q,
-                                 int P, int S, float* out, void* stream) {
+                                 int P, int S, int per, float* out, void* stream) {
   return (int)repro::launch_sample_estimate_fields(
-      kq, vq, aq, kc, vc, ac, kc_fs, kc_rs, vc_fs, vc_rs, ac_fs, ac_rs, qmap, cmap,
-      G, Q, P, S, out, (cudaStream_t)stream);
+      kq, vq, aq, kc, vc, tc, kc_fs, kc_rs, vc_fs, vc_rs, tc_fs, tc_rs, qmap, cmap,
+      G, Q, P, S, per, out, (cudaStream_t)stream);
 }
 
 int repro_estimate_fields_packed(const int* fq, const float* vq, const int* fc,
@@ -165,10 +166,10 @@ int repro_sample_estimate_fields_packed(const int* kq, const float* vq,
                                         long long wc_rs, long long tc_fs,
                                         long long tc_rs, const int* qmap,
                                         const int* cmap, int G, int Q, int P, int Sq,
-                                        int Sc, float* out, void* stream) {
+                                        int Sc, int per, float* out, void* stream) {
   return (int)repro::launch_sample_estimate_fields_packed(
       kq, vq, aq, kc, wc, tc, kc_fs, kc_rs, wc_fs, wc_rs, tc_fs, tc_rs, qmap, cmap, G,
-      Q, P, Sq, Sc, out, (cudaStream_t)stream);
+      Q, P, Sq, Sc, per, out, (cudaStream_t)stream);
 }
 
 int repro_countsketch_dense(const float* x, long long T, int W, int R, uint32_t seed,

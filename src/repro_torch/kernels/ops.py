@@ -50,7 +50,7 @@ from .jl_sketch import jl_sketch_cuda, jl_sketch_plain
 from .sample_estimate import (sample_estimate_fields_cuda,
                               sample_estimate_fields_packed_cuda,
                               sample_estimate_fields_packed_plain,
-                              sample_estimate_fields_plain,
+                              sample_estimate_fields_taus_plain,
                               sample_inclusion_probs)
 
 
@@ -273,14 +273,15 @@ def sample_estimate_fields(kq, vq, tq, kc, vc, tc, *, qmap: Sequence[int],
     Args: kq/vq [F, Q, S] per-field query sample keys/values, tq [F, Q]
     probability scales; kc/vc [C, P, S] / tc [C, P] the corpus samples.
     Returns [G, Q, P] f32 inverse-inclusion-probability estimates.  The
-    prologue reconstructs both sides' probabilities ``min(1, S v^2 / tau)``
-    elementwise (the stored layout stays (key, val, tau)); the key-match
-    launch follows.
+    prologue reconstructs the query's probabilities ``min(1, S v^2 /
+    tau)`` elementwise (the stored layout stays (key, val, tau)); the
+    kernel computes a matched corpus slot's from its value and tau, so the
+    card builds no ``[C, P, S]`` plane (the CPU's plain twin does).
     """
     aq = sample_inclusion_probs(vq, tq)
-    ac = sample_inclusion_probs(vc, tc)
-    fn = _route(kq, sample_estimate_fields_plain, sample_estimate_fields_cuda)
-    return fn(kq, vq, aq, kc, vc, ac, qmap=qmap, cmap=cmap)
+    fn = _route(kq, sample_estimate_fields_taus_plain,
+                sample_estimate_fields_cuda)
+    return fn(kq, vq, aq, kc, vc, tc, qmap=qmap, cmap=cmap)
 
 
 def sample_estimate_fields_packed(kq, vq, tq, kc, wc, tc, *,

@@ -324,27 +324,44 @@ def test_dmh_kernel_matches_plain_version_bitwise(cuda, m):
         assert torch.equal(x[0], y[2])
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("method, slots", [("ts", 96), ("ps", 768)])
-def test_sample_kernel_matches_plain_version_bitwise(cuda, method, slots):
-    """The sorted merge and the plain version's full cross add the same
-    terms in the same t order: bit for bit, also on a strided slice of
-    the corpus planes and at Q = 1."""
-    vecs = _vectors(8, count=40)
-    rng = np.random.default_rng(9)
-    keys, vals, taus = pad_sample_batch(vecs, slots=slots, method=method,
-                                        seed=2)
-    keys, vals, taus = (torch.from_numpy(a).to(cuda) for a in
-                        (keys, vals, taus))
+def _sample_case(device, method, slots, Q, seed):
+    """Queries ``[3, Q, slots]`` and a ``[3, rows, slots]`` corpus picked
+    from ``pad_sample_batch`` rows (every row sorted; wide vectors fill
+    every slot), the last five corpus rows spare; fewer corpus rows at
+    the widest slot count, where the plain version's cross is largest."""
+    vecs = _vectors(seed, count=3 * Q + 9)
+    keys, vals, taus = (torch.from_numpy(a).to(device) for a in
+                        pad_sample_batch(vecs, slots=slots, method=method,
+                                         seed=2))
     assert port_se.sorted_prefix_ok(keys)
-    q = (keys[:12].reshape(3, 4, slots), vals[:12].reshape(3, 4, slots),
-         taus[:12].reshape(3, 4))
-    pick = torch.from_numpy(rng.integers(0, 41, size=(3, 300))).to(cuda)
+    q = (keys[:3 * Q].reshape(3, Q, slots), vals[:3 * Q].reshape(3, Q, slots),
+         taus[:3 * Q].reshape(3, Q))
+    rows = 300 if slots <= 768 else 24
+    pick = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+        0, keys.shape[0], size=(3, rows))).to(device)
     c = [keys[pick].clone(), vals[pick].clone(), taus[pick].clone()]
     c[0][:, -5:], c[1][:, -5:], c[2][:, -5:] = -2, 0.0, 0.0
+    return q, c
+
+
+SAMPLE_SLOTS = [(1, "ps"), (33, "ts"), (768, "ps"),
+                (port_se.MAX_SLOTS, "ts")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 2, 17])
+@pytest.mark.parametrize("slots, method", SAMPLE_SLOTS)
+def test_sample_kernel_matches_plain_version_bitwise(cuda, method, slots, Q):
+    """The probe adds each pair's terms in ascending corpus slot, the plain
+    version's full cross in ascending query slot: the same order under the
+    sorted-prefix layout, so bit for bit -- the kernel on the taus, the
+    plain version on their probabilities -- on a strided tenant slice of
+    the corpus planes with spare rows, and one query alone equals its row
+    of the batch."""
+    q, c = _sample_case(cuda, method, slots, Q, 8)
     aq = port_se.sample_inclusion_probs(q[1], q[2])
     ac = port_se.sample_inclusion_probs(c[1], c[2])
-    sl = slice(7, 290)
+    sl = slice(7, c[0].shape[1] - 2)
     before = port_se.sample_estimate_fields_cuda.launches
     got = ops.sample_estimate_fields(*q, *(x[:, sl] for x in c), qmap=QMAP,
                                      cmap=CMAP)
@@ -354,11 +371,57 @@ def test_sample_kernel_matches_plain_version_bitwise(cuda, method, slots):
         q[0], q[1], aq, c[0][:, sl], c[1][:, sl], ac[:, sl], qmap=QMAP,
         cmap=CMAP)
     assert torch.count_nonzero(got).item() > 0
-    assert torch.equal(got, want)
+    assert _bits_equal(got, want)
     one = port_se.sample_estimate_fields_cuda(
-        q[0][:, 1:2], q[1][:, 1:2], aq[:, 1:2], c[0][:, sl], c[1][:, sl],
-        ac[:, sl], qmap=QMAP, cmap=CMAP)
-    assert torch.equal(one[:, 0], got[:, 1])
+        q[0][:, Q - 1:], q[1][:, Q - 1:], aq[:, Q - 1:], c[0][:, sl],
+        c[1][:, sl], c[2][:, sl], qmap=QMAP, cmap=CMAP)
+    assert _bits_equal(one[:, 0], got[:, Q - 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group_bytes", [1, port_se.GROUP_BYTES, 1 << 20])
+def test_sample_query_groups_give_the_same_bits(cuda, monkeypatch,
+                                                group_bytes):
+    """One (query, pair) item a block (one byte of shared memory allowed:
+    the launcher still gives each block an item), the default groups or 32
+    items a block: each equals the plain twin bit for bit, for both
+    kernels."""
+    monkeypatch.setattr(port_se, "GROUP_BYTES", group_bytes)
+    q, c = _sample_case(cuda, "ts", 97, 17, 21)
+    aq = port_se.sample_inclusion_probs(q[1], q[2])
+    got = port_se.sample_estimate_fields_cuda(q[0], q[1], aq, *c, qmap=QMAP,
+                                              cmap=CMAP)
+    want = port_se.sample_estimate_fields_taus_plain(q[0], q[1], aq, *c,
+                                                     qmap=QMAP, cmap=CMAP)
+    assert torch.count_nonzero(got).item() > 0 and _bits_equal(got, want)
+    kc = torch.nn.functional.pad(c[0], (0, 1), value=-2)
+    wc = pack_halfwords_f32(torch.nn.functional.pad(c[1], (0, 1)))
+    packed = port_se.sample_estimate_fields_packed_cuda(
+        q[0], q[1], aq, kc, wc, c[2], qmap=QMAP, cmap=CMAP)
+    decoded = port_se.sample_estimate_fields_cuda(
+        q[0], q[1], aq, c[0], unpack_halfwords_f32(wc)[..., :97].contiguous(),
+        c[2], qmap=QMAP, cmap=CMAP)
+    assert _bits_equal(packed, decoded)
+
+
+@pytest.mark.cuda
+def test_sample_estimate_on_the_card_builds_no_corpus_probability_plane(
+        cuda):
+    """``ops.sample_estimate_fields`` on CUDA tensors takes less peak
+    memory than one ``[C, P, S]`` f32 plane: the kernel reads the taus."""
+    q, c = _sample_case(cuda, "ps", 768, 2, 30)
+    pick = torch.arange(4096, device=cuda) % c[0].shape[1]
+    c = [x[:, pick].contiguous() for x in c]
+    plane = c[1].numel() * 4
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = ops.sample_estimate_fields(*q, *c, qmap=QMAP, cmap=CMAP)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < plane
+    aq = port_se.sample_inclusion_probs(q[1], q[2])
+    assert _bits_equal(got, port_se.sample_estimate_fields_taus_plain(
+        q[0], q[1], aq, *c, qmap=QMAP, cmap=CMAP))
 
 
 @pytest.mark.cuda
@@ -481,19 +544,20 @@ def test_packed_linear_kernel_matches_plain_and_unpacked_bitwise(cuda, R, W,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("method, slots", [("ts", 97), ("ps", 768)])
+@pytest.mark.parametrize("Q", [1, 2, 17])
+@pytest.mark.parametrize("slots, method", [
+    (1, "ps"), (33, "ts"), (97, "ts"), (768, "ps"),
+    (port_se.MAX_SLOTS - 1, "ts")])
 def test_packed_sample_kernel_matches_plain_and_unpacked_bitwise(
-        cuda, method, slots):
+        cuda, method, slots, Q):
+    """B13 on the packed rows (odd widths store a pad slot) equals its
+    plain version and B9 on the unpacked roundtripped rows bit for bit, on
+    a strided tenant slice with spare rows."""
     from repro_torch.data.families import make_family
     fam = make_family(method, storage=slots + 1.0)
-    keys, vals, taus = (torch.from_numpy(a).to(cuda) for a in pad_sample_batch(
-        _vectors(13, count=40), slots=slots, method=method, seed=2))
-    q = (keys[:12].reshape(3, 4, slots), vals[:12].reshape(3, 4, slots),
-         taus[:12].reshape(3, 4))
-    pick = torch.from_numpy(
-        np.random.default_rng(14).integers(0, 41, size=(3, 300))).to(cuda)
-    c = fam.pack_rows((keys[pick], vals[pick], taus[pick]))
-    c = tuple(x[:, 7:290] for x in c)
+    q, c = _sample_case(cuda, method, slots, Q, 13)
+    c = fam.pack_rows(tuple(c))
+    c = tuple(x[:, 7:c[0].shape[1] - 2] for x in c)
     before = port_se.sample_estimate_fields_packed_cuda.launches
     got = ops.sample_estimate_fields_packed(*q, *c, qmap=QMAP, cmap=CMAP)
     torch.cuda.synchronize()

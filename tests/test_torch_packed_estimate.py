@@ -213,3 +213,20 @@ def test_packed_wrappers_check_layouts_and_refuse_the_cpu_in_the_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         port_se.sample_estimate_fields_packed_cuda(
             fq, vq, vq, fq, wc[:, :2], vq[:, :, 0], qmap=QMAP, cmap=CMAP)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "device"])
+def test_packed_sample_wrappers_check_the_taus(bad):
+    """The packed key-match kernel and its plain version take the taus ``tc
+    [C, P]`` f32 on the planes' device."""
+    kq = torch.tensor([[[1, 2, -1]]], dtype=torch.int32)
+    vq = torch.ones((1, 1, 3))
+    kc = torch.tensor([[[1, 2, -2, -2]], [[2, -2, -2, -2]]], dtype=torch.int32)
+    wc = torch.zeros((2, 1, 2), dtype=torch.int32)
+    tc = {"shape": torch.ones((2, 2)),
+          "dtype": torch.ones((2, 1), dtype=torch.float64),
+          "device": torch.ones((2, 1), device="meta")}[bad]
+    for fn in (port_se.sample_estimate_fields_packed_cuda,
+               port_se.sample_estimate_fields_packed_plain):
+        with pytest.raises(ValueError, match="tc|one device"):
+            fn(kq, vq, vq, kc, wc, tc, qmap=(0,), cmap=(1,))

@@ -12,8 +12,9 @@ such function, the instructions of one unit of work in the loop whose own
 instructions hold the most of the kernel's marker opcode (``MARKERS``):
 its own instructions over its markers, times the markers a unit takes.
 ``chip_smoke.py`` reports these beside the bounds as the kernels' issue
-floors: B1's draw (two MUFU.EX2, the draw's two ``expf``), B7's term and
-B6's term.  Needs the CUDA toolkit's ``cuobjdump``.
+floors: B1's draw (two MUFU.EX2, the draw's two ``expf``), B7's term,
+B6's term and B9's / B13's lookup.  Needs the CUDA toolkit's
+``cuobjdump``.
 """
 from __future__ import annotations
 
@@ -27,10 +28,14 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # (marker opcode, markers a unit) of each kernel's hot loop: B1's draw
 # takes two MUFU.EX2; B7's hash loop one STS a term (its signed value's
-# store), B6's one FMUL a term (the sign times the value)
+# store), B6's one FMUL a term (the sign times the value); B9's and B13's
+# chunk loop one LDS.128 a lookup (its first bucket's four keys; further
+# buckets are read in loops of their own)
 MARKERS = {"icws_sketch_kernel": ("MUFU.EX2", 2),
            "jl_sketch_kernel": ("STS", 1),
-           "countsketch_sparse_kernel": ("FMUL", 1)}
+           "countsketch_sparse_kernel": ("FMUL", 1),
+           "sample_estimate_fields_kernel": ("LDS.128", 1),
+           "sample_estimate_fields_packed_kernel": ("LDS.128", 1)}
 
 
 def cuobjdump() -> str:

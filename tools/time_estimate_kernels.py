@@ -1,6 +1,7 @@
-"""Device time of the estimate kernels (B2, B11, B8, B12) of checkouts.
+"""Device time of the estimate kernels (B2, B11, B8, B12; with ``--sample``
+B9 and B13) of checkouts.
 
-    python3 tools/time_estimate_kernels.py SRC [SRC ...]
+    python3 tools/time_estimate_kernels.py [--sample] SRC [SRC ...]
 
 Each SRC is the ``src`` directory of a checkout (its own ``repro_torch``).
 For each one in turn, a fresh process builds that checkout's kernels (under
@@ -17,9 +18,26 @@ CountSketch (R = 5, W = 153) and JL (R = 1, W = 769) tables at the same two
 shapes.  One line per (checkout, kernel, shape) and the card's name and
 power limit.  Give the checkouts in turns (A B B A) to compare two
 versions on one card.  Needs one card.
+
+With ``--sample`` each run takes instead the TS/PS key-match kernels on
+``chip_smoke.py``'s rows (``sample_rows`` of this tree: 16 queries' real TS
+rows, S = 768, against synthetic corpus rows): B9
+(``sample_estimate_fields_cuda``) at Q in {16, 1} x P in {16,384,
+131,072}, B13 (``sample_estimate_fields_packed_cuda``) at Q in {16, 1}, P
+= 16,384, each kernel alone (device ms from ``chip_smoke.device_ms``: a
+profiler trace), B9 also at two more group sizes (``GROUP_BYTES``, where
+the checkout has it) at Q = 16; then the ops call
+(``ops.sample_estimate_fields`` / ``ops.sample_estimate_fields_packed``,
+the signature both kinds of checkout share: median of 5 runs of 10 calls,
+CUDA events, host time included).  A kernel whose wrapper takes the
+corpus probabilities ``ac`` gets them from the prologue outside the
+timing; one that takes the taus ``tc`` gets those.  Each case prints the
+first 16 hex digits of the SHA-256 of its output's bits, so that equal
+bits show.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import pathlib
@@ -102,22 +120,103 @@ def child() -> None:
     print(json.dumps(out))
 
 
+def digest(x) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bits."""
+    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+SAMPLE_SHAPES = ((16, 16_384), (1, 16_384), (16, 131_072), (1, 131_072))
+PACKED_SAMPLE_Q = (16, 1)
+# B9's group sizes timed beside the default at Q = 16
+SAMPLE_GROUP_BYTES = (110 * 1024, 150 * 1024)
+
+
+def sample_child() -> None:
+    import inspect
+    import torch
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.data.dataset_search import CFIELD, QFIELD
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import sample_estimate as ks
+    from repro_torch.kernels.packed import pack_halfwords_f32
+    dev = torch.device("cuda")
+    cs.build_phase()
+    (kq, vq, aq), tq, (kc, vc, tc) = cs.sample_rows(dev)
+    takes_taus = list(inspect.signature(
+        ks.sample_estimate_fields_cuda).parameters)[5] == "tc"
+    corpus = tc if takes_taus else ks.sample_inclusion_probs(vc, tc)
+    maps = dict(qmap=QFIELD, cmap=CFIELD)
+    out = {}
+
+    def kernel_case(label, fn, symbol):
+        got = fn()
+        ms, _ = cs.device_ms(fn, symbol)
+        out[label] = (ms, digest(got))
+
+    for qn, p in SAMPLE_SHAPES:
+        q = (kq[:, :qn], vq[:, :qn], aq[:, :qn])
+        c = (kc[:, -p:], vc[:, -p:], corpus[:, -p:])
+        kernel_case(f"B9 Q={qn} P={p}",
+                    lambda: ks.sample_estimate_fields_cuda(*q, *c, **maps),
+                    "sample_estimate_fields_kernel")
+        if qn == 16 and hasattr(ks, "GROUP_BYTES"):
+            base = ks.GROUP_BYTES
+            for gb in SAMPLE_GROUP_BYTES:
+                ks.GROUP_BYTES = gb
+                kernel_case(f"B9 group {gb} B Q={qn} P={p}",
+                            lambda: ks.sample_estimate_fields_cuda(*q, *c,
+                                                                   **maps),
+                            "sample_estimate_fields_kernel")
+            ks.GROUP_BYTES = base
+        call = (lambda: ops.sample_estimate_fields(
+            kq[:, :qn], vq[:, :qn], tq[:, :qn], kc[:, -p:], vc[:, -p:],
+            tc[:, -p:], **maps))
+        out[f"ops B9 Q={qn} P={p}"] = (median_ms(torch, call),
+                                       digest(call()))
+    p = SAMPLE_SHAPES[0][1]
+    kc, tc = kc[:, -p:], tc[:, -p:]
+    wc = pack_halfwords_f32(vc[:, -p:])
+    del vc, corpus
+    for qn in PACKED_SAMPLE_Q:
+        q = (kq[:, :qn], vq[:, :qn], aq[:, :qn])
+        kernel_case(f"B13 Q={qn} P={p}",
+                    lambda: ks.sample_estimate_fields_packed_cuda(
+                        *q, kc, wc, tc, **maps),
+                    "sample_estimate_fields_packed_kernel")
+        call = (lambda: ops.sample_estimate_fields_packed(
+            kq[:, :qn], vq[:, :qn], tq[:, :qn], kc, wc, tc, **maps))
+        out[f"ops B13 Q={qn} P={p}"] = (median_ms(torch, call),
+                                        digest(call()))
+    print(json.dumps(out))
+
+
 def main() -> int:
-    if len(sys.argv) > 2 and sys.argv[1] == "--child":
+    if len(sys.argv) > 2 and sys.argv[1] in ("--child", "--sample-child"):
         sys.path.insert(0, sys.argv[2])
-        child()
+        (child if sys.argv[1] == "--child" else sample_child)()
         return 0
+    sample = sys.argv[1:2] == ["--sample"]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
     env = dict(os.environ, REPRO_TORCH_BUILD_DIR=str(
         ROOT / "build" / "time_estimate"))
-    for n, src in enumerate(sys.argv[1:]):
-        res = subprocess.run([sys.executable, __file__, "--child",
+    for n, src in enumerate(sys.argv[1 + sample:]):
+        res = subprocess.run([sys.executable, __file__,
+                              "--sample-child" if sample else "--child",
                               str(pathlib.Path(src).resolve())], env=env,
-                             capture_output=True, text=True, check=True)
-        for shape, ms in json.loads(res.stdout.splitlines()[-1]).items():
-            print(f"turn {n} {src}: {shape} {ms:.4f} ms on {card}")
+                             capture_output=True, text=True)
+        if res.returncode != 0:
+            print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
+            return res.returncode
+        for shape, r in json.loads(res.stdout.splitlines()[-1]).items():
+            if sample:
+                ms, dig = r
+                print(f"turn {n} {src}: {shape} {ms:.4f} ms digest {dig} "
+                      f"on {card}", flush=True)
+            else:
+                print(f"turn {n} {src}: {shape} {r:.4f} ms on {card}")
     return 0
 
 
