@@ -370,12 +370,22 @@ def field_vectors(index, rng, B: int, nnz: int):
     return vecs[:B]
 
 
+def padded_rows(index, rng, B: int, nnz: int, dev):
+    """B padded field rows ``(w, keys, vals)`` of about ``nnz`` non-zeros
+    on the card, unreplicated: what the ingest path hands the ICWS sketch,
+    and the DMH sketch with ``replicas = dmh_replication(m)`` (4 at m =
+    512)."""
+    from repro_torch.data.ingest import pad_sparse_batch
+    w, keys, vals, _ = pad_sparse_batch(field_vectors(index, rng, B, nnz))
+    return [torch.from_numpy(a).to(dev) for a in (w, keys, vals)]
+
+
 @functools.lru_cache(maxsize=None)
 def loop_instructions(symbol: str):
-    """{function: SASS instructions of one unit of work (a B1 draw, a B6 or
-    B7 term) in the hot loop of each built instance of the kernel
-    ``symbol`` (``tools/sass_loops.py``)}, or None where ``cuobjdump`` is
-    missing."""
+    """{function: SASS instructions of one unit of work (a B1 draw, a B5
+    lane, a B6 or B7 term) in the hot loop of each built instance of the
+    kernel ``symbol`` (``tools/sass_loops.py``)}, or None where
+    ``cuobjdump`` is missing."""
     sys.path.insert(0, str(SRC.parent / "tools"))
     import sass_loops
     from repro_torch.kernels import build
@@ -406,10 +416,9 @@ def sm_clock_hz() -> float:
 def sketch_case(index, rng, B: int, nnz: int, dev):
     """One sketch launch at the path's shapes: B field rows (3 per table or
     query) of about ``nnz`` non-zeros each, N = nnz rounded to 256."""
-    from repro_torch.data.ingest import pad_sparse_batch
     from repro_torch.kernels import icws_sketch as ks
-    w, keys, vals, _ = pad_sparse_batch(field_vectors(index, rng, B, nnz))
-    args = [torch.from_numpy(a).to(dev) for a in (w, keys, vals)]
+    args = padded_rows(index, rng, B, nnz, dev)
+    N = args[0].shape[1]
     got = ks.icws_sketch_cuda(*args, m=M, seed=0)
     torch.cuda.synchronize()
     want = ks.icws_sketch_plain(*args, m=M, seed=0)
@@ -428,8 +437,8 @@ def sketch_case(index, rng, B: int, nnz: int, dev):
         lambda: ks.icws_sketch_cuda(*args, m=M, seed=0), "icws_sketch_kernel")
     plain = time_ms(lambda: ks.icws_sketch_plain(*args, m=M, seed=0), reps=3,
                     warmup=1)
-    shape = f"B={B} N={w.shape[1]} m={M}"
-    group = ks._group_size(B, M, w.shape[1])
+    shape = f"B={B} N={N} m={M}"
+    group = ks._group_size(B, M, N)
     # the instruction floor: every draw's SASS instructions, one a lane and
     # clock
     per_draw = unit_instructions("icws_sketch_kernel", "ILb0E")
@@ -456,11 +465,16 @@ def icws_work(args):
 
 
 def estimate_case(fq, vq, fc, vc):
-    """One estimate launch against its plain version: ``cnt`` equal
-    exactly, ``sw`` within rtol 1e-5 (atol 1e-6) on every (g, q, p)."""
+    """One estimate launch against its plain version: ``cnt`` and ``sw``
+    equal bit for bit on every (g, q, p) (the same IEEE operations in the
+    same t order: the port contract)."""
     from repro_torch.data.dataset_search import CFIELD, QFIELD
     from repro_torch.kernels import estimate as ke
-    cnt, sw = ke.estimate_fields_cuda(fq, vq, fc, vc, qmap=QFIELD, cmap=CFIELD)
+
+    def kernel():
+        return ke.estimate_fields_cuda(fq, vq, fc, vc, qmap=QFIELD,
+                                       cmap=CFIELD)
+    cnt, sw = kernel()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cnt_p, sw_p = ke.estimate_fields_plain(fq, vq, fc, vc, qmap=QFIELD,
@@ -469,31 +483,26 @@ def estimate_case(fq, vq, fc, vc):
     plain = (time.perf_counter() - t0) * 1e3
     G, Q, P = len(QFIELD), fq.shape[1], fc.shape[1]
     shape = f"G={G} Q={Q} P={P} m={M}"
-    if not torch.equal(cnt, cnt_p):
-        raise AssertionError(f"estimate {shape}: collision counts differ from plain")
     err = float((sw - sw_p).abs().max().item())
-    tol = 1e-5 * sw_p.abs() + 1e-6
-    if not bool(((sw - sw_p).abs() <= tol).all()):
-        raise AssertionError(f"estimate {shape}: sw outside rtol 1e-5 (max |d| {err})")
+    if not (bits_equal(cnt, cnt_p) and bits_equal(sw, sw_p)):
+        raise AssertionError(f"estimate {shape}: differs from plain (max "
+                             f"|dsw| {err})")
     hits = float(cnt.double().sum().item())
     tests = G * Q * P * M
     ops = EST_OPS_PER_TEST * tests + EST_OPS_PER_HIT * hits
     bytes_moved = (fq.numel() + vq.numel() + fc.numel() + vc.numel()) * 4 \
         + 2 * G * Q * P * 4
-    bound_bytes, bound_ops = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    bound = max(bound_bytes, bound_ops) * 1e3
-    bound_by = "bytes" if bound_bytes >= bound_ops else "operations"
-    ms = time_ms(lambda: ke.estimate_fields_cuda(fq, vq, fc, vc, qmap=QFIELD,
-                                                 cmap=CFIELD), reps=10)
-    dev_ms, dev_src = device_ms(lambda: ke.estimate_fields_cuda(
-        fq, vq, fc, vc, qmap=QFIELD, cmap=CFIELD), "estimate_fields_kernel")
-    log(f"estimate {shape}: {hits:.0f} collisions of {tests} tests, cnt "
-        f"equal, max |dsw| {err}, kernel {ms:.4f} ms per call ({dev_ms:.4f} "
-        f"ms on the device), plain {plain:.1f} ms (one run), bound "
-        f"{bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB, "
-        f"{ops:.3e} ops)")
+    bound, bound_by = bound_of(bytes_moved, ops)
+    ms = time_ms(kernel, reps=10)
+    names = []
+    dev_ms, dev_src = device_ms(kernel, "estimate_fields_kernel", names=names)
+    log(f"estimate {shape}: {hits:.0f} collisions of {tests} tests, cnt and "
+        f"sw equal to plain bit for bit, kernel {ms:.4f} ms per call "
+        f"({dev_ms:.4f} ms on the device, {', '.join(names)}), plain "
+        f"{plain:.1f} ms (one run), bound {bound:.4f} ms ({bound_by}: "
+        f"{bytes_moved / 1e9:.3f} GB, {ops:.3e} ops)")
     return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "device_ms_source": dev_src,
+            "device_ms_source": dev_src, "kernel": ", ".join(names),
             "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by}
 
 
@@ -683,17 +692,18 @@ def kernel_phase(dev):
     return sketch, estimate, (fq, vq, fc, vc)
 
 
-def dmh_work(args, got):
-    """The work one DMH launch's data needs: live lanes, occupied bins, the
+def dmh_work(args, got, c: int):
+    """The work one DMH launch's data needs, ``args = (w, keys, vals)``
+    unreplicated and c replicas a key: live lanes, occupied bins, the
     densify probes each empty bin of a live row takes, their lane
-    operations, and the bytes (every lane's weight, the keys of live lanes,
+    operations, and the bytes (every weight, the keys of live non-zeros,
     the winners' values, the four output planes)."""
     from repro_torch.kernels.common import (DMH_STREAM_BIN,
                                             DMH_STREAM_DENSIFY, as_u32,
                                             densify_probes, hash_u32,
                                             salt_for)
     dev = args[0].device
-    live = int((args[0] > 0).sum().item())
+    live_nz = int((args[0] > 0).sum().item())
     t = torch.arange(M, device=dev)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     occ = (hash_u32(as_u32(got[3]), salt_for(0, DMH_STREAM_BIN, zero)) % M
@@ -705,70 +715,81 @@ def dmh_work(args, got):
     need = ~occ & occ.any(1, keepdim=True)
     probes = int((firstj + 1)[need].sum().item())
     occupied = int(occ.sum().item())
+    live = c * live_nz
     ops = (DMH_OPS_PER_LANE * live + DMH_OPS_PER_BIN * occupied
            + DMH_OPS_PER_PROBE * probes)
-    bytes_moved = 4 * (args[0].numel() + live + occupied) \
+    bytes_moved = 4 * (args[0].numel() + live_nz + occupied) \
         + args[0].shape[0] * M * 16
     return live, occupied, probes, ops, bytes_moved
 
 
-def dmh_sketch_case(index, rng, B: int, nnz: int, dev, b1):
+def dmh_sketch_case(index, rng, B: int, nnz: int, dev, b1=None):
     """One DMH launch at the path's shapes (B field rows of about ``nnz``
-    non-zeros, each key replicated c = 4 times at m = 512) against its
-    plain version: fingerprints, argkeys and values equal on every slot,
-    ``amin`` bitwise or its largest difference printed.  ``b1`` is the ICWS
-    sketch case at the same (B, nnz), printed beside."""
-    from repro_torch.core.dmh import dmh_replication, replicate_keys
-    from repro_torch.data.ingest import pad_sparse_batch
+    non-zeros, each key's c = 4 replicas at m = 512 derived in the kernel)
+    against its plain version: all four planes equal bit for bit.  Beside
+    the bound, the issue floor (the live lanes' SASS instructions in the
+    lane loop, one a lane and clock) and the launch's cluster and block;
+    ``b1``, the ICWS sketch case at the same (B, nnz) where there is one,
+    is printed beside."""
+    from repro_torch.core.dmh import dmh_replication
     from repro_torch.kernels import dmh_sketch as kd
-    w, keys, vals, _ = pad_sparse_batch(field_vectors(index, rng, B, nnz))
-    n_pre = w.shape[1]
-    c = dmh_replication(M)
-    keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
-    args = [torch.from_numpy(a).to(dev) for a in (
-        np.tile(w, (1, c)), keys, np.tile(vals, (1, c)))]
-    got = kd.dmh_sketch_cuda(*args, m=M, seed=0)
+    args, c = padded_rows(index, rng, B, nnz, dev), dmh_replication(M)
+
+    def kernel():
+        return kd.dmh_sketch_cuda(*args, m=M, seed=0, replicas=c)
+    got = kernel()
     torch.cuda.synchronize()
-    want = kd.dmh_sketch_plain(*args, m=M, seed=0)
-    shape = f"B={B} N={n_pre}x{c} m={M}"
-    for name, i in (("fingerprints", 0), ("values", 1), ("argkeys", 3)):
-        if not torch.equal(got[i], want[i]):
+    want = kd.dmh_sketch_plain(*args, m=M, seed=0, replicas=c)
+    n = args[0].shape[1]
+    shape = f"B={B} N={n}x{c} m={M}"
+    for name, i in (("fingerprints", 0), ("values", 1), ("amin", 2),
+                    ("argkeys", 3)):
+        if not bits_equal(got[i], want[i]):
             bad = int((got[i] != want[i]).sum().item())
             raise AssertionError(f"dmh sketch {shape}: {name} differ from "
                                  f"plain on {bad} slots")
-    err = float((got[2] - want[2]).abs().max().item())
-    amin_equal = torch.equal(got[2], want[2])
-    live, occupied, probes, ops, bytes_moved = dmh_work(args, got)
-    bound_b, bound_o = bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
-    bound = max(bound_b, bound_o) * 1e3
-    bound_by = "bytes" if bound_b >= bound_o else "operations"
-    ms = time_ms(lambda: kd.dmh_sketch_cuda(*args, m=M, seed=0), reps=20)
-    dev_ms, dev_src = device_ms(
-        lambda: kd.dmh_sketch_cuda(*args, m=M, seed=0), "dmh_sketch_kernel")
-    plain = time_ms(lambda: kd.dmh_sketch_plain(*args, m=M, seed=0), reps=3,
-                    warmup=1)
-    log(f"dmh sketch {shape}: fingerprints, values and argkeys equal to "
-        f"plain, amin {'equal' if amin_equal else f'max |d| {err}'}; kernel "
-        f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
-        f"{plain:.3f} ms, bound {bound:.5f} ms ({bound_by}: {live} live "
-        f"lanes, {occupied} occupied bins, {probes} densify "
-        f"probes); ICWS B1 at B={B} N={n_pre}: {b1['device_ms']:.4f} ms on "
-        f"the device, {b1['device_ms'] / dev_ms:.1f}x B5")
-    return {"shape": shape, "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "device_ms_source": dev_src,
+    live, occupied, probes, ops, bytes_moved = dmh_work(args, got, c)
+    bound, bound_by = bound_of(bytes_moved, ops)
+    ms = time_ms(kernel, reps=20)
+    names = []
+    dev_ms, dev_src = device_ms(kernel, "dmh_sketch_kernel", names=names)
+    plain = time_ms(lambda: kd.dmh_sketch_plain(*args, m=M, seed=0,
+                                                replicas=c), reps=3, warmup=1)
+    cluster, threads = kd._launch_shape(B, M, n * c)
+    per_lane = unit_instructions("dmh_sketch_kernel", "ILb0E")
+    floor = live * per_lane / FP32_INSTR_PER_S * 1e3 if per_lane else None
+    log(f"dmh sketch {shape}: all four planes equal to plain; kernel "
+        f"{ms:.4f} ms per call ({dev_ms:.4f} ms on the device, "
+        f"{', '.join(names)}; clusters of {cluster} blocks of {threads} "
+        f"threads), plain {plain:.3f} ms, bound {bound:.5f} ms ({bound_by}: "
+        f"{live} live lanes, {occupied} occupied bins, {probes} densify "
+        f"probes)" + (f", issue floor {floor:.5f} ms ({per_lane:g} SASS "
+                      "instructions a lane)" if per_lane else "")
+        + (f"; ICWS B1 at B={B} N={n}: {b1['device_ms']:.4f} ms on the "
+           f"device, {b1['device_ms'] / dev_ms:.1f}x B5" if b1 else ""))
+    return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
+            "device_ms_source": dev_src, "kernel": ", ".join(names),
+            "cluster": cluster, "threads": threads,
             "plain_ms": plain, "bound_ms": bound, "bound_by": bound_by,
-            "amin_equal": amin_equal, "b1_device_ms": b1["device_ms"]}
+            "instr_per_lane": per_lane, "floor_ms_issue": floor,
+            "b1_device_ms": b1["device_ms"] if b1 else None}
+
+
+# (B, non-zeros) of the B5 cases: the ingest (B = 3) and query-batch (B =
+# 48) shapes at about 1,000 and 4,000 non-zeros (the B1 cases' shapes), and
+# B = 3 at about 10,000 (the lake's largest tables)
+DMH_SHAPES = ((3, 1000), (3, 4000), (48, 1000), (48, 4000), (3, 10_000))
 
 
 def dmh_kernel_phase(dev, b1_cases):
-    """B5 at the ingest (B = 3) and query-batch (B = 48) shapes, each at
-    N = 1024 and 4096 before replication: the shapes of the B1 cases."""
+    """B5 at ``DMH_SHAPES``, each through ``replicas = 4`` on unreplicated
+    rows, as the ingest path calls it."""
     from repro_torch.data.dataset_search import DatasetSearchIndex
     rng = np.random.default_rng(1)
     index = DatasetSearchIndex(m=M, seed=0, device=dev)
-    return [dmh_sketch_case(index, rng, B, nnz, dev, b1)
-            for (B, nnz), b1 in zip(((3, 1000), (3, 4000), (48, 1000),
-                                     (48, 4000)), b1_cases)]
+    b1 = list(b1_cases) + [None] * (len(DMH_SHAPES) - len(b1_cases))
+    return [dmh_sketch_case(index, rng, B, nnz, dev, b)
+            for (B, nnz), b in zip(DMH_SHAPES, b1)]
 
 
 def sample_work(kq, kc, hits, *, match_bytes: int, row_bytes: int = 0):
@@ -1012,29 +1033,27 @@ def b10_case(index, rng, kind: str, B: int, nnz: int, dev):
     codec of that kernel's values, bit for bit; against the plain version,
     every word whose two fingerprints agree equal (ICWS: at least 99% of
     words, as B1; DMH: all)."""
-    from repro_torch.core.dmh import dmh_replication, replicate_keys
-    from repro_torch.data.ingest import pad_sparse_batch
+    from repro_torch.core.dmh import dmh_replication
     from repro_torch.kernels import dmh_sketch, icws_sketch
     from repro_torch.kernels.packed import pack_sketch_vals
-    w, keys, vals, _ = pad_sparse_batch(field_vectors(index, rng, B, nnz))
-    shape = f"B={B} N={w.shape[1]} m={M}"
-    mod = icws_sketch
-    if kind == "dmh":
-        c = dmh_replication(M)
-        keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
-        w, vals = np.tile(w, (1, c)), np.tile(vals, (1, c))
-        shape, mod = f"B={B} N={w.shape[1] // c}x{c} m={M}", dmh_sketch
-    kernel = getattr(mod, f"{kind}_sketch_packed_cuda")
-    plain = getattr(mod, f"{kind}_sketch_packed_plain")
-    args = [torch.from_numpy(a).to(dev) for a in (w, keys, vals)]
-    got = kernel(*args, m=M, seed=0)
-    base = getattr(mod, f"{kind}_sketch_cuda")(*args, m=M, seed=0)
+    args, c = padded_rows(index, rng, B, nnz, dev), dmh_replication(M)
+    n = args[0].shape[1]
+    if kind == "dmh":   # c replicas a key, derived in the kernel
+        shape, mod, kw = f"B={B} N={n}x{c} m={M}", dmh_sketch, {"replicas": c}
+    else:
+        shape, mod, kw = f"B={B} N={n} m={M}", icws_sketch, {}
+    kernel = functools.partial(getattr(mod, f"{kind}_sketch_packed_cuda"),
+                               m=M, seed=0, **kw)
+    plain = functools.partial(getattr(mod, f"{kind}_sketch_packed_plain"),
+                              m=M, seed=0, **kw)
+    got = kernel(*args)
+    base = getattr(mod, f"{kind}_sketch_cuda")(*args, m=M, seed=0, **kw)
     torch.cuda.synchronize()
     if not (all(bits_equal(x, y) for x, y in zip(got[:4], base))
             and torch.equal(got[4], pack_sketch_vals(base[1], base[2]))):
         raise AssertionError(f"{kind} sketch packed {shape}: differs from "
                              "the unpacked kernel and the codec of its values")
-    want = plain(*args, m=M, seed=0)
+    want = plain(*args)
     ok = (got[0] == want[0]).reshape(B, M // 2, 2).all(2)
     share = ok.float().mean().item()
     if share < (0.99 if kind == "icws" else 1.0) \
@@ -1044,17 +1063,16 @@ def b10_case(index, rng, kind: str, B: int, nnz: int, dev):
     if kind == "icws":
         _, ops, bytes_moved = icws_work(args)
     else:
-        *_, ops, bytes_moved = dmh_work(args, got)
+        *_, ops, bytes_moved = dmh_work(args, got, c)
     bound, bound_by = bound_of(bytes_moved + B * M * 2, ops)
-    ms = time_ms(lambda: kernel(*args, m=M, seed=0), reps=20)
-    dev_ms, dev_src = device_ms(lambda: kernel(*args, m=M, seed=0),
-                                f"{kind}_sketch_kernel")
-    plain_ms = time_ms(lambda: plain(*args, m=M, seed=0), reps=3, warmup=1)
+    ms = time_ms(lambda: kernel(*args), reps=20)
+    dev_ms, dev_src = device_ms(lambda: kernel(*args), f"{kind}_sketch_kernel")
+    plain_ms = time_ms(lambda: plain(*args), reps=3, warmup=1)
     log(f"{kind} sketch packed {shape}: planes equal to the unpacked "
         f"kernel's, packed plane its codec, equal to plain on {share:.6f} of "
         f"words; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
         f"device), plain {plain_ms:.3f} ms, bound {bound:.5f} ms ({bound_by})")
-    extra = {"group_size": icws_sketch._group_size(B, M, w.shape[1])} \
+    extra = {"group_size": icws_sketch._group_size(B, M, n)} \
         if kind == "icws" else {}
     return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
             "device_ms_source": dev_src,
@@ -1799,23 +1817,20 @@ def b10_path_phase(index, tables):
     they are to a packed store, which must equal ``index``'s first rows bit
     for bit.  Launch counters set to 0 just before and read just after;
     returns B10's launches."""
-    from repro_torch.core.dmh import dmh_replication, replicate_keys
+    from repro_torch.core.dmh import dmh_replication
     from repro_torch.data.ingest import pad_sparse_batch
     from repro_torch.data.store import CorpusStore
     from repro_torch.kernels import ops
     dev = index.device
     fam = index.family
     store = CorpusStore(family=fam, fields=3, packed=True, device=dev)
-    sketch = ops.icws_sketch if fam.name == "icws" else ops.dmh_sketch
+    sketch = (ops.icws_sketch if fam.name == "icws" else functools.partial(
+        ops.dmh_sketch, replicas=dmh_replication(M)))
     counters = reset_counters()
     for lo in range(0, len(tables), 16):
         vecs = [v for _, k, x in tables[lo:lo + 16]
                 for v in index.vectorize(k, x)]
         w, keys, vals, norms = pad_sparse_batch(vecs)
-        if fam.name == "dmh":
-            c = dmh_replication(M)
-            keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
-            w, vals = np.tile(w, (1, c)), np.tile(vals, (1, c))
         fp, _, _, _, words = sketch(
             *(torch.from_numpy(a).to(dev) for a in (w, keys, vals)), m=M,
             seed=0, pack_vals=True)
@@ -1976,6 +1991,16 @@ def sample_extra(name, rep):
             "groups": rep["groups"], "items_per_block": rep["items_per_block"]}
 
 
+def dmh_extra(name, rep):
+    """B5's entry names its headline case's issue floor, its SASS
+    instructions a lane and its launch shape; nothing for the others."""
+    if name != "dmh_sketch":
+        return {}
+    return {"floor_ms_issue": rep["floor_ms_issue"],
+            "instr_per_lane": rep["instr_per_lane"],
+            "cluster": rep["cluster"], "threads": rep["threads"]}
+
+
 def kernel_entry(name, source, replaces, launches, rep, shapes, **extra):
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
@@ -2053,7 +2078,7 @@ def main() -> int:
     rep = sketch[3]   # the query micro-batch launch: B = 48, N = 4096
     kernels = [
         kernel_entry(name, source, replaces, launches[name], r, shapes,
-                     **sample_extra(name, r))
+                     **sample_extra(name, r), **dmh_extra(name, r))
         for name, source, replaces, r, shapes in (
             ("icws_sketch", "icws_sketch.cu", "icws_sketch.py:40", rep,
              sketch),

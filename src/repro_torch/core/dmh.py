@@ -1,10 +1,13 @@
 """Pseudo-key replication of DMH ingest (copy of the part of
 ``repro.core.dmh`` that the device ingest uses).
 
-Before a DMH sketch, each key is expanded into ``c = dmh_replication(m)``
-pseudo-keys ``key ^ r * REPLICA_SALT`` that share its weight, replica-major
-on the last axis; r = 0 is the identity, so c = 1 is plain DMH.  ``c``
-depends on m alone, so sketches of different vectors stay coordinated.
+A DMH sketch expands each key into ``c = dmh_replication(m)`` pseudo-keys
+``key ^ r * REPLICA_SALT`` that share its weight, replica-major on the
+last axis; r = 0 is the identity, so c = 1 is plain DMH.  ``c`` depends
+on m alone, so sketches of different vectors stay coordinated.  The port's
+sketch derives the pseudo-keys where it runs (``ops.dmh_sketch(...,
+replicas=c)``); :func:`replicate_keys` is the host form the JAX package
+passes to its kernel.
 """
 from __future__ import annotations
 

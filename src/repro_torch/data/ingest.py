@@ -11,7 +11,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.dmh import dmh_replication, replicate_keys
+from repro_torch.core.dmh import dmh_replication
 from repro_torch.core.sampling import priority_sample, threshold_sample
 from repro_torch.core.types import SparseVec
 from repro_torch.kernels import ops
@@ -162,21 +162,18 @@ def dmh_sketch_batch(vecs: Sequence[SparseVec], *, m: int, seed: int = 0,
                      bucket: int = 256, device="cuda"):
     """Sketch a batch of sparse vectors with one DMH launch on ``device``.
 
-    The ICWS padding (:func:`pad_sparse_batch`), then, where
-    ``dmh_replication(m) = c > 1``, each key expanded into c pseudo-keys
-    with ``w`` and ``vals`` tiled replica-major, then ``ops.dmh_sketch``.
-    Returns the four ICWS family components ``(fp, val, norm, argkey)``.
+    The ICWS padding (:func:`pad_sparse_batch`), then ``ops.dmh_sketch``
+    with ``replicas = dmh_replication(m)``: each key's c pseudo-keys are
+    derived where the sketch runs, so only the unreplicated rows reach the
+    device.  Returns the four ICWS family components ``(fp, val, norm,
+    argkey)``.
     """
     w, keys, vals, norms = pad_sparse_batch(vecs, bucket=bucket)
-    c = dmh_replication(m)
-    if c > 1:
-        keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
-        w = np.tile(w, (1, c))
-        vals = np.tile(vals, (1, c))
     dev = torch.device(device)
     fp, val, _, argkey = ops.dmh_sketch(
         torch.from_numpy(w).to(dev), torch.from_numpy(keys).to(dev),
-        torch.from_numpy(vals).to(dev), m=m, seed=seed)
+        torch.from_numpy(vals).to(dev), m=m, seed=seed,
+        replicas=dmh_replication(m))
     return fp, val, torch.from_numpy(norms.astype(np.float32)).to(dev), argkey
 
 

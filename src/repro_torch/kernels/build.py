@@ -148,8 +148,9 @@ def library() -> ctypes.CDLL:
                                                      ptr, i32, i32, i32, i32,
                                                      i32, ptr, ptr]
         lib.repro_linear_estimate_fields.restype = i32
-        lib.repro_dmh_sketch.argtypes = [ptr, ptr, ptr, i32, i32, i32, u32,
-                                         i32, ptr, ptr, ptr, ptr, ptr, ptr]
+        lib.repro_dmh_sketch.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32,
+                                         u32, i32, i32, i32, ptr, ptr, ptr,
+                                         ptr, ptr, ptr]
         lib.repro_dmh_sketch.restype = i32
         lib.repro_sample_estimate_fields.argtypes = [
             ptr, ptr, ptr, ptr, ptr, ptr, i64, i64, i64, i64, i64, i64, ptr,

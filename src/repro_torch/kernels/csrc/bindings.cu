@@ -25,8 +25,9 @@ cudaError_t launch_linear_estimate_fields(const float* tq, const float* tc,
                                           int Q, int P, int R, int W, float* out,
                                           cudaStream_t stream);
 cudaError_t launch_dmh_sketch(const float* w, const int* keys, const float* vals,
-                              int B, int N, int m, uint32_t seed, int J, int* fp,
-                              float* val, float* amin, int* argkey, int* packed,
+                              int B, int n, int c, int m, uint32_t seed, int J,
+                              int cluster, int threads, int* fp, float* val,
+                              float* amin, int* argkey, int* packed,
                               cudaStream_t stream);
 cudaError_t launch_sample_estimate_fields(
     const int* kq, const float* vq, const float* aq, const int* kc, const float* vc,
@@ -109,10 +110,12 @@ int repro_linear_estimate_fields(const float* tq, const float* tc, long long tc_
 }
 
 int repro_dmh_sketch(const float* w, const int* keys, const float* vals, int B,
-                     int N, int m, uint32_t seed, int J, int* fp, float* val,
-                     float* amin, int* argkey, int* packed, void* stream) {
-  return (int)repro::launch_dmh_sketch(w, keys, vals, B, N, m, seed, J, fp, val,
-                                       amin, argkey, packed, (cudaStream_t)stream);
+                     int n, int c, int m, uint32_t seed, int J, int cluster,
+                     int threads, int* fp, float* val, float* amin, int* argkey,
+                     int* packed, void* stream) {
+  return (int)repro::launch_dmh_sketch(w, keys, vals, B, n, c, m, seed, J, cluster,
+                                       threads, fp, val, amin, argkey, packed,
+                                       (cudaStream_t)stream);
 }
 
 int repro_sample_estimate_fields(const int* kq, const float* vq, const float* aq,

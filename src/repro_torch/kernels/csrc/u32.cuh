@@ -30,6 +30,10 @@ constexpr uint32_t DMH_STREAM_BETA = 56u;
 constexpr uint32_t DMH_STREAM_FP = 57u;
 constexpr uint32_t DMH_STREAM_DENSIFY = 58u;
 
+// XOR salt of DMH replica r's pseudo-keys, key ^ r * REPLICA_SALT (u32 wrap;
+// same value as repro_torch/core/dmh.py)
+constexpr uint32_t REPLICA_SALT = 0x85EBCA6Bu;
+
 // masked-lane hash value; a row whose minimum is >= BIG is empty
 constexpr float BIG = 3.0e38f;
 

@@ -5,12 +5,14 @@ against a corpus replace the TPU kernels
 ``repro/kernels/estimate.py::_fields_kernel`` (B2, launcher
 ``estimate_fields_pallas``), ``_fields_packed_kernel`` (B11, over the
 packed store's bf16-halfword corpus words) and ``_mvm_kernel`` (B4,
-launcher ``estimate_many_vs_many_pallas``); the three are one CUDA body
-(``csrc/estimate_fields.cu``).  The pair partials replace ``_est_kernel``
-(B3: ``estimate_partials_pallas`` and ``estimate_one_vs_many_pallas``,
-``csrc/estimate_pairs.cu``).  The linear-sketch dots replace
-``_linear_fields_kernel`` (B8) and ``_linear_fields_packed_kernel`` (B12;
-see :func:`linear_estimate_fields_plain`).  The ICWS contract::
+launcher ``estimate_many_vs_many_pallas``), all in
+``csrc/estimate_fields.cu``: B2 reads each corpus field once for every
+pair that uses it, B11 and B4 share one body.  The pair partials replace
+``_est_kernel`` (B3: ``estimate_partials_pallas`` and
+``estimate_one_vs_many_pallas``, ``csrc/estimate_pairs.cu``).  The
+linear-sketch dots replace ``_linear_fields_kernel`` (B8) and
+``_linear_fields_packed_kernel`` (B12; see
+:func:`linear_estimate_fields_plain`).  The ICWS contract::
 
     fq/vq [F, Q, m], fc/vc [C, P, m], static qmap/cmap -> (cnt, sw) [G, Q, P] f32
 

@@ -74,13 +74,16 @@ def icws_sketch(w, keys, vals, *, m: int, seed: int = 0,
 
 
 def dmh_sketch(w, keys, vals, *, m: int, seed: int = 0,
-               pack_vals: bool = False):
-    """DMH sketch of a padded (replicated) sparse batch, in the ICWS wire
-    layout.  [B, N] -> (fp, val, amin, argkey) [B, m]; ``pack_vals=True``
-    appends the packed value plane as :func:`icws_sketch` does."""
+               pack_vals: bool = False, replicas: int = 1):
+    """DMH sketch of a padded sparse batch, in the ICWS wire layout.
+    [B, n] -> (fp, val, amin, argkey) [B, m]; each key's ``replicas``
+    pseudo-keys are derived where the sketch runs (at 1 the rows are taken
+    as they are: host-replicated rows, as the JAX package passes them);
+    ``pack_vals=True`` appends the packed value plane as
+    :func:`icws_sketch` does."""
     fn = (_route(w, dmh_sketch_packed_plain, dmh_sketch_packed_cuda)
           if pack_vals else _route(w, dmh_sketch_plain, dmh_sketch_cuda))
-    return fn(w, keys, vals, m=m, seed=seed)
+    return fn(w, keys, vals, m=m, seed=seed, replicas=replicas)
 
 
 def estimate_partials(fpa, va, fpb, vb):

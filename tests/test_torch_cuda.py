@@ -1,6 +1,8 @@
 """Card-only checks of the port's CUDA kernels against their plain
 versions (``pytest -m cuda``).  This file imports nothing of JAX, so it runs
 on a machine that has the card but not the JAX package; it skips here."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -116,31 +118,63 @@ def test_sketch_rows_do_not_depend_on_group_size(cuda, monkeypatch, B, nnz):
         assert torch.all(want[0][-1] == -1) and torch.all(want[1][-1] == 0)
 
 
-@pytest.mark.cuda
-def test_fields_kernel_matches_plain_version_bitwise(cuda):
-    """Same IEEE operations in the same t order: kernel and plain version
-    agree bit for bit, also on a strided slice of the corpus planes."""
+# field maps of B2: the service's six pairs, one pair, five pairs on one
+# corpus field (two groups at a 16-query tile), a corpus field no pair
+# reads, sixteen pairs
+FIELD_MAPS = {"service": (QMAP, CMAP), "one pair": ((0,), (1,)),
+              "one corpus field": ((0, 1, 2, 0, 1), (2, 2, 2, 2, 2)),
+              "field 1 unread": ((0, 1), (0, 2)),
+              "sixteen pairs": (tuple(g % 3 for g in range(16)),
+                                tuple(g * 7 % 3 for g in range(16)))}
+
+
+def _fields_case(m, Q, device):
+    """Queries ``[3, Q, m]`` (live sketch rows with some query pads) and a
+    ``[3, 320, m]`` corpus of rows that copy the samples of a query row of
+    a random field with noise, the last five rows spare (-2)."""
+    rng = np.random.default_rng(m + Q)
     args, _ = _batch(1, "cpu")
-    fp, val, _, _ = port_sketch.icws_sketch_plain(*args, m=M, seed=1)
-    fp, val = fp[:12].reshape(3, 4, M), val[:12].reshape(3, 4, M)
-    rng = np.random.default_rng(2)
-    pick = torch.from_numpy(rng.integers(0, 4, size=300))
-    fc = fp[:, pick].clone()
-    vc = val[:, pick].clone()
-    noise = torch.from_numpy(rng.random((3, 300, M)) < 0.3)
+    fp, val, _, _ = port_sketch.icws_sketch_plain(*args, m=m, seed=1)
+    pick = torch.from_numpy(rng.integers(0, fp.shape[0] - 1, size=3 * Q))
+    fq, vq = fp[pick].reshape(3, Q, m), val[pick].reshape(3, Q, m)
+    fq[torch.from_numpy(rng.random((3, Q, m)) < 0.05)] = -1
+    src = torch.from_numpy(rng.integers(0, Q, size=320))
+    fld = torch.from_numpy(rng.integers(0, 3, size=(3, 320)))
+    fc, vc = fq[fld, src].clone(), vq[fld, src] * 1.5
+    noise = torch.from_numpy(rng.random((3, 320, m)) < 0.3)
     fc[noise] = torch.from_numpy(rng.integers(0, 2 ** 31 - 1, int(noise.sum()),
                                               dtype=np.int64)).int()
-    fc[:, -5:] = -2
-    fq, vq, fc, vc = (x.to(cuda) for x in (fp, val, fc, vc))
-    before = port_est.estimate_fields_cuda.launches
-    cnt, sw = ops.estimate_partials_fields(fq, vq, fc[:, 7:290], vc[:, 7:290],
-                                           qmap=QMAP, cmap=CMAP)
-    torch.cuda.synchronize()
-    assert port_est.estimate_fields_cuda.launches == before + 1
-    cnt_p, sw_p = port_est.estimate_fields_plain(
-        fq, vq, fc[:, 7:290], vc[:, 7:290], qmap=QMAP, cmap=CMAP)
-    assert cnt.sum().item() > 0
-    assert torch.equal(cnt, cnt_p) and torch.equal(sw, sw_p)
+    fc[fc < 0] = 7
+    fc[:, -5:], vc[:, -5:] = -2, 0.0
+    return [x.to(device) for x in (fq, vq, fc, vc)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("maps", FIELD_MAPS)
+@pytest.mark.parametrize("m", [48, 200, 512])
+def test_fields_kernel_matches_plain_version_bitwise(cuda, m, maps):
+    """Same IEEE operations in the same t order: kernel and plain version
+    agree bit for bit for every field map, at Q in {1, 2, 16, 17, 33}
+    (one query, a short tile, a full one, one and two past it), on P = 300
+    rows (not a multiple of the 128-row tile) of a strided tenant slice of
+    the corpus planes and of a view 4 bytes off 16-byte alignment (the
+    4-byte copy route)."""
+    qmap, cmap = FIELD_MAPS[maps]
+    for Q in (1, 2, 16, 17, 33):
+        fq, vq, fc, vc = _fields_case(m, Q, cuda)
+        odd = [torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
+               .view(x.shape).copy_(x) for x in (fc, vc)]
+        for fcs, vcs in ((fc[:, 7:307], vc[:, 7:307]),
+                         (odd[0][:, 7:307], odd[1][:, 7:307])):
+            before = port_est.estimate_fields_cuda.launches
+            cnt, sw = ops.estimate_partials_fields(fq, vq, fcs, vcs,
+                                                   qmap=qmap, cmap=cmap)
+            torch.cuda.synchronize()
+            assert port_est.estimate_fields_cuda.launches == before + 1
+            cnt_p, sw_p = port_est.estimate_fields_plain(
+                fq, vq, fcs, vcs, qmap=qmap, cmap=cmap)
+            assert cnt.sum().item() > 0
+            assert _bits_equal(cnt, cnt_p) and _bits_equal(sw, sw_p)
 
 
 def _linear_batch(seed, device):
@@ -300,28 +334,80 @@ def test_linear_fields_kernel_matches_plain_version_bitwise(cuda, R, W, case):
     assert torch.equal(one[:, :, 0], got[:, :, Q - 1])
 
 
+def _dmh_rows(m, B, device, n=256):
+    """B unreplicated rows of n lanes: random rows, led by a row holding
+    one key at lanes 0 and n - 1 with the same weight (equal a for each
+    replica, lanes in two blocks of a cluster larger than c: the tie goes
+    to lane 0), a row of one live lane, a row of pads only, and a row
+    whose live keys all bin to bin 3 (every lane where c = 1)."""
+    from repro_torch.kernels.common import DMH_STREAM_BIN, hash_u32, salt_for
+    rng = np.random.default_rng(m + B)
+    w = (rng.random((B, n)) + 0.05).astype(np.float32)
+    w[rng.random((B, n)) < 0.3] = 0.0
+    keys = rng.integers(-2 ** 31, 2 ** 31, (B, n)).astype(np.int32)
+    vals = rng.normal(size=(B, n)).astype(np.float32)
+    w[0] = 0.5 + rng.random(n).astype(np.float32)
+    keys[0, n - 1], w[0, n - 1] = keys[0, 0], w[0, 0]
+    if B > 1:
+        w[1] = 0.0
+        w[1, 5] = 2.0
+    if B > 2:
+        w[2] = 0.0
+    if B > 3:
+        cand = torch.from_numpy(rng.integers(0, 2 ** 32, 200_000))
+        zero = torch.zeros((), dtype=torch.int64)
+        bins = hash_u32(cand, salt_for(3, DMH_STREAM_BIN, zero)) % m
+        hit = cand[bins == 3][:40].numpy()
+        keys[3] = 0
+        keys[3, :hit.size] = hit.astype(np.uint32).view(np.int32)
+        w[3] = 0.0
+        w[3, :hit.size] = 1.0 + rng.random(hit.size)
+    return [torch.from_numpy(a).to(device) for a in (w, keys, vals)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [128, 200, 512])
-def test_dmh_kernel_matches_plain_version_bitwise(cuda, m):
-    """The packed (a, lane) atomicMin and the plain version's two
-    scatter-mins pick the same winner: every plane equal, also for one row
-    alone; the empty row gives the sentinels."""
-    w, keys, vals, _ = pad_sparse_batch(_vectors(7))
+@pytest.mark.parametrize("cluster", [1, 2, 8, 16])
+@pytest.mark.parametrize("m, B", [(127, 1), (200, 3), (512, 3), (512, 48),
+                                  (127, 48)])
+def test_dmh_kernel_matches_plain_version_bitwise(cuda, monkeypatch, m, B,
+                                                  cluster):
+    """The packed (a, lane) atomicMin into the owning block of the row's
+    cluster and the plain version's two scatter-mins pick the same winner:
+    every plane equal, with and without the pack epilogue (odd m: its pad
+    slot), at each cluster size (at 16, a block of m = 200 owns no bin),
+    with the replicas derived in the kernel equal to host-replicated rows;
+    one row alone gives its bits in the batch; the pad row gives the
+    sentinels."""
     c = dmh_replication(m)
-    keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
-    args = [torch.from_numpy(a).to(cuda) for a in (
-        np.tile(w, (1, c)), keys, np.tile(vals, (1, c)))]
-    before = port_dmh.dmh_sketch_cuda.launches
-    got = ops.dmh_sketch(*args, m=m, seed=3)
-    torch.cuda.synchronize()
-    assert port_dmh.dmh_sketch_cuda.launches == before + 1
-    want = port_dmh.dmh_sketch_plain(*args, m=m, seed=3)
-    for x, y in zip(got, want):
-        assert torch.equal(x, y)
-    assert torch.all(got[0][-1] == -1) and torch.all(got[0][:-1] >= 0)
-    one = ops.dmh_sketch(*(a[2:3] for a in args), m=m, seed=3)
+    rule = port_dmh._launch_shape
+    monkeypatch.setattr(port_dmh, "_launch_shape", lambda B_, m_, lanes: (
+        cluster, min(1024, max(64, 32 * -(-lanes // (32 * cluster))))))
+    args = _dmh_rows(m, B, cuda)
+    for pack, kernel, plain in (
+            (False, port_dmh.dmh_sketch_cuda, port_dmh.dmh_sketch_plain),
+            (True, port_dmh.dmh_sketch_packed_cuda,
+             port_dmh.dmh_sketch_packed_plain)):
+        before = kernel.launches
+        got = ops.dmh_sketch(*args, m=m, seed=3, replicas=c, pack_vals=pack)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        want = plain(*args, m=m, seed=3, replicas=c)
+        for x, y in zip(got, want):
+            assert _bits_equal(x, y)
+    w, keys, vals = (a.cpu().numpy() for a in args)
+    rep = [torch.from_numpy(a).to(cuda) for a in (
+        np.tile(w, (1, c)),
+        replicate_keys(keys.view(np.uint32), c).view(np.int32),
+        np.tile(vals, (1, c)))]
+    monkeypatch.setattr(port_dmh, "_launch_shape", rule)
+    host = ops.dmh_sketch(*rep, m=m, seed=3)
+    for x, y in zip(got, host):
+        assert _bits_equal(x, y)
+    one = ops.dmh_sketch(*(a[B - 1:] for a in args), m=m, seed=3, replicas=c)
     for x, y in zip(one, got):
-        assert torch.equal(x[0], y[2])
+        assert _bits_equal(x[0], y[B - 1])
+    if B > 2:
+        assert torch.all(got[0][2] == -1) and torch.all(got[0][:2] >= 0)
 
 
 def _sample_case(device, method, slots, Q, seed):
@@ -459,16 +545,14 @@ def test_sketch_pack_epilogue_matches_plain_version(cuda, kind, m):
     for bit (odd m: the pad slot zero), and the plain version's on every
     word whose fingerprints agree (all of them for DMH)."""
     w, keys, vals, _ = pad_sparse_batch(_vectors(10))
-    if kind == "dmh":
-        c = dmh_replication(m)
-        keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
-        w, vals = np.tile(w, (1, c)), np.tile(vals, (1, c))
     args = [torch.from_numpy(a).to(cuda) for a in (w, keys, vals)]
-    sketch = ops.icws_sketch if kind == "icws" else ops.dmh_sketch
+    sketch = ops.icws_sketch if kind == "icws" else functools.partial(
+        ops.dmh_sketch, replicas=dmh_replication(m))
     kernel = (port_sketch.icws_sketch_packed_cuda if kind == "icws"
               else port_dmh.dmh_sketch_packed_cuda)
     plain = (port_sketch.icws_sketch_packed_plain if kind == "icws"
-             else port_dmh.dmh_sketch_packed_plain)
+             else functools.partial(port_dmh.dmh_sketch_packed_plain,
+                                    replicas=dmh_replication(m)))
     before = kernel.launches
     got = sketch(*args, m=m, seed=6, pack_vals=True)
     torch.cuda.synchronize()

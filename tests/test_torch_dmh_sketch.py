@@ -1,6 +1,7 @@
 """The port's plain DMH sketch against the JAX package's scatter-min lowering
 (``dmh_sketch_scatter``) and its Pallas kernel in interpret mode, on
-identical padded (replicated) batches, plus the device ingest end to end.
+identical padded (replicated) batches; the port's in-sketch replicas
+against host-replicated rows; plus the device ingest end to end.
 
 Tolerances: bin occupancy bit for bit (it depends only on ``w > 0`` and
 the integer bin hash); fingerprints on at least 99% of slots (``log`` /
@@ -15,6 +16,7 @@ import torch
 from repro.core.dmh import dmh_replication as jax_replication
 from repro.core.types import SparseVec as JaxSparseVec
 from repro.data.ingest import dmh_sketch_batch as jax_dmh_batch
+from repro.kernels import ops as jax_ops
 from repro.kernels.dmh_sketch import dmh_sketch_pallas, dmh_sketch_scatter
 from repro_torch.core.dmh import dmh_replication, replicate_keys
 from repro_torch.core.types import SparseVec
@@ -107,6 +109,32 @@ def test_plain_sketch_matches_jax_scatter_and_kernel(m, seed):
     assert 1 <= len(set(fp[-2])) <= dmh_replication(m) and fp[-2, 0] >= 0
 
 
+@pytest.mark.parametrize("pack_vals", [False, True])
+@pytest.mark.parametrize("m, seed", [(64, 1), (200, 6), (512, 8)])
+def test_replicas_derived_in_the_sketch_equal_host_replicated_rows(
+        m, seed, pack_vals):
+    """``replicas=c`` on the unreplicated rows (c = 1, 3, 4 at m = 64, 200,
+    512) is, bit for bit, the sketch of the rows replicated on the host,
+    and agrees with JAX's ``ops.dmh_sketch`` on those rows."""
+    c = dmh_replication(m)
+    assert c == {64: 1, 200: 3, 512: 4}[m]
+    vecs = _vectors(seed)
+    w, keys, vals, _ = pad_sparse_batch([_port_vec(v) for v in vecs],
+                                        bucket=64)
+    rep = _replicated_batch(vecs, m)
+    got = [x.numpy() for x in ops.dmh_sketch(
+        *(torch.from_numpy(a) for a in (w, keys, vals)), m=m, seed=seed,
+        replicas=c, pack_vals=pack_vals)]
+    host = [x.numpy() for x in ops.dmh_sketch(
+        *(torch.from_numpy(a) for a in rep), m=m, seed=seed,
+        pack_vals=pack_vals)]
+    for x, y in zip(got, host):
+        np.testing.assert_array_equal(x.view(np.int32), y.view(np.int32))
+    want = [np.asarray(x) for x in jax_ops.dmh_sketch(
+        *(jnp.asarray(a) for a in rep), m=m, seed=seed, pack_vals=pack_vals)]
+    _assert_close(got[:4], want[:4], m, seed)
+
+
 @pytest.mark.parametrize("B", [1, 5])
 def test_rows_do_not_depend_on_the_batch(B):
     """A row sketches to the same bits alone (B = 1) or in a batch of 5."""
@@ -121,7 +149,7 @@ def test_rows_do_not_depend_on_the_batch(B):
             assert torch.equal(x, y[lo:lo + B])
 
 
-@pytest.mark.parametrize("m", [64, 200])
+@pytest.mark.parametrize("m", [64, 200, 512])
 def test_dmh_sketch_batch_matches_the_jax_ingest(m):
     vecs = _vectors(3)
     got = [x.numpy() for x in dmh_sketch_batch(

@@ -149,6 +149,16 @@ def test_densify_probes_and_replication_match_jax(m):
                                   jax_dmh.replicate_keys(k, c))
 
 
+def test_replica_salt_in_the_cuda_header_equals_the_port_and_jax():
+    """The DMH kernels derive replica keys with ``u32.cuh``'s copy of the
+    salt: the same value as ``repro_torch.core.dmh`` and the JAX package."""
+    from repro.core import dmh as jax_dmh
+    header = (pathlib.Path(common.__file__).parent / "csrc" / "u32.cuh"
+              ).read_text()
+    assert f"REPLICA_SALT = 0x{port_dmh.REPLICA_SALT:08X}u;" in header
+    assert port_dmh.REPLICA_SALT == jax_dmh.REPLICA_SALT
+
+
 @pytest.mark.parametrize("seed", [0, 2 ** 32 - 1])
 def test_port_numpy_mixers_match_the_jax_host_twins(seed):
     k = _keys()

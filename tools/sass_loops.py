@@ -7,13 +7,14 @@ with ``cuobjdump -sass`` and prints, for every function whose name
 contains SYMBOL (default ``icws_sketch_kernel``), each loop (a backward
 branch and its target): its own SASS instructions (those in no loop
 nested inside it), its nested loops, its marker operations (MUFU, VOTE,
-MATCH, FMUL, STS) and its most frequent opcodes.  :func:`per_unit` returns, per
-such function, the instructions of one unit of work in the loop whose own
-instructions hold the most of the kernel's marker opcode (``MARKERS``):
-its own instructions over its markers, times the markers a unit takes.
+MATCH, FMUL, STS, ATOM, RED) and its most frequent opcodes.
+:func:`per_unit` returns, per such function, the instructions of one
+unit of work in the loop whose own instructions hold the most of the
+kernel's marker opcode (``MARKERS``): its own instructions over its
+markers, times the markers a unit takes.
 ``chip_smoke.py`` reports these beside the bounds as the kernels' issue
 floors: B1's draw (two MUFU.EX2, the draw's two ``expf``), B7's term,
-B6's term and B9's / B13's lookup.  Needs the CUDA toolkit's
+B6's term, B9's / B13's lookup and B5's lane.  Needs the CUDA toolkit's
 ``cuobjdump``.
 """
 from __future__ import annotations
@@ -26,16 +27,19 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-# (marker opcode, markers a unit) of each kernel's hot loop: B1's draw
-# takes two MUFU.EX2; B7's hash loop one STS a term (its signed value's
-# store), B6's one FMUL a term (the sign times the value); B9's and B13's
-# chunk loop one LDS.128 a lookup (its first bucket's four keys; further
-# buckets are read in loops of their own)
+# (marker opcode, markers a unit[, opcode of loops to pass over]) of each
+# kernel's hot loop: B1's draw takes two MUFU.EX2; B7's hash loop one STS a
+# term (its signed value's store), B6's one FMUL a term (the sign times the
+# value); B9's and B13's chunk loop one LDS.128 a lookup (its first
+# bucket's four keys; further buckets are read in loops of their own); B5's
+# lane loop two MUFU.EX2 a lane (the rank's two ``expf``), as its winners'
+# loop, which alone takes shared-memory atomics (ATOMS) and is passed over
 MARKERS = {"icws_sketch_kernel": ("MUFU.EX2", 2),
            "jl_sketch_kernel": ("STS", 1),
            "countsketch_sparse_kernel": ("FMUL", 1),
            "sample_estimate_fields_kernel": ("LDS.128", 1),
-           "sample_estimate_fields_packed_kernel": ("LDS.128", 1)}
+           "sample_estimate_fields_packed_kernel": ("LDS.128", 1),
+           "dmh_sketch_kernel": ("MUFU.EX2", 2, "ATOMS")}
 
 
 def cuobjdump() -> str:
@@ -81,12 +85,14 @@ def loops(library, symbol: str):
 def per_unit(library, symbol: str):
     """{function: SASS instructions a unit of work}: of the loop whose own
     instructions hold the most opcodes that start with the symbol's marker
-    (``MARKERS``), its own instructions over its markers, times the
-    markers a unit."""
-    marker, per = MARKERS[symbol]
+    (``MARKERS``; loops that hold its pass-over opcode count none), its own
+    instructions over its markers, times the markers a unit."""
+    marker, per, *skip = MARKERS[symbol]
     out = {}
     for name, found in loops(library, symbol).items():
-        counts = [sum(op.startswith(marker) for op in own) for own, _ in found]
+        counts = [0 if any(op.startswith(tuple(skip)) for op in own) and skip
+                  else sum(op.startswith(marker) for op in own)
+                  for own, _ in found]
         if counts and max(counts):
             best = counts.index(max(counts))
             out[name] = len(found[best][0]) * per / counts[best]
@@ -106,7 +112,7 @@ def main(argv) -> int:
         print(name)
         for own, nested in found:
             marked = collections.Counter(op for op in own if op.startswith(
-                ("MUFU", "VOTE", "MATCH", "FMUL", "STS")))
+                ("MUFU", "VOTE", "MATCH", "FMUL", "STS", "ATOM", "RED")))
             common = collections.Counter(own).most_common(8)
             print(f"  loop: {len(own)} own instructions, {nested} nested "
                   f"loops; markers {dict(marked)}; most: {dict(common)}")

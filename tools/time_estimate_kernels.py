@@ -11,11 +11,12 @@ of 5 runs of 10 launches, on the same seeded inputs and the service's G = 6
 field pairs: B2 (``estimate_fields_cuda``) and B11
 (``estimate_fields_packed_cuda``) on 16 queries against P = 131,072 corpus
 rows per field at m = 512, with the collision share of ``chip_smoke.py``'s
-estimate phase, then Q = 1 against P = 16,384; B8
-(``linear_estimate_fields_cuda``) and B12
+estimate phase, then Q = 1 and Q = 16 against P = 16,384 (the service's
+`search` and micro-batch); B8 (``linear_estimate_fields_cuda``) and B12
 (``linear_estimate_fields_packed_cuda``, over the packed corpus) on
-CountSketch (R = 5, W = 153) and JL (R = 1, W = 769) tables at the same two
-shapes.  One line per (checkout, kernel, shape) and the card's name and
+CountSketch (R = 5, W = 153) and JL (R = 1, W = 769) tables at the same
+three shapes.  One line per (checkout, kernel, shape) with the first 16
+hex digits of the SHA-256 of the output's bits, and the card's name and
 power limit.  Give the checkouts in turns (A B B A) to compare two
 versions on one card.  Needs one card.
 
@@ -49,7 +50,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 QMAP = (0, 1, 0, 2, 0, 1)
 CMAP = (0, 0, 1, 0, 2, 1)
 M, P, Q = 512, 131_072, 16
-SHAPES = ((Q, P), (1, 16_384))
+SHAPES = ((Q, P), (1, 16_384), (Q, 16_384))
 # (R, W) of the linear families' tables at m = 512
 LINEAR = {"cs": (5, 153), "jl": (1, 769)}
 
@@ -69,6 +70,11 @@ def rows(torch, dev):
     vc = torch.where(copy, vq[:, src] * 1.5,
                      torch.randn((3, P, M), device=dev, generator=g) * 0.05)
     return fq, vq, fc, vc
+
+
+def timed(torch, run):
+    """(:func:`median_ms` of ``run``, :func:`digest` of its output)."""
+    return median_ms(torch, run), digest(run())
 
 
 def median_ms(torch, run) -> float:
@@ -98,7 +104,7 @@ def child() -> None:
     for kernel, fn, corpus in (("B2", ke.estimate_fields_cuda, vc),
                                ("B11", ke.estimate_fields_packed_cuda, wc)):
         for q, p in SHAPES:
-            out[f"{kernel} G=6 Q={q} P={p}"] = median_ms(torch, lambda: fn(
+            out[f"{kernel} G=6 Q={q} P={p}"] = timed(torch, lambda: fn(
                 fq[:, :q], vq[:, :q], fc[:, -p:], corpus[:, -p:], qmap=QMAP,
                 cmap=CMAP))
     del fq, vq, fc, vc, wc
@@ -113,7 +119,7 @@ def child() -> None:
                 ("B8", ke.linear_estimate_fields_cuda, tq, tc),
                 ("B12", ke.linear_estimate_fields_packed_cuda, tqe, wl)):
             for q, p in SHAPES:
-                out[f"{kernel} {name} G=6 Q={q} P={p}"] = median_ms(
+                out[f"{kernel} {name} G=6 Q={q} P={p}"] = timed(
                     torch, lambda: fn(qt[:, :q], corpus[:, -p:], qmap=QMAP,
                                       cmap=CMAP))
         del tq, tc, tqe, wl
@@ -121,8 +127,12 @@ def child() -> None:
 
 
 def digest(x) -> str:
-    """The first 16 hex digits of the SHA-256 of a tensor's bits."""
-    return hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest()[:16]
+    """The first 16 hex digits of the SHA-256 of the bits of a tensor or of
+    a tuple of them."""
+    h = hashlib.sha256()
+    for t in x if isinstance(x, tuple) else (x,):
+        h.update(t.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 SAMPLE_SHAPES = ((16, 16_384), (1, 16_384), (16, 131_072), (1, 131_072))
@@ -172,8 +182,7 @@ def sample_child() -> None:
         call = (lambda: ops.sample_estimate_fields(
             kq[:, :qn], vq[:, :qn], tq[:, :qn], kc[:, -p:], vc[:, -p:],
             tc[:, -p:], **maps))
-        out[f"ops B9 Q={qn} P={p}"] = (median_ms(torch, call),
-                                       digest(call()))
+        out[f"ops B9 Q={qn} P={p}"] = timed(torch, call)
     p = SAMPLE_SHAPES[0][1]
     kc, tc = kc[:, -p:], tc[:, -p:]
     wc = pack_halfwords_f32(vc[:, -p:])
@@ -186,8 +195,7 @@ def sample_child() -> None:
                     "sample_estimate_fields_packed_kernel")
         call = (lambda: ops.sample_estimate_fields_packed(
             kq[:, :qn], vq[:, :qn], tq[:, :qn], kc, wc, tc, **maps))
-        out[f"ops B13 Q={qn} P={p}"] = (median_ms(torch, call),
-                                        digest(call()))
+        out[f"ops B13 Q={qn} P={p}"] = timed(torch, call)
     print(json.dumps(out))
 
 
@@ -210,13 +218,10 @@ def main() -> int:
         if res.returncode != 0:
             print(res.stdout[-4000:], res.stderr[-4000:], file=sys.stderr)
             return res.returncode
-        for shape, r in json.loads(res.stdout.splitlines()[-1]).items():
-            if sample:
-                ms, dig = r
-                print(f"turn {n} {src}: {shape} {ms:.4f} ms digest {dig} "
-                      f"on {card}", flush=True)
-            else:
-                print(f"turn {n} {src}: {shape} {r:.4f} ms on {card}")
+        out = json.loads(res.stdout.splitlines()[-1])
+        for shape, (ms, dig) in out.items():
+            print(f"turn {n} {src}: {shape} {ms:.4f} ms digest {dig} "
+                  f"on {card}", flush=True)
     return 0
 
 

@@ -1,8 +1,8 @@
-"""B1 and B10 (the ICWS sketch kernel and its Pack variant), or B6 and B7
-(the CountSketch and JL sketch kernels), of several checkouts, in turns on
-one card.
+"""B1 and B10 (the ICWS sketch kernel and its Pack variant), B6 and B7 (the
+CountSketch and JL sketch kernels), or B5 and its Pack variant (the DMH
+sketch), of several checkouts, in turns on one card.
 
-    python3 tools/time_icws_sketch.py [--linear] ROOT [ROOT ...]
+    python3 tools/time_icws_sketch.py [--linear | --dmh] ROOT [ROOT ...]
 
 Each ROOT is the root of a checkout (``.`` for the working tree; a parent
 unpacked with ``git archive`` into a git-ignored directory such as
@@ -18,9 +18,18 @@ can be seen to.  With ``--linear`` each run takes instead its
 ``chip_smoke.py`` cases of B6 and B7 (``linear_sketch_case``: B = 3 and
 48 rows of about 1,000 and 4,000 non-zeros, and B = 3 rows of about
 10,000, the lake's largest table) and digests each kernel's output on the
-case's inputs.  Prints the card's name and power limit, each run's lines,
-and a table of device ms, group size or sample tile, and digest per case
-and run.  Needs one card.
+case's inputs.  With ``--dmh`` each run takes B5 and its Pack variant at
+``DMH_SHAPES`` (B = 3 and 48 rows of about 1,000 and 4,000 non-zeros, B = 3
+of about 10,000; c = 4 replicas a key at m = 512): a checkout whose DMH
+sketch takes ``replicas`` gets the unreplicated rows, an older one the
+rows replicated on the host, so both sketch the same lanes; each kernel is
+held bit for bit against its plain version, timed alone (device ms from
+``chip_smoke.device_ms``) and digested.  Where the checkout has the
+launch rule ``_launch_shape``, each shape also runs at other cluster sizes
+and block sizes (``DMH_VARIANTS``), each against the same digest.  Prints
+the card's name and power limit, each run's lines, and a table of device
+ms, group size, sample tile or launch shape, and digest per case and run.
+Needs one card.
 """
 from __future__ import annotations
 
@@ -108,21 +117,96 @@ def linear_child(root: pathlib.Path) -> None:
     print(TAG + json.dumps(reports), flush=True)
 
 
+# (B, non-zeros) of the B5 cases: chip_smoke.py's dmh kernel phase
+DMH_SHAPES = ((3, 1000), (3, 4000), (48, 1000), (48, 4000), (3, 10_000))
+# launch rules timed beside a checkout's own: (label, largest cluster,
+# lanes a thread)
+DMH_VARIANTS = (("cluster<=8", 8, 1), ("cluster<=2", 2, 1),
+                ("cluster<=1", 1, 1), ("2 lanes a thread", None, 2))
+
+
+def dmh_child(root: pathlib.Path) -> None:
+    sys.path[:0] = [str(root / "src"), str(root)]
+    import inspect
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.core.dmh import dmh_replication, replicate_keys
+    from repro_torch.data.dataset_search import DatasetSearchIndex
+    from repro_torch.data.ingest import pad_sparse_batch
+    from repro_torch.kernels import dmh_sketch as kd
+    cs.build_phase()
+    dev = torch.device("cuda")
+    index = DatasetSearchIndex(m=cs.M, seed=0, device=dev)
+    c = dmh_replication(cs.M)
+    derived = "replicas" in inspect.signature(kd.dmh_sketch_cuda).parameters
+    rule = getattr(kd, "_launch_shape", None)
+    top_rule = getattr(kd, "MAX_CLUSTER", None)
+    reports = []
+    for B, nnz in DMH_SHAPES:
+        w, keys, vals, _ = pad_sparse_batch(cs.field_vectors(
+            index, np.random.default_rng((B, nnz)), B, nnz))
+        n = w.shape[1]
+        if derived:
+            kw = {"replicas": c}
+        else:
+            keys = replicate_keys(keys.view(np.uint32), c).view(np.int32)
+            w, vals, kw = np.tile(w, (1, c)), np.tile(vals, (1, c)), {}
+        args = [torch.from_numpy(a).to(dev) for a in (w, keys, vals)]
+        for pack in (False, True):
+            kernel = functools.partial(
+                kd.dmh_sketch_packed_cuda if pack else kd.dmh_sketch_cuda,
+                *args, m=cs.M, seed=0, **kw)
+            plain = (kd.dmh_sketch_packed_plain if pack
+                     else kd.dmh_sketch_plain)(*args, m=cs.M, seed=0, **kw)
+            variants = [("", None)] + [
+                (f" {label}", (top, per)) for label, top, per in DMH_VARIANTS
+                if rule and not pack]
+            for label, variant in variants:
+                if variant:
+                    top, per = variant
+                    kd.MAX_CLUSTER = top or top_rule
+
+                    def shape_of(B_, m_, lanes, per=per):
+                        cl, th = rule(B_, m_, lanes)
+                        return cl, max(64, th // per)
+                    kd._launch_shape = shape_of
+                got = kernel()
+                torch.cuda.synchronize()
+                if not all(torch.equal(x.view(torch.int32),
+                                       y.view(torch.int32))
+                           for x, y in zip(got, plain)):
+                    raise AssertionError(f"dmh B={B} N={n}x{c}{label}: "
+                                         "differs from plain")
+                ms, _ = cs.device_ms(kernel, "dmh_sketch_kernel")
+                shape = kd._launch_shape(B, cs.M, n * c) if rule else (1, 1024)
+                kind = "pack " if pack else ""
+                reports.append({
+                    "shape": f"{kind}B={B} N={n}x{c}{label}",
+                    "device_ms": ms, "launch": f"{shape[0]}x{shape[1]}",
+                    "bits": digest(got)})
+                if variant:
+                    kd.MAX_CLUSTER, kd._launch_shape = top_rule, rule
+    print(TAG + json.dumps(reports), flush=True)
+
+
 def main(argv) -> int:
     from time_flash_attention import turns
-    linear = argv[:1] == ["--linear"]
-    return turns(__file__, argv[linear:], TAG, lambda root, r: (
+    flag = argv[0] if argv[:1] in (["--linear"], ["--dmh"]) else None
+    return turns(__file__, argv[bool(flag):], TAG, lambda root, r: (
         f"{root.name} {r['device_ms']:.4f}"
         + (f" S={r['group_size']}" if "group_size" in r else "")
         + (f" tile={r['tile']}" if "tile" in r else "")
+        + (f" launch={r['launch']}" if "launch" in r else "")
         + (f" {r['bits']}" if "bits" in r else "")
         + (f" {r['bits_packed']}" if "bits_packed" in r else "")),
-        child_args=("--linear",) if linear else ())
+        child_args=(flag,) if flag else ())
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
-        (linear_child if sys.argv[3:4] == ["--linear"] else child)(
+        {"--linear": linear_child, "--dmh": dmh_child}.get(
+            (sys.argv[3:4] or [None])[0], child)(
             pathlib.Path(sys.argv[2]).resolve())
     else:
         sys.exit(main(sys.argv[1:]))
