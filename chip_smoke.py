@@ -135,6 +135,9 @@ LATENCY_ORDER = "ABBAABBA"
 # estimates are held against the host ICWS estimator on 1,024 rows
 CORPUS_BATCH = 48
 CORPUS_HOST_ROWS = 1_024
+# the rows estimate_vec runs over: the store's capacity, which doubles from
+# 64 past the lake's 3 x 16,384 field vectors
+CORPUS_P = 1 << (3 * LAKE_TABLES - 1).bit_length()
 CORPUS_KERNELS = ("icws_sketch", "estimate_pairs", "estimate_one_vs_many",
                   "estimate_many")
 # the gradient-compression path sketches the gradient of one TinyLlama-1.1B
@@ -1111,13 +1114,15 @@ def packed_estimate_case(fq, vq, fc, wc):
         + 2 * G * Q * P * 4
     bound, bound_by = bound_of(bytes_moved, ops)
     ms = time_ms(kernel, reps=10)
-    dev_ms, dev_src = device_ms(kernel, "estimate_fields_packed_kernel")
+    names = []
+    dev_ms, dev_src = device_ms(kernel, "estimate_fields_packed_kernel",
+                                names=names)
     log(f"packed estimate {shape}: equal to plain and to B2 on the decoded "
         f"corpus; kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the "
-        f"device), plain {plain_ms:.1f} ms (one run), bound {bound:.4f} ms "
-        f"({bound_by}: {bytes_moved / 1e9:.3f} GB)")
+        f"device, {', '.join(names)}), plain {plain_ms:.1f} ms (one run), "
+        f"bound {bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB)")
     return {"shape": shape, "max_abs_err": 0.0, "ms": ms, "device_ms": dev_ms,
-            "device_ms_source": dev_src,
+            "device_ms_source": dev_src, "kernel": ", ".join(names),
             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by}
 
 
@@ -1235,8 +1240,9 @@ def packed_sample_case(q, c, hits, *, check: bool):
 
 def packed_kernel_phase(dev, icws_data, lin_data, sample_data):
     """B10 at the sketch shapes B = 3, N = 1,024 and B = 48, N = 4,096 (ICWS
-    and DMH); B11 at G = 6, Q = 16, P = 131,072 and Q = 1, P = 16,384; B12
-    there for CS and JL; B13 at the service's shape, Q = 16 and 1 against
+    and DMH); B11 at G = 6, Q = 16, P = 131,072, Q = 1, P = 16,384 (`search`)
+    and Q = 16, P = 16,384 (the micro-batch); B12 at the first two for CS
+    and JL; B13 at the service's shape, Q = 16 and 1 against
     the last 16,384 rows (spare rows included), each held against B9 on
     the decoded corpus and against its plain version.  The corpora are the
     unpacked kernel phases', packed."""
@@ -1251,7 +1257,7 @@ def packed_kernel_phase(dev, icws_data, lin_data, sample_data):
     fq, vq, fc, vc = icws_data
     wc = pack_halfwords_f32(vc)
     b11 = [packed_estimate_case(fq[:, :q], vq[:, :q], fc[:, -p:], wc[:, -p:])
-           for q, p in shapes]
+           for q, p in shapes + ((16, LAKE_TABLES),)]
     b12 = []
     for name in ("cs", "jl"):
         tq, tc = lin_data[name]
@@ -1284,22 +1290,24 @@ def pair_case(label, kernel, plain, args, *, tests, bytes_moved, symbol):
     bound, bound_by = bound_of(bytes_moved, EST_OPS_PER_TEST * tests
                                + EST_OPS_PER_HIT * hits)
     ms = time_ms(lambda: kernel(*args), reps=10)
-    dev_ms, dev_src = device_ms(lambda: kernel(*args), symbol)
+    names = []
+    dev_ms, dev_src = device_ms(lambda: kernel(*args), symbol, names=names)
     log(f"{label}: equal to plain, {hits:.0f} collisions of {tests} tests; "
-        f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device), plain "
-        f"{plain_ms:.1f} ms (one run), bound {bound:.4f} ms ({bound_by}: "
-        f"{bytes_moved / 1e9:.3f} GB)")
+        f"kernel {ms:.4f} ms per call ({dev_ms:.4f} ms on the device, "
+        f"{', '.join(names)}), plain {plain_ms:.1f} ms (one run), bound "
+        f"{bound:.4f} ms ({bound_by}: {bytes_moved / 1e9:.3f} GB)")
     return ({"shape": label.split(" ", 1)[1], "max_abs_err": 0.0, "ms": ms,
              "device_ms": dev_ms, "device_ms_source": dev_src,
-             "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by},
-            got)
+             "kernel": ", ".join(names), "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": bound_by}, got)
 
 
 def corpus_kernel_phase(icws_data):
     """B3 (pairwise, one-vs-many) and B4 (Q = 16 and 1) at m = 512 against
     P = 131,072 rows: field 0 of the icws kernel phase's corpus (rows that
     copy a query's samples with a per-row share, the last 1,024 spare),
-    each against its plain version bit for bit; then, on the card, row 0 of
+    each against its plain version bit for bit, B3 one-vs-many also at the
+    corpus path's P (its last CORPUS_P rows); then, on the card, row 0 of
     B4 at Q = 1, the one-vs-many route, the pairwise route on query 0 tiled
     to P rows and B2 with qmap = cmap = (0,) give the same bits."""
     from repro_torch.kernels import estimate as ke
@@ -1314,10 +1322,16 @@ def corpus_kernel_phase(icws_data):
         ke.estimate_partials_plain, (ta, tv, fc, vc), tests=P * M,
         bytes_moved=2 * plane + 2 * P * 4, symbol="estimate_pairs_kernel")
     del ta, tv
-    one, got_1 = pair_case(
-        f"B3 one-vs-many P={P} m={M}", ke.estimate_one_vs_many_cuda,
-        ke.estimate_one_vs_many_plain, (fq[0], vq[0], fc, vc), tests=P * M,
-        bytes_moved=M * 8 + plane + 2 * P * 4, symbol="estimate_pairs_kernel")
+    ones = [pair_case(
+        f"B3 one-vs-many P={p} m={M}", ke.estimate_one_vs_many_cuda,
+        ke.estimate_one_vs_many_plain, (fq[0], vq[0], fc[-p:], vc[-p:]),
+        tests=p * M, bytes_moved=M * 8 + p * M * 8 + 2 * p * 4,
+        symbol="estimate_one_vs_many_kernel") for p in (P, CORPUS_P)]
+    one, got_1 = [r for r, _ in ones], ones[0][1]
+    if not all(bits_equal(ones[1][1][i], got_1[i][-CORPUS_P:])
+               for i in range(2)):
+        raise AssertionError("B3 one-vs-many: a row's sums depend on P")
+    del ones
     many = []
     for q in (16, 1):
         rep, got = pair_case(
@@ -1431,6 +1445,9 @@ def corpus_phase(lake):
             + QUERIES // MICRO_BATCH + 1, "estimate_pairs": 1,
             "estimate_one_vs_many": QUERIES,
             "estimate_many": QUERIES // MICRO_BATCH}
+    if corpus.capacity != CORPUS_P:
+        raise AssertionError(f"corpus: capacity {corpus.capacity}, the "
+                             f"corpus kernel phase timed P = {CORPUS_P}")
     log(f"corpus: {n} rows (capacity {corpus.capacity}), "
         f"{corpus._store.bytes_per_row()} B per row, "
         f"{corpus.capacity * corpus._store.bytes_per_row() / 1e6:.1f} MB "
@@ -2115,7 +2132,7 @@ def main() -> int:
             ("estimate_pairs", "estimate_pairs.cu", "estimate.py:49", b3_pairs,
              [b3_pairs]),
             ("estimate_one_vs_many", "estimate_pairs.cu", "estimate.py:49",
-             b3_one, [b3_one]),
+             b3_one[0], b3_one),
             ("estimate_many", "estimate_fields.cu", "estimate.py:153", b4[0],
              b4))]
     kernels[0]["corpus_path_launches"] = corpus_launches["icws_sketch"]

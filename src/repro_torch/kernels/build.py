@@ -33,7 +33,7 @@ SOURCES = ("icws_sketch.cu", "estimate_fields.cu", "estimate_pairs.cu",
            "linear_estimate_fields.cu", "dmh_sketch.cu",
            "sample_estimate_fields.cu", "countsketch_dense.cu",
            "flash_attention.cu", "bindings.cu")
-HEADERS = ("u32.cuh", "packed.cuh")
+HEADERS = ("u32.cuh", "packed.cuh", "fields_body.cuh")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-O3", "-std=c++17", ARCH, "-fmad=false", "-prec-div=true",
          "-prec-sqrt=true", "-ftz=false", "-Xcompiler", "-fPIC",
@@ -166,6 +166,10 @@ def library() -> ctypes.CDLL:
                                              i64, i64, i32, i32, ptr, ptr,
                                              ptr]
         lib.repro_estimate_pairs.restype = i32
+        lib.repro_estimate_one_vs_many.argtypes = [ptr, ptr, ptr, ptr, i64,
+                                                   i64, i32, i32, ptr, ptr,
+                                                   ptr]
+        lib.repro_estimate_one_vs_many.restype = i32
         lib.repro_linear_estimate_fields_packed.argtypes = \
             lib.repro_linear_estimate_fields.argtypes
         lib.repro_linear_estimate_fields_packed.restype = i32

@@ -49,6 +49,10 @@ cudaError_t launch_estimate_pairs(const int* fa, const float* va, const int* fb,
                                   const float* vb, long long fa_rs, long long va_rs,
                                   long long fb_rs, long long vb_rs, int P, int m,
                                   float* cnt, float* sw, cudaStream_t stream);
+cudaError_t launch_estimate_one_vs_many(const int* fq, const float* vq, const int* fc,
+                                        const float* vc, long long fc_rs,
+                                        long long vc_rs, int P, int m, float* cnt,
+                                        float* sw, cudaStream_t stream);
 cudaError_t launch_linear_estimate_fields_packed(const float* tq, const int* wc,
                                                  long long wc_fs, long long wc_ps,
                                                  const int* qmap, const int* cmap,
@@ -152,6 +156,13 @@ int repro_estimate_pairs(const int* fa, const float* va, const int* fb,
                          float* sw, void* stream) {
   return (int)repro::launch_estimate_pairs(fa, va, fb, vb, fa_rs, va_rs, fb_rs, vb_rs,
                                            P, m, cnt, sw, (cudaStream_t)stream);
+}
+
+int repro_estimate_one_vs_many(const int* fq, const float* vq, const int* fc,
+                               const float* vc, long long fc_rs, long long vc_rs, int P,
+                               int m, float* cnt, float* sw, void* stream) {
+  return (int)repro::launch_estimate_one_vs_many(fq, vq, fc, vc, fc_rs, vc_rs, P, m, cnt,
+                                                 sw, (cudaStream_t)stream);
 }
 
 int repro_linear_estimate_fields_packed(const float* tq, const int* wc, long long wc_fs,

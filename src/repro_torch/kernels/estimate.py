@@ -6,10 +6,12 @@ against a corpus replace the TPU kernels
 ``estimate_fields_pallas``), ``_fields_packed_kernel`` (B11, over the
 packed store's bf16-halfword corpus words) and ``_mvm_kernel`` (B4,
 launcher ``estimate_many_vs_many_pallas``), all in
-``csrc/estimate_fields.cu``: B2 reads each corpus field once for every
-pair that uses it, B11 and B4 share one body.  The pair partials replace
-``_est_kernel`` (B3: ``estimate_partials_pallas`` and
-``estimate_one_vs_many_pallas``, ``csrc/estimate_pairs.cu``).  The
+``csrc/estimate_fields.cu``: B2 and B11 are one pipelined body
+(``csrc/fields_body.cuh``) that reads each corpus field once for every
+pair that uses it.  The pair partials replace ``_est_kernel`` (B3:
+``estimate_partials_pallas`` and ``estimate_one_vs_many_pallas``,
+``csrc/estimate_pairs.cu``; the one-vs-many route is that body at one
+pair and one query).  The
 linear-sketch dots replace ``_linear_fields_kernel`` (B8) and
 ``_linear_fields_packed_kernel`` (B12; see
 :func:`linear_estimate_fields_plain`).  The ICWS contract::
@@ -49,7 +51,7 @@ import torch
 from . import build
 from .packed import unpack_halfwords_f32
 
-MAX_PAIRS = 16                 # kMaxPairs in csrc/*estimate_fields*.cu
+MAX_PAIRS = 16   # kMaxPairs in csrc/fields_body.cuh, linear_estimate_fields.cu
 # corpus rows per plain-version chunk: one [Q, rows] accumulator pair at a time
 _PLAIN_ROWS = 1 << 16
 
@@ -224,13 +226,16 @@ def estimate_partials_plain(fpa, va, fpb, vb):
 
 
 def estimate_partials_cuda(fpa, va, fpb, vb):
-    """Launch B3's pairwise route (``csrc/estimate_pairs.cu``) on PyTorch's
-    current stream; CUDA tensors only, both sides read in place through
-    their row strides.  Adds one to ``estimate_partials_cuda.launches``."""
+    """Launch B3's pairwise route (``estimate_pairs_kernel`` of
+    ``csrc/estimate_pairs.cu``) on PyTorch's current stream; CUDA tensors
+    only, both sides read in place through their row strides.  Adds one to
+    ``estimate_partials_cuda.launches``."""
     _check_pairwise(fpa, va, fpb, vb)
     _check_cuda(fpb, "estimate_partials_cuda", fpa, va, fpb, vb)
-    return _launch_pairs(estimate_partials_cuda, fpa, va, fpa.stride(0),
-                         va.stride(0), fpb, vb)
+    return _launch_pairs(estimate_partials_cuda, "estimate_pairs", fpb,
+                         fpa.data_ptr(), va.data_ptr(), fpb.data_ptr(),
+                         vb.data_ptr(), fpa.stride(0), va.stride(0),
+                         fpb.stride(0), vb.stride(0))
 
 
 estimate_partials_cuda.launches = 0
@@ -251,27 +256,32 @@ def estimate_one_vs_many_plain(fq, vq, fpc, vc):
 
 
 def estimate_one_vs_many_cuda(fq, vq, fpc, vc):
-    """Launch B3's one-vs-many route (``csrc/estimate_pairs.cu`` with side
-    A's row stride 0: the query staged once per block and broadcast) on
-    PyTorch's current stream; CUDA tensors only, the corpus read in place.
-    Adds one to ``estimate_one_vs_many_cuda.launches``."""
+    """Launch B3's one-vs-many route (``estimate_one_vs_many_kernel`` of
+    ``csrc/estimate_pairs.cu``: B2's body at one pair and one query, the
+    query's tile staged once per block and read by broadcast) on
+    PyTorch's current stream; CUDA tensors only, the query made contiguous,
+    the corpus read in place.  Adds one to
+    ``estimate_one_vs_many_cuda.launches``."""
     fq, vq = _query_row(fq, vq, fpc, vc)
     _check_cuda(fpc, "estimate_one_vs_many_cuda", fq, vq, fpc, vc)
-    return _launch_pairs(estimate_one_vs_many_cuda, fq, vq, 0, 0, fpc, vc)
+    fq, vq = fq.contiguous(), vq.contiguous()
+    return _launch_pairs(estimate_one_vs_many_cuda, "estimate_one_vs_many",
+                         fpc, fq.data_ptr(), vq.data_ptr(), fpc.data_ptr(),
+                         vc.data_ptr(), fpc.stride(0), vc.stride(0))
 
 
 estimate_one_vs_many_cuda.launches = 0
 
 
-def _launch_pairs(wrapper, fa, va, fa_rs, va_rs, fb, vb):
+def _launch_pairs(wrapper, kernel, fb, *args):
+    """Launch B3's ``kernel`` on ``args`` (pointers, strides) over the rows
+    of ``fb`` into new ``(cnt, sw) [P]``, counted on ``wrapper``."""
     P, m = fb.shape
     cnt = torch.empty(P, dtype=torch.float32, device=fb.device)
     sw = torch.empty(P, dtype=torch.float32, device=fb.device)
     if P == 0 or m == 0:
         return cnt.zero_(), sw.zero_()
-    _launch("estimate_pairs", fb, fa.data_ptr(), va.data_ptr(), fb.data_ptr(),
-            vb.data_ptr(), fa_rs, va_rs, fb.stride(0), vb.stride(0), P, m,
-            cnt.data_ptr(), sw.data_ptr())
+    _launch(kernel, fb, *args, P, m, cnt.data_ptr(), sw.data_ptr())
     wrapper.launches += 1
     return cnt, sw
 
@@ -426,10 +436,12 @@ def estimate_fields_packed_plain(fq, vq, fc, wc, *, qmap, cmap):
 
 
 def estimate_fields_packed_cuda(fq, vq, fc, wc, *, qmap, cmap):
-    """Launch the packed fields kernel (``estimate_fields_packed_kernel``
-    of ``csrc/estimate_fields.cu``) on PyTorch's current stream; CUDA
-    tensors only, the corpus read in place through its strides.  Adds one
-    to ``estimate_fields_packed_cuda.launches`` per launch."""
+    """Launch B11 (``estimate_fields_packed_kernel`` of
+    ``csrc/estimate_fields.cu``: B2's body with the corpus values decoded
+    from ``wc`` where the compare loads them) on PyTorch's current stream;
+    CUDA tensors only, the queries made contiguous, the corpus read in
+    place through its strides.  Adds one to
+    ``estimate_fields_packed_cuda.launches`` per launch."""
     qmap, cmap = _check_packed(fq, vq, fc, wc, qmap, cmap)
     if fq.device.type != "cuda":
         raise ValueError(f"estimate_fields_packed_cuda takes CUDA tensors; "

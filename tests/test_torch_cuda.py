@@ -149,6 +149,13 @@ def _fields_case(m, Q, device):
     return [x.to(device) for x in (fq, vq, fc, vc)]
 
 
+def _off_by_4(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past 16-byte
+    alignment (the kernels' 4-byte copy route)."""
+    return torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:] \
+        .view(x.shape).copy_(x)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("maps", FIELD_MAPS)
 @pytest.mark.parametrize("m", [48, 200, 512])
@@ -162,10 +169,8 @@ def test_fields_kernel_matches_plain_version_bitwise(cuda, m, maps):
     qmap, cmap = FIELD_MAPS[maps]
     for Q in (1, 2, 16, 17, 33):
         fq, vq, fc, vc = _fields_case(m, Q, cuda)
-        odd = [torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:]
-               .view(x.shape).copy_(x) for x in (fc, vc)]
         for fcs, vcs in ((fc[:, 7:307], vc[:, 7:307]),
-                         (odd[0][:, 7:307], odd[1][:, 7:307])):
+                         (_off_by_4(fc)[:, 7:307], _off_by_4(vc)[:, 7:307])):
             before = port_est.estimate_fields_cuda.launches
             cnt, sw = ops.estimate_partials_fields(fq, vq, fcs, vcs,
                                                    qmap=qmap, cmap=cmap)
@@ -567,34 +572,32 @@ def test_sketch_pack_epilogue_matches_plain_version(cuda, kind, m):
     assert torch.equal(got[4][ok], want[4][ok])
 
 
-def _packed_icws_rows(cuda):
-    args, _ = _batch(11, "cpu")
-    fp, val, _, _ = port_sketch.icws_sketch_plain(*args, m=M, seed=1)
-    fq, vq = fp[:12].reshape(3, 4, M), val[:12].reshape(3, 4, M)
-    rng = np.random.default_rng(12)
-    pick = torch.from_numpy(rng.integers(0, 4, size=300))
-    fc, vc = fq[:, pick].clone(), vq[:, pick].clone() * 1.5
-    fc[torch.from_numpy(rng.random((3, 300, M)) < 0.3)] = 7
-    fc[:, -5:], vc[:, -5:] = -2, 0.0
-    return [x.to(cuda) for x in (fq, vq, fc, pack_halfwords_f32(vc))]
-
-
 @pytest.mark.cuda
-def test_packed_fields_kernel_matches_plain_and_unpacked_bitwise(cuda):
-    fq, vq, fc, wc = _packed_icws_rows(cuda)
-    sl = slice(7, 290)
-    before = port_est.estimate_fields_packed_cuda.launches
-    cnt, sw = port_est.estimate_fields_packed_cuda(
-        fq, vq, fc[:, sl], wc[:, sl], qmap=QMAP, cmap=CMAP)
-    torch.cuda.synchronize()
-    assert port_est.estimate_fields_packed_cuda.launches == before + 1
-    assert cnt.sum().item() > 0
-    for want in (port_est.estimate_fields_packed_plain(
-            fq, vq, fc[:, sl], wc[:, sl], qmap=QMAP, cmap=CMAP),
-                 port_est.estimate_fields_cuda(
-            fq, vq, fc[:, sl], unpack_halfwords_f32(wc[:, sl]), qmap=QMAP,
-            cmap=CMAP)):
-        assert _bits_equal(cnt, want[0]) and _bits_equal(sw, want[1])
+@pytest.mark.parametrize("maps", FIELD_MAPS)
+@pytest.mark.parametrize("m", [48, 200, 512])
+def test_packed_fields_kernel_matches_plain_and_unpacked_bitwise(cuda, m, maps):
+    """B11 against its plain version and against B2 on the decoded corpus,
+    bit for bit, at B2's cases: every field map, Q in {1, 2, 16, 17, 33},
+    P = 300 rows of a strided tenant slice and of a view 4 bytes off
+    16-byte alignment (the 4-byte copy route)."""
+    qmap, cmap = FIELD_MAPS[maps]
+    for Q in (1, 2, 16, 17, 33):
+        fq, vq, fc, vc = _fields_case(m, Q, cuda)
+        wc = pack_halfwords_f32(vc)
+        for fcs, wcs in ((fc[:, 7:307], wc[:, 7:307]),
+                         (_off_by_4(fc)[:, 7:307], _off_by_4(wc)[:, 7:307])):
+            before = port_est.estimate_fields_packed_cuda.launches
+            cnt, sw = port_est.estimate_fields_packed_cuda(
+                fq, vq, fcs, wcs, qmap=qmap, cmap=cmap)
+            torch.cuda.synchronize()
+            assert port_est.estimate_fields_packed_cuda.launches == before + 1
+            assert cnt.sum().item() > 0
+            for want in (port_est.estimate_fields_packed_plain(
+                    fq, vq, fcs, wcs, qmap=qmap, cmap=cmap),
+                         port_est.estimate_fields_cuda(
+                    fq, vq, fcs, unpack_halfwords_f32(wcs), qmap=qmap,
+                    cmap=cmap)):
+                assert _bits_equal(cnt, want[0]) and _bits_equal(sw, want[1])
 
 
 @pytest.mark.cuda
@@ -680,32 +683,36 @@ def test_packed_service_on_the_card_matches_the_cpu_service(cuda, family):
 
 
 @pytest.mark.cuda
-def test_pair_and_many_kernels_match_plain_versions_bitwise(cuda):
+@pytest.mark.parametrize("m", [M, 200, 510])
+def test_pair_and_many_kernels_match_plain_versions_bitwise(cuda, m):
     """B3 (pairwise and one-vs-many) and B4 against their plain versions
-    bit for bit on field 0 of a [1, cap, m] buffer with spare rows (a view
-    read through its row stride); on the card, a row of B4, the one-vs-many
-    route, the pairwise route on the tiled query and B2 at G = 1 agree."""
+    bit for bit on P = 300 rows of field 0 of a [1, cap, m] buffer, the
+    last 10 spare (a view read through its row stride; m = 510 takes the
+    4-byte copies); on the card, a row of B4, the one-vs-many route, the
+    pairwise route on the tiled query and B2 at G = 1 agree.  Both B3
+    routes also on a corpus 4 bytes off 16-byte alignment."""
     args, _ = _batch(13, "cpu")
-    fp, val, _, _ = port_sketch.icws_sketch_plain(*args, m=M, seed=1)
+    fp, val, _, _ = port_sketch.icws_sketch_plain(*args, m=m, seed=1)
     fq, vq = fp[:5].to(cuda), val[:5].to(cuda)
     rng = np.random.default_rng(14)
     pick = torch.from_numpy(rng.integers(0, 5, size=300))
-    fc = torch.full((1, 320, M), -2, dtype=torch.int32)
-    vc = torch.zeros((1, 320, M))
+    fc = torch.full((1, 320, m), -2, dtype=torch.int32)
+    vc = torch.zeros((1, 320, m))
     fc[0, :300], vc[0, :300] = fp[:5][pick], val[:5][pick] * 1.5
-    fc[0, :300][torch.from_numpy(rng.random((300, M)) < 0.3)] = 7
-    fc, vc = fc.to(cuda)[0], vc.to(cuda)[0]
+    fc[0, :300][torch.from_numpy(rng.random((300, m)) < 0.3)] = 7
+    fc, vc = fc.to(cuda)[0, 10:310], vc.to(cuda)[0, 10:310]
+    P = fc.shape[0]
     counters = (port_est.estimate_partials_cuda,
                 port_est.estimate_one_vs_many_cuda,
                 port_est.estimate_many_vs_many_cuda)
     before = [c.launches for c in counters]
     many = ops.estimate_partials_many_vs_many(fq, vq, fc, vc)
     one = ops.estimate_partials_one_vs_many(fq[2], vq[2], fc, vc)
-    tiled = ops.estimate_partials(fq[2].expand(320, -1).contiguous(),
-                                  vq[2].expand(320, -1).contiguous(), fc, vc)
+    tiled = ops.estimate_partials(fq[2].expand(P, -1).contiguous(),
+                                  vq[2].expand(P, -1).contiguous(), fc, vc)
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [b + 1 for b in before]
-    assert many[0].sum().item() > 0 and torch.all(many[0][:, 300:] == 0)
+    assert many[0].sum().item() > 0 and torch.all(many[0][:, 290:] == 0)
     b2 = port_est.estimate_fields_cuda(fq[None], vq[None], fc[None], vc[None],
                                        qmap=(0,), cmap=(0,))
     for i in range(2):
@@ -714,12 +721,20 @@ def test_pair_and_many_kernels_match_plain_versions_bitwise(cuda):
         assert _bits_equal(one[i], port_est.estimate_one_vs_many_plain(
             fq[2], vq[2], fc, vc)[i])
         assert _bits_equal(tiled[i], port_est.estimate_partials_plain(
-            fq[2].expand(320, -1), vq[2].expand(320, -1), fc, vc)[i])
+            fq[2].expand(P, -1), vq[2].expand(P, -1), fc, vc)[i])
         for other in (one[i], tiled[i], b2[i][0, 2]):
             assert _bits_equal(many[i][2], other)
-    # a strided pairwise side A (every other row of a [640, m] tensor)
-    wide_f = torch.stack([fc, fc], 1).reshape(640, M)[::2]
-    wide_v = torch.stack([vc, vc], 1).reshape(640, M)[::2]
+    # both B3 routes on a corpus 4 bytes off alignment (4-byte copies)
+    fco, vco = _off_by_4(fc), _off_by_4(vc)
+    for got, want in (
+            (ops.estimate_partials_one_vs_many(fq[2], vq[2], fco, vco), one),
+            (ops.estimate_partials(fq[2].expand(P, -1).contiguous(),
+                                   vq[2].expand(P, -1).contiguous(), fco,
+                                   vco), tiled)):
+        assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])
+    # a strided pairwise side A (every other row of a [2P, m] tensor)
+    wide_f = torch.stack([fc, fc], 1).reshape(2 * P, m)[::2]
+    wide_v = torch.stack([vc, vc], 1).reshape(2 * P, m)[::2]
     got = ops.estimate_partials(wide_f, wide_v, fc, vc)
     want = port_est.estimate_partials_plain(wide_f, wide_v, fc, vc)
     assert _bits_equal(got[0], want[0]) and _bits_equal(got[1], want[1])

@@ -55,9 +55,18 @@ def _vectors(seed, count):
     return vecs + [SparseVec.from_pairs([], [], 10)]
 
 
-def test_packed_fields_partials_match_the_jax_kernel():
+# B11's field maps: the service's six pairs, one pair, five pairs reading
+# one corpus field
+FIELD_MAPS = {"service": (QMAP, CMAP), "one pair": ((0,), (1,)),
+              "one corpus field": ((0, 1, 2, 0, 1), (2, 2, 2, 2, 2))}
+
+
+@pytest.mark.parametrize("maps", FIELD_MAPS)
+@pytest.mark.parametrize("Q", [1, 3, 17])
+def test_packed_fields_partials_match_the_jax_kernel(Q, maps):
+    qmap, cmap = FIELD_MAPS[maps]
     rng = np.random.default_rng(0)
-    m, Q, P = 40, 3, 19
+    m, P = 40, 19
     fq = rng.integers(0, 50, size=(3, Q, m)).astype(np.int32)
     vq = rng.normal(size=(3, Q, m)).astype(np.float32)
     fc = np.where(rng.random((3, P, m)) < 0.5, fq[:, rng.integers(0, Q, P)],
@@ -68,11 +77,11 @@ def test_packed_fields_partials_match_the_jax_kernel():
         rng.normal(size=(3, P, m)).astype(np.float32))).numpy()
     wc[:, -2:] = 0
     cnt_j, sw_j = estimate_fields_packed_pallas(
-        *(jnp.asarray(a) for a in (fq, vq, fc, wc)), qmap=QMAP, cmap=CMAP,
+        *(jnp.asarray(a) for a in (fq, vq, fc, wc)), qmap=qmap, cmap=cmap,
         interpret=True)
     cnt, sw = port_est.estimate_fields_packed_plain(
-        *(torch.from_numpy(a) for a in (fq, vq, fc, wc)), qmap=QMAP,
-        cmap=CMAP)
+        *(torch.from_numpy(a) for a in (fq, vq, fc, wc)), qmap=qmap,
+        cmap=cmap)
     assert cnt.sum() > 0 and torch.all(cnt[:, :, -2:] == 0)
     np.testing.assert_array_equal(cnt.numpy(), np.asarray(cnt_j))
     np.testing.assert_allclose(sw.numpy(), np.asarray(sw_j), rtol=1e-5)

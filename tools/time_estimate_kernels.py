@@ -1,5 +1,5 @@
-"""Device time of the estimate kernels (B2, B11, B8, B12; with ``--sample``
-B9 and B13) of checkouts.
+"""Device time of the estimate kernels (B2, B11, B3, B4, B8, B12; with
+``--sample`` B9 and B13) of checkouts.
 
     python3 tools/time_estimate_kernels.py [--sample] SRC [SRC ...]
 
@@ -12,7 +12,13 @@ field pairs: B2 (``estimate_fields_cuda``) and B11
 (``estimate_fields_packed_cuda``) on 16 queries against P = 131,072 corpus
 rows per field at m = 512, with the collision share of ``chip_smoke.py``'s
 estimate phase, then Q = 1 and Q = 16 against P = 16,384 (the service's
-`search` and micro-batch); B8 (``linear_estimate_fields_cuda``) and B12
+`search` and micro-batch); B3 on field 0 of those rows: the one-vs-many
+route (``estimate_one_vs_many_cuda``, query 0) at P = 131,072 and at the
+corpus path's P (``chip_smoke.CORPUS_P``, 65,536: the capacity of the
+store ``estimate_vec`` runs over) and the pairwise route
+(``estimate_partials_cuda``, query 0 tiled) at P = 131,072, with B4
+(``estimate_many_vs_many_cuda``) at Q = 16 and 1
+beside them as a control; B8 (``linear_estimate_fields_cuda``) and B12
 (``linear_estimate_fields_packed_cuda``, over the packed corpus) on
 CountSketch (R = 5, W = 153) and JL (R = 1, W = 769) tables at the same
 three shapes.  One line per (checkout, kernel, shape) with the first 16
@@ -51,6 +57,7 @@ QMAP = (0, 1, 0, 2, 0, 1)
 CMAP = (0, 0, 1, 0, 2, 1)
 M, P, Q = 512, 131_072, 16
 SHAPES = ((Q, P), (1, 16_384), (Q, 16_384))
+CORPUS_P = 65_536   # chip_smoke.CORPUS_P
 # (R, W) of the linear families' tables at m = 512
 LINEAR = {"cs": (5, 153), "jl": (1, 769)}
 
@@ -107,7 +114,19 @@ def child() -> None:
             out[f"{kernel} G=6 Q={q} P={p}"] = timed(torch, lambda: fn(
                 fq[:, :q], vq[:, :q], fc[:, -p:], corpus[:, -p:], qmap=QMAP,
                 cmap=CMAP))
-    del fq, vq, fc, vc, wc
+    del wc
+    fq, vq, fc, vc = fq[0], vq[0], fc[0], vc[0]
+    for p in (P, CORPUS_P):
+        out[f"B3 one-vs-many P={p}"] = timed(torch, lambda: (
+            ke.estimate_one_vs_many_cuda(fq[0], vq[0], fc[-p:], vc[-p:])))
+    ta, tv = fq[0].expand(P, M).contiguous(), vq[0].expand(P, M).contiguous()
+    out[f"B3 pairwise P={P}"] = timed(
+        torch, lambda: ke.estimate_partials_cuda(ta, tv, fc, vc))
+    del ta, tv
+    for q in (Q, 1):
+        out[f"B4 Q={q} P={P}"] = timed(torch, lambda: (
+            ke.estimate_many_vs_many_cuda(fq[:q], vq[:q], fc, vc)))
+    del fq, vq, fc, vc
     g = torch.Generator(device=dev).manual_seed(3)
     for name, (R, W) in LINEAR.items():
         tq = torch.randn((3, Q, R, W), device=dev, generator=g)
