@@ -1309,7 +1309,8 @@ def corpus_kernel_phase(icws_data):
     each against its plain version bit for bit, B3 one-vs-many also at the
     corpus path's P (its last CORPUS_P rows); then, on the card, row 0 of
     B4 at Q = 1, the one-vs-many route, the pairwise route on query 0 tiled
-    to P rows and B2 with qmap = cmap = (0,) give the same bits."""
+    to P rows and B2 with qmap = cmap = (0,) give the same bits, and B4 at
+    Q = 16 equals B2 at G = 1 on those 16 queries."""
     from repro_torch.kernels import estimate as ke
     fq, vq, fc, vc = icws_data
     fq, vq, fc, vc = fq[0], vq[0], fc[0], vc[0]
@@ -1332,25 +1333,27 @@ def corpus_kernel_phase(icws_data):
                for i in range(2)):
         raise AssertionError("B3 one-vs-many: a row's sums depend on P")
     del ones
-    many = []
+    many, got = [], {}
     for q in (16, 1):
-        rep, got = pair_case(
+        rep, got[q] = pair_case(
             f"B4 Q={q} P={P} m={M}", ke.estimate_many_vs_many_cuda,
             ke.estimate_many_vs_many_plain, (fq[:q], vq[:q], fc, vc),
             tests=q * P * M, bytes_moved=q * M * 8 + plane + 2 * q * P * 4,
             symbol="estimate_many_kernel")
         many.append(rep)
-    b2 = ke.estimate_fields_cuda(fq[None, :1], vq[None, :1], fc[None],
+    b2 = ke.estimate_fields_cuda(fq[None, :16], vq[None, :16], fc[None],
                                  vc[None], qmap=(0,), cmap=(0,))
     torch.cuda.synchronize()
     for i in range(2):
-        row = got[i][0]
-        if not all(bits_equal(row, x) for x in (got_1[i], got_p[i],
-                                                b2[i][0, 0])):
+        if not bits_equal(got[16][i], b2[i][0]):
+            raise AssertionError("B4 at Q = 16 differs from B2 at G = 1")
+        if not all(bits_equal(got[1][i][0], x) for x in (
+                got_1[i], got_p[i], b2[i][0, 0])):
             raise AssertionError("B4 row 0, B3 one-vs-many, B3 pairwise on "
                                  "the tiled query and B2 at G = 1 differ")
-    log(f"B4 row 0 (Q=1) == B3 one-vs-many == B3 pairwise on the tiled query "
-        f"== B2 at qmap=cmap=(0,), bit for bit, P={P} m={M}")
+    log(f"B4 at Q=16 == B2 at qmap=cmap=(0,); B4 row 0 (Q=1) == B3 "
+        f"one-vs-many == B3 pairwise on the tiled query == B2's row 0, bit "
+        f"for bit, P={P} m={M}")
     return pairs, one, many
 
 
@@ -1474,7 +1477,10 @@ def compression_kernel_phase():
     4096, R = 5, seed 17) against its plain version bit for bit, and at
     T = L (one chunk) against B6 on keys ``o + arange(L)``, both the
     kernels and the plain versions; timed against its bound (bytes: x read
-    once, the table written once; operations: 46 per (element, rep))."""
+    once, the table written once; operations: 46 per (element, rep)) and
+    its issue floor (the SASS instructions a term of the partial kernel's
+    sub-chunk loop, one a lane and clock; the loops over a bucket's run
+    nested in it are not counted)."""
     from repro_torch.kernels import countsketch as kcs
     from repro_torch.optim.compression import CompressionConfig
     cfg = CompressionConfig()
@@ -1504,13 +1510,20 @@ def compression_kernel_phase():
         dev_ms, dev_src = device_ms(
             fn, tuple(f"countsketch_dense_{k}" for k in (
                 ("partial", "reduce") if T > L else ("partial",))))
+        symbol = "countsketch_dense_partial_kernel"
+        per_term = unit_instructions(symbol, symbol)
+        floor_issue = (T * cfg.reps * per_term / FP32_INSTR_PER_S * 1e3
+                       if per_term else None)
         log(f"B14 {label}: equal to plain; kernel {ms:.4f} ms per call "
             f"({dev_ms:.4f} ms on the device), plain {plain_ms:.1f} ms (one "
-            f"run), bound {bound:.4f} ms ({bound_by})")
+            f"run), bound {bound:.4f} ms ({bound_by})"
+            + (f", issue floor {floor_issue:.4f} ms ({per_term:g} SASS "
+               "instructions a term)" if per_term else ""))
         reports.append({"shape": label, "max_abs_err": 0.0, "ms": ms,
                         "device_ms": dev_ms, "device_ms_source": dev_src,
                         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                        "library_ms": None})
+                        "library_ms": None, "instr_per_term": per_term,
+                        "floor_ms_issue": floor_issue})
     keys = (off + torch.arange(L, dtype=torch.int32, device="cuda"))[None]
     b6 = kcs.countsketch_sparse_cuda(keys, x[None, :L], **kw)[0]
     b6_plain = kcs.countsketch_sparse_plain(keys, x[None, :L], **kw)[0]
@@ -2143,7 +2156,9 @@ def main() -> int:
         kernel_entry("countsketch_dense", "countsketch_dense.cu",
                      "countsketch.py:35", compression_launches, b14[0], b14,
                      entry_point="repro_torch.optim.compression."
-                                 "compressed_update"))
+                                 "compressed_update",
+                     floor_ms_issue=b14[0]["floor_ms_issue"],
+                     instr_per_term=b14[0]["instr_per_term"]))
     for name, symbol in (("flash_attention_tc", "flash_attention_tc_kernel"),
                          ("flash_attention_f32tc",
                           "flash_attention_f32tc_kernel")):

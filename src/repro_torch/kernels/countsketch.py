@@ -40,8 +40,10 @@ agree bit for bit on the card, and for ``T <= DENSE_CHUNK`` the dense
 sketch at offset o equals the sparse sketch of keys ``o + arange(T)`` bit
 for bit.  The CUDA version (``csrc/countsketch_dense.cu``) is two
 kernels: one warp per (rep, chunk) keeps the chunk's table in shared
-memory and adds each group of 32 elements in t order, lanes of distinct
-buckets at once; then one thread per (rep, bucket) adds the partials.
+memory and adds each group of 32 elements in t order, in one
+read-add-write where the group's buckets are distinct (a tag table finds
+a shared bucket; its lanes then add by rank), hashing the next batch while
+a group's reads land; then one thread per (rep, bucket) adds the partials.
 """
 from __future__ import annotations
 

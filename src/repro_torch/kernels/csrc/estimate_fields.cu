@@ -19,21 +19,24 @@
 // sequential queries bitwise equal, and B2, B3, B4 and B11 equal where their
 // functions meet.  No atomics, and no [Q, P, m] tensor anywhere.
 //
-// Bound: bytes.  B2 and B11 are fields_body (fields_body.cuh) over the
-// launcher's PairGroups: a block owns 128 rows of one corpus field and
-// every pair that reads it (up to 16 pairs at one query, 3 at 16), so each
-// corpus plane is read once a launch at the service's map (three planes for
-// six pairs); the query tile QT is 1 for a single query, else 16 with four
-// threads a row; swizzled tiles come a tile ahead by cp.async.  B2 loads f32
-// values (F32Values); B11 bf16-halfword words wc [C, P, m / 2] i32
-// (PackedValues, m even), a [128 x 16]-word stage decoded where the compare
-// loads it, so B11 on (fc, wc) gives B2's bits on (fc, unpack(wc)).  The
-// packed stage is smaller (24 KB of corpus words against 32 KB), so one
-// more B11 block fits an SM at one query (GroupShape).
+// Bound: bytes.  All three are fields_body (fields_body.cuh) over a
+// PairGroups plan: a block owns 128 rows of one corpus field and every pair
+// that reads it, so each corpus plane is read once a launch.  B2 and B11
+// take the launcher's groups (up to 16 pairs at one query, 3 at 16; three
+// planes for the service's six pairs); the query tile QT is 1 for a single
+// query, else 16 with four threads a row; swizzled tiles come a tile ahead
+// by cp.async.  B2 loads f32 values (F32Values); B11 bf16-halfword words wc
+// [C, P, m / 2] i32 (PackedValues, m even), a [128 x 16]-word stage decoded
+// where the compare loads it, so B11 on (fc, wc) gives B2's bits on (fc,
+// unpack(wc)).  The packed stage is smaller (24 KB of corpus words against
+// 32 KB), so one more B11 block fits an SM at one query (GroupShape).
 //
-// B4 (collision_tile): a block owns 128 rows of the one corpus plane and 16
-// query rows, grid (P / 128, Q / 16), with synchronous padded tiles; its
-// [Q, m] x [P, m] -> [Q, P] is B2's function at G = 1.
+// B4 is B2's function at G = 1 ([Q, m] x [P, m] -> [Q, P]): the body with a
+// one-pair plan (query field 0 against corpus field 0, field strides 0),
+// at one query in B3 one-vs-many's shape (QT = 1, three blocks an SM), else
+// at QT = 16 with four threads a row (ManyShape); 16-byte copies where the
+// corpus rows are 16-byte aligned, else 4-byte ones, so any row stride and
+// any m work.  Its row q is B3 one-vs-many on query q, bit for bit.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -42,16 +45,19 @@
 namespace repro {
 namespace {
 
-constexpr int kRows = 128;   // B4: corpus rows a block (one a thread)
-constexpr int kTile = 32;    // B4: samples staged a step
-constexpr int kQTile = 16;   // B4: query rows a block
-
 // B2's and B11's shape at query tile QT: 16 pairs a group at QT = 1, where
 // shared memory sets the blocks an SM (three of B2's 72 KB, four of B11's
 // 56 KB), and 3 pairs at QT = 16 with registers capped for two blocks (B11
 // at three, 40 registers, ran slower on the H100)
 template <int QT>
 using GroupShape = FieldsShape<QT, QT == 1 ? kMaxPairs : 3, QT == 1 ? 3 : 2>;
+
+// B4's shape: one pair, at one query B3 one-vs-many's (three blocks an
+// SM), else QT = 16, four threads a row, kManyBlocks blocks an SM (three,
+// 40 registers with a few spilled, ran 8% faster than two on the H100)
+constexpr int kManyBlocks = 3;
+template <int QT>
+using ManyShape = FieldsShape<QT, 1, QT == 1 ? 3 : kManyBlocks>;
 
 template <int QT, bool Vec16>
 __global__ void
@@ -79,79 +85,18 @@ estimate_fields_packed_kernel(const int* __restrict__ fq, const float* __restric
                                                     wc_rs, plan, Q, P, m, cnt, sw);
 }
 
-// B4: the one query plane against the one corpus plane, f32 values
-__device__ __forceinline__ void collision_tile(
-    const int* __restrict__ fq, const float* __restrict__ vq,
-    const int* __restrict__ fc, const float* __restrict__ vc, long long fc_rs,
-    long long vc_rs, int Q, int P, int m, float* __restrict__ cnt,
-    float* __restrict__ sw) {
-  __shared__ int s_fc[kRows][kTile + 1];
-  __shared__ float s_vc[kRows][kTile + 1];
-  __shared__ int s_fq[kQTile][kTile];
-  __shared__ float s_vq[kQTile][kTile];
-
-  const int q0 = blockIdx.y * kQTile;
-  const int p0 = blockIdx.x * kRows;
-  const int tid = threadIdx.x;
-
-  float acc_n[kQTile];
-  float acc_w[kQTile];
-#pragma unroll
-  for (int j = 0; j < kQTile; ++j) {
-    acc_n[j] = 0.f;
-    acc_w[j] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < m; t0 += kTile) {
-    const int tc = min(kTile, m - t0);
-    __syncthreads();
-    // corpus tile: warp k reads rows 4k..4k+3, 32 samples (128 B) each
-    for (int i = tid; i < kRows * kTile; i += kRows) {
-      const int r = i / kTile, tt = i % kTile;
-      const int p = p0 + r;
-      s_fc[r][tt] = p < P && tt < tc ? fc[(long long)p * fc_rs + t0 + tt] : -2;
-    }
-    for (int i = tid; i < kRows * kTile; i += kRows) {
-      const int r = i / kTile, tt = i % kTile;
-      const int p = p0 + r;
-      s_vc[r][tt] = p < P && tt < tc ? vc[(long long)p * vc_rs + t0 + tt] : 0.f;
-    }
-    for (int i = tid; i < kQTile * kTile; i += kRows) {
-      const int j = i / kTile, tt = i % kTile;
-      const int q = q0 + j;
-      const bool ok = q < Q && tt < tc;
-      s_fq[j][tt] = ok ? fq[(long long)q * m + t0 + tt] : -1;
-      s_vq[j][tt] = ok ? vq[(long long)q * m + t0 + tt] : 0.f;
-    }
-    __syncthreads();
-    for (int tt = 0; tt < tc; ++tt) {
-      const int f = s_fc[tid][tt];
-      const float v = s_vc[tid][tt];
-#pragma unroll
-      for (int j = 0; j < kQTile; ++j)
-        collide(s_fq[j][tt], f, &s_vq[j][tt], v, acc_n[j], acc_w[j]);
-    }
-  }
-
-  const int p = p0 + tid;
-  if (p >= P) return;
-#pragma unroll
-  for (int j = 0; j < kQTile; ++j) {
-    const int q = q0 + j;
-    if (q < Q) {
-      const long long o = (long long)q * P + p;
-      cnt[o] = acc_n[j];
-      sw[o] = acc_w[j];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kRows)
+// B4: the one query plane against the one corpus plane, f32 values, one
+// pair; at one query B3 one-vs-many's shape
+template <int QT, bool Vec16>
+__global__ void
+__launch_bounds__(ManyShape<QT>::kThreads, ManyShape<QT>::kBlocksPerSM)
 estimate_many_kernel(const int* __restrict__ fq, const float* __restrict__ vq,
                      const int* __restrict__ fc, const float* __restrict__ vc,
-                     long long fc_rs, long long vc_rs, int Q, int P, int m,
+                     long long fc_rs, long long vc_rs,
+                     const __grid_constant__ PairGroups plan, int Q, int P, int m,
                      float* __restrict__ cnt, float* __restrict__ sw) {
-  collision_tile(fq, vq, fc, vc, fc_rs, vc_rs, Q, P, m, cnt, sw);
+  fields_body<ManyShape<QT>, Vec16, F32Values>(fq, vq, fc, vc, 0, fc_rs, 0, vc_rs, plan,
+                                               Q, P, m, cnt, sw);
 }
 
 // the pairs grouped by corpus field: each field's pairs in g order, in
@@ -229,6 +174,37 @@ cudaError_t launch_fields(const int* fq, const float* vq, const int* fc,
                                         Q, P, m, cnt, sw, stream);
 }
 
+// one launch of B4 at query tile QT: pair 0, query field 0 against corpus
+// field 0 (field strides 0)
+template <int QT, bool Vec16>
+cudaError_t launch_many_as(const int* fq, const float* vq, const int* fc,
+                           const float* vc, long long fc_rs, long long vc_rs, int Q,
+                           int P, int m, float* cnt, float* sw, cudaStream_t stream) {
+  using Shape = ManyShape<QT>;
+  const auto kernel = estimate_many_kernel<QT, Vec16>;
+  constexpr int smem = fields_smem_bytes<Shape, F32Values>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return attr;
+  PairGroups plan = {};
+  plan.n = 1;
+  plan.count[0] = 1;
+  kernel<<<fields_grid<Shape>(plan, Q, P), Shape::kThreads, smem, stream>>>(
+      fq, vq, fc, vc, fc_rs, vc_rs, plan, Q, P, m, cnt, sw);
+  return cudaGetLastError();
+}
+
+template <int QT>
+cudaError_t launch_many(const int* fq, const float* vq, const int* fc, const float* vc,
+                        long long fc_rs, long long vc_rs, int Q, int P, int m,
+                        float* cnt, float* sw, cudaStream_t stream) {
+  if (aligned16(fc, 0, fc_rs, m) && aligned16(vc, 0, vc_rs, m))
+    return launch_many_as<QT, true>(fq, vq, fc, vc, fc_rs, vc_rs, Q, P, m, cnt, sw,
+                                    stream);
+  return launch_many_as<QT, false>(fq, vq, fc, vc, fc_rs, vc_rs, Q, P, m, cnt, sw,
+                                   stream);
+}
+
 }  // namespace
 
 cudaError_t launch_estimate_fields(const int* fq, const float* vq, const int* fc,
@@ -260,11 +236,9 @@ cudaError_t launch_estimate_many(const int* fq, const float* vq, const int* fc,
                                  const float* vc, long long fc_rs, long long vc_rs,
                                  int Q, int P, int m, float* cnt, float* sw,
                                  cudaStream_t stream) {
-  const dim3 grid((P + kRows - 1) / kRows, (Q + kQTile - 1) / kQTile);
-  if (Q < 1 || P < 1 || m < 1 || grid.y > 65535) return cudaErrorInvalidValue;
-  estimate_many_kernel<<<grid, kRows, 0, stream>>>(fq, vq, fc, vc, fc_rs, vc_rs, Q,
-                                                   P, m, cnt, sw);
-  return cudaGetLastError();
+  if (Q < 1 || P < 1 || m < 1 || (Q + 15) / 16 > 65535) return cudaErrorInvalidValue;
+  if (Q == 1) return launch_many<1>(fq, vq, fc, vc, fc_rs, vc_rs, Q, P, m, cnt, sw, stream);
+  return launch_many<16>(fq, vq, fc, vc, fc_rs, vc_rs, Q, P, m, cnt, sw, stream);
 }
 
 }  // namespace repro

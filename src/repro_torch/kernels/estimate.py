@@ -6,9 +6,9 @@ against a corpus replace the TPU kernels
 ``estimate_fields_pallas``), ``_fields_packed_kernel`` (B11, over the
 packed store's bf16-halfword corpus words) and ``_mvm_kernel`` (B4,
 launcher ``estimate_many_vs_many_pallas``), all in
-``csrc/estimate_fields.cu``: B2 and B11 are one pipelined body
+``csrc/estimate_fields.cu``: B2, B11 and B4 are one pipelined body
 (``csrc/fields_body.cuh``) that reads each corpus field once for every
-pair that uses it.  The pair partials replace ``_est_kernel`` (B3:
+pair that uses it (B4 at one pair).  The pair partials replace ``_est_kernel`` (B3:
 ``estimate_partials_pallas`` and ``estimate_one_vs_many_pallas``,
 ``csrc/estimate_pairs.cu``; the one-vs-many route is that body at one
 pair and one query).  The
@@ -297,10 +297,12 @@ def estimate_many_vs_many_plain(fq, vq, fpc, vc):
 
 
 def estimate_many_vs_many_cuda(fq, vq, fpc, vc):
-    """Launch B4 (``estimate_many_kernel`` of ``csrc/estimate_fields.cu``)
-    on PyTorch's current stream; CUDA tensors only, the queries made
-    contiguous (they are small), the corpus read in place through its row
-    stride.  Adds one to ``estimate_many_vs_many_cuda.launches``."""
+    """Launch B4 (``estimate_many_kernel`` of ``csrc/estimate_fields.cu``:
+    B2's body at one pair, in B3 one-vs-many's shape at one query, else 16
+    queries a block) on PyTorch's current stream; CUDA tensors only, the
+    queries made contiguous (they are small), the corpus read in place
+    through its row stride.  Adds one to
+    ``estimate_many_vs_many_cuda.launches``."""
     _check_pair(fq, vq, fpc, vc, "Q")
     _check_cuda(fpc, "estimate_many_vs_many_cuda", fpc, vc)
     fq, vq = fq.contiguous(), vq.contiguous()

@@ -112,6 +112,28 @@ def test_dense_plain_equals_sparse_plain_bitwise(monkeypatch, T, chunk,
     np.testing.assert_array_equal(_bits(dense), _bits(sparse))
 
 
+@pytest.mark.parametrize("width, reps", [(1, 1), (1, 5), (153, 1),
+                                         (4096, 5)])
+def test_dense_plain_equals_sparse_plain_at_every_width(monkeypatch, width,
+                                                        reps):
+    """The widths and rep counts of the card's B14 cases (one bucket: every
+    term in one run; W = 4,096: CompressionConfig's), at T = L with the
+    positions wrapping past 2^32: the dense plain version is B6's plain
+    version on keys o + arange(T), bit for bit."""
+    T, offset = 400, 2 ** 32 - 150
+    monkeypatch.setattr(port_cs, "DENSE_CHUNK", T)
+    x = np.random.default_rng(width + reps).standard_t(2, T).astype(np.float32)
+    keys = ((offset + np.arange(T)) % 2 ** 32).astype(np.uint32) \
+        .view(np.int32)
+    dense = countsketch_dense_plain(torch.from_numpy(x), width=width,
+                                    reps=reps, seed=17, offset=offset)
+    sparse = countsketch_sparse_plain(torch.from_numpy(keys[None]),
+                                      torch.from_numpy(x[None]), width=width,
+                                      reps=reps, seed=17)[0]
+    assert dense.shape == (reps, width)
+    np.testing.assert_array_equal(_bits(dense), _bits(sparse))
+
+
 def test_dense_sketch_is_the_sum_of_its_chunks_in_order(monkeypatch):
     """The partials of each chunk, added in chunk order, give the table."""
     monkeypatch.setattr(port_cs, "DENSE_CHUNK", 300)

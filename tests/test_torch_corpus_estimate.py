@@ -178,6 +178,35 @@ def test_routes_agree_bit_for_bit(m):
         assert torch.equal(_bits(flt), _bits(batched[q, :P]))
 
 
+@pytest.mark.parametrize("m", [50, 127])
+@pytest.mark.parametrize("nq", [1, 16, 17])
+def test_many_vs_many_plain_is_fields_and_one_vs_many_bitwise(nq, m):
+    """B4's plain version at the card kernel's query tiles (one query, a full
+    tile of 16, a ragged 17th) on field 0 of a [1, cap, m] buffer read
+    through its row stride, m not a multiple of 4: B2's plain version at
+    G = 1 and, row by row, B3's one-vs-many plain version, bit for bit."""
+    fq, vq, _, fc, vc, _ = _rows(nq * 7 + m, m)
+    rng = np.random.default_rng(nq)
+    fq = np.concatenate([fq] * 4)[:nq]
+    vq = np.concatenate([vq * s for s in rng.uniform(0.5, 2.0, 4)])[:nq]
+    cap = P + 9
+    fpb = torch.full((1, cap, m), -2, dtype=torch.int32)
+    vb = torch.zeros((1, cap, m))
+    fpb[0, 4:4 + P], vb[0, 4:4 + P] = torch.from_numpy(fc), torch.from_numpy(vc)
+    fc, vc = fpb[0, 4:4 + P], vb[0, 4:4 + P]
+    fq, vq = torch.from_numpy(fq), torch.from_numpy(vq.astype(np.float32))
+    many = port_est.estimate_many_vs_many_plain(fq, vq, fc, vc)
+    fields = port_est.estimate_fields_plain(fq[None], vq[None], fc[None],
+                                            vc[None], qmap=(0,), cmap=(0,))
+    assert many[0].shape == (nq, P) and many[0].sum() > 0
+    for i in range(2):
+        assert torch.equal(_bits(many[i]), _bits(fields[i][0]))
+    for q in range(nq):
+        one = port_est.estimate_one_vs_many_plain(fq[q], vq[q], fc, vc)
+        for i in range(2):
+            assert torch.equal(_bits(many[i][q]), _bits(one[i]))
+
+
 def test_checks_and_unported_options():
     fq, vq, nq, fc, vc, nc = (torch.from_numpy(np.asarray(a))
                               for a in _rows(9, 50))

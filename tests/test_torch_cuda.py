@@ -741,26 +741,86 @@ def test_pair_and_many_kernels_match_plain_versions_bitwise(cuda, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T, chunk, width, offset", [
-    (5000, 1024, 153, 7),                 # five chunks, the last ragged
-    (70_000, port_cs.DENSE_CHUNK, 4096, 0),
-    (3000, 3000, 10_000, 2 ** 32 - 1000),  # two bucket tiles, u32 wrap
-])
+@pytest.mark.parametrize("m", [128, 510])
+@pytest.mark.parametrize("Q", [1, 5, 16, 17, 40])
+def test_many_kernel_equals_b2_and_b3_bitwise(cuda, Q, m):
+    """B4 at every query tile (QT = 1 at Q = 1, else 16: Q = 17 and 40 leave
+    a ragged tile) on P = 333 rows (not a multiple of 128) of field 0 of a
+    [1, cap, m] buffer read through its row stride (m = 510 takes the
+    4-byte copies, and so does a corpus 4 bytes off alignment): bit for bit
+    its plain version, B2 at G = 1 and, row by row, B3 one-vs-many."""
+    rng = np.random.default_rng(Q * 1000 + m)
+    P, cap = 333, 350
+    fq = rng.integers(0, 40, size=(Q, m)).astype(np.int32)
+    vq = rng.normal(size=(Q, m)).astype(np.float32)
+    fq[Q // 2, : m // 3] = -1                 # a query with dead slots
+    src = rng.integers(0, Q, size=P)
+    copy = rng.random((P, m)) < rng.random((P, 1))
+    fc = np.full((1, cap, m), -2, dtype=np.int32)
+    vc = np.zeros((1, cap, m), dtype=np.float32)
+    fc[0, 7:7 + P] = np.where(copy, fq[src], rng.integers(0, 40, (P, m)))
+    vc[0, 7:7 + P] = np.where(copy, 1.5 * vq[src], rng.normal(size=(P, m)))
+    vc[0, 7:7 + P, :5] = 0.0                  # zero values: the safe denominator
+    fq, vq = torch.from_numpy(fq).to(cuda), torch.from_numpy(vq).to(cuda)
+    fcb, vcb = torch.from_numpy(fc).to(cuda), torch.from_numpy(vc).to(cuda)
+    fc, vc = fcb[0, 7:7 + P], vcb[0, 7:7 + P]
+    before = port_est.estimate_many_vs_many_cuda.launches
+    many = port_est.estimate_many_vs_many_cuda(fq, vq, fc, vc)
+    torch.cuda.synchronize()
+    assert port_est.estimate_many_vs_many_cuda.launches == before + 1
+    plain = port_est.estimate_many_vs_many_plain(fq, vq, fc, vc)
+    b2 = port_est.estimate_fields_cuda(fq[None], vq[None], fc[None], vc[None],
+                                       qmap=(0,), cmap=(0,))
+    off = port_est.estimate_many_vs_many_cuda(fq, vq, _off_by_4(fc),
+                                              _off_by_4(vc))
+    assert many[0].sum().item() > 0
+    for i in range(2):
+        assert many[i].shape == (Q, P)
+        for other in (plain[i], b2[i][0], off[i]):
+            assert _bits_equal(many[i], other)
+    for q in range(Q):
+        one = port_est.estimate_one_vs_many_cuda(fq[q], vq[q], fc, vc)
+        assert _bits_equal(many[0][q], one[0]) and _bits_equal(many[1][q],
+                                                                one[1])
+
+
+# (T, chunk, width, reps, offset) of the dense CountSketch card cases: a
+# ragged last chunk, two and three bucket tiles, and every (T, W) of
+# {1, 31, L + 1, 200,000} x {1, 153, 4,096, 10,000} at R = 1 and 5 with
+# positions that wrap past 2^32 (R = 1 near the start, R = 5 mid-vector)
+_L = port_cs.DENSE_CHUNK
+DENSE_CASES = [
+    (5000, 1024, 153, 5, 7),                 # five chunks, the last ragged
+    (70_000, _L, 4096, 5, 0),
+    (3000, 3000, 10_000, 5, 2 ** 32 - 1000),  # three bucket tiles, u32 wrap
+] + [(T, _L, W, R, 2 ** 32 - (16 if R == 1 else T // 2 + 1))
+     for T in (1, 31, _L + 1, 200_000) for W in (1, 153, 4096, 10_000)
+     for R in (1, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T, chunk, width, reps, offset", DENSE_CASES)
 def test_dense_countsketch_kernel_matches_plain_bitwise(cuda, monkeypatch, T,
-                                                        chunk, width, offset):
+                                                        chunk, width, reps,
+                                                        offset):
+    """Each (rep, chunk, bucket) sums in t order and the chunks in order, in
+    both versions: bit for bit at every T, W, R and offset; the plain
+    version on the card also equals itself on the CPU where its rank loop
+    is short (the expected run a bucket at most 5,000 terms)."""
     monkeypatch.setattr(port_cs, "DENSE_CHUNK", chunk)
     rng = np.random.default_rng(T)
     x = torch.from_numpy(rng.standard_t(2, T).astype(np.float32)).to(cuda)
     before = port_cs.countsketch_dense_cuda.launches
-    got = port_cs.countsketch_dense_cuda(x, width=width, reps=5, seed=17,
+    got = port_cs.countsketch_dense_cuda(x, width=width, reps=reps, seed=17,
                                          offset=offset)
     torch.cuda.synchronize()
     assert port_cs.countsketch_dense_cuda.launches == before + 1
-    want = port_cs.countsketch_dense_plain(x, width=width, reps=5, seed=17,
-                                           offset=offset)
-    assert _bits_equal(got, want)
-    assert _bits_equal(want.cpu(), port_cs.countsketch_dense_plain(
-        x.cpu(), width=width, reps=5, seed=17, offset=offset))
+    want = port_cs.countsketch_dense_plain(x, width=width, reps=reps,
+                                           seed=17, offset=offset)
+    assert got.shape == (reps, width) and _bits_equal(got, want)
+    if min(T, chunk) * reps <= 5000 * width:
+        assert _bits_equal(want.cpu(), port_cs.countsketch_dense_plain(
+            x.cpu(), width=width, reps=reps, seed=17, offset=offset))
 
 
 @pytest.mark.cuda

@@ -14,12 +14,13 @@ kernel's marker opcode (``MARKERS``): its own instructions over its
 markers, times the markers a unit takes.
 ``chip_smoke.py`` reports these beside the bounds as the kernels' issue
 floors: B1's draw (two MUFU.EX2, the draw's two ``expf``), B7's term,
-B6's term, B9's / B13's lookup and B5's lane.  Needs the CUDA toolkit's
-``cuobjdump``.
+B6's and B14's term, B9's / B13's lookup and B5's lane.  Needs the CUDA
+toolkit's ``cuobjdump``.
 """
 from __future__ import annotations
 
 import collections
+import functools
 import pathlib
 import re
 import shutil
@@ -33,8 +34,10 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 # value); B9's and B13's chunk loop one LDS.128 a lookup (its first
 # bucket's four keys; further buckets are read in loops of their own); B5's
 # lane loop two MUFU.EX2 a lane (the rank's two ``expf``), as its winners'
-# loop, which alone takes shared-memory atomics (ATOMS) and is passed over
+# loop, which alone takes shared-memory atomics (ATOMS) and is passed over;
+# B14's batch loop one FMUL a term (the sign times the value)
 MARKERS = {"icws_sketch_kernel": ("MUFU.EX2", 2),
+           "countsketch_dense_partial_kernel": ("FMUL", 1),
            "jl_sketch_kernel": ("STS", 1),
            "countsketch_sparse_kernel": ("FMUL", 1),
            "sample_estimate_fields_kernel": ("LDS.128", 1),
@@ -54,12 +57,18 @@ def opcode(instruction: str) -> str:
     return words[1] if words[0].startswith("@") else words[0]
 
 
+@functools.lru_cache(maxsize=None)
+def sass(library: str) -> str:
+    """The SASS of every function in ``library`` (``cuobjdump -sass``: many
+    seconds for the port's library, so one run a library and process)."""
+    return subprocess.run([cuobjdump(), "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=600).stdout
+
+
 def loops(library, symbol: str):
     """{function: [(own opcodes, nested loops) of each loop]}, innermost
     loops first."""
-    text = subprocess.run([cuobjdump(), "-sass", str(library)],
-                          capture_output=True, text=True, check=True,
-                          timeout=600).stdout
+    text = sass(str(library))
     out = {}
     for part in re.split(r"(?m)^\s*Function : ", text)[1:]:
         name, _, body = part.partition("\n")

@@ -16,9 +16,11 @@ estimate phase, then Q = 1 and Q = 16 against P = 16,384 (the service's
 route (``estimate_one_vs_many_cuda``, query 0) at P = 131,072 and at the
 corpus path's P (``chip_smoke.CORPUS_P``, 65,536: the capacity of the
 store ``estimate_vec`` runs over) and the pairwise route
-(``estimate_partials_cuda``, query 0 tiled) at P = 131,072, with B4
-(``estimate_many_vs_many_cuda``) at Q = 16 and 1
-beside them as a control; B8 (``linear_estimate_fields_cuda``) and B12
+(``estimate_partials_cuda``, query 0 tiled) at P = 131,072; B4
+(``estimate_many_vs_many_cuda``) on field 0's queries at Q = 16 and 1
+against P = 131,072, with B2 at G = 1 (``qmap = cmap = (0,)``, the same
+function: equal digests) at both beside it as the control; B8
+(``linear_estimate_fields_cuda``) and B12
 (``linear_estimate_fields_packed_cuda``, over the packed corpus) on
 CountSketch (R = 5, W = 153) and JL (R = 1, W = 769) tables at the same
 three shapes.  One line per (checkout, kernel, shape) with the first 16
@@ -126,6 +128,10 @@ def child() -> None:
     for q in (Q, 1):
         out[f"B4 Q={q} P={P}"] = timed(torch, lambda: (
             ke.estimate_many_vs_many_cuda(fq[:q], vq[:q], fc, vc)))
+        out[f"B2 G=1 Q={q} P={P} (control)"] = timed(torch, lambda: tuple(
+            x[0] for x in ke.estimate_fields_cuda(
+                fq[None, :q], vq[None, :q], fc[None], vc[None], qmap=(0,),
+                cmap=(0,))))
     del fq, vq, fc, vc
     g = torch.Generator(device=dev).manual_seed(3)
     for name, (R, W) in LINEAR.items():

@@ -1,8 +1,9 @@
 """B1 and B10 (the ICWS sketch kernel and its Pack variant), B6 and B7 (the
-CountSketch and JL sketch kernels), or B5 and its Pack variant (the DMH
-sketch), of several checkouts, in turns on one card.
+CountSketch and JL sketch kernels), B5 and its Pack variant (the DMH
+sketch), or B14 (the dense CountSketch), of several checkouts, in turns on
+one card.
 
-    python3 tools/time_icws_sketch.py [--linear | --dmh] ROOT [ROOT ...]
+    python3 tools/time_icws_sketch.py [--linear | --dmh | --dense] ROOT ...
 
 Each ROOT is the root of a checkout (``.`` for the working tree; a parent
 unpacked with ``git archive`` into a git-ignored directory such as
@@ -26,10 +27,15 @@ rows replicated on the host, so both sketch the same lanes; each kernel is
 held bit for bit against its plain version, timed alone (device ms from
 ``chip_smoke.device_ms``) and digested.  Where the checkout has the
 launch rule ``_launch_shape``, each shape also runs at other cluster sizes
-and block sizes (``DMH_VARIANTS``), each against the same digest.  Prints
-the card's name and power limit, each run's lines, and a table of device
-ms, group size, sample tile or launch shape, and digest per case and run.
-Needs one card.
+and block sizes (``DMH_VARIANTS``), each against the same digest.  With
+``--dense`` each run takes B14 at ``chip_smoke.py``'s two shapes (the
+inputs of ``compression_kernel_phase``: one TinyLlama-1.1B layer's
+gradient, T = 44,044,288, and its first chunk, T = L = 65,536 at offset
+2^20; W = 4,096, R = 5, seed 17), each held bit for bit against its plain
+version, timed alone (device ms of its kernels from
+``chip_smoke.device_ms``) and digested.  Prints the card's name and power
+limit, each run's lines, and a table of device ms, group size, sample
+tile or launch shape, and digest per case and run.  Needs one card.
 """
 from __future__ import annotations
 
@@ -190,9 +196,43 @@ def dmh_child(root: pathlib.Path) -> None:
     print(TAG + json.dumps(reports), flush=True)
 
 
+def dense_child(root: pathlib.Path) -> None:
+    sys.path[:0] = [str(root / "src"), str(root)]
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from repro_torch.kernels import countsketch as kcs
+    from repro_torch.optim.compression import CompressionConfig
+    cs.build_phase()
+    cfg = CompressionConfig()
+    kw = dict(width=cfg.width, reps=cfg.reps, seed=cfg.seed)
+    x = torch.from_numpy(np.random.default_rng(17).standard_t(
+        3, cs.GRAD_T).astype(np.float32)).cuda()
+    L = kcs.DENSE_CHUNK
+    reports = []
+    for label, xs, offset in ((f"T={cs.GRAD_T}", x, 0),
+                              (f"T=L={L}", x[:L], 1 << 20)):
+        kernel = functools.partial(kcs.countsketch_dense_cuda, xs, **kw,
+                                   offset=offset)
+        got = kernel()
+        torch.cuda.synchronize()
+        want = kcs.countsketch_dense_plain(xs, **kw, offset=offset)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"dense {label}: differs from plain")
+        del want
+        ms, _ = cs.device_ms(kernel, ("countsketch_dense_partial",
+                                      "countsketch_dense_reduce")
+                             if xs.shape[0] > L
+                             else "countsketch_dense_partial")
+        reports.append({"shape": f"dense {label} W={cfg.width} R={cfg.reps}",
+                        "device_ms": ms, "bits": digest([got])})
+    print(TAG + json.dumps(reports), flush=True)
+
+
 def main(argv) -> int:
     from time_flash_attention import turns
-    flag = argv[0] if argv[:1] in (["--linear"], ["--dmh"]) else None
+    flag = argv[0] if argv[:1] in (["--linear"], ["--dmh"], ["--dense"]) \
+        else None
     return turns(__file__, argv[bool(flag):], TAG, lambda root, r: (
         f"{root.name} {r['device_ms']:.4f}"
         + (f" S={r['group_size']}" if "group_size" in r else "")
@@ -205,7 +245,8 @@ def main(argv) -> int:
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--child"]:
-        {"--linear": linear_child, "--dmh": dmh_child}.get(
+        {"--linear": linear_child, "--dmh": dmh_child,
+         "--dense": dense_child}.get(
             (sys.argv[3:4] or [None])[0], child)(
             pathlib.Path(sys.argv[2]).resolve())
     else:
