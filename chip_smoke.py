@@ -29,11 +29,20 @@ Mistral-NeMo's heads, Gemma-7B's and InternVL2-1B's reduced ones (B15: f32
 through the f32 tensor-core kernel, bf16 through the bf16 one: by TMA where
 D % 8 == 0, value by value at D = 28), each kernel first held against its
 plain version.
+After the service runs, the ``merge`` phase builds lakes through
+``ingest_many_sharded`` (4 shards; ICWS the whole lake, the other
+families a 2,048-table sub-lake, each beside a single-stream service:
+every planted partner first; CS and JL equal to single-stream on an
+integer lake), holds each family's ``merge_rows`` (commutes bit for bit;
+ICWS and DMH against the host merge) and times ``merge_stores``; the
+``host oracle`` phase serves an ICWS service's host WeightedMinHash
+sketches beside the card.  The lake services pass
+``keep_host_oracle=False``.
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero on
 any failure, and at once when no card is present.  Each phase prints its
 wall time.  The line before the last is a JSON object with each kernel's
-launches on the serving runs (B10 also on its own path; B3 and B4 on the
-corpus path; B14 and B15 on theirs),
+launches on the serving runs and the sharded builds (B10 also on its own
+path; B3 and B4 on the corpus path; B14 and B15 on theirs),
 its error against the plain version, its time, the plain version's time, its bound and the time of one PyTorch
 call that computes the same function (where there is one); the last line
 is the run's device.
@@ -140,6 +149,23 @@ CORPUS_HOST_ROWS = 1_024
 CORPUS_P = 1 << (3 * LAKE_TABLES - 1).bit_length()
 CORPUS_KERNELS = ("icws_sketch", "estimate_pairs", "estimate_one_vs_many",
                   "estimate_many")
+# the merge phase (m = 512, unpacked, 4 shards): ICWS ingests the whole lake
+# through ingest_many_sharded; the other families a sub-lake of the 32
+# planted partners and the lake's first 2,016 other tables (a depth cut for
+# time); CS and JL also an integer-valued separated lake of 512 tables of
+# 500-2,000 rows, where their sharded build equals the single-stream one;
+# merge_stores is timed on two 16,384-row, 3-field stores (the sub-lake's
+# shard rows, eight times over), its merge_rows checked on the sub-lake's
+# first 256 tables
+MERGE_SHARDS = 4
+MERGE_SUBLAKE = 2_048
+MERGE_ROWS = 16_384
+MERGE_CHECK_TABLES = 256
+INT_LAKE_TABLES = 512
+# the host oracle phase: an ICWS service keeping its host WeightedMinHash
+# sketches over the first 6 planted partners and 6 other tables under
+# 2,000 rows, queried with the partners' queries
+HOST_TABLES = 6
 # the gradient-compression path sketches the gradient of one TinyLlama-1.1B
 # decoder layer (repro/configs/tinyllama_1_1b.py: d_model 2048, 32 heads,
 # 4 KV heads, head_dim 64, d_ff 5632): q, k, v and o projections, the
@@ -996,7 +1022,8 @@ def small_reference_phase(dev, family: str):
     queries = [(keys, signal), (keys[:500], rng.normal(size=500))]
     out = []
     for device in ("cpu", dev):
-        svc = SketchSearchService(m=M, seed=0, family=family, device=device)
+        svc = SketchSearchService(m=M, seed=0, family=family,
+                                  keep_host_oracle=False, device=device)
         svc.ingest_many(tables)
         out.append(svc.search_batch(queries, top_k=5, min_join=20,
                                     micro_batch=2))
@@ -1798,10 +1825,13 @@ def service_phase(family: str, lake):
     """One family's service over the lake: ingest every table, answer the
     64 queries, with the launch counters set to 0 just before and read just
     after; the gates of :func:`check_served` and, for TS/PS, the stored
-    rows' sorted-prefix layout.  Returns (launches, recall, service)."""
+    rows' sorted-prefix layout.  Returns (launches, recall, service,
+    (results, ingest seconds)): the results the merge phase compares its
+    sharded build with."""
     from repro_torch import SketchSearchService
     tables = lake[0]
-    svc = SketchSearchService(m=M, seed=0, family=family)
+    svc = SketchSearchService(m=M, seed=0, family=family,
+                              keep_host_oracle=False)
     counters = reset_counters()
     t0 = time.perf_counter()
     svc.ingest_many(tables)
@@ -1827,7 +1857,7 @@ def service_phase(family: str, lake):
     need[est_k] = n_batches + QUERIES
     recall = check_served(family, family, svc, lake, batched, sequential,
                           launches, need)
-    return launches, recall, svc
+    return launches, recall, svc, (batched, ingest_s)
 
 
 def carry(index, rows, *, packed: bool):
@@ -1925,7 +1955,8 @@ def packed_service_phase(family: str, lake, unpacked):
     tables = lake[0]
     counters = reset_counters()
     t0 = time.perf_counter()
-    svc = SketchSearchService(m=M, seed=0, family=family, packed=True)
+    svc = SketchSearchService(m=M, seed=0, family=family, packed=True,
+                              keep_host_oracle=False)
     if family == "icws":
         svc.ingest_many(tables)
     else:
@@ -1993,8 +2024,8 @@ def family_phases(family: str, lake):
     """The family's unpacked and packed serving runs, their latency turns
     and, for ICWS and DMH, B10's path; then both services are freed, so
     each family runs with no other family's service alive."""
-    launches, recall, svc = phase(f"service {family}", service_phase,
-                                  family, lake)
+    launches, recall, svc, served = phase(f"service {family}",
+                                          service_phase, family, lake)
     p_launches, p_recall, p_svc = phase(f"service packed {family}",
                                         packed_service_phase, family, lake,
                                         svc)
@@ -2006,7 +2037,303 @@ def family_phases(family: str, lake):
     del svc, p_svc
     gc.collect()
     torch.cuda.empty_cache()
-    return (launches, recall), (p_launches, p_recall), latency, b10
+    return (launches, recall), (p_launches, p_recall), latency, b10, served
+
+
+def sub_lake(lake):
+    """The merge phase's sub-lake: the planted partners and the lake's
+    first ``MERGE_SUBLAKE - 32`` other tables, in lake order."""
+    tables = lake[0]
+    partners = {p for p in lake[2] if p is not None}
+    others = iter(range(MERGE_SUBLAKE - len(partners)))
+    return [t for t in tables
+            if t[0] in partners or next(others, None) is not None]
+
+
+def first_ranked(label: str, results, partners):
+    """Gate: every planted partner ranks first.  Returns the count."""
+    first = sum(bool(res) and res[0].name == p
+                for res, p in zip(results, partners) if p is not None)
+    planted = sum(p is not None for p in partners)
+    for res in results:
+        for r in res:
+            if not (math.isfinite(r.join_size) and math.isfinite(r.corr)):
+                raise AssertionError(f"{label}: non-finite result {r}")
+    if first != planted:
+        raise AssertionError(f"{label}: {first} of {planted} planted "
+                             "partners ranked first")
+    return first
+
+
+def top10_overlap(results, reference):
+    """Per query, the tables two top-10 lists share and the reference
+    list's length (``min_join`` leaves most lists short)."""
+    return [(len({r.name for r in a} & {r.name for r in b}), len(b))
+            for a, b in zip(results, reference)]
+
+
+def sharded_service(family: str, tables, queries):
+    """A service that ingests ``tables`` through ``ingest_many_sharded``
+    (``MERGE_SHARDS`` shards) and answers ``queries`` in micro-batches of
+    16, the launch counters set to 0 just before the ingest and read just
+    after the queries.  Returns (service, results, launches, ingest s)."""
+    from repro_torch import SketchSearchService
+    svc = SketchSearchService(m=M, seed=0, family=family,
+                              keep_host_oracle=False)
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    svc.ingest_many_sharded(tables, shards=MERGE_SHARDS)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    results = svc.search_batch(queries, top_k=10, min_join=QUERY_ROWS / 4,
+                               micro_batch=MICRO_BATCH)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    *sketch_k, est_k = PATH_KERNELS[family]
+    need = {k: 3 * MERGE_SHARDS for k in sketch_k}
+    need[est_k] = math.ceil(len(queries) / MICRO_BATCH)
+    if any(launches[k] < n for k, n in need.items()):
+        raise AssertionError(f"{family} sharded build: launch counters "
+                             f"{launches} below {need}")
+    return svc, results, launches, ingest_s
+
+
+def integer_lake(rng):
+    """A separated lake of ``INT_LAKE_TABLES`` integer-valued tables of
+    500-2,000 rows (``tests/test_merge.py``'s lake at depth): 8
+    near-duplicates of an integer signal and disjoint-key noise tables,
+    every value a non-zero integer, so that CountSketch shard tables add
+    exactly in f32.  Returns (tables, queries)."""
+    signal = rng.integers(1, 9, 2_000) * rng.choice([-1.0, 1.0], 2_000)
+    tables = []
+    for i in range(8):
+        n = 1_000 + 125 * i
+        tables.append((f"dup{i}", np.arange(n),
+                       signal[:n] + rng.integers(10, 13, n)))
+    for i in range(INT_LAKE_TABLES - 8):
+        n = int(rng.integers(500, 2_001))
+        lo = 10_000 + 2_000 * i
+        tables.append((f"far{i:03d}", np.arange(lo, lo + n),
+                       rng.integers(1, 9, n) * rng.choice([-1.0, 1.0], n)))
+    queries = [(np.arange(1_000), signal[:1_000]),
+               (np.arange(500, 1_500), signal[500:1_500]),
+               (np.arange(12_000, 12_400),
+                rng.integers(1, 9, 400) * rng.choice([-1.0, 1.0], 400))]
+    return tables, queries
+
+
+def shard_rows(family, vec_rows, shard: int, shards: int):
+    """The family's ``[3, B, ...]`` rows of shard ``shard`` of each row's
+    three field vectors, on the card."""
+    from repro_torch.data.merge import split_by_key
+    per_field = [family.sketch_rows([split_by_key(r[f], shards, shard)
+                                     for r in vec_rows])
+                 for f in range(3)]
+    return tuple(torch.stack([c[i] for c in per_field])
+                 for i in range(len(family.components)))
+
+
+def merge_rows_checks(name: str, family, a, b):
+    """``merge_rows(a, b)`` equals ``merge_rows(b, a)`` bit for bit; for
+    ICWS and DMH, fingerprints and argkeys on at least 99% of slots equal
+    the port's host ``merge`` on the same rows.  Returns the slots that
+    differ (0 for the other families)."""
+    from repro_torch.core.icws import ICWSSketch
+    ab, ba = family.merge_rows(a, b), family.merge_rows(b, a)
+    for x, y, spec in zip(ab, ba, family.components):
+        if not bits_equal(x, y):
+            raise AssertionError(f"{name}: merge_rows(a, b) != merge_rows(b, "
+                                 f"a) in {spec.name}")
+    if name not in ("icws", "dmh"):
+        return {"fp": 0, "argkey": 0, "slots": int(ab[0].numel())}
+    host = family.host_oracle()
+    fp, val, norm, key = (x.cpu().numpy() for x in ab)
+    (fpa, va, na, ka), (fpb, vb, nb, kb) = (
+        [x.cpu().numpy() for x in r] for r in (a, b))
+    diff_fp = diff_key = 0
+    for f in range(fp.shape[0]):
+        for i in range(fp.shape[1]):
+            ref = host.merge(
+                ICWSSketch(fpa[f, i], va[f, i].astype(np.float64),
+                           float(na[f, i]), ka[f, i]),
+                ICWSSketch(fpb[f, i], vb[f, i].astype(np.float64),
+                           float(nb[f, i]), kb[f, i]))
+            diff_fp += int(np.sum(ref.fingerprints != fp[f, i]))
+            diff_key += int(np.sum(ref.argkeys != key[f, i]))
+    slots = int(fp.size)
+    if diff_fp > 0.01 * slots or diff_key > 0.01 * slots:
+        raise AssertionError(f"{name}: the card's merge differs from the host "
+                             f"merge on {diff_fp} fingerprints and {diff_key} "
+                             f"argkeys of {slots} slots")
+    return {"fp": diff_fp, "argkey": diff_key, "slots": slots}
+
+
+def merge_stores_ms(family, a, b) -> float:
+    """``merge_stores`` of two ``MERGE_ROWS``-row, 3-field stores holding
+    ``a`` and ``b`` (shard rows) tiled to that depth, in ms by CUDA events
+    (the TS/PS merge runs on the host, inside the events)."""
+    from repro_torch.data.merge import merge_stores
+    from repro_torch.data.store import CorpusStore
+    reps = MERGE_ROWS // a[0].shape[1]
+    stores = []
+    for rows in (a, b):
+        store = CorpusStore(family=family, fields=3)
+        store.append(*(torch.cat([r] * reps, dim=1) for r in rows))
+        stores.append(store)
+    host = family.name in ("ts", "ps")
+    return time_ms(lambda: merge_stores(*stores), reps=1 if host else 3,
+                   warmup=0 if host else 1)
+
+
+def merge_phase(lake, served):
+    """Mergeable corpora on the card, m = 512, unpacked, 4 shards.  ICWS
+    ingests the whole lake through ``ingest_many_sharded`` and the other
+    families the sub-lake (with a single-stream service of it beside
+    theirs); every planted partner must rank first, and each query's top 10
+    is printed against the single-stream service's.  On the integer lake
+    the CS sharded build answers exactly as the single-stream one and JL
+    within rtol 1e-5.  Per family ``merge_rows`` commutes bit for bit (ICWS
+    and DMH within 1% of slots of the host merge) and ``merge_stores`` is
+    timed.  Returns the sharded builds' launches, summed."""
+    from repro_torch import SketchSearchService
+    from repro_torch.data.dataset_search import DatasetSearchIndex
+    tables, queries, partners = lake
+    min_join = QUERY_ROWS / 4
+    launches = {name: 0 for name in launch_counters()}
+    report = {}
+    sub = sub_lake(lake)
+    vectorize = DatasetSearchIndex(m=M, seed=0,
+                                   keep_host_oracle=False).vectorize
+    vec_rows = [vectorize(k, x) for _, k, x in sub[:MERGE_ROWS // 8]]
+    for family in FAMILIES:
+        t0 = time.perf_counter()
+        if family == "icws":
+            lake_tables, ref, ref_ingest_s = tables, *served[family]
+        else:
+            lake_tables = sub
+            single = SketchSearchService(m=M, seed=0, family=family,
+                                         keep_host_oracle=False)
+            t1 = time.perf_counter()
+            single.ingest_many(sub)
+            torch.cuda.synchronize()
+            ref_ingest_s = time.perf_counter() - t1
+            ref = single.search_batch(queries, top_k=10, min_join=min_join,
+                                      micro_batch=MICRO_BATCH)
+            del single
+        svc, results, run, ingest_s = sharded_service(family, lake_tables,
+                                                      queries)
+        for k, n in run.items():
+            launches[k] += n
+        first = first_ranked(f"{family} sharded", results, partners)
+        ref_first = sum(bool(r) and r[0].name == p
+                        for r, p in zip(ref, partners) if p is not None)
+        overlap = top10_overlap(results, ref)
+        shared = sum(o for o, _ in overlap)
+        returned = sum(n for _, n in overlap)
+        n = len(lake_tables)
+        log(f"{family} sharded build ({MERGE_SHARDS} shards, {n} tables): "
+            f"{n / ingest_s:.1f} tables/s ({ingest_s:.1f} s) against "
+            f"ingest_many's {n / ref_ingest_s:.1f} tables/s; planted "
+            f"partners ranked first {first} of {QUERIES // 2} (single-stream "
+            f"{ref_first}); top-10 overlap with the single-stream service "
+            f"{shared} of its {returned} results, per query (shared, its "
+            f"count) {overlap}; launches {run}")
+        del svc
+        fam = family_for(family)
+        a, b = (shard_rows(fam, vec_rows, s, 2) for s in (0, 1))
+        diff = merge_rows_checks(
+            family, fam, *(tuple(c[:, :MERGE_CHECK_TABLES] for c in r)
+                           for r in (a, b)))
+        ms = merge_stores_ms(fam, a, b)
+        del a, b
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{family} merge_rows commutes bit for bit"
+            + (f"; against the host merge {diff['fp']} fingerprints and "
+               f"{diff['argkey']} argkeys of {diff['slots']} slots differ"
+               if family in ("icws", "dmh") else "")
+            + f"; merge_stores of two {MERGE_ROWS}-row, 3-field stores "
+            f"{ms:.3f} ms")
+        report[family] = {"sharded_tables_per_s": n / ingest_s,
+                          "ingest_many_tables_per_s": n / ref_ingest_s,
+                          "tables": n, "first": first,
+                          "top10_shared": shared,
+                          "top10_single_stream": returned,
+                          "merge_stores_ms": ms, "host_merge_diff": diff,
+                          "s": time.perf_counter() - t0}
+    int_tables, int_queries = integer_lake(np.random.default_rng(9))
+    for family in ("cs", "jl"):
+        single = SketchSearchService(m=M, seed=0, family=family,
+                                     keep_host_oracle=False)
+        single.ingest_many(int_tables)
+        sharded = SketchSearchService(m=M, seed=0, family=family,
+                                      keep_host_oracle=False)
+        sharded.ingest_many_sharded(int_tables, shards=MERGE_SHARDS)
+        kw = dict(top_k=4, min_join=20)
+        got = sharded.search_batch(int_queries, **kw)
+        want = single.search_batch(int_queries, **kw)
+        for g, w in zip(got, want):
+            if [r.name for r in g] != [r.name for r in w]:
+                raise AssertionError(f"{family} integer lake: sharded names "
+                                     f"{[r.name for r in g]} != {[r.name for r in w]}")
+            for x, y in zip(g, w):
+                sx = [x.join_size, x.sum_b, x.mean_b, x.corr]
+                sy = [y.join_size, y.sum_b, y.mean_b, y.corr]
+                ok = (sx == sy if family == "cs" else
+                      np.allclose(sx, sy, rtol=1e-5, atol=1e-5))
+                if not ok:
+                    raise AssertionError(f"{family} integer lake: {x} != {y}")
+        log(f"{family} integer lake ({len(int_tables)} tables): the sharded "
+            "build answers " + ("exactly as" if family == "cs" else
+                                "within rtol 1e-5 of")
+            + f" the single-stream build, top {[r.name for r in got[0]]}")
+        del single, sharded
+    log("merge (" + card_identity() + "): " + json.dumps(report))
+    return launches
+
+
+def host_oracle_phase(lake):
+    """An ICWS service that keeps its host WeightedMinHash sketches
+    (``keep_host_oracle=True``) over the first 6 planted partners and 6
+    other tables under 2,000 rows, queried with the partners' queries on
+    both backends: the same top-3 names, the partner first in both, and
+    equal ``corr`` (the KMV refinement is shared)."""
+    from repro_torch import SketchSearchService
+    tables, queries, partners = lake
+    by_name = {t[0]: t for t in tables}
+    picked = [(qi, p) for qi, p in enumerate(partners)
+              if p is not None][:HOST_TABLES]
+    others = [t for t in tables if not t[0].startswith("partner")
+              and len(t[1]) < 2_000][:HOST_TABLES]
+    svc = SketchSearchService(m=M, seed=0, family="icws",
+                              keep_host_oracle=True)
+    t0 = time.perf_counter()
+    svc.ingest_many([by_name[p] for _, p in picked] + others)
+    torch.cuda.synchronize()
+    ingest_s = time.perf_counter() - t0
+    min_join = QUERY_ROWS / 4
+    host_s = 0.0
+    for qi, partner in picked:
+        dev = svc.search(*queries[qi], top_k=3, min_join=min_join)
+        t1 = time.perf_counter()
+        host = svc.search(*queries[qi], top_k=3, min_join=min_join,
+                          backend="host")
+        host_s += time.perf_counter() - t1
+        if [r.name for r in dev] != [r.name for r in host]:
+            raise AssertionError(f"host oracle: device top 3 "
+                                 f"{[r.name for r in dev]} != host "
+                                 f"{[r.name for r in host]}")
+        if not dev or dev[0].name != partner:
+            raise AssertionError(f"host oracle: {partner} not first "
+                                 f"({[r.name for r in dev]})")
+        if [r.corr for r in dev] != [r.corr for r in host]:
+            raise AssertionError("host oracle: corr differs between the "
+                                 "backends")
+    d = svc.describe()
+    log(f"host oracle: {d['tables']} tables ingested with their host "
+        f"sketches in {ingest_s:.1f} s; {len(picked)} partner queries on "
+        f"both backends: equal top-3 names and corr, each partner first; "
+        f"host search {1e3 * host_s / len(picked):.1f} ms a query")
 
 
 def sample_extra(name, rep):
@@ -2089,25 +2416,30 @@ def main() -> int:
         phase(f"small lake {family}", small_reference_phase, dev, family)
     lake = phase("lake", lake_phase)
     corpus_launches = phase("corpus", corpus_phase, lake)
-    runs, packed_runs, latency, b10_path = {}, {}, {}, {}
+    runs, packed_runs, latency, b10_path, served = {}, {}, {}, {}, {}
     for family in FAMILIES:
         (runs[family], packed_runs[family], latency[family],
-         b10_path[family]) = family_phases(family, lake)
+         b10_path[family], served[family]) = family_phases(family, lake)
+    merge_launches = phase("merge", merge_phase, lake, served)
+    del served
+    phase("host oracle", host_oracle_phase, lake)
     for label, rs in (("unpacked", runs), ("packed", packed_runs)):
         log(f"planted-partner recall ({label}), top 10 / ranked first, of "
             f"{QUERIES // 2}: " + ", ".join(
                 f"{f} {r[1]['in_top10']}/{r[1]['first']}"
                 for f, r in rs.items()))
     # a kernel's launches: the sum over every serving run, unpacked and
-    # packed; B10 is on none of them, and its own path's count is
-    # "entry_point_launches"
+    # packed, and the merge phase's sharded builds and their queries
+    # (apart, "sharded_build_launches"); B10 is on none of them, and its
+    # own path's count is "entry_point_launches"
     launches = {name: sum(r[0][name] for rs in (runs, packed_runs)
-                          for r in rs.values())
+                          for r in rs.values()) + merge_launches[name]
                 for name in launch_counters()}
 
     rep = sketch[3]   # the query micro-batch launch: B = 48, N = 4096
     kernels = [
         kernel_entry(name, source, replaces, launches[name], r, shapes,
+                     sharded_build_launches=merge_launches[name],
                      **sample_extra(name, r), **dmh_extra(name, r))
         for name, source, replaces, r, shapes in (
             ("icws_sketch", "icws_sketch.cu", "icws_sketch.py:40", rep,

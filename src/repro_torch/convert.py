@@ -15,7 +15,8 @@ caller exports them as numpy (this module imports nothing of JAX)::
                              seed=jax_index.seed,
                              family=jax_index.family.name, device="cuda")
 
-and gets a port index that serves the same sketch rows.  All six families
+and gets a port index that serves the same sketch rows (the export holds
+no host oracle sketches, so the index keeps none).  All six families
 are carried, one buffer per component of the family: ICWS and DMH share
 the ICWS buffers, CS and JL carry their tables, TS and PS their sample
 keys, values and taus.  A packed JAX index (``packed=True``) carries its
@@ -80,7 +81,8 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
     if len(tables) != size:
         raise ValueError(f"{len(tables)} tables for {size} store rows")
     index = DatasetSearchIndex(m=m, seed=seed, key_space=key_space,
-                               family=family, packed=packed, device=device)
+                               keep_host_oracle=False, family=family,
+                               packed=packed, device=device)
     if size == 0:
         return index
     specs = (index.family.packed_components if packed
@@ -113,5 +115,6 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
         sample = KMVSketch(hashes=np.asarray(hashes, np.int64),
                            values=np.asarray(values, np.float64),
                            k=index.kmv.k, seed=index.kmv.seed)
-        index._register_table(name, int(n_rows), sample, tenant=owner.get(row))
+        index._register_table(name, int(n_rows), sample,
+                              tenant=owner.get(row))
     return index

@@ -1,8 +1,11 @@
-"""2-universal affine hashing over Z_p, p = 2^31 - 1 (copy of the part of
-``repro.core.hashing`` that KMV sampling uses).
+"""2-universal hashing over Z_p, p = 2^31 - 1 (copy of
+``repro.core.hashing``): the affine hash of KMV sampling, the multilinear
+pair hash of the host WeightedMinHash and its keyed uniforms.
 
-Keys are relabelled by the splitmix64 finalizer before the affine hash;
-all arithmetic is numpy int64/uint64, bit for bit the JAX package's.
+Keys are relabelled by the splitmix64 finalizer before hashing; all
+arithmetic is numpy int64/uint64, bit for bit the JAX package's.  Within a
+block i the pair hash ``h(i, j) = (a i + b j + c) mod p`` is the
+progression ``start(i) + j b (mod p)`` that :mod:`.progmin` minimises.
 """
 from __future__ import annotations
 
@@ -52,3 +55,52 @@ class AffineHashFamily:
         x = _mix_to_zp(x)
         shape = (self.m,) + (1,) * x.ndim
         return (self.c1.reshape(shape) * x + self.c2.reshape(shape)) % MERSENNE_P
+
+
+@dataclasses.dataclass(frozen=True)
+class PairHashFamily:
+    """m independent multilinear hashes h_t(i, j) = (a[t] i + b[t] j + c[t])
+    mod p, 2-universal over pairs with 0 <= i, j < p."""
+
+    a: np.ndarray  # int64 [m], in [1, p)
+    b: np.ndarray  # int64 [m], in [1, p): the progression step, non-zero
+    c: np.ndarray  # int64 [m], in [0, p)
+
+    @staticmethod
+    def create(m: int, seed: int) -> "PairHashFamily":
+        g = _rng(seed ^ 0x9E3779B9)
+        a = g.integers(1, MERSENNE_P, size=m, dtype=np.int64)
+        b = g.integers(1, MERSENNE_P, size=m, dtype=np.int64)
+        c = g.integers(0, MERSENNE_P, size=m, dtype=np.int64)
+        return PairHashFamily(a=a, b=b, c=c)
+
+    @property
+    def m(self) -> int:
+        return int(self.a.shape[0])
+
+    def block_starts(self, blocks: np.ndarray) -> np.ndarray:
+        """h_t(i, 0) for each block i: int64 [m, nnz] in [0, p).  The block
+        index is mix64-relabelled first; the slot index j is not."""
+        blocks = _mix_to_zp(np.asarray(blocks, dtype=np.int64))
+        return (self.a[:, None] * blocks[None, :]
+                + self.c[:, None]) % MERSENNE_P
+
+    def hash_pairs_bruteforce(self, i: int, js: np.ndarray) -> np.ndarray:
+        """Hash (i, j) for each j: int64 [m, len(js)] (a test oracle)."""
+        js = np.asarray(js, dtype=np.int64) % MERSENNE_P
+        i = np.int64(_mix_to_zp(np.array([int(i)]))[0])
+        return (self.a[:, None] * i + self.b[:, None] * js[None, :]
+                + self.c[:, None]) % MERSENNE_P
+
+
+def uniforms_from_key(seed: int, stream: int, keys: np.ndarray,
+                      m: int) -> np.ndarray:
+    """Pseudo-uniform floats in (0, 1) keyed by (key, t), t in [0, m):
+    float64 [m, nnz], each ``stream`` an independent family."""
+    fam = AffineHashFamily.create(m, seed ^ (0xA5A5A5 + 7919 * stream))
+    z = fam.hash_ints(keys).astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15)
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    u = (z >> np.uint64(11)).astype(np.float64) / float(1 << 53)
+    return np.clip(u, 1e-12, 1.0 - 1e-12)

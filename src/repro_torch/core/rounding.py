@@ -1,0 +1,31 @@
+"""Algorithm 4, vector rounding for the host WeightedMinHash (copy of
+``round_counts`` from ``repro.core.rounding``).
+
+A unit vector ``z`` becomes exact integer repetition counts ``k_i =
+floor(z_i^2 L)`` with the deficit ``L - sum(k)`` added at the largest
+entry, so ``sum(k) == L`` holds exactly and the rounding error is
+relative, not additive.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def round_counts(z: np.ndarray, L: int) -> np.ndarray:
+    """Repetition counts ``k[i] = L * z~[i]^2`` as exact int64: ``sum(k) ==
+    L``, ``k >= 0``, the deficit added at ``argmax |z|``."""
+    z = np.asarray(z, dtype=np.float64)
+    L = int(L)
+    k = np.floor(z * z * L).astype(np.int64)
+    deficit = L - int(k.sum())
+    if deficit < 0:
+        # only through round-off in the unit normalisation: shave the
+        # excess off the largest count
+        i = int(np.argmax(k))
+        k[i] += deficit
+        if k[i] < 0:  # pragma: no cover - needs pathological inputs
+            raise ValueError("rounding deficit exceeded the largest count")
+        return k
+    k[int(np.argmax(np.abs(z)))] += deficit
+    return k
+

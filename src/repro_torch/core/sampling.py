@@ -8,15 +8,18 @@ the same coordinates consistently.  Both serialize to the fixed-slot row
 the 31-bit non-negative domain, unique (duplicates aggregated) and
 ascending, with inclusion probabilities ``p = min(1, slots * v^2 / tau)``
 (``tau <= 0`` means probability 1).  Rows are bit for bit the JAX
-package's.
+package's.  :class:`ThresholdSamplingU32` and :class:`PrioritySamplingU32`
+are the families' host oracles: sketch, estimate and union-merge.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import numpy as np
 
 from . import u32
+from .types import SparseVec
 
 # salt stream of the coordinated sample hash (same id as the JAX package's
 # sampling stream; spelled the port's way so no registry name appears here)
@@ -94,3 +97,144 @@ def priority_sample(indices: np.ndarray, values: np.ndarray, *, slots: int,
     tau = float(slots) / float(rank[order[slots]])
     keep = np.sort(order[:slots])
     return keys[keep], vals[keep], tau
+
+
+def sample_probs(vals: np.ndarray, tau: float, slots: int) -> np.ndarray:
+    """Inclusion probabilities of a stored row in f64: ``min(1, slots v^2 /
+    tau)``, 1 where ``tau <= 0``, 0 for empty (``v == 0``) slots."""
+    v = np.asarray(vals, np.float64)
+    if tau > 0:
+        p = np.minimum(1.0, float(slots) * v * v / float(tau))
+    else:
+        p = np.ones_like(v)
+    return np.where(v != 0.0, p, 0.0)
+
+
+@dataclasses.dataclass
+class SampleSketch:
+    """Up to ``slots`` (key, value) pairs and the probability scale
+    ``tau``."""
+
+    keys: np.ndarray      # int64 ascending, 31-bit domain
+    values: np.ndarray    # float64 raw values
+    tau: float            # p = min(1, slots * v^2 / tau); tau <= 0 => 1
+    slots: int            # the fixed layout size the probabilities scale to
+
+    def storage_doubles(self) -> float:
+        """A key (i32) and value (f32) pair per slot is one double
+        equivalent, plus one double for tau."""
+        return float(self.slots) + 1.0
+
+
+class _SamplingU32:
+    """Shared host plumbing of the two sampling sketchers."""
+
+    def __init__(self, slots: int, seed: int = 0):
+        if slots < 1:
+            raise ValueError("slots must be >= 1")
+        self.slots = int(slots)
+        self.seed = int(seed)
+
+    def _select(self, indices, values):
+        raise NotImplementedError
+
+    def sketch(self, v: SparseVec) -> SampleSketch:
+        keys, vals, tau = self._select(v.indices, v.values)
+        return SampleSketch(keys=keys, values=vals, tau=tau, slots=self.slots)
+
+    def sketch_dense(self, a: np.ndarray) -> SampleSketch:
+        return self.sketch(SparseVec.from_dense(a))
+
+    def estimate(self, sa: SampleSketch, sb: SampleSketch) -> float:
+        """``sum va vb / min(pa, pb)`` over the matched keys: the
+        coordinated hash makes ``min(pa, pb)`` the probability that a key
+        lands in both samples."""
+        common, ia, ib = np.intersect1d(sa.keys, sb.keys, return_indices=True)
+        if common.size == 0:
+            return 0.0
+        va, vb = sa.values[ia], sb.values[ib]
+        p = np.minimum(sample_probs(va, sa.tau, self.slots),
+                       sample_probs(vb, sb.tau, self.slots))
+        return float(np.sum(va * vb / np.where(p > 0, p, 1.0) * (p > 0)))
+
+    def _merge_candidates(self, sa: SampleSketch, sb: SampleSketch):
+        """Validate a union-merge and return the pooled slots."""
+        for s in (sa, sb):
+            if s.slots != self.slots:
+                raise ValueError(f"slot mismatch: sketch has {s.slots}, "
+                                 f"sketcher has {self.slots}")
+        if np.intersect1d(sa.keys, sb.keys).size:
+            raise ValueError("union-merge requires disjoint supports "
+                             "(shared keys found in both samples)")
+        return (np.concatenate([sa.keys, sb.keys]),
+                np.concatenate([sa.values, sb.values]))
+
+    @staticmethod
+    def _packed(keys, vals, keep, tau, slots) -> SampleSketch:
+        order = np.argsort(keys[keep], kind="stable")
+        return SampleSketch(keys=keys[keep][order], values=vals[keep][order],
+                            tau=float(tau), slots=slots)
+
+
+class ThresholdSamplingU32(_SamplingU32):
+    """Threshold-sampling host oracle at the target
+    :func:`ts_target` gives."""
+
+    name = "ts"
+
+    def _select(self, indices, values):
+        return threshold_sample(indices, values, slots=self.slots,
+                                seed=self.seed)
+
+    def merge(self, sa: SampleSketch, sb: SampleSketch) -> SampleSketch:
+        """Re-subsample the pooled slots under the merged threshold: for
+        disjoint supports ``tau_a + tau_b`` is the union's tau, and the
+        same coordinated coin ``h < p_c`` reproduces the build-once sample
+        (modulo the rare per-shard overflow truncation)."""
+        keys, vals = self._merge_candidates(sa, sb)
+        tau = float(sa.tau) + float(sb.tau)
+        if keys.size == 0:
+            return SampleSketch(keys=keys, values=vals, tau=tau,
+                                slots=self.slots)
+        p = sample_probs(vals, tau, self.slots)
+        h = _sample_hash(keys, self.seed)
+        keep = h < p
+        if int(keep.sum()) > self.slots:
+            rank = np.where(keep, h / p, np.inf)
+            keep = np.zeros_like(keep)
+            keep[np.argsort(rank, kind="stable")[:self.slots]] = True
+        return self._packed(keys, vals, keep, tau, self.slots)
+
+
+class PrioritySamplingU32(_SamplingU32):
+    """Priority-sampling host oracle: exactly ``min(nnz, slots)`` samples,
+    the threshold rank folded into ``tau``."""
+
+    name = "ps"
+
+    def _select(self, indices, values):
+        return priority_sample(indices, values, slots=self.slots,
+                               seed=self.seed)
+
+    def merge(self, sa: SampleSketch, sb: SampleSketch) -> SampleSketch:
+        """Exactly the build-once priority sample: each side's threshold
+        rank is ``T = slots / tau`` (infinite for ``tau <= 0``), the
+        union's ``min(T_a, T_b, T_cand)`` with ``T_cand`` the (slots+1)-th
+        smallest pooled rank; pooled ranks below it are kept."""
+        keys, vals = self._merge_candidates(sa, sb)
+        t_a = np.inf if sa.tau <= 0 else float(self.slots) / float(sa.tau)
+        t_b = np.inf if sb.tau <= 0 else float(self.slots) / float(sb.tau)
+        if keys.size == 0:
+            return SampleSketch(keys=keys, values=vals, tau=0.0,
+                                slots=self.slots)
+        rank = _sample_hash(keys, self.seed) / (vals * vals)
+        t_cand = (np.sort(rank)[self.slots] if keys.size > self.slots
+                  else np.inf)
+        t_c = min(t_a, t_b, t_cand)
+        if np.isinf(t_c):
+            keep = np.ones(keys.size, bool)
+            tau = 0.0
+        else:
+            keep = rank < t_c
+            tau = float(self.slots) / t_c
+        return self._packed(keys, vals, keep, tau, self.slots)

@@ -22,9 +22,15 @@ itself has no family-specific branch.  ``_corr_scores`` and
 survivors' correlation from the matched KMV samples.  Per-query results of
 ``query_batch`` equal a loop of ``query`` bit for bit.
 
-Not ported yet (the constructor raises ``NotImplementedError`` naming the
-``ROADMAP.md`` queue item): the host oracle (``backend="host"``,
-``keep_host_oracle=True``) and sharded serving (``mesh``).
+``add_tables_sharded`` builds a batch of tables through a shard-and-merge
+lake build (:func:`repro_torch.data.merge.build_sharded`) before one
+append.  The host oracle (``backend="host"``, the ICWS family only) is the
+paper's numpy WeightedMinHash (:class:`repro_torch.core.WeightedMinHash`):
+with ``keep_host_oracle=True``, the default as in the JAX package, an ICWS
+index also keeps three host sketches a table and answers
+``backend="host"`` queries from them; a ``backend="host"`` index keeps no
+device store.  Not ported yet: sharded serving (``mesh``; the constructor
+raises ``NotImplementedError`` naming its ``ROADMAP.md`` item).
 """
 from __future__ import annotations
 
@@ -34,10 +40,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import KMV, KMVSketch, SparseVec
+from repro_torch.core import (KMV, KMVSketch, SparseVec, WeightedMinHash,
+                              WMHSketch, stack_wmh)
 from repro_torch.device import resolve_device
 
-from .families import make_family, wmh_storage
+from .families import FAMILY_NAMES, make_family, wmh_storage
+from .merge import build_sharded
 from .store import CorpusStore
 
 FIELDS = ("key_indicator", "values", "values_sq")
@@ -53,6 +61,9 @@ CFIELD = (_IND, _IND, _VAL, _IND, _SQ, _VAL)
 @dataclasses.dataclass
 class TableSketch:
     name: str
+    key_indicator: Optional[WMHSketch]  # host oracle sketches, None when
+    values: Optional[WMHSketch]         # the index keeps none
+    values_sq: Optional[WMHSketch]
     sample: KMVSketch            # KMV keyed sample of (key -> summed value)
     n_rows: int
 
@@ -111,19 +122,19 @@ class DatasetSearchIndex:
     """
 
     def __init__(self, m: int = 256, seed: int = 0, key_space: int = 2 ** 31,
-                 backend: str = "device", keep_host_oracle: bool = False,
+                 backend: str = "device", keep_host_oracle: bool = True,
                  mesh=None, family: str = "icws", packed: bool = False,
                  device="cuda"):
-        if backend == "host":
-            raise NotImplementedError(
-                "backend='host' (the WeightedMinHash host oracle) is not "
-                "ported yet (Queue A 19 in ROADMAP.md)")
-        if backend != "device":
+        if backend not in ("device", "host"):
             raise ValueError(f"unknown backend {backend!r}")
-        if keep_host_oracle:
-            raise NotImplementedError(
-                "keep_host_oracle=True (host WeightedMinHash sketches) is "
-                "not ported yet (Queue A 19 in ROADMAP.md)")
+        if family not in FAMILY_NAMES:
+            raise ValueError(f"unknown sketch family {family!r}; choose "
+                             f"from {FAMILY_NAMES}")
+        if family != "icws" and backend == "host":
+            raise ValueError(
+                "backend='host' is the WMH/ICWS oracle path; the other "
+                "families (cs, jl, ts, ps, dmh) serve on the device path "
+                "only")
         if mesh is not None:
             raise NotImplementedError(
                 "sharded serving (mesh) is not ported yet (Queue A 14 in "
@@ -137,13 +148,21 @@ class DatasetSearchIndex:
         # every family sized to the storage an m-sample ICWS sketch
         # occupies (icws: exactly m), so the comparison is storage-matched
         self.family = make_family(family, storage=wmh_storage(m), seed=seed)
+        # only an ICWS index keeps the host oracle sketches (the other
+        # families cannot serve the WMH host path), and only a device
+        # index keeps the device store
+        self.keep_host_oracle = ((keep_host_oracle or backend == "host")
+                                 and family == "icws")
+        self.sketcher = WeightedMinHash(m=m, seed=seed)
         self.kmv = KMV(k=m, seed=seed)
         self.tables: List[TableSketch] = []
         # tenant id -> global table positions, ascending (table i IS store
         # row i); the store keeps the same assignment as row ranges
         self._tenant_tables: Dict[str, List[int]] = {}
-        self.store = CorpusStore(family=self.family, fields=len(FIELDS),
-                                 packed=self.packed, device=self.device)
+        self.store: Optional[CorpusStore] = (
+            CorpusStore(family=self.family, fields=len(FIELDS),
+                        packed=self.packed, device=self.device)
+            if backend == "device" else None)
 
     # -- ingestion ----------------------------------------------------------
     def vectorize(self, keys: np.ndarray, values: np.ndarray
@@ -170,21 +189,60 @@ class DatasetSearchIndex:
     def add_table(self, name: str, keys: np.ndarray, values: np.ndarray,
                   tenant: Optional[str] = None):
         """Sketch one table into the corpus (one ``sketch_rows`` call for
-        its three field vectors, rows appended in place); ``tenant`` scopes it to a logical corpus
-        inside the shared arena."""
+        its three field vectors, rows appended in place); ``tenant`` scopes
+        it to a logical corpus inside the shared arena."""
         ind, val, sq = self.vectorize(keys, values)
-        comps = self.family.sketch_rows([ind, val, sq], device=self.device)
-        self.store.append(*(c[:, None] for c in comps), tenant=tenant)
+        if self.store is not None:
+            comps = self.family.sketch_rows([ind, val, sq],
+                                            device=self.device)
+            self.store.append(*(c[:, None] for c in comps), tenant=tenant)
         self._register_table(name, len(keys), self.kmv.sketch(val),
+                             self._host_sketches(ind, val, sq),
                              tenant=tenant)
 
+    def add_tables_sharded(self, tables: Sequence[Tuple[str, np.ndarray,
+                                                        np.ndarray]],
+                           *, shards: int, tenant: Optional[str] = None):
+        """Ingest many tables through a ``shards``-way lake build: every
+        table's three field vectors are key-partitioned, each shard is
+        sketched apart, and the shard stores merge pairwise
+        (:func:`~repro_torch.data.merge.build_sharded`) before one append
+        into this index's store.  The KMV samples and, when kept, the host
+        oracle sketches are built single-stream.  Rankings match the
+        single-stream build: bit for bit for CS on integer-valued data, to
+        the final rounding for JL, and as top-k sets for ICWS, DMH, TS and
+        PS on a separated lake."""
+        if self.store is None:
+            raise ValueError("sharded builds target the device corpus "
+                             "(index constructed with backend='host')")
+        tables = list(tables)
+        if not tables:
+            return
+        rows = [self.vectorize(keys, values) for _, keys, values in tables]
+        merged = build_sharded(rows, family=self.family, shards=shards,
+                               device=self.device)
+        self.store.append(*merged.field_arrays(), tenant=tenant)
+        for (name, keys, _), (ind, val, sq) in zip(tables, rows):
+            self._register_table(name, len(keys), self.kmv.sketch(val),
+                                 self._host_sketches(ind, val, sq),
+                                 tenant=tenant)
+
+    def _host_sketches(self, ind: SparseVec, val: SparseVec, sq: SparseVec
+                       ) -> Optional[Tuple[WMHSketch, ...]]:
+        """The table's three host oracle sketches, when the index keeps
+        them."""
+        if not self.keep_host_oracle:
+            return None
+        return tuple(self.sketcher.sketch(v) for v in (ind, val, sq))
+
     def _register_table(self, name: str, n_rows: int, sample: KMVSketch,
+                        host: Optional[Tuple[WMHSketch, ...]] = None,
                         tenant: Optional[str] = None):
         if tenant is not None:
             self._tenant_tables.setdefault(str(tenant), []).append(
                 len(self.tables))
-        self.tables.append(TableSketch(name=name, sample=sample,
-                                       n_rows=n_rows))
+        self.tables.append(TableSketch(name, *(host or (None,) * 3),
+                                       sample=sample, n_rows=n_rows))
 
     # -- tenancy -------------------------------------------------------------
     def tenants(self) -> Tuple[str, ...]:
@@ -201,12 +259,6 @@ class DatasetSearchIndex:
         return [self.tables[i] for i in sel]
 
     # -- queries ------------------------------------------------------------
-    def _check_backend(self, backend: Optional[str]) -> None:
-        if backend not in (None, "device"):
-            raise NotImplementedError(
-                f"backend={backend!r} is not ported yet (Queue A 19 in "
-                "ROADMAP.md); this index serves backend='device'")
-
     def query(self, keys: np.ndarray, values: np.ndarray,
               top_k: int = 10, min_join: float = 1.0,
               backend: Optional[str] = None,
@@ -215,10 +267,13 @@ class DatasetSearchIndex:
 
         ``tenant`` restricts the search to one logical corpus of the shared
         arena, bit for bit what a dedicated index over its tables returns.
+        ``backend`` overrides the index's for this query.
         """
-        self._check_backend(backend)
         if not self.tables:
             return []
+        if (backend or self.backend) == "host":
+            return self._query_host(keys, values, top_k, min_join,
+                                    tenant=tenant)
         return self._query_batch_device(
             [(np.asarray(keys), np.asarray(values))], top_k, min_join,
             tenant=tenant)[0]
@@ -228,12 +283,16 @@ class DatasetSearchIndex:
                     backend: Optional[str] = None,
                     tenant: Optional[str] = None) -> List[List[SearchResult]]:
         """Answer Q ``(keys, values)`` queries with ONE ``sketch_rows`` call
-        for the 3Q field vectors and ONE fused estimate launch; per-query results equal
-        ``[self.query(k, v) for k, v in queries]``."""
-        self._check_backend(backend)
+        for the 3Q field vectors and ONE fused estimate launch; per-query
+        results equal ``[self.query(k, v) for k, v in queries]``.  The host
+        backend loops the host oracle."""
         queries = list(queries)
         if not self.tables or not queries:
             return [[] for _ in queries]
+        if (backend or self.backend) == "host":
+            return [self._query_host(np.asarray(k), np.asarray(v), top_k,
+                                     min_join, tenant=tenant)
+                    for k, v in queries]
         return self._query_batch_device(queries, top_k, min_join,
                                         tenant=tenant)
 
@@ -259,6 +318,9 @@ class DatasetSearchIndex:
     def _query_batch_device(self, queries, top_k: int, min_join: float,
                             tenant: Optional[str] = None
                             ) -> List[List[SearchResult]]:
+        if self.store is None:
+            raise ValueError("device corpus was not built at ingest "
+                             "(index constructed with backend='host')")
         Q = len(queries)
         field_vecs: List[SparseVec] = []
         samples: List[KMVSketch] = []
@@ -310,6 +372,46 @@ class DatasetSearchIndex:
                else self.family.estimate_fields)
         return est(qcomps, cbufs, qmap=QFIELD, cmap=CFIELD)
 
+    # -- host oracle ---------------------------------------------------------
+    def _query_host(self, keys, values, top_k: int, min_join: float,
+                    tenant: Optional[str] = None) -> List[SearchResult]:
+        """The WeightedMinHash oracle: join size and SUM from host sketch
+        estimates, corr from the shared KMV refinement."""
+        if self.family.name != "icws":
+            raise ValueError(
+                "backend='host' is the WMH/ICWS oracle path; this index "
+                f"serves the {self.family.name!r} family on the device path "
+                "only")
+        if not self.keep_host_oracle or self.tables[0].key_indicator is None:
+            raise ValueError("host oracle sketches were not kept at ingest "
+                             "(keep_host_oracle=False)")
+        ind, val, _ = self.vectorize(keys, values)
+        q_ind = self.sketcher.sketch(ind)
+        q_sample = self.kmv.sketch(val)
+        tables = self._tenant_table_list(tenant)
+        P = len(tables)
+
+        def est(field: str) -> np.ndarray:
+            return self.sketcher.estimate_batch(
+                stack_wmh([q_ind] * P),
+                stack_wmh([getattr(t, field) for t in tables]))
+
+        join = est("key_indicator")                     # <1A, 1B>
+        sum_b = est("values")                           # <1A, VB>
+        results = []
+        for i, t in enumerate(tables):
+            js = max(join[i], 0.0)
+            if js < min_join:
+                continue
+            mean_b = sum_b[i] / js if js > 0 else 0.0
+            results.append(SearchResult(
+                name=t.name, join_size=float(js),
+                joinability=float(js / max(len(keys), 1)),
+                sum_b=float(sum_b[i]), mean_b=float(mean_b),
+                corr=self._sample_corr(q_sample, t.sample)))
+        results.sort(key=lambda r: abs(r.corr), reverse=True)
+        return results[:top_k]
+
     def _sample_corr(self, sa: KMVSketch, sb: KMVSketch,
                      min_pairs: int = 8) -> float:
         """Sample Pearson correlation over the join from matched KMV
@@ -328,5 +430,9 @@ class DatasetSearchIndex:
         return float(np.clip(np.corrcoef(va, vb)[0, 1], -1.0, 1.0))
 
     def storage_doubles(self) -> float:
-        """Serving-sketch storage (three fields per table, paper accounting)."""
-        return self.store.storage_doubles()
+        """Serving-sketch storage (three fields per table, paper
+        accounting); a host-only index counts its oracle sketches."""
+        if self.store is not None:
+            return self.store.storage_doubles()
+        return (len(self.tables) * len(FIELDS)
+                * self.family.storage_doubles_per_row())

@@ -239,6 +239,14 @@ class CorpusStore:
             return tuple(o[0] for o in out)
         return out
 
+    def field_arrays(self) -> Tuple[torch.Tensor, ...]:
+        """Exact-size component slices, always ``[F, P, *trailing]`` (no
+        ``fields == 1`` drop): the layout the merge layer and the
+        families' ``merge_rows`` take."""
+        if self._size == 0:
+            raise ValueError("empty corpus")
+        return tuple(b[:, :self._size] for b in self._bufs)
+
     def bytes_per_row(self) -> int:
         """Resident device bytes per stored row (one field)."""
         return int(sum(_ELEMENT_BYTES[s.dtype]

@@ -15,6 +15,11 @@ The stream ids equal the JAX registry's ICWS draws
 for one; the port keeps them as ``<FAMILY>_STREAM_<draw>`` (``ICWS_``,
 ``CS_``, ``JL_``, ``SAMPLE_``, ``DMH_``) so its sources name no constant of
 that registry.
+
+:func:`icws_rank`, :func:`level_fingerprint` and :func:`densify_sources`
+are the ICWS draw, the (key, level) fingerprint and the DMH densify
+sources in torch: the plain ICWS and DMH sketches and the families'
+merges share them, so the three stay bit for bit with the kernels.
 """
 from __future__ import annotations
 
@@ -115,3 +120,71 @@ def salt_for(seed: int, stream: int, t: torch.Tensor) -> torch.Tensor:
     """Combine (seed, stream, sample index t) into a uint32 salt (int64)."""
     base = ((seed & _MASK) * 0x9E3779B1 + stream * 0x517CC1B7) & _MASK
     return (base + mul32(as_u32(t), 0x2545F491)) & _MASK
+
+
+# the five draws of the ICWS variates, (r1, r2, c1, c2, beta), of each
+# family
+ICWS_DRAWS = (ICWS_STREAM_R1, ICWS_STREAM_R2, ICWS_STREAM_C1,
+              ICWS_STREAM_C2, ICWS_STREAM_BETA)
+DMH_DRAWS = (DMH_STREAM_R1, DMH_STREAM_R2, DMH_STREAM_C1, DMH_STREAM_C2,
+             DMH_STREAM_BETA)
+# elements a chunk of the densify probes holds at once: [rows, m, probes]
+# for the rows that have a bin to fill
+_PROBE_CHUNK = 1 << 27
+
+
+def icws_rank(keys: torch.Tensor, w: torch.Tensor, seed: int, draws,
+              at: torch.Tensor):
+    """``(a, level)`` of the ICWS draw of u32 ``keys`` (int64) at weight
+    ``w`` and sample index ``at`` (all broadcast) on the five ``draws``
+    streams: the kernels' f32 arithmetic op for op.  ``a`` is not masked
+    where ``w <= 0``; ``level`` is f32."""
+    r1, r2, c1, c2, beta_stream = draws
+
+    def u(stream: int) -> torch.Tensor:
+        return uniform01(keys, salt_for(seed, stream, at))
+
+    r = -torch.log(u(r1) * u(r2))
+    c = -torch.log(u(c1) * u(c2))
+    beta = u(beta_stream)
+    logw = torch.log(torch.clamp_min(w, 1e-37))
+    lvl = torch.floor(logw / r + beta)
+    y = torch.exp(r * (lvl - beta))
+    return c / (y * torch.exp(r)), lvl
+
+
+def level_fingerprint(keys: torch.Tensor, lvl: torch.Tensor, seed: int,
+                      stream: int, at: torch.Tensor) -> torch.Tensor:
+    """31-bit int32 fingerprint of (key, level) at sample index ``at``;
+    ``level * 0x9E3779B9`` wraps in u32."""
+    bits = hash_u32(as_u32(keys) ^ mul32(as_u32(lvl.to(torch.int32)),
+                                         _GOLDEN),
+                    salt_for(seed, stream, at))
+    return (bits & 0x7FFFFFFF).to(torch.int32)
+
+
+def densify_sources(occ: torch.Tensor, seed: int, m: int):
+    """``(need, src)`` of the DMH densification over occupancy ``occ [...,
+    m]``: the empty bins of rows with an occupied one, and the bin each
+    borrows from -- the first probe ``h(t; j) mod m`` (stream
+    ``DMH_STREAM_DENSIFY``, j < ``densify_probes(m)``) that lands on an
+    occupied bin, else the first occupied bin.  ``src`` is 0 where nothing
+    is needed; the probes run a chunk of rows at a time."""
+    dev = occ.device
+    t = torch.arange(m, device=dev)
+    J = densify_probes(m)
+    j = torch.arange(J, dtype=torch.int32, device=dev)
+    probe = hash_u32(t[:, None], salt_for(seed, DMH_STREAM_DENSIFY,
+                                          j)[None, :]) % m        # [m, J]
+    need = ~occ & occ.any(-1, keepdim=True)
+    flat_occ = occ.reshape(-1, m)
+    flat_src = torch.zeros(flat_occ.shape, dtype=torch.int64, device=dev)
+    rows = torch.nonzero(need.reshape(-1, m).any(-1)).flatten()
+    for chunk in rows.split(max(1, _PROBE_CHUNK // probe.numel())):
+        o = flat_occ[chunk]
+        firstj = torch.where(o[:, probe], j, J).amin(-1).long()   # [n, m]
+        first_occ = torch.where(o, t, m).amin(-1, keepdim=True)
+        flat_src[chunk] = torch.where(firstj < J,
+                                      probe[t, firstj.clamp_max(J - 1)],
+                                      first_occ.clamp_max(m - 1))
+    return need, flat_src.reshape(occ.shape)

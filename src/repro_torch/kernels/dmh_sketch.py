@@ -45,10 +45,9 @@ import torch
 
 from ..core.dmh import REPLICA_SALT
 from . import build
-from .common import (BIG, DMH_STREAM_BETA, DMH_STREAM_BIN, DMH_STREAM_C1,
-                     DMH_STREAM_C2, DMH_STREAM_DENSIFY, DMH_STREAM_FP,
-                     DMH_STREAM_R1, DMH_STREAM_R2, as_u32, densify_probes,
-                     hash_u32, mul32, salt_for, uniform01)
+from .common import (BIG, DMH_DRAWS, DMH_STREAM_BIN, DMH_STREAM_FP, as_u32,
+                     densify_probes, densify_sources, hash_u32, icws_rank,
+                     level_fingerprint, mul32, salt_for)
 from .packed import pack_sketch_vals
 
 # bins one block may hold: 24 bytes of shared memory per bin, of the
@@ -110,17 +109,8 @@ def dmh_sketch_plain(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
     kk = as_u32(keys)                                      # [B, N]
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     bins = hash_u32(kk, salt_for(seed, DMH_STREAM_BIN, zero)) % m
-
-    def u(stream):
-        return uniform01(kk, salt_for(seed, stream, bins))
-
-    r = -torch.log(u(DMH_STREAM_R1) * u(DMH_STREAM_R2))
-    c = -torch.log(u(DMH_STREAM_C1) * u(DMH_STREAM_C2))
-    beta = u(DMH_STREAM_BETA)
-    logw = torch.log(torch.clamp_min(w, 1e-37))
-    lvl = torch.floor(logw / r + beta)
-    y = torch.exp(r * (lvl - beta))
-    a = torch.where(w > 0, c / (y * torch.exp(r)), BIG)
+    a, lvl = icws_rank(kk, w, seed, DMH_DRAWS, bins)
+    a = torch.where(w > 0, a, BIG)
 
     # per-bin first-min: the minimum, then the lowest lane attaining it
     seg = (torch.arange(B, device=dev)[:, None] * m + bins).reshape(-1)
@@ -137,24 +127,11 @@ def dmh_sketch_plain(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
     val_sel = torch.gather(vals, 1, arg)
     lvl_sel = torch.gather(lvl, 1, arg)
     t = torch.arange(m, dtype=torch.int64, device=dev)
-    fpbits = hash_u32(as_u32(key_sel)
-                      ^ mul32(as_u32(lvl_sel.to(torch.int32)), 0x9E3779B9),
-                      salt_for(seed, DMH_STREAM_FP, t)[None, :])
-    fp = (fpbits & 0x7FFFFFFF).to(torch.int32)
+    fp = level_fingerprint(key_sel, lvl_sel, seed, DMH_STREAM_FP, t)
 
     # densification: the first probe j landing on an occupied bin, else
     # the first occupied bin
-    occ = amin < BIG                                       # [B, m]
-    J = densify_probes(m)
-    j = torch.arange(J, dtype=torch.int32, device=dev)
-    probe = hash_u32(t[:, None], salt_for(seed, DMH_STREAM_DENSIFY, j)[None, :]) % m
-    firstj = torch.where(occ[:, probe], j, J).amin(2)      # [B, m]
-    has = firstj < J
-    src_w = hash_u32(t[None, :], salt_for(
-        seed, DMH_STREAM_DENSIFY, firstj.clamp_max(J - 1))) % m
-    first_occ = torch.where(occ, t, m).amin(1, keepdim=True).clamp_max(m - 1)
-    src = torch.where(has, src_w, first_occ)
-    need = ~occ & occ.any(1, keepdim=True)
+    need, src = densify_sources(amin < BIG, seed, m)
 
     def borrow(x):
         return torch.where(need, torch.gather(x, 1, src), x)

@@ -37,9 +37,8 @@ from typing import Tuple
 import torch
 
 from . import build
-from .common import (BIG, ICWS_STREAM_BETA, ICWS_STREAM_C1, ICWS_STREAM_C2,
-                     ICWS_STREAM_FP, ICWS_STREAM_R1, ICWS_STREAM_R2, as_u32,
-                     hash_u32, mul32, salt_for, uniform01)
+from .common import (BIG, ICWS_DRAWS, ICWS_STREAM_FP, as_u32, icws_rank,
+                     level_fingerprint)
 from .packed import pack_sketch_vals
 
 # elements of one [rows, m, N] intermediate the plain version holds at a time
@@ -77,10 +76,6 @@ def icws_sketch_plain(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
     B, N = w.shape
     dev = w.device
     t = torch.arange(m, dtype=torch.int64, device=dev)
-    salts = {s: salt_for(seed, s, t)[None, :, None] for s in (
-        ICWS_STREAM_R1, ICWS_STREAM_R2, ICWS_STREAM_C1, ICWS_STREAM_C2,
-        ICWS_STREAM_BETA)}
-    fp_salt = salt_for(seed, ICWS_STREAM_FP, t)[None, :]
     fp = torch.empty((B, m), dtype=torch.int32, device=dev)
     val = torch.empty((B, m), dtype=torch.float32, device=dev)
     amin = torch.empty((B, m), dtype=torch.float32, device=dev)
@@ -89,18 +84,8 @@ def icws_sketch_plain(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
     for lo in range(0, B, rows):
         hi = min(B, lo + rows)
         wc, kc, vc = w[lo:hi], keys[lo:hi], vals[lo:hi]
-        kk = as_u32(kc)[:, None, :]                        # [b, 1, N]
-
-        def u(stream):
-            return uniform01(kk, salts[stream])            # [b, m, N]
-
-        r = -torch.log(u(ICWS_STREAM_R1) * u(ICWS_STREAM_R2))
-        c = -torch.log(u(ICWS_STREAM_C1) * u(ICWS_STREAM_C2))
-        beta = u(ICWS_STREAM_BETA)
-        logw = torch.log(torch.clamp_min(wc, 1e-37))[:, None, :]
-        lvl = torch.floor(logw / r + beta)
-        y = torch.exp(r * (lvl - beta))
-        a = c / (y * torch.exp(r))
+        a, lvl = icws_rank(as_u32(kc)[:, None, :], wc[:, None, :], seed,
+                           ICWS_DRAWS, t[None, :, None])   # [b, m, N]
         a = torch.where((wc > 0)[:, None, :], a, BIG)
         # torch.argmin returns the first index of the minimum
         arg = torch.argmin(a, dim=2)                       # [b, m]
@@ -108,12 +93,9 @@ def icws_sketch_plain(w: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
         key_sel = torch.gather(kc, 1, arg)
         val_sel = torch.gather(vc, 1, arg)
         lvl_sel = torch.gather(lvl, 2, arg[:, :, None])[:, :, 0]
-        lvl_u32 = as_u32(lvl_sel.to(torch.int32))
-        fpbits = hash_u32(as_u32(key_sel) ^ mul32(lvl_u32, 0x9E3779B9),
-                          fp_salt)
         empty = am >= BIG
-        fp[lo:hi] = torch.where(empty, -1, (fpbits & 0x7FFFFFFF)).to(
-            torch.int32)
+        fp[lo:hi] = torch.where(empty, -1, level_fingerprint(
+            key_sel, lvl_sel, seed, ICWS_STREAM_FP, t)).to(torch.int32)
         val[lo:hi] = torch.where(empty, 0.0, val_sel)
         amin[lo:hi] = am
         argkey[lo:hi] = torch.where(empty, 0, key_sel)

@@ -7,9 +7,12 @@ endpoints and request accounting.  Every query, single or batched, builds
 its ``3Q`` field rows with the index's family (one sketch launch for ICWS,
 DMH, CountSketch and JL; host-built sample rows for TS and PS) plus one
 fused multi-field estimate launch off the index's store buffers;
-``search_batch`` amortizes both across a micro-batch.  The JAX service's observability spans, counters and
-estimator audit (``audit_every``) are not ported yet (``ROADMAP.md``
-Queue A 15).
+``search_batch`` amortizes both across a micro-batch.  ``ingest_many_sharded``
+ingests a batch through a shard-and-merge lake build, and
+``backend="host"`` serves the ICWS index's WeightedMinHash host oracle
+(kept by default, ``keep_host_oracle=True``, as in the JAX service).  The
+JAX service's observability spans, counters and estimator audit
+(``audit_every``) are not ported yet (``ROADMAP.md`` Queue A 15).
 """
 from __future__ import annotations
 
@@ -162,13 +165,14 @@ class SketchSearchService:
     Runs on the card (``device="cuda"``, the default) unless the caller
     passes ``device="cpu"``.  Ported: ``family`` in ``("icws", "cs",
     "jl", "ts", "ps", "dmh")`` (``FAMILY_NAMES``), each sized to the
-    storage of an ``m``-sample ICWS sketch, unpacked or ``packed=True``,
-    with ``backend="device"`` and ``mesh=None``; other values raise
-    ``NotImplementedError`` naming their ROADMAP.md item.
+    storage of an ``m``-sample ICWS sketch, unpacked or ``packed=True``;
+    ``backend="device"`` or, for ICWS, ``"host"``; ``mesh=None``.  A
+    ``mesh`` or ``audit_every`` raises ``NotImplementedError`` naming its
+    ROADMAP.md item.
     """
 
     def __init__(self, m: int = 256, seed: int = 0,
-                 backend: str = "device", keep_host_oracle: bool = False,
+                 backend: str = "device", keep_host_oracle: bool = True,
                  mesh=None, family: str = "icws", packed: bool = False,
                  audit_every: int = 0, device="cuda"):
         if audit_every:
@@ -206,6 +210,26 @@ class SketchSearchService:
         for name, keys, values in tables:
             self.ingest(name, keys, values, tenant=tenant)
 
+    def ingest_many_sharded(self,
+                            tables: Sequence[Tuple[str, np.ndarray,
+                                                   np.ndarray]],
+                            *, shards: int,
+                            tenant: Optional[str] = None) -> None:
+        """Ingest a batch of tables through a ``shards``-way lake build
+        (:meth:`DatasetSearchIndex.add_tables_sharded`); names must be new
+        to the tenant and unique within the batch."""
+        tables = list(tables)
+        seen = {t.name for t in self._tenant_tables_or_empty(tenant)}
+        for name, _, _ in tables:
+            if name in seen:
+                raise ValueError(f"table {name!r} already ingested"
+                                 + (f" for tenant {tenant!r}"
+                                    if tenant is not None else ""))
+            seen.add(name)
+        self.index.add_tables_sharded(tables, shards=shards, tenant=tenant)
+        self.stats.tables_ingested += len(tables)
+        self.stats.rows_ingested += sum(len(k) for _, k, _ in tables)
+
     # -- queries ------------------------------------------------------------
     def search(self, keys: np.ndarray, values: np.ndarray, *,
                top_k: int = 10, min_join: float = 1.0,
@@ -235,19 +259,22 @@ class SketchSearchService:
                      ) -> List[List[SearchResult]]:
         """Batched search: Q ``(keys, values)`` queries, Q result lists.
 
-        Queries run in micro-batches of ``micro_batch``; the tail
-        micro-batch is padded with empty queries so every launch sees the
-        same batch shape (empty queries sketch to ``fp == -1``, estimate to
-        zero, and are dropped).  Results equal a loop of :meth:`search`.
+        Queries run in micro-batches of ``micro_batch``; on the device
+        backend the tail micro-batch is padded with empty queries so every
+        launch sees the same batch shape (empty queries sketch to ``fp ==
+        -1``, estimate to zero, and are dropped).  Results equal a loop of
+        :meth:`search`.
         """
         if micro_batch < 1:
             raise ValueError("micro_batch must be >= 1")
         queries = list(queries)
+        pad = (backend or self.index.backend) == "device"
         results: List[List[SearchResult]] = []
         for lo in range(0, len(queries), micro_batch):
             chunk = queries[lo:lo + micro_batch]
             t0 = time.perf_counter()
-            padded = chunk + [self._EMPTY_QUERY] * (micro_batch - len(chunk))
+            padded = chunk + [self._EMPTY_QUERY] * (
+                (micro_batch - len(chunk)) if pad else 0)
             out = self.index.query_batch(padded, top_k=top_k,
                                          min_join=min_join, backend=backend,
                                          tenant=tenant)
@@ -265,31 +292,43 @@ class SketchSearchService:
         store = self.index.store
         if tenant is not None:
             tables = self.index._tenant_table_list(tenant)
-            acct = store.describe_tenants()[str(tenant)]
+            if store is not None:
+                acct = store.describe_tenants()[str(tenant)]
+                rows, ranges = acct["rows"], acct["ranges"]
+                storage = acct["storage_doubles"]
+            else:
+                rows, ranges = float(len(tables)), 1.0
+                storage = float(len(tables) * 3
+                                * self.index.family.storage_doubles_per_row())
             report = {
                 "tenant": tenant,
                 "family": self.index.family.name,
                 "backend": self.index.backend,
                 "tables": len(tables),
-                "corpus_rows": acct["rows"],
-                "row_ranges": acct["ranges"],
-                "storage_doubles": acct["storage_doubles"],
+                "corpus_rows": rows,
+                "row_ranges": ranges,
+                "storage_doubles": storage,
             }
             hist = self._tenant_hists.get(str(tenant))
             if hist is not None and hist.count:
                 report.update(_latency_fields("request_ms", hist))
             return report
+        # a host-only index has no device store: one exact-size row per
+        # table and field, as the JAX service reports
+        n = len(self.index.tables)
         report = {
             "family": self.index.family.name,
             "backend": self.index.backend,
             "device": str(self.index.device),
-            "packed": store.packed,
-            "bytes_per_row": float(store.bytes_per_row()),
-            "tables": len(self.index.tables),
+            "packed": store.packed if store is not None else False,
+            "bytes_per_row": float(store.bytes_per_row()
+                                   if store is not None else 0),
+            "tables": n,
             "tenants": len(self.index.tenants()),
             "storage_doubles": self.index.storage_doubles(),
-            "corpus_rows": int(store.size),
-            "corpus_capacity": int(store.capacity),
+            "corpus_rows": int(store.size if store is not None else n),
+            "corpus_capacity": int(store.capacity if store is not None
+                                   else n),
             "queries_served": self.stats.queries_served,
             "mean_query_ms": self.stats.mean_query_ms,
             "batches_served": self.stats.batches_served,

@@ -1053,3 +1053,55 @@ def test_flash_route_runs_the_named_kernel(cuda, dtype, D, symbol):
     others = {"flash_attention_f32tc_kernel",
               "flash_attention_tc_kernel"} - {symbol}
     assert not any(other in n for other in others for n in names), names
+
+
+# ---------------------------------------------------------------------------
+# merge_rows on CUDA tensors (torch ops on the card; the sampling merge on
+# the host, its rows back on the card)
+# ---------------------------------------------------------------------------
+def _shard_rows(fam, vecs, shards, device):
+    from repro_torch.data.merge import split_by_key
+    return [tuple(c[None] for c in fam.sketch_rows(
+        [split_by_key(v, shards, s) for v in vecs], device=device))
+        for s in range(shards)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["icws", "cs", "jl", "ts", "ps", "dmh"])
+def test_merge_rows_commutes_bitwise_on_the_card(cuda, family):
+    from repro_torch.data import make_family
+    fam = make_family(family, storage=193.0, seed=3)
+    a, b = _shard_rows(fam, _vectors(5), 2, cuda)
+    ab, ba = fam.merge_rows(a, b), fam.merge_rows(b, a)
+    for x, y, spec in zip(ab, ba, fam.components):
+        assert x.device.type == "cuda" and x.dtype == spec.dtype
+        assert torch.equal(x, y), spec.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["icws", "dmh"])
+def test_card_merge_rows_match_the_host_merge(cuda, family):
+    """The card's merge against the port's host ``ICWS.merge`` /
+    ``DMH.merge`` on the same rows: fingerprints and argkeys on at least
+    99% of slots (the card's ``log``/``exp`` against numpy's), values
+    within rtol 1e-5 where the fingerprints agree."""
+    from repro_torch.core.icws import ICWSSketch
+    from repro_torch.data import make_family
+    fam = make_family(family, storage=193.0, seed=3)
+    host = fam.host_oracle()
+    a, b = _shard_rows(fam, _vectors(6), 2, cuda)
+    got = [x[0].cpu().numpy() for x in fam.merge_rows(a, b)]
+    (fpa, va, na, ka), (fpb, vb, nb, kb) = ([x[0].cpu().numpy() for x in r]
+                                            for r in (a, b))
+    want = [host.merge(
+        ICWSSketch(fpa[i], va[i].astype(np.float64), float(na[i]), ka[i]),
+        ICWSSketch(fpb[i], vb[i].astype(np.float64), float(nb[i]), kb[i]))
+        for i in range(fpa.shape[0])]
+    wfp = np.stack([s.fingerprints for s in want])
+    wkey = np.stack([s.argkeys for s in want])
+    wval = np.stack([s.values for s in want])
+    assert np.mean(got[0] == wfp) >= 0.99
+    assert np.mean(got[3] == wkey) >= 0.99
+    same = got[0] == wfp
+    np.testing.assert_allclose(got[1][same], wval[same], rtol=1e-5, atol=1e-7)
+    np.testing.assert_allclose(got[2], [s.norm for s in want], rtol=1e-6)

@@ -39,7 +39,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     loaded = set(lines["LOADED"].strip().split(","))
     assert len(loaded) >= 15
     assert {"repro_torch.optim.compression", "repro_torch.models.attention",
-            "repro_torch.kernels.flash_attention"} <= loaded
+            "repro_torch.kernels.flash_attention", "repro_torch.data.merge",
+            "repro_torch.core.wmh", "repro_torch.core.progmin",
+            "repro_torch.core.rounding", "repro_torch.core.linear"} <= loaded
     assert lines["BAD"].strip() == ""
 
 

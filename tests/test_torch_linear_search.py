@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from repro.data import DatasetSearchIndex as JaxIndex
+from repro.serve import SketchSearchService as JaxService
 from repro_torch import DatasetSearchIndex, SketchSearchService
 from repro_torch.convert import index_from_numpy
 from repro_torch.data import dataset_search as port_ds
@@ -202,24 +203,51 @@ def test_service_serves_the_family_storage_matched(lake, family, per_row):
 
 
 @pytest.mark.parametrize("family", FAMILIES)
-@pytest.mark.parametrize("kwargs, item", [
-    ({"mesh": object()}, "Queue A 14"),
-    ({"backend": "host"}, "Queue A 19"),
-])
-def test_unported_options_raise_for_the_linear_families(family, kwargs,
-                                                        item):
-    with pytest.raises(NotImplementedError, match=item):
-        SketchSearchService(m=M, family=family, device="cpu", **kwargs)
+def test_unported_options_raise_for_the_linear_families(family):
+    with pytest.raises(NotImplementedError, match="Queue A 14"):
+        SketchSearchService(m=M, family=family, device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_host_backend_is_the_icws_oracle_only(family):
+    """``backend="host"`` serves the ICWS family's WeightedMinHash oracle;
+    another family raises ``ValueError``, as in the JAX package."""
+    with pytest.raises(ValueError, match="oracle path"):
+        SketchSearchService(m=M, family=family, backend="host",
+                            device="cpu")
+    with pytest.raises(ValueError, match="oracle path"):
+        JaxService(m=M, family=family, backend="host")
 
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_unported_family_members_name_their_queue_item(family):
     from repro_torch.data import make_family
     fam = make_family(family, storage=97.0)
-    for call, item in ((lambda: fam.merge_rows(None, None), "Queue A 13"),
-                       (fam.host_oracle, "Queue A 19"),
-                       (lambda: fam.estimate_fields_sharded(
-                           None, None, qmap=(), cmap=(), mesh=None, axis=0),
-                        "Queue A 14")):
-        with pytest.raises(NotImplementedError, match=item):
+    for call in (lambda: fam.estimate_fields_sharded(
+                     None, None, qmap=(), cmap=(), mesh=None, axis=0),
+                 lambda: fam.estimate_fields_packed_sharded(
+                     None, None, qmap=(), cmap=(), mesh=None, axis=0)):
+        with pytest.raises(NotImplementedError, match="Queue A 14"):
             call()
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_family_merge_rows_and_host_oracle_return(family):
+    """``merge_rows`` of two disjoint halves' rows returns rows of the
+    family's layout, and ``host_oracle`` the JAX family's sketcher class
+    (``tests/test_torch_merge.py`` and ``test_torch_host_oracle.py`` hold
+    their values)."""
+    from repro.data import make_family as jax_make_family
+    from repro_torch.core.types import SparseVec
+    from repro_torch.data import make_family
+    fam = make_family(family, storage=97.0, seed=5)
+    keys = np.arange(0, 600, 3)
+    halves = [SparseVec.from_pairs(keys[i::2], np.linspace(1.0, 2.0, 200)[
+        i::2], DOMAIN) for i in (0, 1)]
+    a, b = (tuple(c[None] for c in fam.sketch_rows([v], device="cpu"))
+            for v in halves)
+    merged = fam.merge_rows(a, b)
+    assert [tuple(c.shape) for c in merged] == [tuple(c.shape) for c in a]
+    assert [c.dtype for c in merged] == [s.dtype for s in fam.components]
+    assert (type(fam.host_oracle()).__name__ == type(jax_make_family(
+        family, storage=97.0, seed=5).host_oracle()).__name__)

@@ -67,7 +67,8 @@ def services(request, lake):
     for svc in (JaxService(m=M, seed=5, family=request.param, packed=True,
                            keep_host_oracle=False),
                 SketchSearchService(m=M, seed=5, family=request.param,
-                                    packed=True, device="cpu")):
+                                    packed=True, keep_host_oracle=False,
+                                    device="cpu")):
         for i, table in enumerate(tables):
             svc.ingest(*table, tenant="even" if i % 2 == 0 else None)
         out.append(svc)

@@ -70,7 +70,8 @@ def jax_index(lake):
 @pytest.fixture(scope="module")
 def port_index(lake):
     tables, _, _ = lake
-    idx = DatasetSearchIndex(m=M, seed=5, device="cpu")
+    idx = DatasetSearchIndex(m=M, seed=5, keep_host_oracle=False,
+                             device="cpu")
     for i, (name, keys, vals) in enumerate(tables):
         idx.add_table(name, keys, vals, tenant="even" if i % 2 == 0 else None)
     return idx
@@ -230,8 +231,6 @@ def test_service_batch_equals_search_loop_and_accounts(lake):
 
 
 @pytest.mark.parametrize("kwargs, item", [
-    ({"backend": "host"}, "Queue A 19"),
-    ({"keep_host_oracle": True}, "Queue A 19"),
     ({"family": "ts", "mesh": object()}, "Queue A 14"),
     ({"mesh": object()}, "Queue A 14"),
     ({"audit_every": 4}, "Queue A 15"),
@@ -239,6 +238,24 @@ def test_service_batch_equals_search_loop_and_accounts(lake):
 def test_unported_options_raise_naming_their_queue_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         SketchSearchService(m=M, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [{"backend": "host"},
+                                    {"keep_host_oracle": True}])
+def test_host_oracle_options_serve_the_icws_family(lake, kwargs):
+    """``backend="host"`` and ``keep_host_oracle=True`` (the default, as in
+    the JAX service) keep three host WeightedMinHash sketches a table and
+    answer ``backend="host"`` queries from them."""
+    tables, queries, _ = lake
+    svc = SketchSearchService(m=M, seed=5, device="cpu", **kwargs)
+    svc.ingest_many(tables[:6])
+    assert svc.index.keep_host_oracle
+    assert all(t.values_sq is not None for t in svc.index.tables)
+    assert (svc.index.store is None) == (kwargs.get("backend") == "host")
+    host = svc.search(*queries[0], top_k=3, min_join=3.0, backend="host")
+    assert host and all(r.name in {t[0] for t in tables[:6]} for r in host)
+    assert svc.search_batch(queries[:1], top_k=3, min_join=3.0,
+                            backend="host") == [host]
 
 
 @pytest.mark.parametrize("family", ["icws", "cs", "jl", "ts", "ps", "dmh"])

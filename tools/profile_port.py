@@ -98,7 +98,8 @@ def main() -> int:
     rng = np.random.default_rng(4)
     tables, queries, _ = make_lake(rng, LAKE_TABLES, QUERIES)
     for family in families:
-        svc = SketchSearchService(m=M, seed=0, family=family, packed=packed)
+        svc = SketchSearchService(m=M, seed=0, family=family, packed=packed,
+                                  keep_host_oracle=False)
         idx = svc.index
         split = len(tables) - TRACED
         svc.ingest_many(tables[:split])          # builds and warms up

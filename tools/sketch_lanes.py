@@ -83,7 +83,7 @@ def service_rounds(cs) -> None:
     rng = np.random.default_rng(4)
     tables, queries, _ = cs.make_lake(rng, cs.LAKE_TABLES, cs.QUERIES)
     base = cs.LAKE_TABLES - 4 * ROUND_TABLES
-    svc = SketchSearchService(m=cs.M, seed=0)
+    svc = SketchSearchService(m=cs.M, seed=0, keep_host_oracle=False)
     svc.ingest_many(tables[:base])
     torch.cuda.synchronize()
     for i, which in enumerate(("chosen", "1", "1", "chosen")):
