@@ -36,8 +36,13 @@ every planted partner first; CS and JL equal to single-stream on an
 integer lake), holds each family's ``merge_rows`` (commutes bit for bit;
 ICWS and DMH against the host merge) and times ``merge_stores``; the
 ``host oracle`` phase serves an ICWS service's host WeightedMinHash
-sketches beside the card.  The lake services pass
-``keep_host_oracle=False``.
+sketches beside the card, then, with observability on, audits its
+searches against them (``audit_every=1``).  Each family's
+``observability`` phase replays its queries on both services with
+``repro_torch.obs`` on: the same results bit for bit, and each op's
+``ops.launches_total`` equal to its kernels' launch counters; for ICWS the
+``search`` p50 with observability off and on, and the disabled wrapper's
+cost.  The lake services pass ``keep_host_oracle=False``.
 Imports nothing of JAX and nothing of the JAX package.  Exits non-zero on
 any failure, and at once when no card is present.  Each phase prints its
 wall time.  The line before the last is a JSON object with each kernel's
@@ -57,6 +62,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1949,7 +1955,7 @@ def packed_service_phase(family: str, lake, unpacked):
     index from the rows the unpacked run sketched (``family.pack_rows``,
     ``convert.index_from_numpy(packed=True)``); then the 64 queries.
     Gates: :func:`check_served` and :func:`roundtrip_check`.  Returns
-    (launches, recall, service)."""
+    (launches, recall, service, results)."""
     from repro_torch import SketchSearchService
     label = f"{family} packed"
     tables = lake[0]
@@ -1981,7 +1987,7 @@ def packed_service_phase(family: str, lake, unpacked):
     recall = check_served(label, family, svc, lake, batched, sequential,
                           launches, need)
     roundtrip_check(label, svc, lake, sequential)
-    return launches, recall, svc
+    return launches, recall, svc, batched
 
 
 def latency_phase(family: str, lake, unpacked, packed):
@@ -2020,17 +2026,160 @@ def latency_phase(family: str, lake, unpacked, packed):
     return p50
 
 
+# the ops (``repro_torch.kernels.ops``) through which each kernel wrapper
+# is launched on the serving path: a sketch op launches its kernel or,
+# with pack_vals=True, the packed twin; the ICWS/DMH estimate is an outer
+# op around an inner one, and both count each launch
+OP_KERNELS = {
+    "icws_sketch": ("icws_sketch", "icws_sketch_packed"),
+    "dmh_sketch": ("dmh_sketch", "dmh_sketch_packed"),
+    "countsketch_sparse": ("countsketch_sparse",),
+    "jl_sketch": ("jl_sketch",),
+    "icws_estimate_fields": ("estimate_fields",),
+    "estimate_partials_fields": ("estimate_fields",),
+    "icws_estimate_fields_packed": ("estimate_fields_packed",),
+    "linear_estimate_fields": ("linear_estimate_fields",),
+    "linear_estimate_fields_packed": ("linear_estimate_fields_packed",),
+    "sample_estimate_fields": ("sample_estimate_fields",),
+    "sample_estimate_fields_packed": ("sample_estimate_fields_packed",)}
+# the disabled wrapper's cost, as benchmarks/perf_sketch.py gates it: at
+# most 2% of the search p50, over this many calls
+OBS_WRAPPER_CALLS = 10_000
+OBS_OVERHEAD_GATE = 0.02
+
+
+def disabled_wrapper_s() -> float:
+    """Seconds a call that the disabled ``@instrumented`` wrapper adds to
+    a bare function, over ``OBS_WRAPPER_CALLS`` calls of each."""
+    from repro_torch import obs
+
+    def bare():
+        return None
+
+    wrapped = obs.instrumented("icws_estimate")(bare)
+    times = []
+    for fn in (wrapped, bare):
+        t0 = time.perf_counter()
+        for _ in range(OBS_WRAPPER_CALLS):
+            fn()
+        times.append((time.perf_counter() - t0) / OBS_WRAPPER_CALLS)
+    return max(times[0] - times[1], 0.0)
+
+
+def obs_search_turns(svc, lake):
+    """The 64 searches with observability off (A) and on (B) in turns A B
+    B A.  Returns each side's p50 in ms, per-turn p50s, and the ops
+    launches a search made while on."""
+    from repro_torch import obs
+    _, queries, _ = lake
+    min_join = QUERY_ROWS / 4
+    times = {"A": [], "B": []}
+    turn_p50 = []
+    obs.reset_all()
+    for turn in "ABBA":
+        (obs.enable if turn == "B" else obs.disable)()
+        for k, v in queries:
+            t0 = time.perf_counter()
+            svc.search(k, v, top_k=10, min_join=min_join)
+            times[turn].append(time.perf_counter() - t0)
+        turn_p50.append(statistics.median(times[turn][-len(queries):]) * 1e3)
+    obs.disable()
+    series = obs.describe_metrics()["metrics"]["ops.launches_total"]["series"]
+    per_search = sum(s["value"] for s in series) / len(times["B"])
+    return ({t: statistics.median(x) * 1e3 for t, x in times.items()},
+            turn_p50, per_search)
+
+
+def observability_phase(family: str, lake, unpacked, packed):
+    """With observability on, the 64 queries again on both endpoints of
+    the family's unpacked and packed services (``unpacked`` and ``packed``
+    are (service, results of its serving run)), launch counters and the
+    metrics set to 0 just before and read just after.  Gates: the results
+    equal the serving runs' bit for bit; each op's ``ops.launches_total``
+    equals the launches of the kernels it reaches (``OP_KERNELS``) and
+    every launched kernel is counted by an op; ``ops.interpret_mode`` reads
+    0.  For ICWS, the ``search`` p50 with observability off and on in turns
+    A B B A, and the disabled wrapper's cost under 2% of the off p50.
+    Prints the trace events and the size of an ``export_snapshot``."""
+    from repro_torch import obs
+    counters = reset_counters()
+    obs.reset_all()
+    obs.enable()
+    try:
+        for label, (svc, want) in (("unpacked", unpacked),
+                                   ("packed", packed)):
+            batched, sequential = serve_queries(svc, lake)
+            if batched != want or sequential != want:
+                raise AssertionError(f"{family} {label}: results with "
+                                     "observability on differ from the "
+                                     "serving run's")
+        launches = {name: fn.launches for name, fn in counters.items()}
+        snap = obs.describe_metrics()["metrics"]
+        n_events = len(obs.events())
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = obs.export_snapshot(tmp)
+            snap_bytes = {k: pathlib.Path(p).stat().st_size
+                          for k, p in paths.items()}
+    finally:
+        obs.disable()
+    ops = {}
+    for s in snap["ops.launches_total"]["series"]:
+        if s["labels"]["family"] != family:
+            raise AssertionError(f"{family}: a launch counted under "
+                                 f"{s['labels']}")
+        ops[s["labels"]["op"]] = ops.get(s["labels"]["op"], 0) + s["value"]
+    for op, n in ops.items():
+        if op not in OP_KERNELS:
+            raise AssertionError(f"{family}: op {op} reaches no kernel of "
+                                 "the serving path")
+        want_n = sum(launches[k] for k in OP_KERNELS[op])
+        if n != want_n:
+            raise AssertionError(f"{family}: ops.launches_total{{op={op}}} "
+                                 f"{n} != its kernels' launches {want_n}")
+    for k, n in launches.items():
+        if n and not any(k in OP_KERNELS[op] for op in ops):
+            raise AssertionError(f"{family}: {n} launches of {k} counted "
+                                 "by no op")
+    mode = snap["ops.interpret_mode"]["series"][0]["value"]
+    if mode != 0.0:
+        raise AssertionError(f"{family}: ops.interpret_mode {mode}, not 0")
+    searches = snap["serve.queries_total"]["series"][0]["value"]
+    log(f"observability {family}: results on both endpoints of both "
+        f"services equal the serving runs' bit for bit; ops.launches_total "
+        f"{json.dumps(ops, sort_keys=True)} equal to the kernels' launches "
+        f"{json.dumps({k: n for k, n in launches.items() if n})}; "
+        f"interpret_mode {mode}; {searches} searches; {n_events} trace "
+        f"events; export_snapshot {sum(snap_bytes.values())} B "
+        f"{json.dumps(snap_bytes, sort_keys=True)}")
+    if family != "icws":
+        return None
+    p50, turn_p50, per_search = obs_search_turns(unpacked[0], lake)
+    wrapper_s = disabled_wrapper_s()
+    share = wrapper_s * per_search / (p50["A"] / 1e3)
+    log(f"observability icws: search p50 off {p50['A']:.3f} ms, on "
+        f"{p50['B']:.3f} ms (turns A B B A, {QUERIES} searches a turn: "
+        + " ".join(f"{t}:{ms:.3f}" for t, ms in zip("ABBA", turn_p50))
+        + f"); disabled wrapper {wrapper_s * 1e9:.1f} ns a call x "
+        f"{per_search:g} launches a search = {100 * share:.4f}% of the off "
+        f"p50 (gate {100 * OBS_OVERHEAD_GATE:g}%)")
+    if share >= OBS_OVERHEAD_GATE:
+        raise AssertionError(f"disabled observability costs {share:.2%} of "
+                             "a search")
+
+
 def family_phases(family: str, lake):
-    """The family's unpacked and packed serving runs, their latency turns
-    and, for ICWS and DMH, B10's path; then both services are freed, so
-    each family runs with no other family's service alive."""
+    """The family's unpacked and packed serving runs, their latency turns,
+    the observability replay and, for ICWS and DMH, B10's path; then both
+    services are freed, so each family runs with no other family's service
+    alive."""
     launches, recall, svc, served = phase(f"service {family}",
                                           service_phase, family, lake)
-    p_launches, p_recall, p_svc = phase(f"service packed {family}",
-                                        packed_service_phase, family, lake,
-                                        svc)
+    p_launches, p_recall, p_svc, p_served = phase(
+        f"service packed {family}", packed_service_phase, family, lake, svc)
     latency = phase(f"latency {family}", latency_phase, family, lake, svc,
                     p_svc)
+    phase(f"observability {family}", observability_phase, family, lake,
+          (svc, served[0]), (p_svc, p_served))
     b10 = (phase(f"sketch-and-pack ingest {family}", b10_path_phase,
                  p_svc.index, lake[0][:B10_TABLES])
            if family in B10_PATH_KERNEL else None)
@@ -2297,8 +2446,12 @@ def host_oracle_phase(lake):
     (``keep_host_oracle=True``) over the first 6 planted partners and 6
     other tables under 2,000 rows, queried with the partners' queries on
     both backends: the same top-3 names, the partner first in both, and
-    equal ``corr`` (the KMV refinement is shared)."""
-    from repro_torch import SketchSearchService
+    equal ``corr`` (the KMV refinement is shared).  The service audits
+    every search (``audit_every=1``), which does nothing while
+    observability is off; then, with it on, the partner queries again:
+    the same results as the device searches without it, and the audit's
+    samples (``quality.samples_total``, ``quality.ppm_error``)."""
+    from repro_torch import SketchSearchService, obs
     tables, queries, partners = lake
     by_name = {t[0]: t for t in tables}
     picked = [(qi, p) for qi, p in enumerate(partners)
@@ -2306,15 +2459,17 @@ def host_oracle_phase(lake):
     others = [t for t in tables if not t[0].startswith("partner")
               and len(t[1]) < 2_000][:HOST_TABLES]
     svc = SketchSearchService(m=M, seed=0, family="icws",
-                              keep_host_oracle=True)
+                              keep_host_oracle=True, audit_every=1)
     t0 = time.perf_counter()
     svc.ingest_many([by_name[p] for _, p in picked] + others)
     torch.cuda.synchronize()
     ingest_s = time.perf_counter() - t0
     min_join = QUERY_ROWS / 4
     host_s = 0.0
+    device_results = []
     for qi, partner in picked:
         dev = svc.search(*queries[qi], top_k=3, min_join=min_join)
+        device_results.append(dev)
         t1 = time.perf_counter()
         host = svc.search(*queries[qi], top_k=3, min_join=min_join,
                           backend="host")
@@ -2334,6 +2489,27 @@ def host_oracle_phase(lake):
         f"sketches in {ingest_s:.1f} s; {len(picked)} partner queries on "
         f"both backends: equal top-3 names and corr, each partner first; "
         f"host search {1e3 * host_s / len(picked):.1f} ms a query")
+    obs.reset_all()
+    obs.enable()
+    try:
+        t0 = time.perf_counter()
+        for (qi, _), want in zip(picked, device_results):
+            if svc.search(*queries[qi], top_k=3,
+                          min_join=min_join) != want:
+                raise AssertionError("host oracle: an audited search "
+                                     "differs from the device search")
+        audit_s = time.perf_counter() - t0
+        samples = obs.counter("quality.samples_total", family="icws").value
+        ppm = obs.gauge("quality.ppm_error", family="icws").value
+    finally:
+        obs.disable()
+    if samples <= 0:
+        raise AssertionError("host oracle: the audit recorded no sample")
+    log(f"host oracle audit (audit_every=1, observability on): "
+        f"{len(picked)} searches equal the device searches without it; "
+        f"quality.samples_total{{icws}} {samples}, quality.ppm_error{{icws}} "
+        f"{ppm:.1f} ppm (EWMA of |device - host| / host join size); "
+        f"{1e3 * audit_s / len(picked):.1f} ms a search with its audit")
 
 
 def sample_extra(name, rep):

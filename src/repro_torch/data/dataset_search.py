@@ -20,7 +20,9 @@ unpacked index over the bf16-roundtripped rows bit for bit.  The index
 itself has no family-specific branch.  ``_corr_scores`` and
 ``_top_k`` rank the tables on the device; the host then refines the k
 survivors' correlation from the matched KMV samples.  Per-query results of
-``query_batch`` equal a loop of ``query`` bit for bit.
+``query_batch`` equal a loop of ``query`` bit for bit.  The device paths
+of ingest and query run in ``obs.family_context(family)``, so that with
+observability on each ``ops`` launch counts under its family.
 
 ``add_tables_sharded`` builds a batch of tables through a shard-and-merge
 lake build (:func:`repro_torch.data.merge.build_sharded`) before one
@@ -40,6 +42,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core import (KMV, KMVSketch, SparseVec, WeightedMinHash,
                               WMHSketch, stack_wmh)
 from repro_torch.device import resolve_device
@@ -193,9 +196,11 @@ class DatasetSearchIndex:
         it to a logical corpus inside the shared arena."""
         ind, val, sq = self.vectorize(keys, values)
         if self.store is not None:
-            comps = self.family.sketch_rows([ind, val, sq],
-                                            device=self.device)
-            self.store.append(*(c[:, None] for c in comps), tenant=tenant)
+            with _obs.family_context(self.family.name):
+                comps = self.family.sketch_rows([ind, val, sq],
+                                                device=self.device)
+                self.store.append(*(c[:, None] for c in comps),
+                                  tenant=tenant)
         self._register_table(name, len(keys), self.kmv.sketch(val),
                              self._host_sketches(ind, val, sq),
                              tenant=tenant)
@@ -219,9 +224,10 @@ class DatasetSearchIndex:
         if not tables:
             return
         rows = [self.vectorize(keys, values) for _, keys, values in tables]
-        merged = build_sharded(rows, family=self.family, shards=shards,
-                               device=self.device)
-        self.store.append(*merged.field_arrays(), tenant=tenant)
+        with _obs.family_context(self.family.name):
+            merged = build_sharded(rows, family=self.family, shards=shards,
+                                   device=self.device)
+            self.store.append(*merged.field_arrays(), tenant=tenant)
         for (name, keys, _), (ind, val, sq) in zip(tables, rows):
             self._register_table(name, len(keys), self.kmv.sketch(val),
                                  self._host_sketches(ind, val, sq),
@@ -274,9 +280,10 @@ class DatasetSearchIndex:
         if (backend or self.backend) == "host":
             return self._query_host(keys, values, top_k, min_join,
                                     tenant=tenant)
-        return self._query_batch_device(
-            [(np.asarray(keys), np.asarray(values))], top_k, min_join,
-            tenant=tenant)[0]
+        with _obs.family_context(self.family.name):
+            return self._query_batch_device(
+                [(np.asarray(keys), np.asarray(values))], top_k, min_join,
+                tenant=tenant)[0]
 
     def query_batch(self, queries: Sequence[Tuple[np.ndarray, np.ndarray]],
                     top_k: int = 10, min_join: float = 1.0,
@@ -293,8 +300,9 @@ class DatasetSearchIndex:
             return [self._query_host(np.asarray(k), np.asarray(v), top_k,
                                      min_join, tenant=tenant)
                     for k, v in queries]
-        return self._query_batch_device(queries, top_k, min_join,
-                                        tenant=tenant)
+        with _obs.family_context(self.family.name):
+            return self._query_batch_device(queries, top_k, min_join,
+                                            tenant=tenant)
 
     def _assemble_results(self, scores, idx, join_h, sum_b_h, q_sample,
                           n_q: int, tables: List[TableSketch]

@@ -18,7 +18,10 @@ corpus layer merges sketches of disjoint partitions:
     stores through a pairwise merge tree.
 
 Tenancy survives merging: the inputs must carry identical per-tenant row
-ranges, which the merged store inherits.
+ranges, which the merged store inherits.  With observability on, a build
+is a ``merge.build_sharded`` span over one ``merge.sketch_shard`` span a
+shard, and each merge a ``merge.merge_stores`` span counted in
+``merge.merges_total``, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.core import u32
 from repro_torch.core.sampling import SAMPLE_KEY_MASK
 from repro_torch.core.types import SparseVec
@@ -101,9 +105,13 @@ def merge_stores(a: CorpusStore, b: CorpusStore) -> CorpusStore:
             "tenant row-range tables differ; merge inputs must assign "
             f"identical rows to identical tenants ({tenants_a} vs "
             f"{tenants_b})")
-    merged = a.family.merge_rows(a.field_arrays(), b.field_arrays())
-    out = CorpusStore(family=a.family, fields=a.fields, device=a.device)
-    out.append(*merged)
+    with _obs.span("merge.merge_stores", family=a.family.name,
+                   rows=len(a), fields=a.fields):
+        merged = a.family.merge_rows(a.field_arrays(), b.field_arrays())
+        out = CorpusStore(family=a.family, fields=a.fields, device=a.device)
+        out.append(*merged)
+    if _obs.enabled():
+        _obs.counter("merge.merges_total", family=a.family.name).inc()
     for t, ranges in tenants_a.items():
         out._tenant_ranges[t] = [tuple(r) for r in ranges]
     return out
@@ -135,21 +143,25 @@ def build_sharded(rows: Sequence, *, family, shards: int,
     if not field_rows:
         raise ValueError("build_sharded needs at least one row")
     F = len(field_rows[0])
-    parted = [tuple(partition_by_key(v, shards) for v in fr)
-              for fr in field_rows]
-    stores = []
-    for s in range(shards):
-        per_field = [family.sketch_rows([pr[f][s] for pr in parted],
-                                        device=device)
-                     for f in range(F)]
-        store = CorpusStore(family=family, fields=F, device=device)
-        store.append(*(torch.stack([comps[i] for comps in per_field])
-                       for i in range(len(family.components))))
-        stores.append(store)
-    while len(stores) > 1:
-        merged = [merge_stores(stores[i], stores[i + 1])
-                  for i in range(0, len(stores) - 1, 2)]
-        if len(stores) % 2:
-            merged.append(stores[-1])
-        stores = merged
+    with _obs.span("merge.build_sharded", family=family.name, shards=shards,
+                   rows=len(field_rows)):
+        parted = [tuple(partition_by_key(v, shards) for v in fr)
+                  for fr in field_rows]
+        stores = []
+        for s in range(shards):
+            with _obs.span("merge.sketch_shard", family=family.name,
+                           shard=s):
+                per_field = [family.sketch_rows([pr[f][s] for pr in parted],
+                                                device=device)
+                             for f in range(F)]
+                store = CorpusStore(family=family, fields=F, device=device)
+                store.append(*(torch.stack([comps[i] for comps in per_field])
+                               for i in range(len(family.components))))
+            stores.append(store)
+        while len(stores) > 1:
+            merged = [merge_stores(stores[i], stores[i + 1])
+                      for i in range(0, len(stores) - 1, 2)]
+            if len(stores) % 2:
+                merged.append(stores[-1])
+            stores = merged
     return stores[0]

@@ -32,6 +32,11 @@ Multi-tenant arena: ``append(..., tenant=...)`` records the written row
 range per tenant, so many logical corpora share one set of buffers while
 queries address one tenant's rows (by slicing a contiguous tenant, or by
 gathering a fragmented one's estimate columns).
+
+With observability on, each write is a ``store.append`` span and updates
+``store.appends_total``, ``store.rows`` and ``store.resident_bytes``
+(capacity x fields x bytes a row); each growth is a ``store.grow`` span
+and counts in ``store.grows_total``, as in the JAX store.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch import obs as _obs
 from repro_torch.device import resolve_device
 
 from .families import ICWSFamily
@@ -154,9 +160,11 @@ class CorpusStore:
         b = int(rows[0].shape[1])
         if b == 0:
             return
-        self._reserve(self._size + b)
-        for buf, r in zip(self._bufs, rows):
-            buf[:, self._size:self._size + b] = r
+        with _obs.span("store.append", family=self.family.name, rows=b,
+                       tenant=tenant):
+            self._reserve(self._size + b)
+            for buf, r in zip(self._bufs, rows):
+                buf[:, self._size:self._size + b] = r
         if tenant is not None:
             ranges = self._tenant_ranges.setdefault(str(tenant), [])
             if ranges and ranges[-1][1] == self._size:
@@ -164,6 +172,12 @@ class CorpusStore:
             else:
                 ranges.append((self._size, self._size + b))
         self._size += b
+        if _obs.enabled():
+            fam = self.family.name
+            _obs.counter("store.appends_total", family=fam).inc()
+            _obs.gauge("store.rows", family=fam).set(self._size)
+            _obs.gauge("store.resident_bytes", family=fam).set(
+                self._cap * self.fields * self.bytes_per_row())
 
     def _reserve(self, n: int) -> None:
         if n <= self._cap:
@@ -175,8 +189,14 @@ class CorpusStore:
                                dtype=s.dtype, device=self.device)
                     for s in self._specs)
         if self._bufs is not None:
-            for dst, src in zip(new, self._bufs):
-                dst[:, :self._cap] = src
+            # a growth, not the first allocation
+            with _obs.span("store.grow", family=self.family.name,
+                           capacity=cap):
+                for dst, src in zip(new, self._bufs):
+                    dst[:, :self._cap] = src
+            if _obs.enabled():
+                _obs.counter("store.grows_total",
+                             family=self.family.name).inc()
         self._bufs = new
         self._cap = cap
 

@@ -21,6 +21,15 @@ stay unpacked; where the stored width gained a pad slot (an odd width
 rounded up to even), the query is padded here with the sentinels the
 kernels already treat as dead.  So a packed estimate equals the unpacked
 one on ``family.unpack_rows(family.pack_rows(rows))`` bit for bit.
+
+Every public def carries ``@_obs.instrumented("<its own name>")`` (the
+rule OB001 sets for the JAX package's ops; a port test applies it here):
+with observability on, each call counts under ``ops.launches_total{op,
+family}`` and its host time lands in ``ops.launch_seconds``, and
+``_route`` sets the ``ops.interpret_mode`` gauge: 1.0 when a CPU tensor
+takes the plain version, 0.0 when a CUDA kernel is launched.  No op
+resolves blocks from a tuning cache yet, so ``ops.autotune_resolved_total``
+is never emitted (``ROADMAP.md`` Queue A 16).
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ from typing import Sequence
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import obs as _obs
 
 from .common import QUERY_PAD_FP
 from .countsketch import (_bucket_sign, countsketch_dense_cuda,
@@ -55,13 +66,15 @@ from .sample_estimate import (sample_estimate_fields_cuda,
 
 
 def _route(x: torch.Tensor, plain, kernel):
-    if x.device.type == "cpu":
-        return plain
-    if x.device.type == "cuda":
-        return kernel
-    raise ValueError(f"no kernel for device {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    cpu = x.device.type == "cpu"
+    if _obs.enabled():
+        _obs.gauge("ops.interpret_mode").set(float(cpu))
+    return plain if cpu else kernel
 
 
+@_obs.instrumented("icws_sketch")
 def icws_sketch(w, keys, vals, *, m: int, seed: int = 0,
                 pack_vals: bool = False):
     """ICWS sketch of a padded sparse batch.
@@ -73,6 +86,7 @@ def icws_sketch(w, keys, vals, *, m: int, seed: int = 0,
     return fn(w, keys, vals, m=m, seed=seed)
 
 
+@_obs.instrumented("dmh_sketch")
 def dmh_sketch(w, keys, vals, *, m: int, seed: int = 0,
                pack_vals: bool = False, replicas: int = 1):
     """DMH sketch of a padded sparse batch, in the ICWS wire layout.
@@ -86,6 +100,7 @@ def dmh_sketch(w, keys, vals, *, m: int, seed: int = 0,
     return fn(w, keys, vals, m=m, seed=seed, replicas=replicas)
 
 
+@_obs.instrumented("estimate_partials")
 def estimate_partials(fpa, va, fpb, vb):
     """Algorithm-5 partial sums for P sketch pairs: ``[P, m]`` each ->
     ``(cnt, sw) [P]``."""
@@ -93,6 +108,7 @@ def estimate_partials(fpa, va, fpb, vb):
     return fn(fpa, va, fpb, vb)
 
 
+@_obs.instrumented("estimate_partials_one_vs_many")
 def estimate_partials_one_vs_many(fq, vq, fpc, vc):
     """Partial sums of one query sketch (``[1, m]`` or ``[m]``) against a
     ``[P, m]`` corpus, the query broadcast: ``(cnt, sw) [P]``."""
@@ -100,6 +116,7 @@ def estimate_partials_one_vs_many(fq, vq, fpc, vc):
     return fn(fq, vq, fpc, vc)
 
 
+@_obs.instrumented("estimate_partials_many_vs_many")
 def estimate_partials_many_vs_many(fq, vq, fpc, vc):
     """Partial sums of ``[Q, m]`` queries against a ``[P, m]`` corpus in
     one launch: ``(cnt, sw) [Q, P]``."""
@@ -116,6 +133,7 @@ def _norm_epilogue(cnt, sw, na, nb, m: int):
     return torch.where((na == 0) | (nb == 0), 0.0, est)
 
 
+@_obs.instrumented("icws_estimate")
 def icws_estimate(fpa, va, na, fpb, vb, nb):
     """ICWS inner-product estimates of P sketch pairs: fp ``[P, m]`` i32,
     v ``[P, m]`` f32, norms ``[P]`` f32 -> ``[P]`` f32."""
@@ -123,6 +141,7 @@ def icws_estimate(fpa, va, na, fpb, vb, nb):
     return _norm_epilogue(cnt, sw, na, nb, fpa.shape[1])
 
 
+@_obs.instrumented("icws_estimate_corpus")
 def icws_estimate_corpus(fq, vq, nq, fpc, vc, nc):
     """ICWS inner-product estimates of one query against a whole corpus.
 
@@ -135,6 +154,7 @@ def icws_estimate_corpus(fq, vq, nq, fpc, vc, nc):
     return _norm_epilogue(cnt, sw, nq, nc, fpc.shape[1])
 
 
+@_obs.instrumented("icws_estimate_many")
 def icws_estimate_many(fq, vq, nq, fpc, vc, nc):
     """ICWS inner-product estimates of Q queries against a whole corpus:
     fq/vq ``[Q, m]``, nq ``[Q]``; fpc/vc ``[P, m]``, nc ``[P]``.  Returns
@@ -143,6 +163,7 @@ def icws_estimate_many(fq, vq, nq, fpc, vc, nc):
     return _norm_epilogue(cnt, sw, nq[:, None], nc[None, :], fpc.shape[1])
 
 
+@_obs.instrumented("icws_estimate_corpus_stacked")
 def icws_estimate_corpus_stacked(fq, vq, nq, fpb, vb, nb):
     """One query against field 0 of stacked ``[1, cap, m]`` store buffers,
     read in place (a view, no ``[cap, m]`` copy).  Unused capacity rows
@@ -151,16 +172,19 @@ def icws_estimate_corpus_stacked(fq, vq, nq, fpb, vb, nb):
     return icws_estimate_corpus(fq, vq, nq, fpb[0], vb[0], nb[0])
 
 
+@_obs.instrumented("icws_estimate_many_stacked")
 def icws_estimate_many_stacked(fq, vq, nq, fpb, vb, nb):
     """Q queries against field 0 of stacked ``[1, cap, m]`` store buffers."""
     return icws_estimate_many(fq, vq, nq, fpb[0], vb[0], nb[0])
 
 
+@_obs.instrumented("icws_estimate_many_sharded")
 def icws_estimate_many_sharded(fq, vq, nq, fpb, vb, nb, *, mesh, axis):
     raise NotImplementedError("sharded corpus estimates are not ported yet "
                               "(Queue A 14 in ROADMAP.md)")
 
 
+@_obs.instrumented("estimate_partials_fields")
 def estimate_partials_fields(fq, vq, fpc, vc, *, qmap: Sequence[int],
                              cmap: Sequence[int]):
     """Fused multi-field partial sums: one launch for all field pairs."""
@@ -168,6 +192,7 @@ def estimate_partials_fields(fq, vq, fpc, vc, *, qmap: Sequence[int],
     return fn(fq, vq, fpc, vc, qmap=qmap, cmap=cmap)
 
 
+@_obs.instrumented("icws_estimate_fields")
 def icws_estimate_fields(fq, vq, nq, fpc, vc, nc, *, qmap: Sequence[int],
                          cmap: Sequence[int]):
     """Fused multi-field ICWS inner-product estimates, ONE kernel launch.
@@ -181,6 +206,7 @@ def icws_estimate_fields(fq, vq, nq, fpc, vc, nc, *, qmap: Sequence[int],
     return _icws_epilogue(cnt, sw, nq, nc, fq.shape[2], qmap, cmap)
 
 
+@_obs.instrumented("icws_estimate_fields_packed")
 def icws_estimate_fields_packed(fq, vq, nq, fpc, wc, nc, *,
                                 qmap: Sequence[int], cmap: Sequence[int]):
     """Packed-corpus :func:`icws_estimate_fields`: fpc ``[C, P, me]`` i32,
@@ -202,6 +228,7 @@ def _icws_epilogue(cnt, sw, nq, nc, m: int, qmap, cmap):
     return _norm_epilogue(cnt, sw, nqg, ncg, m)
 
 
+@_obs.instrumented("countsketch_sparse")
 def countsketch_sparse(keys, vals, *, width: int, reps: int = 5,
                        seed: int = 0):
     """CountSketch of a padded sparse batch.  [B, N] -> [B, reps, width]."""
@@ -209,6 +236,7 @@ def countsketch_sparse(keys, vals, *, width: int, reps: int = 5,
     return fn(keys, vals, width=width, reps=reps, seed=seed)
 
 
+@_obs.instrumented("countsketch")
 def countsketch(x, *, width: int, reps: int = 5, seed: int = 0,
                 offset: int = 0):
     """CountSketch table ``[reps, width]`` of a dense f32 vector ``[T]``;
@@ -217,6 +245,7 @@ def countsketch(x, *, width: int, reps: int = 5, seed: int = 0,
     return fn(x, width=width, reps=reps, seed=seed, offset=offset)
 
 
+@_obs.instrumented("countsketch_decode")
 def countsketch_decode(table, indices, *, seed: int = 0):
     """Median-of-reps point query of a ``[reps, width]`` table at
     ``indices [n]``: each rep's bucket times its sign, then the median over
@@ -229,6 +258,7 @@ def countsketch_decode(table, indices, *, seed: int = 0):
     return _median_reps(est.T)
 
 
+@_obs.instrumented("jl_sketch")
 def jl_sketch(keys, vals, *, m: int, seed: int = 0):
     """JL projection of a padded sparse batch.  [B, N] -> [B, m]."""
     fn = _route(keys, jl_sketch_plain, jl_sketch_cuda)
@@ -245,6 +275,7 @@ def _median_reps(dots: torch.Tensor) -> torch.Tensor:
     return (s[:, (R - 1) // 2] + s[:, R // 2]) * 0.5
 
 
+@_obs.instrumented("linear_estimate_fields")
 def linear_estimate_fields(tq, tc, *, qmap: Sequence[int],
                            cmap: Sequence[int]):
     """Fused multi-field linear-sketch estimates, ONE kernel launch.
@@ -258,6 +289,7 @@ def linear_estimate_fields(tq, tc, *, qmap: Sequence[int],
     return _median_reps(fn(tq, tc, qmap=qmap, cmap=cmap))
 
 
+@_obs.instrumented("linear_estimate_fields_packed")
 def linear_estimate_fields_packed(tq, wc, *, qmap: Sequence[int],
                                   cmap: Sequence[int]):
     """Packed-corpus :func:`linear_estimate_fields`: wc ``[C, P, R, We //
@@ -269,6 +301,7 @@ def linear_estimate_fields_packed(tq, wc, *, qmap: Sequence[int],
     return _median_reps(fn(tq, wc, qmap=qmap, cmap=cmap))
 
 
+@_obs.instrumented("sample_estimate_fields")
 def sample_estimate_fields(kq, vq, tq, kc, vc, tc, *, qmap: Sequence[int],
                            cmap: Sequence[int]):
     """Fused multi-field sampling-sketch (TS/PS) estimates, ONE kernel launch.
@@ -287,6 +320,7 @@ def sample_estimate_fields(kq, vq, tq, kc, vc, tc, *, qmap: Sequence[int],
     return fn(kq, vq, aq, kc, vc, tc, qmap=qmap, cmap=cmap)
 
 
+@_obs.instrumented("sample_estimate_fields_packed")
 def sample_estimate_fields_packed(kq, vq, tq, kc, wc, tc, *,
                                   qmap: Sequence[int], cmap: Sequence[int]):
     """Packed-corpus :func:`sample_estimate_fields`: kc ``[C, P, Se]`` i32

@@ -10,101 +10,28 @@ fused multi-field estimate launch off the index's store buffers;
 ``search_batch`` amortizes both across a micro-batch.  ``ingest_many_sharded``
 ingests a batch through a shard-and-merge lake build, and
 ``backend="host"`` serves the ICWS index's WeightedMinHash host oracle
-(kept by default, ``keep_host_oracle=True``, as in the JAX service).  The
-JAX service's observability spans, counters and estimator audit
-(``audit_every``) are not ported yet (``ROADMAP.md`` Queue A 15).
+(kept by default, ``keep_host_oracle=True``, as in the JAX service).
+
+Request accounting is always on, in private
+:class:`repro_torch.obs.metrics.Histogram` instances.  With observability
+on (``REPRO_OBS=1`` or ``repro_torch.obs.enable()``) the service also
+records the JAX service's spans (``serve.ingest``, ``serve.ingest_sharded``,
+``serve.search``, ``serve.search_batch``), counters and registered
+histograms (``serve.*``), and with ``audit_every=N`` every N-th
+``search`` of an ICWS device index that kept its host oracle re-scores
+its results against that oracle into ``quality.ppm_error``.  None of it
+changes what an endpoint returns.
 """
 from __future__ import annotations
 
-import collections
-import math
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch import obs as _obs
 from repro_torch.data import DatasetSearchIndex, SearchResult
-
-
-# Histogram bucket layout, copied from ``repro.obs.metrics`` so that the
-# service's quantiles equal the JAX service's value for value.
-BUCKET_LO_EXP = -7          # first finite bucket starts at 1e-7
-BUCKET_HI_EXP = 3           # last finite bucket ends at 1e3
-BUCKETS_PER_DECADE = 4
-N_FINITE = (BUCKET_HI_EXP - BUCKET_LO_EXP) * BUCKETS_PER_DECADE
-RECENT_WINDOW = 128
-
-_LOG_SCALE = BUCKETS_PER_DECADE
-_LOG_SHIFT = -BUCKET_LO_EXP * BUCKETS_PER_DECADE
-
-
-def bucket_index(value: float) -> int:
-    """Map a value to [0, N_FINITE+1]: 0 = underflow, N_FINITE+1 = overflow."""
-    if value < 1e-7:            # includes 0 and negatives: underflow
-        return 0
-    i = math.floor(math.log10(value) * _LOG_SCALE) + _LOG_SHIFT
-    if i < 0:
-        return 0
-    if i >= N_FINITE:
-        return N_FINITE + 1
-    return i + 1
-
-
-def bucket_bounds(i: int) -> Tuple[float, float]:
-    """(lo, hi) of finite bucket slot ``i`` in [1, N_FINITE]."""
-    e = (i - 1 - _LOG_SHIFT) / _LOG_SCALE
-    return 10.0 ** e, 10.0 ** (e + 1.0 / _LOG_SCALE)
-
-
-class LatencyHistogram:
-    """Log-scale bucket histogram with exact count, sum, min, max and last
-    value and a window of the ``RECENT_WINDOW`` most recent values.
-
-    Quantiles are exact order statistics while the window holds every
-    observation; beyond that, the geometric midpoint of the bucket that
-    holds the quantile, clamped to the exact min and max.
-    """
-
-    def __init__(self) -> None:
-        self.count = 0
-        self.sum = 0.0
-        self.min = math.inf
-        self.max = -math.inf
-        self.last = 0.0
-        self.buckets = [0] * (N_FINITE + 2)
-        self.recent = collections.deque(maxlen=RECENT_WINDOW)
-
-    def record(self, value: float) -> None:
-        v = float(value)
-        self.count += 1
-        self.sum += v
-        if v < self.min:
-            self.min = v
-        if v > self.max:
-            self.max = v
-        self.last = v
-        self.buckets[bucket_index(v)] += 1
-        self.recent.append(v)
-
-    def quantile(self, q: float) -> float:
-        if self.count == 0:
-            return 0.0
-        if len(self.recent) == self.count:
-            xs = sorted(self.recent)
-            k = min(len(xs) - 1, max(0, int(math.ceil(q * len(xs))) - 1))
-            return xs[k]
-        target = q * self.count
-        cum = 0
-        for i, n in enumerate(self.buckets):
-            cum += n
-            if cum >= target and n:
-                if i == 0:
-                    return self.min
-                if i == N_FINITE + 1:
-                    return self.max
-                lo, hi = bucket_bounds(i)
-                return min(max(math.sqrt(lo * hi), self.min), self.max)
-        return self.max
+from repro_torch.obs.metrics import Histogram
 
 
 class ServiceStats:
@@ -116,9 +43,9 @@ class ServiceStats:
         self.tables_ingested = 0
         self.rows_ingested = 0
         self.batch_queries_served = 0
-        self.query_hist = LatencyHistogram()
-        self.batch_hist = LatencyHistogram()
-        self.batched_query_hist = LatencyHistogram()
+        self.query_hist = Histogram("serve.query_seconds")
+        self.batch_hist = Histogram("serve.batch_seconds")
+        self.batched_query_hist = Histogram("serve.batched_query_seconds")
 
     @property
     def queries_served(self) -> int:
@@ -166,25 +93,23 @@ class SketchSearchService:
     passes ``device="cpu"``.  Ported: ``family`` in ``("icws", "cs",
     "jl", "ts", "ps", "dmh")`` (``FAMILY_NAMES``), each sized to the
     storage of an ``m``-sample ICWS sketch, unpacked or ``packed=True``;
-    ``backend="device"`` or, for ICWS, ``"host"``; ``mesh=None``.  A
-    ``mesh`` or ``audit_every`` raises ``NotImplementedError`` naming its
-    ROADMAP.md item.
+    ``backend="device"`` or, for ICWS, ``"host"``; ``mesh=None`` (a
+    ``mesh`` raises ``NotImplementedError`` naming its ROADMAP.md item).
+    ``audit_every=N > 0``, with observability on, re-scores every N-th
+    single search against the host oracle (:meth:`_maybe_audit`).
     """
 
     def __init__(self, m: int = 256, seed: int = 0,
                  backend: str = "device", keep_host_oracle: bool = True,
                  mesh=None, family: str = "icws", packed: bool = False,
                  audit_every: int = 0, device="cuda"):
-        if audit_every:
-            raise NotImplementedError(
-                "audit_every (the estimator-quality audit) is not ported "
-                "yet (Queue A 15 in ROADMAP.md)")
         self.index = DatasetSearchIndex(m=m, seed=seed, backend=backend,
                                         keep_host_oracle=keep_host_oracle,
                                         mesh=mesh, family=family,
                                         packed=packed, device=device)
         self.stats = ServiceStats()
-        self._tenant_hists: Dict[str, LatencyHistogram] = {}
+        self._tenant_hists: Dict[str, Histogram] = {}
+        self.audit_every = int(audit_every)
 
     # -- ingestion ----------------------------------------------------------
     def ingest(self, name: str, keys: np.ndarray, values: np.ndarray, *,
@@ -196,9 +121,13 @@ class SketchSearchService:
             raise ValueError(f"table {name!r} already ingested"
                              + (f" for tenant {tenant!r}"
                                 if tenant is not None else ""))
-        self.index.add_table(name, keys, values, tenant=tenant)
+        with _obs.span("serve.ingest", table=name, tenant=tenant):
+            self.index.add_table(name, keys, values, tenant=tenant)
         self.stats.tables_ingested += 1
         self.stats.rows_ingested += len(keys)
+        if _obs.enabled():
+            _obs.counter("serve.tables_ingested_total").inc()
+            _obs.counter("serve.rows_ingested_total").inc(len(keys))
 
     def _tenant_tables_or_empty(self, tenant: Optional[str]):
         if tenant is not None and str(tenant) not in self.index.tenants():
@@ -226,9 +155,16 @@ class SketchSearchService:
                                  + (f" for tenant {tenant!r}"
                                     if tenant is not None else ""))
             seen.add(name)
-        self.index.add_tables_sharded(tables, shards=shards, tenant=tenant)
+        with _obs.span("serve.ingest_sharded", shards=shards, tenant=tenant,
+                       tables=len(tables)):
+            self.index.add_tables_sharded(tables, shards=shards,
+                                          tenant=tenant)
+        rows = sum(len(k) for _, k, _ in tables)
         self.stats.tables_ingested += len(tables)
-        self.stats.rows_ingested += sum(len(k) for _, k, _ in tables)
+        self.stats.rows_ingested += rows
+        if _obs.enabled():
+            _obs.counter("serve.tables_ingested_total").inc(len(tables))
+            _obs.counter("serve.rows_ingested_total").inc(rows)
 
     # -- queries ------------------------------------------------------------
     def search(self, keys: np.ndarray, values: np.ndarray, *,
@@ -237,18 +173,64 @@ class SketchSearchService:
                tenant: Optional[str] = None) -> List[SearchResult]:
         """Rank tables by |corr|; ``tenant`` searches one logical corpus."""
         t0 = time.perf_counter()
-        results = self.index.query(keys, values, top_k=top_k,
-                                   min_join=min_join, backend=backend,
-                                   tenant=tenant)
+        with _obs.span("serve.search", tenant=tenant,
+                       family=self.index.family.name,
+                       backend=backend or self.index.backend):
+            results = self.index.query(keys, values, top_k=top_k,
+                                       min_join=min_join, backend=backend,
+                                       tenant=tenant)
         dt = time.perf_counter() - t0
         self.stats.query_hist.record(dt)
-        self._record_tenant(dt, tenant)
+        self._record_request("search", dt, tenant)
+        if self.audit_every:
+            self._maybe_audit(keys, values, results, top_k, min_join,
+                              backend, tenant)
         return results
 
-    def _record_tenant(self, dt: float, tenant: Optional[str]) -> None:
+    # -- telemetry ----------------------------------------------------------
+    def _record_request(self, endpoint: str, dt: float,
+                        tenant: Optional[str]) -> None:
         if tenant is not None:
-            self._tenant_hists.setdefault(str(tenant),
-                                          LatencyHistogram()).record(dt)
+            hist = self._tenant_hists.get(str(tenant))
+            if hist is None:
+                hist = Histogram("serve.tenant_seconds",
+                                 {"tenant": str(tenant)})
+                self._tenant_hists[str(tenant)] = hist
+            hist.record(dt)
+        if not _obs.enabled():
+            return
+        _obs.histogram("serve.request_seconds", endpoint=endpoint).record(dt)
+        if endpoint == "search":
+            _obs.counter("serve.queries_total").inc()
+        if tenant is not None:
+            _obs.histogram("serve.tenant_request_seconds",
+                           tenant=str(tenant)).record(dt)
+
+    def _maybe_audit(self, keys, values, results, top_k, min_join,
+                     backend, tenant) -> None:
+        """Every ``audit_every``-th search, re-score the results against the
+        host oracle (``backend="host"``) and feed each matched table's join
+        size pair to ``quality.ppm_error``.  Skips unless observability is
+        on, the search ran on the device, the family is ICWS, the index
+        kept its host oracle and the results are not empty; it never
+        changes what the endpoint returns."""
+        if not _obs.enabled() or not results:
+            return
+        if (backend or self.index.backend) != "device":
+            return
+        if self.index.family.name != "icws" or not self.index.keep_host_oracle:
+            return
+        if self.stats.queries_served % self.audit_every != 0:
+            return
+        ref = self.index.query(keys, values, top_k=top_k, min_join=min_join,
+                               backend="host", tenant=tenant)
+        ref_by_name = {r.name: r for r in ref}
+        for r in results:
+            mate = ref_by_name.get(r.name)
+            if mate is None or mate.join_size == 0:
+                continue
+            _obs.record_sample(self.index.family.name, r.join_size,
+                               mate.join_size)
 
     _EMPTY_QUERY = (np.zeros(0, np.int64), np.zeros(0, np.float64))
 
@@ -275,15 +257,23 @@ class SketchSearchService:
             t0 = time.perf_counter()
             padded = chunk + [self._EMPTY_QUERY] * (
                 (micro_batch - len(chunk)) if pad else 0)
-            out = self.index.query_batch(padded, top_k=top_k,
-                                         min_join=min_join, backend=backend,
-                                         tenant=tenant)
+            with _obs.span("serve.search_batch", tenant=tenant,
+                           family=self.index.family.name,
+                           batch=len(chunk)):
+                out = self.index.query_batch(padded, top_k=top_k,
+                                             min_join=min_join,
+                                             backend=backend, tenant=tenant)
             results.extend(out[:len(chunk)])
             dt = time.perf_counter() - t0
             self.stats.batch_hist.record(dt)
             self.stats.batched_query_hist.record(dt / len(chunk))
             self.stats.batch_queries_served += len(chunk)
-            self._record_tenant(dt, tenant)
+            self._record_request("search_batch", dt, tenant)
+            if _obs.enabled():
+                _obs.counter("serve.batches_total").inc()
+                _obs.counter("serve.batch_queries_total").inc(len(chunk))
+                _obs.histogram("serve.batched_query_seconds").record(
+                    dt / len(chunk))
         return results
 
     def describe(self, tenant: Optional[str] = None) -> Dict[str, object]:
@@ -343,7 +333,7 @@ class SketchSearchService:
         return report
 
 
-def _latency_fields(prefix: str, hist: LatencyHistogram) -> Dict[str, float]:
+def _latency_fields(prefix: str, hist: Histogram) -> Dict[str, float]:
     """p50/p95/p99 (ms) of one latency histogram, keyed ``<prefix>_p50``..."""
     return {
         prefix + "_p50": hist.quantile(0.50) * 1e3,

@@ -1105,3 +1105,61 @@ def test_card_merge_rows_match_the_host_merge(cuda, family):
     same = got[0] == wfp
     np.testing.assert_allclose(got[1][same], wval[same], rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(got[2], [s.norm for s in want], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# observability on the card: the same bits on and off, launches counted as
+# the kernel wrappers count them, interpret_mode 0
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("family", ["icws", "cs", "jl", "ts", "ps", "dmh"])
+def test_observability_on_and_off_rank_bit_for_bit_on_the_card(cuda, family,
+                                                               packed):
+    from repro_torch import SketchSearchService, obs
+    rng = np.random.default_rng(8)
+    keys = rng.integers(0, 3000, 300)
+    tables = []
+    for i in range(8):
+        k = np.concatenate([keys[rng.random(300) < 0.8],
+                            rng.integers(0, 3000, 50)])
+        tables.append((f"t{i}", k, rng.normal(size=k.size)))
+    queries = [(keys, rng.normal(size=keys.size)) for _ in range(3)]
+    svc = SketchSearchService(m=M, seed=2, family=family, packed=packed,
+                              keep_host_oracle=False, device=cuda)
+    svc.ingest_many(tables)
+
+    def serve():
+        return (svc.search_batch(queries, top_k=4, min_join=3.0,
+                                 micro_batch=2),
+                [svc.search(k, v, top_k=4, min_join=3.0)
+                 for k, v in queries])
+
+    was = obs.enabled()
+    off = serve()
+    obs.reset_all()
+    before = port_est.estimate_fields_cuda.launches
+    obs.enable()
+    try:
+        on = serve()
+        torch.cuda.synchronize()
+        mode = obs.gauge("ops.interpret_mode").value
+        snap = obs.describe_metrics()["metrics"]
+    finally:
+        (obs.enable if was else obs.disable)()
+        obs.reset_all()
+    assert on == off and off[0] == off[1] and any(off[1])
+    assert mode == 0.0
+    ops_seen = {s["labels"]["op"]: s["value"]
+                for s in snap["ops.launches_total"]["series"]}
+    assert all(s["labels"]["family"] == family
+               for s in snap["ops.launches_total"]["series"])
+    # two micro-batches and three searches: one estimate launch each
+    est_op = {"icws": "icws_estimate_fields", "dmh": "icws_estimate_fields",
+              "cs": "linear_estimate_fields", "jl": "linear_estimate_fields",
+              "ts": "sample_estimate_fields",
+              "ps": "sample_estimate_fields"}[family]
+    assert ops_seen[est_op + ("_packed" if packed else "")] == 5
+    if family in ("icws", "dmh") and not packed:
+        assert port_est.estimate_fields_cuda.launches - before == 5
+        assert ops_seen["estimate_partials_fields"] == 5

@@ -233,7 +233,6 @@ def test_service_batch_equals_search_loop_and_accounts(lake):
 @pytest.mark.parametrize("kwargs, item", [
     ({"family": "ts", "mesh": object()}, "Queue A 14"),
     ({"mesh": object()}, "Queue A 14"),
-    ({"audit_every": 4}, "Queue A 15"),
 ])
 def test_unported_options_raise_naming_their_queue_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):

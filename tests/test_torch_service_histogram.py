@@ -1,7 +1,8 @@
-"""The port service's latency histogram against ``repro.obs.metrics``.
+"""The port's latency histogram (``repro_torch.obs.metrics``, which the
+service records into) against ``repro.obs.metrics``.
 
 The same seeded lognormal latencies, recorded into the port's
-``LatencyHistogram`` and into the JAX package's ``Histogram``, give equal
+``Histogram`` and into the JAX package's ``Histogram``, give equal
 quantiles, exact while the 128-value window holds every value and from log
 buckets beyond it; ``describe()`` of both services reports the same
 latency fields."""
@@ -12,7 +13,7 @@ import torch
 from repro.obs import metrics
 from repro.serve import SketchSearchService as JaxService
 from repro_torch import SketchSearchService
-from repro_torch.serve import sketch_service as port_service
+from repro_torch.obs import metrics as port_metrics
 
 torch.set_num_threads(1)
 
@@ -33,16 +34,16 @@ def _latencies(n, seed=0):
 def test_histogram_constants_equal_the_jax_ones():
     for name in ("BUCKET_LO_EXP", "BUCKET_HI_EXP", "BUCKETS_PER_DECADE",
                  "N_FINITE", "RECENT_WINDOW"):
-        assert getattr(port_service, name) == getattr(metrics, name), name
+        assert getattr(port_metrics, name) == getattr(metrics, name), name
     for i in range(1, metrics.N_FINITE + 1):
-        assert port_service.bucket_bounds(i) == metrics.bucket_bounds(i)
+        assert port_metrics.bucket_bounds(i) == metrics.bucket_bounds(i)
     for v in (0.0, -1.0, 1e-8, 1e-7, 3.3e-3, 999.0, 1e3, 5e4):
-        assert port_service.bucket_index(v) == metrics.bucket_index(v)
+        assert port_metrics.bucket_index(v) == metrics.bucket_index(v)
 
 
 @pytest.mark.parametrize("n", [1, 128, 129, 2000])
 def test_quantiles_equal_the_jax_histogram(n):
-    port, ref = port_service.LatencyHistogram(), metrics.Histogram()
+    port, ref = port_metrics.Histogram(), metrics.Histogram()
     for x in _latencies(n):
         port.record(x)
         ref.record(x)
