@@ -37,7 +37,13 @@ integer lake), holds each family's ``merge_rows`` (commutes bit for bit;
 ICWS and DMH against the host merge) and times ``merge_stores``; the
 ``host oracle`` phase serves an ICWS service's host WeightedMinHash
 sketches beside the card, then, with observability on, audits its
-searches against them (``audit_every=1``).  Each family's
+searches against them (``audit_every=1``); the ``paper baselines`` phase
+runs the paper's head-to-head on the host through the port's registry
+(``repro_torch.core.make``, all nine methods at storage 400 on fig4's fast
+grid of ``sparse_pair`` inputs, stopping on a failed merge, brute-force or
+rounding identity) and the paper's method on the card through
+``SketchCorpus`` (held against its plain version on the same vectors and
+within 1e-7 of the host ICWS estimator).  Each family's
 ``observability`` phase replays its queries on both services with
 ``repro_torch.obs`` on: the same results bit for bit, and each op's
 ``ops.launches_total`` equal to its kernels' launch counters; for ICWS the
@@ -172,6 +178,24 @@ INT_LAKE_TABLES = 512
 # sketches over the first 6 planted partners and 6 other tables under
 # 2,000 rows, queried with the partners' queries
 HOST_TABLES = 6
+# the paper baselines phase: the paper's head-to-head at fig4's fast grid
+# (benchmarks/fig4_synthetic.py --fast: default_rng(42), two sparse_pair
+# pairs an overlap, n = 10,000, nnz = 2,000, two seeds) at storage 400 a
+# sketch; the brute-force WeightedMinHash gate expands L = 1,000 slots of a
+# 40-entry vector; the card's SketchCorpus estimates lie within
+# PAPER_CARD_TOL (normalized by ||a|| ||b||) of the host ICWS estimator's:
+# f32 sums against f64 ones, about 1e-8 on these pairs; and within
+# PAPER_CPU_RTOL (4 f32 eps) of a SketchCorpus on the cpu: the card's
+# torch divides by a python scalar as a multiply by its reciprocal, so the
+# norm epilogue's two divisions by m may each round one ulp apart
+PAPER_OVERLAPS = (0.01, 0.05, 0.10, 0.50)
+PAPER_STORAGE = 400
+PAPER_PAIRS = 2
+PAPER_SEEDS = 2
+BRUTE_L = 1_000
+BRUTE_NNZ = 40
+PAPER_CARD_TOL = 1e-7
+PAPER_CPU_RTOL = 2.0 ** -21
 # the gradient-compression path sketches the gradient of one TinyLlama-1.1B
 # decoder layer (repro/configs/tinyllama_1_1b.py: d_model 2048, 32 heads,
 # 4 KV heads, head_dim 64, d_ff 5632): q, k, v and o projections, the
@@ -2512,6 +2536,231 @@ def host_oracle_phase(lake):
         f"{1e3 * audit_s / len(picked):.1f} ms a search with its audit")
 
 
+def same_sketch(a, b) -> bool:
+    """Two host sketches equal field by field, array for array."""
+    fa, fb = vars(a), vars(b)
+    return fa.keys() == fb.keys() and all(
+        np.array_equal(np.asarray(fa[k]), np.asarray(fb[k])) for k in fa)
+
+
+def sketch_agreement(what, got, want) -> float:
+    """The share of slots whose fingerprints agree between a card ICWS
+    sketch ``(fp, val, norm, argkey)`` and the plain version's, with the
+    kernel phase's gate: at least 0.99, values and argkeys equal where they
+    agree, norms equal."""
+    got = [x.cpu() for x in got]
+    agree = got[0] == want[0]
+    share = agree.float().mean().item()
+    if share < 0.99 or not (bits_equal(got[1][agree], want[1][agree])
+                            and torch.equal(got[3][agree], want[3][agree])
+                            and bits_equal(got[2], want[2])):
+        raise AssertionError(f"paper baselines: {what}: fingerprints agree "
+                             f"on {share:.4f} of slots (gate 0.99), or the "
+                             "values, argkeys or norms differ where they do")
+    return share
+
+
+def baseline_identities(v):
+    """The identities the paper baselines phase stops on (exact laws, not
+    accuracy): MH and KMV ``merge_union`` of ``v``'s two disjoint halves is
+    the sketch of ``v``; the f64 JL and CountSketch ``merge`` of the halves
+    is the sketch of ``v`` within 1e-12 of the table's largest magnitude
+    (summation order only); ``sketch_bruteforce`` is ``sketch`` at L = 1,000
+    on 40 of ``v``'s entries; ``round_unit``'s output has unit norm within
+    1e-12."""
+    from repro_torch.core import (DEFAULT_L, SparseVec, WeightedMinHash,
+                                  make, round_unit, sketch_bruteforce)
+    lo = SparseVec(indices=v.indices[::2], values=v.values[::2], n=v.n)
+    hi = SparseVec(indices=v.indices[1::2], values=v.values[1::2], n=v.n)
+    for method in ("mh", "kmv"):
+        sk = make(method, PAPER_STORAGE, seed=0)
+        if not same_sketch(sk.merge_union(sk.sketch(lo), sk.sketch(hi)),
+                           sk.sketch(v)):
+            raise AssertionError(f"paper baselines: {method} merge_union of "
+                                 "the halves is not the whole's sketch")
+    for method, arr in (("jl", "proj"), ("cs", "table")):
+        sk = make(method, PAPER_STORAGE, seed=0)
+        got = getattr(sk.merge(sk.sketch(lo), sk.sketch(hi)), arr)
+        want = getattr(sk.sketch(v), arr)
+        err = float(np.max(np.abs(got - want)))
+        if not err <= 1e-12 * float(np.max(np.abs(want))):
+            raise AssertionError(f"paper baselines: {method} merge is {err} "
+                                 "from the sketch of the sum")
+    small = SparseVec(indices=v.indices[:BRUTE_NNZ],
+                      values=v.values[:BRUTE_NNZ], n=v.n)
+    wmh = WeightedMinHash(m=int((PAPER_STORAGE - 1) / 1.5), seed=0, L=BRUTE_L)
+    if not same_sketch(sketch_bruteforce(wmh, small), wmh.sketch(small)):
+        raise AssertionError("paper baselines: sketch_bruteforce differs "
+                             "from sketch")
+    z = v.values / v.norm()
+    for L in (BRUTE_L, DEFAULT_L):
+        off = abs(float(np.linalg.norm(round_unit(z, L))) - 1.0)
+        if not off <= 1e-12:
+            raise AssertionError(f"paper baselines: round_unit at L = {L} "
+                                 f"is {off} off unit norm")
+    log("paper baselines: identities hold (MH and KMV merge_union of the "
+        "halves == the whole's sketch; JL and CS merge within 1e-12 of the "
+        f"table's scale; sketch_bruteforce == sketch at L = {BRUTE_L}, "
+        f"{BRUTE_NNZ} entries; round_unit unit norm within 1e-12)")
+
+
+def paper_baselines_phase():
+    """The paper's head-to-head through the port's registry on the card's
+    host, fig4's fast grid at storage 400: for every one of the nine
+    ``FACTORIES`` the mean normalized error ``|est - <a,b>| / (||a|| ||b||)``
+    an overlap and the host ms a sketch, beside ``fact1_bound`` and
+    ``theorem2_bound`` an overlap; then the paper's method on the card,
+    ``SketchCorpus(m=266)`` (m = (400 - 1) / 1.5, as the registry sizes
+    ICWS) holding the ``a`` vectors, ``estimate_vec(b)`` answering each
+    pair, beside the host ``icws`` row.  Stops on a failed identity
+    (:func:`baseline_identities`); on a card estimate that is not finite;
+    on card sketches of the rows and queries that fail the kernel's gate
+    against a ``SketchCorpus(device="cpu")`` on the same vectors
+    (:func:`sketch_agreement`); on an ``estimate_vec`` that is not, bit for
+    bit, B3's plain version on the card's own sketches, or that is over
+    ``PAPER_CPU_RTOL`` from the cpu corpus's; and on a card estimate over
+    ``PAPER_CARD_TOL`` from host ``icws``.  Times are warm
+    medians.  Returns the report."""
+    from repro_torch import SketchCorpus
+    from repro_torch.core import (FACTORIES, fact1_bound, inner_fast, make,
+                                  theorem2_bound)
+    from repro_torch.kernels import estimate as ke
+    from repro_torch.kernels import ops
+    from repro_torch.data.synthetic import sparse_pair
+    rng = np.random.default_rng(42)
+    pairs = [(ov, a, b) for ov in PAPER_OVERLAPS
+             for a, b in (sparse_pair(rng, overlap=ov)
+                          for _ in range(PAPER_PAIRS))]
+    baseline_identities(pairs[0][1])
+    truth = [inner_fast(a, b) for _, a, b in pairs]
+    scale = [a.norm() * b.norm() for _, a, b in pairs]
+    bounds = {ov: {"fact1": statistics.fmean(
+                       fact1_bound(a, b) for o, a, b in pairs if o == ov),
+                   "theorem2": statistics.fmean(
+                       theorem2_bound(a, b) for o, a, b in pairs if o == ov),
+                   "theorem2_over_fact1": statistics.fmean(
+                       theorem2_bound(a, b) / fact1_bound(a, b)
+                       for o, a, b in pairs if o == ov)}
+              for ov in PAPER_OVERLAPS}
+
+    def errors(est):
+        """The mean normalized error an overlap over pairs and seeds;
+        ``est[seed][i]`` is pair i's estimate."""
+        return {ov: statistics.fmean(
+                    abs(e[i] - truth[i]) / scale[i] for e in est
+                    for i, (o, _, _) in enumerate(pairs) if o == ov)
+                for ov in PAPER_OVERLAPS}
+
+    report, host_icws = {}, None
+    for method in FACTORIES:
+        est, sketch_s = [], 0.0
+        for seed in range(PAPER_SEEDS):
+            sk = make(method, PAPER_STORAGE, seed=seed)
+            row = []
+            for _, a, b in pairs:
+                t0 = time.perf_counter()
+                sa, sb = sk.sketch(a), sk.sketch(b)
+                sketch_s += time.perf_counter() - t0
+                row.append(sk.estimate(sa, sb))
+            est.append(row)
+        host_icws = est if method == "icws" else host_icws
+        report[method] = {"err": errors(est), "host_ms_per_sketch": 1e3
+                          * sketch_s / (2 * PAPER_SEEDS * len(pairs))}
+    m = make("icws", PAPER_STORAGE).m
+    avec = [a for _, a, _ in pairs]
+    warm = SketchCorpus(m=m, device="cuda")    # first calls, untimed
+    warm.add_batch(avec)
+    warm.estimate_vec(pairs[0][2])
+    del warm
+    est, ingest_ms, query_ms, shares, ulps = [], [], [], [], []
+    for seed in range(PAPER_SEEDS):
+        corpus = SketchCorpus(m=m, seed=seed, device="cuda")
+        t0 = time.perf_counter()
+        corpus.add_batch(avec)
+        torch.cuda.synchronize()
+        ingest_ms.append(1e3 * (time.perf_counter() - t0) / len(avec))
+        plain = SketchCorpus(m=m, seed=seed, device="cpu")
+        plain.add_batch(avec)
+        rows = corpus.arrays()
+        fc, vc, nc, _ = rows
+        shares.append(sketch_agreement("rows", rows, plain.arrays()))
+        row = []
+        for i, (_, _, b) in enumerate(pairs):
+            t0 = time.perf_counter()
+            got = corpus.estimate_vec(b)
+            torch.cuda.synchronize()
+            query_ms.append(1e3 * (time.perf_counter() - t0))
+            if got.shape != (len(pairs),) or not bool(
+                    torch.isfinite(got).all()):
+                raise AssertionError("paper baselines: the card's "
+                                     f"estimates {got} are not {len(pairs)} "
+                                     "finite values")
+            q = corpus.sketch_query(b)
+            shares.append(sketch_agreement(f"query {i}", q,
+                                           plain.sketch_query(b)))
+            # B3 at m = 266 against its plain version on the card's
+            # sketches, and the card against the plain corpus on the cpu
+            want = ops._norm_epilogue(*ke.estimate_one_vs_many_plain(
+                q[0], q[1], fc, vc), q[2][0], nc, m)
+            if not bits_equal(got, want):
+                raise AssertionError(f"paper baselines: seed {seed} query {i}:"
+                                     f" the card's estimate_vec {got} is not "
+                                     f"the plain estimate {want}")
+            cpu = plain.estimate_vec(b)
+            ulps.append(float(((got.cpu() - cpu).abs() / torch.finfo(
+                torch.float32).eps / cpu.abs().clamp_min(1e-30)).max()))
+            if not torch.allclose(got.cpu(), cpu, rtol=PAPER_CPU_RTOL,
+                                  atol=0.0):
+                raise AssertionError(f"paper baselines: seed {seed} query {i}:"
+                                     f" the card's estimate_vec {got} is over "
+                                     f"rtol {PAPER_CPU_RTOL} from the cpu "
+                                     f"corpus's {cpu}")
+            row.append(float(got[i]))
+        est.append(row)
+    dist = max(abs(e - h) / scale[i] for er, hr in zip(est, host_icws)
+               for i, (e, h) in enumerate(zip(er, hr)))
+    if not dist <= PAPER_CARD_TOL:
+        raise AssertionError(f"paper baselines: the card's estimates are "
+                             f"{dist} (normalized) from host icws, over "
+                             f"{PAPER_CARD_TOL}")
+    report["icws card"] = {
+        "err": errors(est), "m": m,
+        "ingest_ms_per_vector": statistics.median(ingest_ms),
+        "estimate_vec_ms": statistics.median(query_ms),
+        "min_fp_agree_vs_plain": min(shares),
+        "max_rel_dist_from_cpu_corpus_eps": max(ulps),
+        "max_norm_dist_from_host_icws": dist}
+    log(f"paper baselines: card SketchCorpus(m={m}): fingerprints agree "
+        f"with the plain sketch on >= {min(shares):.6f} of slots (gate "
+        f"0.99), values and argkeys equal where they agree; estimate_vec "
+        f"equals the plain estimate of the card's sketches bit for bit, "
+        f"and the cpu corpus's within {max(ulps):.3f} f32 eps relative "
+        f"(gate {PAPER_CPU_RTOL / torch.finfo(torch.float32).eps:g}; "
+        f"{PAPER_SEEDS * len(pairs)} queries); {dist:.4g} (normalized) "
+        f"from host icws (gate {PAPER_CARD_TOL:g}); warm medians: ingest "
+        f"{statistics.median(ingest_ms):.4f} ms a vector, estimate_vec "
+        f"{statistics.median(query_ms):.4f} ms")
+    log(f"paper baselines: normalized error |est - <a,b>| / (||a|| ||b||), "
+        f"mean of {PAPER_PAIRS} pairs x {PAPER_SEEDS} seeds an overlap, "
+        f"storage {PAPER_STORAGE}; host ms a sketch")
+    log(f"  {'method':<10}" + "".join(f"{f'ov {ov:g}':>10}"
+                                      for ov in PAPER_OVERLAPS) + "  ms")
+    rows = list(FACTORIES)
+    rows.insert(rows.index("icws") + 1, "icws card")
+    for method in rows:
+        r = report[method]
+        ms = r.get("host_ms_per_sketch")
+        log(f"  {method:<10}" + "".join(f"{r['err'][ov]:>10.5f}"
+                                        for ov in PAPER_OVERLAPS)
+            + (f"  {ms:.3f}" if ms is not None else ""))
+    log("  theorem2 / fact1 (eps = 1, mean of the pairs): " + ", ".join(
+        f"ov {ov:g} {b['theorem2']:.1f} / {b['fact1']:.1f} = "
+        f"{b['theorem2_over_fact1']:.4f}" for ov, b in bounds.items()))
+    report["bounds"] = bounds
+    log("paper baselines (" + card_identity() + "): " + json.dumps(report))
+    return report
+
+
 def sample_extra(name, rep):
     """B9 and B13 are one templated body: each entry names its kernel's
     symbol, the traced name, and its headline case's issue floor and
@@ -2599,6 +2848,7 @@ def main() -> int:
     merge_launches = phase("merge", merge_phase, lake, served)
     del served
     phase("host oracle", host_oracle_phase, lake)
+    phase("paper baselines", paper_baselines_phase)
     for label, rs in (("unpacked", runs), ("packed", packed_runs)):
         log(f"planted-partner recall ({label}), top 10 / ranked first, of "
             f"{QUERIES // 2}: " + ", ".join(

@@ -1,6 +1,6 @@
 """2-universal hashing over Z_p, p = 2^31 - 1 (copy of
-``repro.core.hashing``): the affine hash of KMV sampling, the multilinear
-pair hash of the host WeightedMinHash and its keyed uniforms.
+``repro.core.hashing``): the affine hash of MinHash and KMV sampling, the
+multilinear pair hash of the host WeightedMinHash and its keyed uniforms.
 
 Keys are relabelled by the splitmix64 finalizer before hashing; all
 arithmetic is numpy int64/uint64, bit for bit the JAX package's.  Within a
@@ -55,6 +55,10 @@ class AffineHashFamily:
         x = _mix_to_zp(x)
         shape = (self.m,) + (1,) * x.ndim
         return (self.c1.reshape(shape) * x + self.c2.reshape(shape)) % MERSENNE_P
+
+    def hash_unit(self, x: np.ndarray) -> np.ndarray:
+        """Hash to floats in [0, 1), as the paper's algorithms are written."""
+        return self.hash_ints(x).astype(np.float64) / float(MERSENNE_P)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,5 @@
 """Algorithm 4, vector rounding for the host WeightedMinHash (copy of
-``round_counts`` from ``repro.core.rounding``).
+``repro.core.rounding``).
 
 A unit vector ``z`` becomes exact integer repetition counts ``k_i =
 floor(z_i^2 L)`` with the deficit ``L - sum(k)`` added at the largest
@@ -29,3 +29,14 @@ def round_counts(z: np.ndarray, L: int) -> np.ndarray:
     k[int(np.argmax(np.abs(z)))] += deficit
     return k
 
+
+def rounded_values(z: np.ndarray, k: np.ndarray, L: int) -> np.ndarray:
+    """``z~[i] = sign(z[i]) sqrt(k[i] / L)``: the exactly-unit rounded
+    vector."""
+    z = np.asarray(z, dtype=np.float64)
+    return np.sign(z) * np.sqrt(k.astype(np.float64) / float(L))
+
+
+def round_unit(z: np.ndarray, L: int) -> np.ndarray:
+    """All of Algorithm 4: a unit vector in, its rounded unit vector out."""
+    return rounded_values(z, round_counts(z, L), L)

@@ -133,3 +133,30 @@ def _stack(sketches: List[WMHSketch]) -> StackedWMH:
 
 
 stack_wmh = _stack
+
+
+def sketch_bruteforce(sketcher: WeightedMinHash, v: SparseVec) -> WMHSketch:
+    """The oracle of the progression-minimum path: expand the extended
+    vector and hash all of its active slots with the same pair hash (small
+    nnz and L only)."""
+    norm = v.norm()
+    if v.nnz == 0 or norm == 0.0:
+        return sketcher.sketch(v)
+    z = v.values / norm
+    k = round_counts(z, sketcher.L)
+    keep = k > 0
+    blocks = v.indices[keep]
+    counts = k[keep]
+    vals = np.sign(z[keep]) * np.sqrt(counts.astype(np.float64) / sketcher.L)
+
+    m = sketcher.m
+    best = np.full(m, MERSENNE_P, dtype=np.int64)
+    best_val = np.zeros(m, dtype=np.float64)
+    for bi, ki, vi in zip(blocks, counts, vals):
+        h = sketcher._hash.hash_pairs_bruteforce(int(bi), np.arange(int(ki)))
+        hmin = h.min(axis=1)
+        upd = hmin < best
+        best = np.where(upd, hmin, best)
+        best_val = np.where(upd, vi, best_val)
+    return WMHSketch(hash_mins=best, values=best_val, norm=norm,
+                     m=m, L=sketcher.L, seed=sketcher.seed)

@@ -31,7 +31,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import u32
+from repro_torch.core import registry, u32
 from repro_torch.core.dmh import DMH
 from repro_torch.core.icws import ICWS
 from repro_torch.core.linear import REPS, CountSketchU32, JLU32
@@ -560,22 +560,22 @@ class PSFamily(_SamplingFamily):
 
 
 def make_family(name: str, *, storage: float, seed: int = 0):
-    """The serving family sized to a storage budget, as
-    ``repro.core.registry`` sizes it: icws and dmh ``m = (storage - 1) /
+    """The serving family sized to a storage budget by
+    :mod:`repro_torch.core.registry` (icws and dmh ``m = (storage - 1) /
     1.5``; cs ``width = storage // reps`` with five reps; jl ``m =
-    storage``; ts and ps ``slots = storage - 1``.  Families built from one
+    storage``; ts and ps ``slots = storage - 1``).  Families built from one
     budget are storage-matched."""
     if name in ("icws", "dmh"):
         cls = ICWSFamily if name == "icws" else DMHFamily
-        return cls(m=max(1, int((storage - 1) / 1.5)), seed=seed)
+        return cls(m=registry.make(name, storage).m, seed=seed)
     if name == "cs":
-        return CSFamily(width=max(1, int(storage // REPS)), reps=REPS,
-                        seed=seed)
+        host = registry.make_cs(storage)
+        return CSFamily(width=host.width, reps=host.reps, seed=seed)
     if name == "jl":
-        return JLFamily(m=max(1, int(storage)), seed=seed)
+        return JLFamily(m=registry.make_jl(storage).m, seed=seed)
     if name in ("ts", "ps"):
         cls = TSFamily if name == "ts" else PSFamily
-        return cls(slots=max(1, int(storage - 1)), seed=seed)
+        return cls(slots=registry.make(name, storage).slots, seed=seed)
     raise ValueError(f"unknown sketch family {name!r}; choose from "
                      f"{FAMILY_NAMES}")
 
