@@ -46,11 +46,12 @@ from repro_torch.data.dataset_search import DatasetSearchIndex
 
 def corpus_from_numpy(fp: np.ndarray, val: np.ndarray, norm: np.ndarray,
                       argkey: np.ndarray, *, m: int, seed: int = 0,
-                      device="cuda") -> SketchCorpus:
+                      mesh=None, device="cuda") -> SketchCorpus:
     """A port corpus over the given sketch rows (``fp``, ``val``,
     ``argkey`` ``[P, m]``, ``norm`` ``[P]``), queried with the JAX corpus's
-    ``m`` and ``seed``; the store validates the rows."""
-    corpus = SketchCorpus(m=m, seed=seed, device=device)
+    ``m`` and ``seed``, its rows sharded over ``mesh``'s corpus axis if it
+    has one; the store validates the rows."""
+    corpus = SketchCorpus(m=m, seed=seed, mesh=mesh, device=device)
     corpus.add_sketches(*(np.array(a) for a in (fp, val, norm, argkey)))
     return corpus
 
@@ -62,7 +63,7 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
                          Tuple[int, int]]]] = None,
                      m: int, seed: int = 0, key_space: int = 2 ** 31,
                      family: str = "icws", packed: bool = False,
-                     device="cuda") -> DatasetSearchIndex:
+                     mesh=None, device="cuda") -> DatasetSearchIndex:
     """A port index over the given corpus.
 
     Args:
@@ -77,12 +78,13 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
       tenant_ranges: tenant id -> its ``[start, stop)`` row ranges.
       m, seed, key_space, family, packed: the JAX index's parameters
         (queries sketch with them, so they must match the corpus).
+      mesh: shards the port index's rows over its corpus axis.
     """
     if len(tables) != size:
         raise ValueError(f"{len(tables)} tables for {size} store rows")
     index = DatasetSearchIndex(m=m, seed=seed, key_space=key_space,
                                keep_host_oracle=False, family=family,
-                               packed=packed, device=device)
+                               packed=packed, mesh=mesh, device=device)
     if size == 0:
         return index
     specs = (index.family.packed_components if packed

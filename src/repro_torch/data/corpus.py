@@ -1,5 +1,5 @@
 """Device-resident ICWS sketch corpus: sketch once, query many times (port
-of ``repro.data.corpus.SketchCorpus``, on one device).
+of ``repro.data.corpus.SketchCorpus``).
 
 The paper's §1.3 regime sketches every column of a data lake once, then
 estimates each query sketch against the whole corpus.  Ingest pads sparse
@@ -10,7 +10,10 @@ place, capacity doubling, every component validated at ingest); queries
 run the one-vs-many (B3) and many-vs-many (B4) estimate kernels on the
 store's buffers, whose unused rows are inert.  Host sketches from
 :class:`repro_torch.core.ICWS` share the kernel's fingerprint contract, so
-a corpus may be filled from either path.
+a corpus may be filled from either path.  With a ``mesh`` whose corpus
+axis spans 2+ devices the store's rows are sharded over it and
+``estimate_batch`` runs ``ops.icws_estimate_many_sharded``, bit for bit
+the single-device launch.
 """
 from __future__ import annotations
 
@@ -31,19 +34,18 @@ class SketchCorpus:
     A single-field view over :class:`CorpusStore`: appends write into the
     store's buffers in place, queries launch the estimate kernels on them.
     ``device`` defaults to the card and raises when there is none; pass
-    ``"cpu"`` for the plain PyTorch versions.  A ``mesh`` (sharded
-    estimates) is not ported yet.
+    ``"cpu"`` for the plain PyTorch versions.  ``mesh``: see the module
+    docstring.
     """
 
     def __init__(self, m: int, seed: int = 0, bucket: int = 256, mesh=None,
                  device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("a sharded corpus is not ported yet "
-                                      "(Queue A 14 in ROADMAP.md)")
         self.m = int(m)
         self.seed = int(seed)
         self.bucket = int(bucket)
-        self._store = CorpusStore(m=m, fields=1, device=device)
+        self.mesh = mesh
+        self._store = CorpusStore(m=m, fields=1, mesh=mesh, device=device)
+        self._axis = self._store.corpus_axis
         self.device = self._store.device
 
     def __len__(self) -> int:
@@ -103,11 +105,17 @@ class SketchCorpus:
     def estimate_batch(self, fq, vq, nq) -> torch.Tensor:
         """Inner-product estimates of Q query sketches against every corpus
         row in one many-vs-many launch (no ``[Q, P, m]`` intermediate).
-        Returns ``[Q, P]`` f32."""
-        fpb, vb, nb = self._store.buffers()[:3]
+        Returns ``[Q, P]`` f32; one launch a shard when sharded."""
         fq, vq, nq = self._as_queries(fq, vq, nq)
-        est = ops.icws_estimate_many_stacked(fq, vq, nq.reshape(-1), fpb, vb,
-                                             nb)
+        if self._axis is not None:
+            fpb, vb, nb = self._store.shard_buffers()[:3]
+            est = ops.icws_estimate_many_sharded(
+                fq, vq, nq.reshape(-1), fpb, vb, nb, mesh=self.mesh,
+                axis=self._axis)
+        else:
+            fpb, vb, nb = self._store.buffers()[:3]
+            est = ops.icws_estimate_many_stacked(fq, vq, nq.reshape(-1), fpb,
+                                                 vb, nb)
         return est[:, :len(self)]
 
     def estimate_vec(self, v: SparseVec) -> torch.Tensor:

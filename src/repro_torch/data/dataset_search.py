@@ -1,8 +1,8 @@
 """Dataset search, the paper's motivating application (§1.3), on PyTorch.
 
-Port of ``repro.data.dataset_search.DatasetSearchIndex`` on its default
-serving path.  Tables are (key column, value column) pairs; per table the
-index sketches three field vectors -- key multiplicities ``x^{1[K]}``,
+Port of ``repro.data.dataset_search.DatasetSearchIndex``.  Tables are
+(key column, value column) pairs; per table the index sketches three
+field vectors -- key multiplicities ``x^{1[K]}``,
 values summed at their key ``x^V``, and squared values ``x^{V^2}`` -- into
 one field-stacked :class:`~repro_torch.data.store.CorpusStore` on the
 device, and keeps a KMV keyed sample of the values on the host.
@@ -31,8 +31,14 @@ paper's numpy WeightedMinHash (:class:`repro_torch.core.WeightedMinHash`):
 with ``keep_host_oracle=True``, the default as in the JAX package, an ICWS
 index also keeps three host sketches a table and answers
 ``backend="host"`` queries from them; a ``backend="host"`` index keeps no
-device store.  Not ported yet: sharded serving (``mesh``; the constructor
-raises ``NotImplementedError`` naming its ``ROADMAP.md`` item).
+device store.
+
+Sharded serving: with a ``mesh`` whose corpus axis spans 2+ devices the
+store's rows are split over it, the fused launch runs once a shard
+(``family.estimate_fields_sharded``) and ``ops.sharded_top_k`` ranks, bit
+for bit the single-device results.  A contiguous tenant gathers its row
+range and runs the single-device launch; a fragmented one runs the
+sharded launch and gathers its columns, as the JAX index does.
 """
 from __future__ import annotations
 
@@ -46,6 +52,8 @@ from repro_torch import obs as _obs
 from repro_torch.core import (KMV, KMVSketch, SparseVec, WeightedMinHash,
                               WMHSketch, stack_wmh)
 from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels.common import stable_top_k as _top_k
 
 from .families import FAMILY_NAMES, make_family, wmh_storage
 from .merge import build_sharded
@@ -108,20 +116,12 @@ def _corr_scores(join, sum_a, sum_b, sum_a2, sum_b2, prod,
     return torch.where(join >= min_join, corr.abs(), -1.0)
 
 
-def _top_k(score: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Top-k scores + indices per row, equal scores by ascending index (as
-    ``jax.lax.top_k``): a stable descending sort keeps the index order of
-    ties, which ``torch.topk`` does not promise.  Every table failing
-    ``min_join`` scores exactly -1, so ties are the common case."""
-    scores, idx = torch.sort(score, dim=-1, descending=True, stable=True)
-    return scores[..., :k], idx[..., :k]
-
-
 class DatasetSearchIndex:
     """Sketch once, query many times -- the data-lake discovery pattern.
 
     ``device`` defaults to ``"cuda"`` and raises when no card is present;
-    pass ``device="cpu"`` for the plain PyTorch kernels.
+    pass ``device="cpu"`` for the plain PyTorch kernels.  ``mesh``: see
+    the module docstring (queries are sketched on ``device``).
     """
 
     def __init__(self, m: int = 256, seed: int = 0, key_space: int = 2 ** 31,
@@ -138,16 +138,13 @@ class DatasetSearchIndex:
                 "backend='host' is the WMH/ICWS oracle path; the other "
                 "families (cs, jl, ts, ps, dmh) serve on the device path "
                 "only")
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded serving (mesh) is not ported yet (Queue A 14 in "
-                "ROADMAP.md)")
         self.device = resolve_device(device)
         self.m = m
         self.seed = seed
         self.key_space = key_space
         self.backend = backend
         self.packed = bool(packed)
+        self.mesh = mesh
         # every family sized to the storage an m-sample ICWS sketch
         # occupies (icws: exactly m), so the comparison is storage-matched
         self.family = make_family(family, storage=wmh_storage(m), seed=seed)
@@ -163,9 +160,11 @@ class DatasetSearchIndex:
         # row i); the store keeps the same assignment as row ranges
         self._tenant_tables: Dict[str, List[int]] = {}
         self.store: Optional[CorpusStore] = (
-            CorpusStore(family=self.family, fields=len(FIELDS),
+            CorpusStore(family=self.family, fields=len(FIELDS), mesh=mesh,
                         packed=self.packed, device=self.device)
             if backend == "device" else None)
+        self._corpus_axis = (self.store.corpus_axis
+                             if self.store is not None else None)
 
     # -- ingestion ----------------------------------------------------------
     def vectorize(self, keys: np.ndarray, values: np.ndarray
@@ -342,29 +341,30 @@ class DatasetSearchIndex:
             c.reshape((Q, 3) + tuple(c.shape[1:])).transpose(0, 1)
             for c in self.family.sketch_rows(field_vecs,
                                              device=self.device))
-        cbufs = self.store.buffers()
         tables = self.tables
+        axis = self._corpus_axis
         if tenant is not None:
             ranges = self.store.tenant_ranges(tenant)
             tables = self._tenant_table_list(tenant)
             if len(ranges) == 1:
                 # contiguous tenant: slice the arena before the launch, so
                 # the cost scales with this tenant's rows
-                lo, hi = ranges[0]
-                est = self._estimate(qcomps, tuple(c[:, lo:hi] for c in cbufs))
+                est = self._estimate(qcomps, self.store.slice_rows(*ranges[0]))
             else:
                 # fragmented tenant: full-arena launch, gather its columns
-                est = self._estimate(qcomps, cbufs)
+                est = self._estimate_arena(qcomps)
                 rows = torch.from_numpy(self.store.tenant_rows(tenant))
                 est = est[:, :, rows.to(est.device)]
+            axis = None
         else:
-            est = self._estimate(qcomps, cbufs)          # [6, Q, cap]
+            est = self._estimate_arena(qcomps)           # [6, Q, cap]
         P = len(tables)
         est = est[:, :, :P]
         k = min(top_k, P)
         score = _corr_scores(est[0], est[1], est[2], est[3], est[4], est[5],
                              float(min_join))
-        scores, idx = _top_k(score, k)
+        scores, idx = (_top_k(score, k) if axis is None else
+                       ops.sharded_top_k(score, k, mesh=self.mesh, axis=axis))
         scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
         join_h, sum_b_h = est[0].cpu().numpy(), est[2].cpu().numpy()
         return [
@@ -379,6 +379,20 @@ class DatasetSearchIndex:
         est = (self.family.estimate_fields_packed if self.packed
                else self.family.estimate_fields)
         return est(qcomps, cbufs, qmap=QFIELD, cmap=CFIELD)
+
+    def _estimate_sharded(self, qcomps, cbufs) -> torch.Tensor:
+        """:meth:`_estimate` once a shard of the corpus axis (a separate op,
+        as in JAX, so ``ops.launches_total`` names JAX's ops)."""
+        est = (self.family.estimate_fields_packed_sharded if self.packed
+               else self.family.estimate_fields_sharded)
+        return est(qcomps, cbufs, qmap=QFIELD, cmap=CFIELD, mesh=self.mesh,
+                   axis=self._corpus_axis)
+
+    def _estimate_arena(self, qcomps) -> torch.Tensor:
+        """The whole arena's estimates ``[6, Q, cap]``, sharded or not."""
+        if self._corpus_axis is None:
+            return self._estimate(qcomps, self.store.buffers())
+        return self._estimate_sharded(qcomps, self.store.shard_buffers())
 
     # -- host oracle ---------------------------------------------------------
     def _query_host(self, keys, values, top_k: int, min_join: float,

@@ -20,8 +20,10 @@ ICWS and DMH re-score both winners of a slot under the merged norm on the
 shared u32 streams, as torch ops where the rows lie; TS and PS re-subsample
 the pooled slots on the host in float64.  ``host_oracle`` returns the
 numpy sketcher on the same RNG contract (:mod:`repro_torch.core`).
-Sharded serving is not ported yet: its members raise
-``NotImplementedError`` naming its ``ROADMAP.md`` item.
+``estimate_fields_sharded`` and ``estimate_fields_packed_sharded`` run
+the same launches over corpus rows split across a mesh axis
+(``ops.*_sharded``); a corpus component there may be a tensor or a
+sharded store's per-shard tensors.
 """
 from __future__ import annotations
 
@@ -89,25 +91,8 @@ def _to_numpy(x) -> np.ndarray:
             else np.asarray(x))
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet ({item} in "
-                              "ROADMAP.md)")
-
-
-class _Unported:
-    """The JAX family members the port does not serve yet; each raises
-    ``NotImplementedError`` naming its ``ROADMAP.md`` item."""
-
-    def estimate_fields_sharded(self, q, c, *, qmap, cmap, mesh, axis):
-        _not_ported("sharded serving", "Queue A 14")
-
-    def estimate_fields_packed_sharded(self, q, c, *, qmap, cmap, mesh,
-                                       axis):
-        _not_ported("sharded serving", "Queue A 14")
-
-
 @dataclasses.dataclass(frozen=True)
-class ICWSFamily(_Unported):
+class ICWSFamily:
     """ICWS (weighted MinWise) serving family -- the paper's method.
 
     Rows are (fingerprints, sampled values, norm, argkeys); estimation is
@@ -147,6 +132,13 @@ class ICWSFamily(_Unported):
         return ops.icws_estimate_fields(q[0], q[1], q[2], c[0], c[1], c[2],
                                         qmap=qmap, cmap=cmap)
 
+    def estimate_fields_sharded(self, q, c, *, qmap, cmap, mesh, axis):
+        """:meth:`estimate_fields` over corpus rows split across mesh axis
+        ``axis``."""
+        return ops.icws_estimate_fields_sharded(
+            q[0], q[1], q[2], c[0], c[1], c[2], qmap=qmap, cmap=cmap,
+            mesh=mesh, axis=axis)
+
     @property
     def packed_components(self) -> Tuple[ComponentSpec, ...]:
         """Fingerprints stay i32 (exact-match state), values pack two per
@@ -182,6 +174,12 @@ class ICWSFamily(_Unported):
         nc)``."""
         return ops.icws_estimate_fields_packed(q[0], q[1], q[2], c[0], c[1],
                                                c[2], qmap=qmap, cmap=cmap)
+
+    def estimate_fields_packed_sharded(self, q, c, *, qmap, cmap, mesh,
+                                       axis):
+        return ops.icws_estimate_fields_packed_sharded(
+            q[0], q[1], q[2], c[0], c[1], c[2], qmap=qmap, cmap=cmap,
+            mesh=mesh, axis=axis)
 
     def merge_rows(self, a, b):
         """Coordinated per-slot min-merge of row-aligned ``(fp, val, norm,
@@ -286,7 +284,7 @@ class DMHFamily(ICWSFamily):
         return DMH(m=self.m, seed=self.seed)
 
 
-class _LinearFamily(_Unported):
+class _LinearFamily:
     """Shared serving plumbing of the linear families (``S(a) = Pi a``).
 
     A row is one dense ``[R, W]`` f32 table; estimation is per-rep dots and
@@ -323,6 +321,11 @@ class _LinearFamily(_Unported):
         -> [G, Q, P] f32 estimates."""
         return ops.linear_estimate_fields(q[0], c[0], qmap=qmap, cmap=cmap)
 
+    def estimate_fields_sharded(self, q, c, *, qmap, cmap, mesh, axis):
+        return ops.linear_estimate_fields_sharded(q[0], c[0], qmap=qmap,
+                                                  cmap=cmap, mesh=mesh,
+                                                  axis=axis)
+
     @property
     def packed_components(self) -> Tuple[ComponentSpec, ...]:
         """Every cell bf16-truncated, two per word (an odd width gains one
@@ -342,6 +345,11 @@ class _LinearFamily(_Unported):
         """:meth:`estimate_fields` over packed corpus tables ``c = (wc,)``."""
         return ops.linear_estimate_fields_packed(q[0], c[0], qmap=qmap,
                                                  cmap=cmap)
+
+    def estimate_fields_packed_sharded(self, q, c, *, qmap, cmap, mesh,
+                                       axis):
+        return ops.linear_estimate_fields_packed_sharded(
+            q[0], c[0], qmap=qmap, cmap=cmap, mesh=mesh, axis=axis)
 
     def merge_rows(self, a, b):
         """Exact by linearity, ``S(x + y) = S(x) + S(y)``: the row-aligned
@@ -383,7 +391,7 @@ class JLFamily(_LinearFamily):
         return JLU32(m=self.m, seed=self.seed)
 
 
-class _SamplingFamily(_Unported):
+class _SamplingFamily:
     """Shared serving plumbing of the sampling families (TS/PS).
 
     A row is a fixed-slot coordinate sample ``(keys [S] i32, values [S]
@@ -427,6 +435,11 @@ class _SamplingFamily(_Unported):
         return ops.sample_estimate_fields(q[0], q[1], q[2], c[0], c[1], c[2],
                                           qmap=qmap, cmap=cmap)
 
+    def estimate_fields_sharded(self, q, c, *, qmap, cmap, mesh, axis):
+        return ops.sample_estimate_fields_sharded(
+            q[0], q[1], q[2], c[0], c[1], c[2], qmap=qmap, cmap=cmap,
+            mesh=mesh, axis=axis)
+
     @property
     def packed_components(self) -> Tuple[ComponentSpec, ...]:
         """Keys stay i32 (exact-match state), values pack two per word (an
@@ -455,6 +468,12 @@ class _SamplingFamily(_Unported):
         tc)``."""
         return ops.sample_estimate_fields_packed(q[0], q[1], q[2], c[0], c[1],
                                                  c[2], qmap=qmap, cmap=cmap)
+
+    def estimate_fields_packed_sharded(self, q, c, *, qmap, cmap, mesh,
+                                       axis):
+        return ops.sample_estimate_fields_packed_sharded(
+            q[0], q[1], q[2], c[0], c[1], c[2], qmap=qmap, cmap=cmap,
+            mesh=mesh, axis=axis)
 
     def _merge_keep(self, live, h, vals, ta, tb):
         raise NotImplementedError

@@ -81,7 +81,7 @@ def merge_stores(a: CorpusStore, b: CorpusStore) -> CorpusStore:
     Both stores must be unpacked and share the family, seed included (the
     merges re-decide winners on the coordinated hash streams), the field
     count, the row count and the per-tenant row ranges, which the result
-    inherits.  Returns a fresh store on ``a``'s device.
+    inherits.  Returns a fresh store on ``a``'s device and mesh.
     """
     if a.packed or b.packed:
         raise ValueError(
@@ -108,7 +108,8 @@ def merge_stores(a: CorpusStore, b: CorpusStore) -> CorpusStore:
     with _obs.span("merge.merge_stores", family=a.family.name,
                    rows=len(a), fields=a.fields):
         merged = a.family.merge_rows(a.field_arrays(), b.field_arrays())
-        out = CorpusStore(family=a.family, fields=a.fields, device=a.device)
+        out = CorpusStore(family=a.family, fields=a.fields, mesh=a.mesh,
+                          device=a.device)
         out.append(*merged)
     if _obs.enabled():
         _obs.counter("merge.merges_total", family=a.family.name).inc()
@@ -125,7 +126,7 @@ def _field_rows(rows) -> "list[tuple]":
     return [tuple(r) for r in rows]
 
 
-def build_sharded(rows: Sequence, *, family, shards: int,
+def build_sharded(rows: Sequence, *, family, shards: int, mesh=None,
                   device="cuda") -> CorpusStore:
     """A store of ``rows`` built through ``shards`` partitions.
 
@@ -133,8 +134,9 @@ def build_sharded(rows: Sequence, *, family, shards: int,
     field tuples.  Each row is key-partitioned across the shards in one
     pass, each shard sketched with one ``family.sketch_rows`` call a field
     (the part a parallel build distributes), and the shard stores merge
-    pairwise, ``(0, 1), (2, 3), ...``, until one is left, on ``device``.
-    With ``shards=1`` this is the single-stream build.
+    pairwise, ``(0, 1), (2, 3), ...``, until one is left, on ``device``
+    (its rows split over ``mesh``'s corpus axis, if it has one).  With
+    ``shards=1`` this is the single-stream build.
     """
     shards = int(shards)
     if shards < 1:
@@ -154,7 +156,8 @@ def build_sharded(rows: Sequence, *, family, shards: int,
                 per_field = [family.sketch_rows([pr[f][s] for pr in parted],
                                                 device=device)
                              for f in range(F)]
-                store = CorpusStore(family=family, fields=F, device=device)
+                store = CorpusStore(family=family, fields=F, mesh=mesh,
+                                    device=device)
                 store.append(*(torch.stack([comps[i] for comps in per_field])
                                for i in range(len(family.components))))
             stores.append(store)

@@ -1,5 +1,5 @@
 """Field-stacked sketch store with amortized in-place append (port of
-``repro.data.store.CorpusStore``, on one device).
+``repro.data.store.CorpusStore``).
 
 All F field corpora of an index (F = 3 for the §1.3 fields) live in one
 set of preallocated per-component buffers ``[F, capacity, *trailing]``,
@@ -33,6 +33,16 @@ range per tenant, so many logical corpora share one set of buffers while
 queries address one tenant's rows (by slicing a contiguous tenant, or by
 gathering a fragmented one's estimate columns).
 
+Row sharding: with a ``mesh`` whose corpus axis
+(``distributed.sharding.corpus_axis``) spans d > 1 devices, each
+component is held as d per-shard tensors ``[F, cap / d, *trailing]``,
+shard ``s`` on the axis's ``s``-th device with global rows ``[s cap / d,
+(s + 1) cap / d)``.  Every capacity is a multiple of ``row_multiple`` (by
+default d, which must divide it), so the rows split evenly; a growth
+re-splits them at the new boundaries.  ``shard_buffers()`` hands the
+query path the per-shard tensors; ``buffers()``, ``arrays()`` and
+``slice_rows()`` gather rows onto ``device`` for callers off that path.
+
 With observability on, each write is a ``store.append`` span and updates
 ``store.appends_total``, ``store.rows`` and ``store.resident_bytes``
 (capacity x fields x bytes a row); each growth is a ``store.grow`` span
@@ -47,6 +57,7 @@ import torch
 
 from repro_torch import obs as _obs
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import corpus_axis, gather_rows
 
 from .families import ICWSFamily
 
@@ -57,16 +68,18 @@ class CorpusStore:
     """Growable field-stacked device store of one family's sketch rows.
 
     Args: ``m`` (an ICWS sample count) or ``family`` (any serving family),
-    ``fields`` (F), ``min_capacity``, ``packed`` (the resident layout), and
-    ``device`` (default ``"cuda"``; raises if no card is present).
+    ``fields`` (F), ``min_capacity``, ``mesh`` and ``row_multiple`` (row
+    sharding, see the module docstring), ``packed`` (the resident layout),
+    and ``device`` (default ``"cuda"``; raises if no card is present), where
+    gathered rows and an unsharded store's buffers live.
     ``self.m`` is the family's sample count where it has one (ICWS, DMH,
     JL) and None otherwise (CountSketch; TS and PS, which count
     ``slots``).
     """
 
     def __init__(self, m: "int | None" = None, fields: int = 1,
-                 min_capacity: int = 64, family=None, packed: bool = False,
-                 device="cuda"):
+                 min_capacity: int = 64, mesh=None, row_multiple: int = 0,
+                 family=None, packed: bool = False, device="cuda"):
         if family is None:
             if m is None:
                 raise ValueError("provide a family or an ICWS sample count m")
@@ -88,8 +101,20 @@ class CorpusStore:
                        else self._row_specs)
         self.m = getattr(family, "m", None)
         self.fields = int(fields)
-        self.min_capacity = int(min_capacity)
-        self._bufs: "Tuple[torch.Tensor, ...] | None" = None
+        self.mesh = mesh
+        self.corpus_axis = corpus_axis(mesh)
+        self._devices = (mesh.axis_devices(self.corpus_axis)
+                         if self.corpus_axis is not None else (self.device,))
+        if row_multiple < 1:
+            row_multiple = len(self._devices)
+        if row_multiple % len(self._devices):
+            raise ValueError(f"row_multiple {row_multiple} does not split "
+                             f"over {len(self._devices)} shards")
+        self.row_multiple = int(row_multiple)
+        self.min_capacity = (-(-int(min_capacity) // self.row_multiple)
+                             * self.row_multiple)
+        # per component, the per-shard buffers (one shard when unsharded)
+        self._parts: "Tuple[Tuple[torch.Tensor, ...], ...] | None" = None
         self._size = 0
         self._cap = 0
         # tenant id -> ordered [start, stop) row ranges, coalesced when
@@ -163,8 +188,8 @@ class CorpusStore:
         with _obs.span("store.append", family=self.family.name, rows=b,
                        tenant=tenant):
             self._reserve(self._size + b)
-            for buf, r in zip(self._bufs, rows):
-                buf[:, self._size:self._size + b] = r
+            for parts, r in zip(self._parts, rows):
+                _put(parts, r, self._size)
         if tenant is not None:
             ranges = self._tenant_ranges.setdefault(str(tenant), [])
             if ranges and ranges[-1][1] == self._size:
@@ -185,19 +210,22 @@ class CorpusStore:
         cap = max(self._cap, self.min_capacity)
         while cap < n:
             cap *= 2
-        new = tuple(torch.full((self.fields, cap) + s.trailing, s.fill,
-                               dtype=s.dtype, device=self.device)
+        d = len(self._devices)
+        new = tuple(tuple(torch.full((self.fields, cap // d) + s.trailing,
+                                     s.fill, dtype=s.dtype, device=dev)
+                          for dev in self._devices)
                     for s in self._specs)
-        if self._bufs is not None:
-            # a growth, not the first allocation
+        if self._parts is not None:
+            # a growth, not the first allocation: the live rows move to
+            # the new shard boundaries
             with _obs.span("store.grow", family=self.family.name,
                            capacity=cap):
-                for dst, src in zip(new, self._bufs):
-                    dst[:, :self._cap] = src
+                for dst, src in zip(new, self._parts):
+                    _put(dst, self._rows(src, 0, self._size), 0)
             if _obs.enabled():
                 _obs.counter("store.grows_total",
                              family=self.family.name).inc()
-        self._bufs = new
+        self._parts = new
         self._cap = cap
 
     # -- tenancy -------------------------------------------------------------
@@ -233,6 +261,33 @@ class CorpusStore:
             for t in self._tenant_ranges}
 
     # -- views ---------------------------------------------------------------
+    def _rows(self, parts, lo: int, hi: int) -> torch.Tensor:
+        """Global rows ``[lo, hi)`` of one component on ``device``: a view
+        when the store has one shard, else the shards' pieces gathered."""
+        if len(parts) == 1:
+            return parts[0][:, lo:hi]
+        per = self._cap // len(parts)
+        return gather_rows([p[:, max(lo - s * per, 0):hi - s * per]
+                            for s, p in enumerate(parts)
+                            if s * per < hi and lo < (s + 1) * per],
+                           self.device)
+
+    def _checked(self):
+        if self._size == 0:
+            raise ValueError("empty corpus")
+        return self._parts
+
+    def shard_buffers(self) -> Tuple[Tuple[torch.Tensor, ...], ...]:
+        """Per component, the per-shard full-capacity buffers on their
+        mesh devices (one shard when unsharded): what the sharded query
+        path launches on, without a gather."""
+        return self._checked()
+
+    def slice_rows(self, lo: int, hi: int) -> Tuple[torch.Tensor, ...]:
+        """Rows ``[lo, hi)`` of every component, ``[F, hi - lo, ...]`` on
+        ``device`` (views when unsharded): a contiguous tenant's corpus."""
+        return tuple(self._rows(p, lo, hi) for p in self._checked())
+
     def buffers(self) -> Tuple[torch.Tensor, ...]:
         """The full-capacity device buffers, one per component of the
         family: ICWS/DMH ``(fp [F, cap, m], val [F, cap, m], norm [F,
@@ -242,19 +297,16 @@ class CorpusStore:
 
         Unused rows are inert under the estimate launch; callers slice the
         estimates, never the corpus.  A growth replaces the buffers, so
-        re-fetch them after every append.
+        re-fetch them after every append.  A sharded store gathers its
+        shards onto ``device`` (a copy).
         """
-        if self._size == 0:
-            raise ValueError("empty corpus")
-        return self._bufs
+        return self.slice_rows(0, self._cap)
 
     def arrays(self) -> Tuple[torch.Tensor, ...]:
         """Exact-size ``[F, P, *trailing]`` component slices (the leading F
         axis is dropped when ``fields == 1``): views of the buffers, for
         host cross-checks and tests; query paths use :meth:`buffers`."""
-        if self._size == 0:
-            raise ValueError("empty corpus")
-        out = tuple(b[:, :self._size] for b in self._bufs)
+        out = self.slice_rows(0, self._size)
         if self.fields == 1:
             return tuple(o[0] for o in out)
         return out
@@ -263,9 +315,7 @@ class CorpusStore:
         """Exact-size component slices, always ``[F, P, *trailing]`` (no
         ``fields == 1`` drop): the layout the merge layer and the
         families' ``merge_rows`` take."""
-        if self._size == 0:
-            raise ValueError("empty corpus")
-        return tuple(b[:, :self._size] for b in self._bufs)
+        return self.slice_rows(0, self._size)
 
     def bytes_per_row(self) -> int:
         """Resident device bytes per stored row (one field)."""
@@ -277,3 +327,14 @@ class CorpusStore:
         """Paper accounting: the family's doubles per row, times rows and
         fields."""
         return self._size * self.fields * self.family.storage_doubles_per_row()
+
+
+def _put(parts, rows: torch.Tensor, lo: int) -> None:
+    """Copy ``rows`` ``[F, b, ...]`` into per-shard buffers at global row
+    ``lo``, each shard taking the piece inside its row range."""
+    per = parts[0].shape[1]
+    hi = lo + rows.shape[1]
+    for s, buf in enumerate(parts):
+        a, z = max(lo, s * per), min(hi, (s + 1) * per)
+        if a < z:
+            buf[:, a - s * per:z - s * per].copy_(rows[:, a - lo:z - lo])

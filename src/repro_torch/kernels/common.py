@@ -20,6 +20,8 @@ that registry.
 are the ICWS draw, the (key, level) fingerprint and the DMH densify
 sources in torch: the plain ICWS and DMH sketches and the families'
 merges share them, so the three stay bit for bit with the kernels.
+:func:`stable_top_k` is the serving path's top-k and its tie rule, shared
+by the index and ``ops.sharded_top_k``.
 """
 from __future__ import annotations
 
@@ -69,6 +71,14 @@ BIG = 3.0e38
 # the estimate guard ``fq >= 0`` keeps both out of every sum
 QUERY_PAD_FP = -1
 CORPUS_PAD_FP = -2
+
+
+def stable_top_k(score: torch.Tensor, k: int):
+    """Top-k scores + indices over the last dim, equal scores by ascending
+    index (as ``jax.lax.top_k``): a stable descending sort keeps the index
+    order of ties, which ``torch.topk`` does not promise."""
+    scores, idx = torch.sort(score, dim=-1, descending=True, stable=True)
+    return scores[..., :k], idx[..., :k]
 
 
 def densify_probes(m: int) -> int:

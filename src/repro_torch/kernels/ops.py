@@ -30,9 +30,19 @@ family}`` and its host time lands in ``ops.launch_seconds``, and
 takes the plain version, 0.0 when a CUDA kernel is launched.  No op
 resolves blocks from a tuning cache yet, so ``ops.autotune_resolved_total``
 is never emitted (``ROADMAP.md`` Queue A 16).
+
+Sharded ops (``*_sharded``, ``sharded_top_k``): the corpus rows are split
+over one axis of a mesh (:mod:`repro_torch.launch.mesh`), the queries
+replicate, and every shard runs the same single-device op on its rows
+(:func:`_sharded`).  Each (query, row) estimate reduces only over that
+row's samples or slots, in an order no launcher picks by the row count,
+so the concatenated shard outputs equal the single-device launch bit for
+bit.  The sharded op counts once a call; the inner op and the kernel
+counters count once a shard.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
@@ -40,7 +50,9 @@ import torch.nn.functional as F
 
 from repro_torch import obs as _obs
 
-from .common import QUERY_PAD_FP
+from repro_torch.distributed.sharding import shard_rows
+
+from .common import CORPUS_PAD_FP, QUERY_PAD_FP, stable_top_k
 from .countsketch import (_bucket_sign, countsketch_dense_cuda,
                           countsketch_dense_plain, countsketch_sparse_cuda,
                           countsketch_sparse_plain)
@@ -127,7 +139,11 @@ def estimate_partials_many_vs_many(fq, vq, fpc, vc):
 def _norm_epilogue(cnt, sw, na, nb, m: int):
     """``est = na * nb * (m~ / m) * sw`` with ``m~ = 2 / (1 + cnt / m)``,
     zero where either norm is zero (the JAX package's operand order; the
-    norms broadcast against ``cnt``)."""
+    norms broadcast against ``cnt``).  ``m`` divides as a 0-d f32 tensor
+    filled on ``cnt``'s device (no host copy, so no sync): on CUDA torch
+    takes a division by a python scalar as a multiply by its reciprocal,
+    which JAX and the CPU do not."""
+    m = cnt.new_full((), float(m), dtype=torch.float32)
     m_tilde = 2.0 / (1.0 + cnt / m)
     est = na * nb * (m_tilde / m) * sw
     return torch.where((na == 0) | (nb == 0), 0.0, est)
@@ -178,10 +194,43 @@ def icws_estimate_many_stacked(fq, vq, nq, fpb, vb, nb):
     return icws_estimate_many(fq, vq, nq, fpb[0], vb[0], nb[0])
 
 
+def _sharded(fn, replicated, sharded, fills, *, mesh, axis: str,
+             **kwargs):
+    """One call of ``fn`` a shard of mesh axis ``axis``: the
+    ``replicated`` tensors copied to the shard's device, then each corpus
+    buffer of ``sharded`` at the shard's rows (dim 1).  A buffer is a
+    tensor, split here and padded with its entry of ``fills`` (the inert
+    fill of its family's spare rows) to a multiple of the shard count, or
+    a sequence of per-shard tensors already on their devices (a sharded
+    store's ``shard_buffers()``).  Every shard's launch is issued before
+    any output is read; the outputs (corpus rows last) are concatenated in
+    shard order on the first replicated tensor's device and cut to the
+    corpus rows."""
+    devs = mesh.axis_devices(axis)
+    parts = [tuple(x) if isinstance(x, (tuple, list))
+             else shard_rows(x, devs, fill=f)
+             for x, f in zip(sharded, fills)]
+    if any(len(p) != len(devs) for p in parts):
+        raise ValueError(f"corpus buffers of {[len(p) for p in parts]} "
+                         f"shards for a {len(devs)}-way axis {axis!r}")
+    lead = sharded[0]
+    rows = (sum(p.shape[1] for p in lead) if isinstance(lead, (tuple, list))
+            else lead.shape[1])
+    outs = [fn(*(r.to(dev) for r in replicated), *(p[s] for p in parts),
+               **kwargs)
+            for s, dev in enumerate(devs)]
+    home = replicated[0].device
+    return torch.cat([o.to(home) for o in outs], dim=-1)[..., :rows]
+
+
 @_obs.instrumented("icws_estimate_many_sharded")
-def icws_estimate_many_sharded(fq, vq, nq, fpb, vb, nb, *, mesh, axis):
-    raise NotImplementedError("sharded corpus estimates are not ported yet "
-                              "(Queue A 14 in ROADMAP.md)")
+def icws_estimate_many_sharded(fq, vq, nq, fpb, vb, nb, *, mesh,
+                               axis="data"):
+    """:func:`icws_estimate_many_stacked` with the F = 1 store's corpus
+    rows split over mesh axis ``axis`` (:func:`_sharded`).  Returns ``[Q,
+    cap]`` f32, bit for bit the single-device launch."""
+    return _sharded(icws_estimate_many_stacked, (fq, vq, nq), (fpb, vb, nb),
+                    (CORPUS_PAD_FP, 0, 0), mesh=mesh, axis=axis)
 
 
 @_obs.instrumented("estimate_partials_fields")
@@ -332,3 +381,92 @@ def sample_estimate_fields_packed(kq, vq, tq, kc, wc, tc, *,
     fn = _route(kq, sample_estimate_fields_packed_plain,
                 sample_estimate_fields_packed_cuda)
     return fn(kq, vq, aq, kc, wc, tc, qmap=qmap, cmap=cmap)
+
+
+# Sharded twins of the fused fields launches: queries replicate, corpus
+# rows split over mesh axis ``axis`` and pad with the spare rows' inert
+# fills (pad fingerprints and keys CORPUS_PAD_FP; zero values, words,
+# tables, norms and taus).  Each returns [G, Q, cap] f32, bit for bit the
+# single-device launch.
+
+@_obs.instrumented("icws_estimate_fields_sharded")
+def icws_estimate_fields_sharded(fq, vq, nq, fpc, vc, nc, *,
+                                 qmap: Sequence[int], cmap: Sequence[int],
+                                 mesh, axis="data"):
+    """Sharded :func:`icws_estimate_fields`."""
+    return _sharded(icws_estimate_fields, (fq, vq, nq), (fpc, vc, nc),
+                    (CORPUS_PAD_FP, 0, 0), mesh=mesh, axis=axis,
+                    qmap=qmap, cmap=cmap)
+
+
+@_obs.instrumented("icws_estimate_fields_packed_sharded")
+def icws_estimate_fields_packed_sharded(fq, vq, nq, fpc, wc, nc, *,
+                                        qmap: Sequence[int],
+                                        cmap: Sequence[int], mesh,
+                                        axis="data"):
+    """Sharded :func:`icws_estimate_fields_packed`."""
+    return _sharded(icws_estimate_fields_packed, (fq, vq, nq), (fpc, wc, nc),
+                    (CORPUS_PAD_FP, 0, 0), mesh=mesh, axis=axis,
+                    qmap=qmap, cmap=cmap)
+
+
+@_obs.instrumented("linear_estimate_fields_sharded")
+def linear_estimate_fields_sharded(tq, tc, *, qmap: Sequence[int],
+                                   cmap: Sequence[int], mesh, axis="data"):
+    """Sharded :func:`linear_estimate_fields` (zero tables are inert)."""
+    return _sharded(linear_estimate_fields, (tq,), (tc,), (0,), mesh=mesh,
+                    axis=axis, qmap=qmap, cmap=cmap)
+
+
+@_obs.instrumented("linear_estimate_fields_packed_sharded")
+def linear_estimate_fields_packed_sharded(tq, wc, *, qmap: Sequence[int],
+                                          cmap: Sequence[int], mesh,
+                                          axis="data"):
+    """Sharded :func:`linear_estimate_fields_packed` (zero words decode
+    to zero tables)."""
+    return _sharded(linear_estimate_fields_packed, (tq,), (wc,), (0,),
+                    mesh=mesh, axis=axis, qmap=qmap, cmap=cmap)
+
+
+@_obs.instrumented("sample_estimate_fields_sharded")
+def sample_estimate_fields_sharded(kq, vq, tq, kc, vc, tc, *,
+                                   qmap: Sequence[int], cmap: Sequence[int],
+                                   mesh, axis="data"):
+    """Sharded :func:`sample_estimate_fields` (pad keys, zero values and
+    zero taus: probability 0 on every slot)."""
+    return _sharded(sample_estimate_fields, (kq, vq, tq), (kc, vc, tc),
+                    (CORPUS_PAD_FP, 0, 0), mesh=mesh, axis=axis,
+                    qmap=qmap, cmap=cmap)
+
+
+@_obs.instrumented("sample_estimate_fields_packed_sharded")
+def sample_estimate_fields_packed_sharded(kq, vq, tq, kc, wc, tc, *,
+                                          qmap: Sequence[int],
+                                          cmap: Sequence[int], mesh,
+                                          axis="data"):
+    """Sharded :func:`sample_estimate_fields_packed`."""
+    return _sharded(sample_estimate_fields_packed, (kq, vq, tq),
+                    (kc, wc, tc), (CORPUS_PAD_FP, 0, 0), mesh=mesh,
+                    axis=axis, qmap=qmap, cmap=cmap)
+
+
+@_obs.instrumented("sharded_top_k")
+def sharded_top_k(score, k: int, *, mesh, axis="data"):
+    """Top-k over the last dim of ``score`` with its columns split over
+    mesh axis ``axis``: each shard's ``min(k, shard)`` best (padded with
+    ``-inf``, below every score), its indices offset by the shard's first
+    column, merged in shard order.  Values and indices equal
+    :func:`~.common.stable_top_k` on the whole row, ties included: a
+    shard's candidates keep ascending indices within equal scores, and the
+    merge's stable sort keeps shard order."""
+    devs = mesh.axis_devices(axis)
+    parts = shard_rows(score, devs, fill=-math.inf, dim=score.dim() - 1)
+    shard = parts[0].shape[-1]
+    kl = min(k, shard)
+    cand = [stable_top_k(p, kl) for p in parts]
+    home = score.device
+    vals = torch.cat([v.to(home) for v, _ in cand], dim=-1)
+    idx = torch.cat([(i + s * shard).to(home)
+                     for s, (_, i) in enumerate(cand)], dim=-1)
+    v, pos = stable_top_k(vals, k)
+    return v, torch.gather(idx, -1, pos)

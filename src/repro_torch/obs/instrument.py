@@ -21,7 +21,10 @@ plain version runs inside the call.  Device time per kernel comes from
 
 An op that calls another public op (``icws_estimate_fields`` calls
 ``estimate_partials_fields``) counts both, on every call: the port has no
-jit, so nothing is counted only while tracing.
+jit, so nothing is counted only while tracing.  So does a sharded op: a
+call of ``icws_estimate_fields_sharded`` counts once under its own name and
+once a shard under ``icws_estimate_fields`` (and that op's inner one),
+where JAX counts the op inside ``shard_map`` only while it traces.
 """
 from __future__ import annotations
 

@@ -11,8 +11,13 @@ CPU tensor.  ``use_kernel`` is kept field for field with the JAX package's
 config, where it picks the Pallas kernel over the jnp reference; here the
 device of the tensor decides, and both settings take the same route.
 
-Only the single-replica form is ported: ``compressed_update`` with a named
-axis (the data-parallel all-reduce in sketch space) raises.
+``compressed_update(axis_name=...)`` is the data-parallel form: where the
+JAX package runs it once per replica under ``shard_map`` and ``pmean``s
+the table and then the masked values over the named axis, here each
+replica is a process and both means are ``torch.distributed.all_reduce``
+sums over the process group registered under the name
+(:func:`repro_torch.distributed.sharding.register_axis`; gloo for CPU
+tensors, NCCL for CUDA tensors), divided by the group's size.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import axis_group
 from repro_torch.kernels import ops
 
 
@@ -66,6 +72,19 @@ def ef_decode(table: torch.Tensor, n: int, cfg: CompressionConfig,
     return est * scale
 
 
+def _pmean(x: torch.Tensor, axis_name: str) -> torch.Tensor:
+    """``jax.lax.pmean`` over the replica axis ``axis_name``: the sum over
+    its process group, divided by the group's size as a 0-d f32 tensor
+    filled on ``x``'s device (a python scalar would divide by a reciprocal
+    multiply on CUDA; a tensor copied from the host would sync)."""
+    group = axis_group(axis_name)
+    total = x.clone()
+    torch.distributed.all_reduce(total, op=torch.distributed.ReduceOp.SUM,
+                                 group=group)
+    n = torch.distributed.get_world_size(group)
+    return total / x.new_full((), float(n))
+
+
 def compressed_update(flat_grad: torch.Tensor, residual: torch.Tensor,
                       axis_name: Optional[str], cfg: CompressionConfig,
                       lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -78,19 +97,23 @@ def compressed_update(flat_grad: torch.Tensor, residual: torch.Tensor,
                   ||g|| / sqrt(T))
         res_t+1 = residual_decay * (p_t - Delta_t)
 
-    Returns (Delta [T] to subtract from the parameters, the new residual
-    [T]).  Only ``axis_name=None`` (one replica) is ported."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "compressed_update over a named axis (the all-reduce in sketch "
-            "space) is not ported yet (Queue A 14 in ROADMAP.md)")
+    With ``axis_name`` the table is averaged over the replicas before the
+    decode, and so are the masked exact values, kept where this replica's
+    mask holds.  Returns (Delta [T] to subtract from the parameters, the
+    new residual [T])."""
     p = residual + lr * flat_grad
-    est = decompress(compress(p, cfg), p.shape[0], cfg).abs()
+    table = compress(p, cfg)
+    if axis_name is not None:
+        table = _pmean(table, axis_name)        # all-reduce in sketch space
+    est = decompress(table, p.shape[0], cfg).abs()
     tau = 2.0 * torch.linalg.vector_norm(p) / _sqrt_f32(cfg.width)
     kth = torch.topk(est, max(1, cfg.width // 2)).values[-1]
     # the threshold picks well-identified heavy hitters; the top-k fallback
     # guarantees progress; the values applied are exact, not estimated
-    delta = torch.where((est >= tau) | (est >= kth), p, 0.0)
+    mask = (est >= tau) | (est >= kth)
+    delta = torch.where(mask, p, 0.0)
+    if axis_name is not None:
+        delta = torch.where(mask, _pmean(delta, axis_name), 0.0)
     g_scale = flat_grad.abs() + torch.linalg.vector_norm(flat_grad) \
         / _sqrt_f32(flat_grad.shape[0])
     cap = 3.0 * lr * g_scale

@@ -93,8 +93,9 @@ class SketchSearchService:
     passes ``device="cpu"``.  Ported: ``family`` in ``("icws", "cs",
     "jl", "ts", "ps", "dmh")`` (``FAMILY_NAMES``), each sized to the
     storage of an ``m``-sample ICWS sketch, unpacked or ``packed=True``;
-    ``backend="device"`` or, for ICWS, ``"host"``; ``mesh=None`` (a
-    ``mesh`` raises ``NotImplementedError`` naming its ROADMAP.md item).
+    ``backend="device"`` or, for ICWS, ``"host"``; ``mesh`` (a
+    :class:`repro_torch.launch.CorpusMesh`) shards the index's corpus rows
+    over its corpus axis, bit for bit the single-device results.
     ``audit_every=N > 0``, with observability on, re-scores every N-th
     single search against the host oracle (:meth:`_maybe_audit`).
     """

@@ -223,8 +223,11 @@ def test_one_update_step_matches_jax(seed):
 
 
 def test_named_axis_is_not_ported():
+    """A named axis needs a registered process group: without
+    ``torch.distributed`` it raises instead of running as one replica
+    (``tests/test_torch_replica_axis.py`` runs the registered forms)."""
     cfg = comp.CompressionConfig(width=64)
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
+    with pytest.raises(RuntimeError, match="not initialised"):
         comp.compressed_update(torch.zeros(256), torch.zeros(256), "data",
                                cfg, lr=0.1)
 

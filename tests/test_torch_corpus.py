@@ -148,8 +148,17 @@ def test_estimate_vecs_equals_sequential():
 
 
 def test_mesh_and_card_defaults():
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
-        SketchCorpus(m=8, mesh=object(), device="cpu")
+    """A corpus sharded over a 2-way CPU mesh (5 rows: not a multiple of 2)
+    estimates bit for bit as the single-device one; without ``device`` the
+    corpus wants the card."""
+    from repro_torch.launch import make_corpus_mesh
+    vecs = [_port(v) for v in _lake(21, 5, n=400, nnz=80)]
+    queries = [_port(v) for v in _lake(22, 3, n=400, nnz=80)]
+    sharded = SketchCorpus(m=64, seed=2, device="cpu",
+                           mesh=make_corpus_mesh(devices=("cpu", "cpu")))
+    sharded.add_batch(vecs)
+    assert torch.equal(sharded.estimate_vecs(queries),
+                       _corpus(vecs, 64, 2).estimate_vecs(queries))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             SketchCorpus(m=8)

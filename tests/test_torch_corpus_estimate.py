@@ -224,6 +224,12 @@ def test_checks_and_unported_options():
         ops.estimate_partials_many_vs_many(fq[:, :40], vq[:, :40], fc, vc)
     with pytest.raises(TypeError, match="int32 fingerprints"):
         ops.estimate_partials_many_vs_many(fq.long(), vq, fc, vc)
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
+    # the sharded many-vs-many launch over 3 CPU shards (37 rows: the pad
+    # path) equals the single-device one bit for bit
+    from repro_torch.launch import CorpusMesh
+    mesh = CorpusMesh(("c",), (torch.device("cpu"),) * 3)
+    assert torch.equal(
         ops.icws_estimate_many_sharded(fq, vq, nq, fc[None], vc[None],
-                                       nc[None], mesh=None, axis="c")
+                                       nc[None], mesh=mesh, axis="c"),
+        ops.icws_estimate_many_stacked(fq, vq, nq, fc[None], vc[None],
+                                       nc[None]))

@@ -1163,3 +1163,101 @@ def test_observability_on_and_off_rank_bit_for_bit_on_the_card(cuda, family,
     if family in ("icws", "dmh") and not packed:
         assert port_est.estimate_fields_cuda.launches - before == 5
         assert ops_seen["estimate_partials_fields"] == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [266, 512])
+def test_norm_epilogue_on_the_card_equals_the_cpu(cuda, m):
+    """The ICWS norm epilogue divides by ``m`` as a 0-d device tensor, so
+    the card gives the CPU's (and JAX's) bits for every count 0..m."""
+    rng = np.random.default_rng(m)
+    cnt = torch.arange(m + 1, dtype=torch.float32)
+    sw, na, nb = (torch.from_numpy(x.astype(np.float32)) for x in (
+        rng.normal(size=m + 1), 10 * rng.random(m + 1), rng.random(m + 1)))
+    nb[::7] = 0.0
+    want = ops._norm_epilogue(cnt, sw, na, nb, m)
+    got = ops._norm_epilogue(*(x.to(cuda) for x in (cnt, sw, na, nb)), m)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+_SHARDED_KERNELS = {"icws": "estimate_fields", "dmh": "estimate_fields",
+                    "cs": "linear_estimate_fields",
+                    "jl": "linear_estimate_fields",
+                    "ts": "sample_estimate_fields",
+                    "ps": "sample_estimate_fields"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("family", ["icws", "cs", "jl", "ts", "ps", "dmh"])
+def test_sharded_estimates_equal_the_single_launch_on_the_card(cuda, family,
+                                                               packed):
+    """Each family's sharded fields launch over 2 and 3 shards of the card
+    (raw rows on the pad path and a sharded store's shards) equals the
+    single-device launch bit for bit, one kernel launch a shard; so does
+    the sharded service."""
+    from repro_torch.data import make_family
+    from _torch_sharding import (assert_sharded_family_equal,
+                                 assert_sharded_service_equal, small_lake)
+    mod = port_se if family in ("ts", "ps") else port_est
+    kernel = getattr(mod, _SHARDED_KERNELS[family]
+                     + ("_packed" if packed else "") + "_cuda")
+    fam = make_family(family, storage=97.0)
+    for shards in (2, 3):
+        before = kernel.launches
+        assert_sharded_family_equal(fam, packed=packed, shards=shards,
+                                    device=cuda)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1 + 2 * shards
+    tables, queries = small_lake(8)
+    assert_sharded_service_equal(tables, queries, shards=2, device=cuda,
+                                 family=family, packed=packed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 3])
+def test_sharded_top_k_equals_top_k_on_the_card(cuda, shards):
+    from repro_torch.kernels.common import stable_top_k
+    from repro_torch.launch import make_corpus_mesh
+    rng = np.random.default_rng(shards)
+    mesh = make_corpus_mesh(devices=(cuda,) * shards)
+    for n, k in ((11, 6), (8, 3), (5, 5), (16_384, 10)):
+        score = torch.from_numpy(
+            rng.integers(-1, 3, (16, n)).astype(np.float32)).to(cuda)
+        v0, i0 = stable_top_k(score, k)
+        v1, i1 = ops.sharded_top_k(score, k, mesh=mesh, axis="data")
+        assert torch.equal(v0, v1) and torch.equal(i0, i1)
+
+
+@pytest.mark.cuda
+def test_sharded_estimate_issues_no_host_sync(cuda):
+    """A 2-shard ``icws_estimate_fields_sharded``, on raw rows (the pad
+    path) and on per-shard rows, runs under ``set_sync_debug_mode("error")``:
+    no shard waits on another (the epilogue's divisor is filled on the
+    card, not copied from the host); the result equals the single launch."""
+    from repro_torch.distributed.sharding import shard_rows
+    from repro_torch.launch import make_corpus_mesh
+    gen = torch.Generator().manual_seed(7)
+    fq, fpc = (torch.randint(0, 6, shape, generator=gen, dtype=torch.int32)
+               for shape in ((3, 2, 64), (3, 7, 64)))
+    vq, vc = torch.rand(3, 2, 64, generator=gen), torch.rand(3, 7, 64,
+                                                              generator=gen)
+    nq, nc = torch.rand(3, 2, generator=gen), torch.rand(3, 7, generator=gen)
+    fq, vq, nq, fpc, vc, nc = (x.to(cuda) for x in (fq, vq, nq, fpc, vc, nc))
+    kw = dict(qmap=(0, 1, 0, 2), cmap=(0, 0, 1, 2))
+    devs = (cuda,) * 2
+    mesh = make_corpus_mesh(devices=devs)
+    parts = tuple(shard_rows(x, devs, fill=f)
+                  for x, f in ((fpc, ops.CORPUS_PAD_FP), (vc, 0), (nc, 0)))
+    want = ops.icws_estimate_fields(fq, vq, nq, fpc, vc, nc, **kw)
+    ops.icws_estimate_fields_sharded(fq, vq, nq, fpc, vc, nc, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [ops.icws_estimate_fields_sharded(fq, vq, nq, *corpus,
+                                                mesh=mesh, **kw)
+               for corpus in ((fpc, vc, nc), parts)]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for g in got:
+        assert torch.equal(g[..., :7], want)

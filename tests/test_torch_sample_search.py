@@ -24,6 +24,9 @@ from repro_torch.convert import index_from_numpy
 from repro_torch.data import dataset_search as port_ds
 from repro_torch.kernels.sample_estimate import sorted_prefix_ok
 
+from _torch_sharding import (assert_sharded_family_equal,
+                             assert_sharded_service_equal)
+
 # small shapes: one intra-op thread per test process, so that parallel
 # test workers do not oversubscribe the cores
 torch.set_num_threads(1)
@@ -235,9 +238,12 @@ def test_service_serves_the_family_storage_matched(lake, family, shapes, m):
 
 
 @pytest.mark.parametrize("family", FAMILIES)
-def test_unported_options_raise_for_these_families(family):
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
-        SketchSearchService(m=M, family=family, device="cpu", mesh=object())
+def test_unported_options_raise_for_these_families(lake, family):
+    """``mesh``, ported: the family's service over a 2-way CPU mesh equals
+    the single-device one bit for bit."""
+    tables, queries = lake[0], lake[1]
+    assert_sharded_service_equal(tables[:10], queries, shards=2,
+                                 family=family)
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -253,14 +259,12 @@ def test_host_backend_is_the_icws_oracle_only(family):
 
 @pytest.mark.parametrize("family", FAMILIES)
 def test_unported_family_members_name_their_queue_item(family):
+    """The family's sharded members, ported: ``estimate_fields_sharded``
+    and its packed twin equal the single-device launches bit for bit."""
     from repro_torch.data import make_family
     fam = make_family(family, storage=97.0)
-    for call in (lambda: fam.estimate_fields_sharded(
-                     None, None, qmap=(), cmap=(), mesh=None, axis=0),
-                 lambda: fam.estimate_fields_packed_sharded(
-                     None, None, qmap=(), cmap=(), mesh=None, axis=0)):
-        with pytest.raises(NotImplementedError, match="Queue A 14"):
-            call()
+    for packed in (False, True):
+        assert_sharded_family_equal(fam, packed=packed, shards=3)
 
 
 @pytest.mark.parametrize("family", FAMILIES)

@@ -17,6 +17,9 @@ from repro_torch import DatasetSearchIndex, SketchSearchService
 from repro_torch.convert import index_from_numpy
 from repro_torch.data import dataset_search as port_ds
 
+from _torch_sharding import (assert_sharded_family_equal,
+                             assert_sharded_service_equal)
+
 # small shapes: one intra-op thread per test process, so that parallel
 # test workers do not oversubscribe the cores
 torch.set_num_threads(1)
@@ -230,13 +233,17 @@ def test_service_batch_equals_search_loop_and_accounts(lake):
     assert svc.stats.rows_ingested == sum(len(k) for _, k, _ in tables[:12])
 
 
-@pytest.mark.parametrize("kwargs, item", [
-    ({"family": "ts", "mesh": object()}, "Queue A 14"),
-    ({"mesh": object()}, "Queue A 14"),
+@pytest.mark.parametrize("kwargs, shards", [
+    ({"family": "ts"}, 3),
+    ({}, 2),
 ])
-def test_unported_options_raise_naming_their_queue_item(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        SketchSearchService(m=M, device="cpu", **kwargs)
+def test_unported_options_raise_naming_their_queue_item(lake, kwargs,
+                                                        shards):
+    """The option that raised until it was ported, ``mesh``: a service
+    sharded over a CPU mesh equals the single-device one bit for bit."""
+    tables, queries, _ = lake
+    assert_sharded_service_equal(tables[:12], queries, shards=shards,
+                                 **kwargs)
 
 
 @pytest.mark.parametrize("kwargs", [{"backend": "host"},
@@ -258,11 +265,13 @@ def test_host_oracle_options_serve_the_icws_family(lake, kwargs):
 
 
 @pytest.mark.parametrize("family", ["icws", "cs", "jl", "ts", "ps", "dmh"])
-def test_packed_sharded_serving_names_its_queue_item(family):
+def test_packed_sharded_serving_names_its_queue_item(lake, family):
+    """Packed sharded serving, ported: the packed service over a 3-way CPU
+    mesh, and the family's packed sharded launch, equal their
+    single-device twins bit for bit."""
     from repro_torch.data import make_family
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
-        SketchSearchService(m=M, family=family, packed=True, mesh=object(),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A 14"):
-        make_family(family, storage=97.0).estimate_fields_packed_sharded(
-            None, None, qmap=(), cmap=(), mesh=None, axis=0)
+    tables, queries, _ = lake
+    assert_sharded_service_equal(tables[:12], queries, shards=3,
+                                 family=family, packed=True)
+    assert_sharded_family_equal(make_family(family, storage=97.0),
+                                packed=True, shards=2)
