@@ -28,7 +28,13 @@ flash_attention.flash_attention``) runs TinyLlama's attention shape,
 Mistral-NeMo's heads, Gemma-7B's and InternVL2-1B's reduced ones (B15: f32
 through the f32 tensor-core kernel, bf16 through the bf16 one: by TMA where
 D % 8 == 0, value by value at D = 28), each kernel first held against its
-plain version.
+plain version.  The ``lm serve`` phase then drives the LM serving path
+(``repro_torch.models.Model``, ``repro_torch.launch.serve``'s
+``ServeEngine``) at tinyllama-1.1b's full config: decode against the
+parallel forward, the card against the CPU at two layers of full width,
+the engine draining six requests on four slots twice with the same tokens,
+and the decode-step p50, forward time, tokens/s and peak memory; the path
+launches no hand-written kernel (every counter reads 0 after it).
 After the service runs, the ``merge`` phase builds lakes through
 ``ingest_many_sharded`` (4 shards; ICWS the whole lake, the other
 families a 2,048-table sub-lake, each beside a single-stream service:
@@ -259,6 +265,24 @@ BF16_TC_OPS_PER_S = 989e12
 # operations per visible pair and dim, by the kernel the route takes
 FLASH_OPS = {"flash_attention_tc_kernel": 6,
              "flash_attention_f32tc_kernel": 24}
+# the LM serving path at tinyllama-1.1b's full config (22 layers, d 2048,
+# 32 heads, 4 KV heads, head_dim 64, d_ff 5632, vocab 32,000; random
+# weights from a seeded generator on the card).  Gates: decode == parallel
+# forward within JAX's own rel < 0.06 (tests/test_models.py) at B = 1, T =
+# 12; the card against the CPU at LM_CPU_LAYERS of full width within the
+# CPU tests' tolerance (tests/test_torch_lm.py: 2^-6 of the largest CPU
+# magnitude; greedy picks equal but at a near tie, where the CPU's top-2
+# margin lies within it); the engine drains LM_REQUESTS on LM_SLOTS and a
+# repeat gives the same tokens
+LM_ARCH = "tinyllama-1.1b"
+LM_TOL = 2 ** -6
+LM_DECODE_REL = 0.06
+LM_T = 12
+LM_CPU_LAYERS = 2
+LM_CPU_B, LM_CPU_T = 2, 8
+LM_SLOTS, LM_REQUESTS, LM_NEW, LM_MAX_SEQ = 4, 6, 8, 256
+LM_FORWARD_T = 512
+LM_STEPS = 32
 
 
 def log(msg: str) -> None:
@@ -1911,6 +1935,182 @@ def flash_attention_kernel_phase():
     return reports, launches
 
 
+def lm_rel(got, want) -> float:
+    """max |got - want| over max |want|, in f32 on the CPU."""
+    a, b = want.float().cpu(), got.float().cpu()
+    return ((a - b).abs().max() / a.abs().max()).item()
+
+
+def lm_near_ties(label: str, got, want) -> int:
+    """Greedy picks of ``got`` against ``want``'s (logits ``[..., V]``):
+    each pick that differs must sit at a near tie of ``want`` (top-2
+    margin within LM_TOL of its largest magnitude).  Returns the count of
+    such ties; raises on a pick that differs elsewhere."""
+    g, w = got.float().cpu(), want.float().cpu()
+    top2 = w.topk(2, dim=-1).values
+    differ = g.argmax(-1) != w.argmax(-1)
+    margin = (top2[..., 0] - top2[..., 1])[differ]
+    if bool((margin > LM_TOL * w.abs().max()).any()):
+        raise AssertionError(f"lm serve {label}: a greedy pick differs from "
+                             f"the CPU's at margin {margin.max().item()}")
+    return int(differ.sum())
+
+
+def lm_card_vs_cpu(cfg):
+    """Gate (b): forward and LM_CPU_B x LM_CPU_T decode steps at
+    LM_CPU_LAYERS of full width, on the card and on the CPU, same weights."""
+    import dataclasses
+
+    from repro_torch.convert import model_params_to
+    from repro_torch.models import Model
+    small = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS)
+    card = Model(small)
+    params = card.init(torch.Generator(device="cuda").manual_seed(1))
+    cpu = Model(small, device="cpu")
+    cpu_params = model_params_to(params, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (LM_CPU_B, LM_CPU_T)).astype(np.int32))
+    want, _ = cpu.forward(cpu_params, {"tokens": toks})
+    got, _ = card.forward(params, {"tokens": toks.cuda()})
+    rels, ties = [lm_rel(got, want)], lm_near_ties("forward", got, want)
+    state = card.init_decode_state(LM_CPU_B, 32)
+    cpu_state = cpu.init_decode_state(LM_CPU_B, 32)
+    for t in range(LM_CPU_T):
+        want, cpu_state = cpu.decode_step(cpu_params, toks[:, t:t + 1],
+                                          cpu_state)
+        got, state = card.decode_step(params, toks[:, t:t + 1].cuda(), state)
+        rels.append(lm_rel(got, want))
+        ties += lm_near_ties(f"decode step {t}", got, want)
+    rels += [lm_rel(state["kv"][n], cpu_state["kv"][n]) for n in "kv"]
+    if max(rels) > LM_TOL:
+        raise AssertionError(f"lm serve: the card is {max(rels)} from the "
+                             f"CPU (tolerance {LM_TOL})")
+    if not torch.equal(state["slot_pos"].cpu(), cpu_state["slot_pos"]):
+        raise AssertionError("lm serve: slot tables differ")
+    log(f"lm serve (b) card == CPU at {LM_CPU_LAYERS} layers of full width: "
+        f"forward and {LM_CPU_T} decode steps of B = {LM_CPU_B}, max rel "
+        f"{max(rels):.3g} (tolerance {LM_TOL}), caches included; greedy "
+        f"picks equal, {ties} near ties")
+    return max(rels)
+
+
+def lm_serve_phase(identity: str):
+    """The LM serving path at tinyllama-1.1b's full config: (a) decode ==
+    parallel forward, (b) the card against the CPU, (c) the launcher's
+    engine drains and repeats, (d) decode-step p50, forward ms, tokens/s
+    and peak memory.  The path reaches no hand-written kernel (JAX's model
+    attends through the plain ``chunked_attention``): every launch counter
+    is set to 0 before it and must read 0 after."""
+    from repro_torch import configs
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm serve needs TF32 off")
+    counters = reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(LM_ARCH)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(v.numel() for v in lm_leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, not "
+                             f"{cfg.param_count()}")
+    # (a)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (1, LM_T)).astype(np.int32)).cuda()
+    par, _ = model.forward(params, {"tokens": toks})
+    state = model.init_decode_state(1, 32)
+    inc = []
+    for t in range(LM_T):
+        lg, state = model.decode_step(params, toks[:, t:t + 1], state)
+        inc.append(lg[:, 0])
+    rel = lm_rel(torch.stack(inc, dim=1), par)
+    if not rel < LM_DECODE_REL or not torch.isfinite(par.float()).all():
+        raise AssertionError(f"lm serve: decode is {rel} from forward")
+    log(f"lm serve (a) {LM_ARCH} ({cfg.num_layers} layers, "
+        f"{n_params:,} parameters): decode == forward over T = {LM_T}, rel "
+        f"{rel:.4g} (gate {LM_DECODE_REL})")
+    # (b)
+    cpu_rel = lm_card_vs_cpu(cfg)
+    # (c)
+    runs = [serve(LM_ARCH, requests=LM_REQUESTS, slots=LM_SLOTS,
+                  max_new_tokens=LM_NEW, full=True)
+            for _ in range(2)]
+    outs = [[r.output for r in reqs] for reqs, _ in runs]
+    if not all(r.done and len(r.output) == LM_NEW for reqs, _ in runs
+               for r in reqs) or outs[0] != outs[1]:
+        raise AssertionError(f"lm serve: the engine runs differ or did not "
+                             f"drain: {outs}")
+    tokens = LM_REQUESTS * LM_NEW
+    tok_s = [tokens / seconds for _, seconds in runs]
+    log(f"lm serve (c) ServeEngine drained {LM_REQUESTS} requests on "
+        f"{LM_SLOTS} slots at {cfg.num_layers} layers twice, same tokens: "
+        f"{outs[0]}")
+    # (d)
+    state = model.init_decode_state(LM_SLOTS, LM_MAX_SEQ)
+    step_toks = torch.ones((LM_SLOTS, 1), dtype=torch.int32, device="cuda")
+    step_ms = []
+    for i in range(LM_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, state = model.decode_step(params, step_toks, state)
+        b.record()
+        b.synchronize()
+        if i >= 2:
+            step_ms.append(a.elapsed_time(b))
+    busy_ms, kernels = lm_step_device(model, params, step_toks, state)
+    fwd_toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, LM_FORWARD_T)).astype(np.int32)).cuda()
+    fwd_ms = time_ms(lambda: model.forward(params, {"tokens": fwd_toks}),
+                     reps=5)
+    launches = sum(fn.launches for fn in counters.values())
+    if launches:
+        raise AssertionError(f"lm serve launched {launches} hand-written "
+                             "kernels; its path has none")
+    # a step reads the f32 weights, writes their bf16 casts and reads those
+    # in the products (the KV cache is 44 MB); of an untied embedding table
+    # it gathers and casts only the slots' rows
+    step_values = n_params - (0 if cfg.tie_embeddings else
+                              (cfg.vocab_size - LM_SLOTS) * cfg.d_model)
+    numbers = {"decode_step_p50_ms": statistics.median(step_ms),
+               "decode_slots": LM_SLOTS, "max_seq": LM_MAX_SEQ,
+               "forward_ms": fwd_ms, "forward_B": 1, "forward_T": LM_FORWARD_T,
+               "engine_tokens_per_s": tok_s,
+               "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "step_device_kernels": kernels,
+               "step_device_busy_ms": busy_ms,
+               "step_device_busy_share": busy_ms / statistics.median(
+                   step_ms),
+               "step_byte_floor_ms":
+                   step_values * (4 + 2 + 2) / HBM_BYTES_PER_S * 1e3,
+               "step_byte_floor_bf16_weights_ms":
+                   step_values * 2 / HBM_BYTES_PER_S * 1e3,
+               "decode_vs_forward_rel": rel, "card_vs_cpu_rel": cpu_rel,
+               "kernel_launches": launches}
+    log(f"lm serve (d) {LM_ARCH} on {identity}: " + json.dumps(numbers))
+    return numbers
+
+
+def lm_step_device(model, params, toks, state):
+    """One decode step under ``torch.profiler``: the device kernels it ran
+    and their summed device time in ms (0 kernels where the trace holds no
+    device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.decode_step(params, toks, state)
+        torch.cuda.synchronize()
+    spans = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return sum(spans) / 1e3, len(spans)
+
+
+def lm_leaves(tree):
+    for v in tree.values():
+        yield from lm_leaves(v) if isinstance(v, dict) else (v,)
+
+
 def lake_phase():
     rng = np.random.default_rng(4)
     tables, queries, partners = make_lake(rng, LAKE_TABLES, QUERIES)
@@ -3080,6 +3280,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     b15, flash_launches = phase("flash attention kernel",
                                 flash_attention_kernel_phase)
+    torch.cuda.empty_cache()
+    phase("lm serve", lm_serve_phase, identity)
+    gc.collect()
     torch.cuda.empty_cache()
     for family in FAMILIES:
         phase(f"small lake {family}", small_reference_phase, dev, family)

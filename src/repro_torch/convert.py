@@ -28,6 +28,18 @@ A JAX ``SketchCorpus`` is carried the same way, from its exact-size rows::
                                m=jax_corpus.m, seed=jax_corpus.seed,
                                device="cuda")
 
+A JAX dense ``Model``'s parameters (``Model(cfg).init(key)[0]``, each
+layer's stacked on a leading ``[L, ...]`` axis) carry across as they are::
+
+    tree = jax.tree.map(np.asarray, jax_params)
+    params = model_params_from_numpy(repro_torch.configs.get(name), tree,
+                                     device="cuda")
+
+and the port's ``Model`` of the same config computes with them what the
+JAX model computes.  ``model_params_to(params, "cpu")`` moves a port
+parameter tree to another device (the card's weights to the CPU's plain
+run, say).
+
 Gradient compression and flash attention carry no state to convert: the
 compression's only state is the flat error-feedback residual, which passes
 as a tensor (``torch.from_numpy(np.asarray(residual))``), and attention has
@@ -38,10 +50,12 @@ from __future__ import annotations
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core import KMVSketch
 from repro_torch.data.corpus import SketchCorpus
 from repro_torch.data.dataset_search import DatasetSearchIndex
+from repro_torch.device import resolve_device
 
 
 def corpus_from_numpy(fp: np.ndarray, val: np.ndarray, norm: np.ndarray,
@@ -120,3 +134,50 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
         index._register_table(name, int(n_rows), sample,
                               tenant=owner.get(row))
     return index
+
+
+def _param_shapes(cfg):
+    """The dense model's parameter tree, as leaf shapes."""
+    L, d, V, F = cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.d_ff
+    H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mlp = {"w_up": (L, d, F), "w_down": (L, F, d)}
+    if cfg.mlp_variant in ("swiglu", "geglu"):
+        mlp["w_gate"] = (L, d, F)
+    shapes = {"embed": (V, d), "final_norm": (d,),
+              "layers": {"attn": {"wq": (L, d, H, hd), "wk": (L, d, K, hd),
+                                  "wv": (L, d, K, hd), "wo": (L, H, hd, d)},
+                         "norm1": (L, d), "norm2": (L, d), "mlp": mlp}}
+    if not cfg.tie_embeddings:
+        shapes["lm_head"] = (d, V)
+    return shapes
+
+
+def model_params_from_numpy(cfg, tree, device="cuda"):
+    """The port's parameters of the dense model ``cfg`` from a JAX
+    parameter tree exported as numpy: the same tree of f32 tensors on
+    ``device``.  Raises ``ValueError`` where a key or a shape differs from
+    what ``cfg`` needs."""
+    dev = resolve_device(device)
+
+    def carry(want, got, path):
+        if isinstance(want, dict):
+            if not isinstance(got, dict) or set(got) != set(want):
+                keys = sorted(got) if isinstance(got, dict) else type(got)
+                raise ValueError(f"{path or 'params'}: keys {keys}; "
+                                 f"{cfg.name} needs {sorted(want)}")
+            return {k: carry(w, got[k], f"{path}/{k}")
+                    for k, w in want.items()}
+        a = np.asarray(got, np.float32)
+        if a.shape != want:
+            raise ValueError(f"{path}: shape {a.shape}; {cfg.name} needs "
+                             f"{want}")
+        return torch.from_numpy(a.copy()).to(dev)
+
+    return carry(_param_shapes(cfg), tree, "")
+
+
+def model_params_to(tree, device):
+    """The port's parameter tree ``tree`` with every tensor on ``device``."""
+    dev = resolve_device(device)
+    return {k: model_params_to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}

@@ -1,0 +1,161 @@
+"""The dense transformer in PyTorch: the port of
+``repro/models/transformer.py::Model`` for ``family == "dense"``.
+
+Parameters are a tree of f32 tensors shaped as the JAX package's, each
+layer's stacked on a leading ``[L, ...]`` axis (``convert.
+model_params_from_numpy`` carries a JAX tree across as it is); the layers
+run in a Python loop over that axis, under ``torch.inference_mode()``.
+The decode state's KV cache is ``[L, B, S, K, hd]`` bf16, written in place
+by ``decode_step``.  The other families (moe, ssm, hybrid, encdec, vlm)
+and the model mesh (``ctx``) are not ported yet (ROADMAP.md Queue A 18c).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.device import resolve_device
+
+from . import attention as attn
+from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, apply_mlp, embed,
+                     init_embedding, init_mlp, init_normal, lm_logits,
+                     rms_norm)
+
+
+def _stack(trees):
+    """One tree of the per-layer trees' leaves stacked on a new axis 0."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
+
+
+def _check_tf32(device):
+    """The attention products run in f32 (bf16 inputs widened, as JAX's
+    ``preferred_element_type``): TF32 would round their inputs to 10
+    bits on the card."""
+    if device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("torch.backends.cuda.matmul.allow_tf32 is True: "
+                           "the model's f32 attention products need it "
+                           "False (PyTorch's default)")
+
+
+def _layer(layers, i: int):
+    """Layer ``i``'s parameters: views into the stacked tree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+class Model:
+    def __init__(self, cfg, device="cuda"):
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
+                "port's Model runs the dense family only (ROADMAP.md Queue "
+                "A 18c)")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # ------------------------------------------------------------------ init
+    @torch.inference_mode()
+    def init(self, generator: torch.Generator) -> Dict[str, Any]:
+        """f32 parameters drawn from ``generator``, which must lie on the
+        model's device."""
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        cfg = self.cfg
+        params: Dict[str, Any] = {
+            "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model)}
+        if not cfg.tie_embeddings:
+            params["lm_head"] = init_normal(
+                generator, (cfg.d_model, cfg.vocab_size),
+                1.0 / math.sqrt(cfg.d_model))
+        params["final_norm"] = torch.zeros(cfg.d_model, dtype=PARAM_DTYPE,
+                                           device=self.device)
+        params["layers"] = _stack([self._init_block(generator)
+                                   for _ in range(cfg.num_layers)])
+        return params
+
+    def _init_block(self, generator):
+        cfg = self.cfg
+        zeros = torch.zeros(cfg.d_model, dtype=PARAM_DTYPE,
+                            device=self.device)
+        return {"attn": attn.init_attention(generator, cfg),
+                "norm1": zeros, "norm2": zeros.clone(),
+                "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                cfg.mlp_variant)}
+
+    def _mlp_sublayer(self, layer, x, o):
+        """The attention residual ``x + o``, then the MLP sublayer.  The sum
+        feeds the norm in f32, unrounded, as XLA's compiled JAX program
+        keeps it (excess precision), and enters the MLP residual rounded to
+        bf16, as the program states it."""
+        x = x.float() + o.float()
+        h = rms_norm(x, layer["norm2"], self.cfg.norm_eps).to(COMPUTE_DTYPE)
+        return x.to(COMPUTE_DTYPE) + apply_mlp(layer["mlp"], h,
+                                               self.cfg.mlp_variant)
+
+    def _head(self, params):
+        return params["embed" if self.cfg.tie_embeddings else "lm_head"]
+
+    # --------------------------------------------------------------- forward
+    @torch.inference_mode()
+    def forward(self, params, batch, q_chunk: int = 1024,
+                k_chunk: int = 1024):
+        """Logits ``[B, T, V]`` (bf16) of ``batch["tokens"]`` ``[B, T]``, and
+        the auxiliary loss (0 for the dense family), as JAX's pair."""
+        _check_tf32(self.device)
+        cfg = self.cfg
+        x = embed(params["embed"], batch["tokens"])
+        for i in range(cfg.num_layers):
+            layer = _layer(params["layers"], i)
+            h = rms_norm(x, layer["norm1"], cfg.norm_eps)
+            o = attn.attention_block(layer["attn"], h, cfg, q_chunk=q_chunk,
+                                     k_chunk=k_chunk)
+            x = self._mlp_sublayer(layer, x, o)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return lm_logits(x, self._head(params)), aux
+
+    # --------------------------------------------------------------- decode
+    @torch.inference_mode()
+    def init_decode_state(self, batch: int, max_seq: int) -> Dict[str, Any]:
+        layout = attn.cache_layout(self.cfg, max_seq)
+        self._layout = layout
+        return {"pos": torch.zeros((), dtype=torch.int32, device=self.device),
+                "kv": attn.init_kv_cache(self.cfg, self.cfg.num_layers, batch,
+                                         layout, self.device),
+                "slot_pos": torch.full((layout.size,), -1, dtype=torch.int32,
+                                       device=self.device)}
+
+    @torch.inference_mode()
+    def decode_step(self, params, tokens, state):
+        """One token for every batch row: tokens ``[B, 1]`` at the state's
+        shared ``pos``.  Returns (logits ``[B, 1, V]``, new state); the new
+        state holds ``pos + 1``, the updated ``slot_pos`` and the same cache
+        tensors, written in place."""
+        _check_tf32(self.device)
+        cfg = self.cfg
+        pos = state["pos"]
+        x = embed(params["embed"], tokens)
+        layout = getattr(self, "_layout", None)
+        if layout is None:
+            size = int(state["slot_pos"].shape[0])
+            layout = attn.CacheLayout(size=size, windowed=bool(
+                cfg.sliding_window) and size == cfg.sliding_window)
+        # an out-of-range slot is dropped here, as JAX's ``.at[].set`` drops it
+        slot = attn.cache_slot(pos, layout)
+        slots = torch.arange(layout.size, device=pos.device)
+        slot_pos = torch.where(slots == slot, pos, state["slot_pos"])
+        k_all, v_all = state["kv"]["k"], state["kv"]["v"]
+        for i in range(cfg.num_layers):
+            layer = _layer(params["layers"], i)
+            h = rms_norm(x, layer["norm1"], cfg.norm_eps)
+            o, _, _ = attn.decode_attention(layer["attn"], h, cfg, k_all[i],
+                                            v_all[i], slot_pos, pos, layout)
+            x = self._mlp_sublayer(layer, x, o)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        logits = lm_logits(x, self._head(params))
+        return logits, dict(state, pos=pos + 1, slot_pos=slot_pos)

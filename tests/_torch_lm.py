@@ -1,0 +1,54 @@
+"""Shared checks of the port's LM tests on the CPU (against the JAX
+package) and on the card (against the CPU): logits within ``TOL`` of the
+reference's largest magnitude, and greedy picks equal to the reference's
+but at near ties; and an engine whose steps record their logits.
+Imports nothing of JAX."""
+import numpy as np
+import torch
+
+# two bf16 steps of the largest reference magnitude
+TOL = 2 ** -6
+
+
+def as_f32(a) -> np.ndarray:
+    """A tensor (any dtype or device) or an array (a JAX one too) as f32
+    numpy."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a, np.float32)
+
+
+def rel(got, want) -> float:
+    """max |got - want| over max |want|."""
+    a, b = as_f32(want), as_f32(got)
+    return float(np.abs(a - b).max() / np.abs(a).max())
+
+
+def near_tie_rows(got, want, tol: float = TOL) -> np.ndarray:
+    """The rows of logits ``[..., V]`` (flattened) whose greedy pick in
+    ``got`` differs from ``want``'s.  Each must sit at a near tie of
+    ``want``: its top-2 margin within ``tol`` of ``want``'s largest
+    magnitude; a pick that differs elsewhere fails the assertion."""
+    a, b = as_f32(want), as_f32(got)
+    a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
+    rows = np.flatnonzero(a.argmax(-1) != b.argmax(-1))
+    top2 = np.sort(a[rows], axis=-1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    limit = tol * np.abs(a).max()
+    assert (margin <= limit).all(), (rows, margin, limit)
+    return rows
+
+
+class Recorded:
+    """Wraps a ``ServeEngine`` (the port's or JAX's) so that each tick's
+    decode step records its last-position logits as f32 numpy."""
+
+    def __init__(self, engine):
+        self.engine, self.logits = engine, []
+        step = engine._step
+
+        def recording(p, t, s):
+            out, state = step(p, t, s)
+            self.logits.append(as_f32(out[:, -1]))
+            return out, state
+        engine._step = recording

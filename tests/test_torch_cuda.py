@@ -6,6 +6,9 @@ import functools
 import numpy as np
 import pytest
 import torch
+from _torch_lm import TOL as LM_TOL
+from _torch_lm import Recorded, near_tie_rows
+from _torch_lm import rel as lm_rel
 
 from repro_torch.core.dmh import dmh_replication, replicate_keys
 from repro_torch.core.types import SparseVec
@@ -1261,3 +1264,130 @@ def test_sharded_estimate_issues_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     for g in got:
         assert torch.equal(g[..., :7], want)
+
+
+# ---------------------------------------------------------------------------
+# LM serving: the dense transformer and the engine, card against CPU, at two
+# layers of tinyllama-1.1b's full width.  Tolerance: test_torch_lm.py's
+# (2^-6 of the largest CPU magnitude); greedy picks equal unless the CPU's
+# top-2 margin lies within it (a near tie).
+# ---------------------------------------------------------------------------
+
+
+def _lm_pair(cuda, layers=2):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.convert import model_params_to
+    from repro_torch.models import Model
+    cfg = dataclasses.replace(configs.get("tinyllama-1.1b"),
+                              num_layers=layers)
+    card = Model(cfg, device=cuda)
+    params = card.init(torch.Generator(device=cuda).manual_seed(0))
+    cpu_params = model_params_to(params, "cpu")
+    return cfg, card, params, Model(cfg, device="cpu"), cpu_params
+
+
+def _assert_lm_close(got, want, what):
+    assert lm_rel(got, want) <= LM_TOL, (what, lm_rel(got, want))
+
+
+@pytest.mark.cuda
+def test_score_scale_on_the_card_equals_the_cpu(cuda):
+    """Decode's ``1 / sqrt(hd)`` (a multiply by the f32 reciprocal, as
+    XLA compiles JAX's division) gives the CPU's (and JAX's) bits on the
+    card at every head dim of the dense configs."""
+    from repro_torch.models.attention import _scale_scores
+    for hd in (16, 32, 64, 128, 256):
+        s = 8 * torch.randn(4, 4096, generator=torch.Generator().manual_seed(
+            hd))
+        want = _scale_scores(s, hd)
+        got = _scale_scores(s.to(cuda), hd).cpu()
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), hd
+
+
+@pytest.mark.cuda
+def test_model_refuses_tf32_on_the_card(cuda):
+    _, card, params, _, _ = _lm_pair(cuda, layers=1)
+    toks = torch.zeros((1, 4), dtype=torch.int32, device=cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            card.forward(params, {"tokens": toks})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert card.forward(params, {"tokens": toks})[0].shape == (1, 4, 32000)
+
+
+@pytest.mark.cuda
+def test_decode_attention_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.models import attention as attn
+    cfg, card, params, _, cpu_params = _lm_pair(cuda, layers=1)
+    layer = {k: v[0] for k, v in params["layers"]["attn"].items()}
+    cpu_layer = {k: v[0] for k, v in cpu_params["layers"]["attn"].items()}
+    g = torch.Generator().manual_seed(1)
+    B, S = 4, 64
+    x = torch.randn(B, 1, cfg.d_model, generator=g).bfloat16()
+    k = torch.randn(B, S, cfg.num_kv_heads, cfg.head_dim, generator=g)
+    v = torch.randn(B, S, cfg.num_kv_heads, cfg.head_dim, generator=g)
+    k, v = k.bfloat16(), v.bfloat16()
+    layout = attn.CacheLayout(S, False)
+    for pos in (0, 17, 63):
+        slot_pos = torch.where(torch.arange(S) <= pos, torch.arange(S),
+                               -1).int()
+        p = torch.tensor(pos, dtype=torch.int32)
+        want = attn.decode_attention(cpu_layer, x, cfg, k.clone(), v.clone(),
+                                     slot_pos, p, layout)
+        got = attn.decode_attention(layer, x.to(cuda), cfg, k.to(cuda),
+                                    v.to(cuda), slot_pos.to(cuda),
+                                    p.to(cuda), layout)
+        for a, b, what in zip(got, want, ("out", "k", "v")):
+            _assert_lm_close(a, b, f"{what} at pos {pos}")
+
+
+@pytest.mark.cuda
+def test_forward_and_decode_on_the_card_match_the_cpu(cuda):
+    _, card, params, cpu, cpu_params = _lm_pair(cuda)
+    toks = torch.randint(0, 32000, (2, 16),
+                         generator=torch.Generator().manual_seed(2)).int()
+    want, _ = cpu.forward(cpu_params, {"tokens": toks})
+    got, _ = card.forward(params, {"tokens": toks.to(cuda)})
+    _assert_lm_close(got, want, "forward")
+    near_tie_rows(got, want)
+    state, cpu_state = card.init_decode_state(2, 32), cpu.init_decode_state(
+        2, 32)
+    for t in range(8):
+        want, cpu_state = cpu.decode_step(cpu_params, toks[:, t:t + 1],
+                                          cpu_state)
+        got, state = card.decode_step(params, toks[:, t:t + 1].to(cuda),
+                                      state)
+        _assert_lm_close(got, want, f"decode step {t}")
+        near_tie_rows(got, want)
+    for name in ("k", "v"):
+        _assert_lm_close(state["kv"][name], cpu_state["kv"][name], name)
+    assert torch.equal(state["slot_pos"].cpu(), cpu_state["slot_pos"])
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_matches_the_cpu(cuda):
+    """Four slots, six requests: every request drains with its
+    ``max_new_tokens``; the card's tokens equal the CPU's unless a tick's
+    picks differ at a near tie, after which the runs part."""
+    from repro_torch.serve import Request, ServeEngine
+    _, card, params, cpu, cpu_params = _lm_pair(cuda)
+    runs = []
+    for model, prm in ((cpu, cpu_params), (card, params)):
+        rec = Recorded(ServeEngine(model, prm, batch_slots=4, max_seq=64))
+        reqs = [Request(rid=i, prompt=[1 + i, 2 + i], max_new_tokens=4)
+                for i in range(6)]
+        for r in reqs:
+            rec.engine.submit(r)
+        rec.engine.run_until_drained(max_ticks=200)
+        assert all(r.done and len(r.output) == 4 for r in reqs)
+        runs.append((rec.logits, [r.output for r in reqs]))
+    (want_logits, want_out), (got_logits, got_out) = runs
+    for tick, (w, g) in enumerate(zip(want_logits, got_logits)):
+        _assert_lm_close(g, w, f"tick {tick}")
+        if near_tie_rows(g, w).size:
+            return                               # a near tie: the runs part
+    assert got_out == want_out

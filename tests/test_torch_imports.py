@@ -49,18 +49,23 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.core.wmh", "repro_torch.core.progmin",
             "repro_torch.core.rounding", "repro_torch.core.linear",
             "repro_torch.core.minhash", "repro_torch.core.registry",
-            "repro_torch.data.synthetic"} <= loaded
+            "repro_torch.data.synthetic", "repro_torch.configs.gemma_7b",
+            "repro_torch.models.transformer", "repro_torch.serve.engine",
+            "repro_torch.launch.serve"} <= loaded
     assert lines["BAD"].strip() == ""
 
 
 def test_entry_points_default_to_the_card():
     from repro_torch import (DatasetSearchIndex, SketchCorpus,
                              SketchSearchService)
+    from repro_torch.configs import reduced
     from repro_torch.data.store import CorpusStore
+    from repro_torch.models import Model
     for make in (lambda: SketchSearchService(m=8),
                  lambda: DatasetSearchIndex(m=8),
                  lambda: CorpusStore(m=8),
-                 lambda: SketchCorpus(m=8)):
+                 lambda: SketchCorpus(m=8),
+                 lambda: Model(reduced("tinyllama-1.1b"))):
         if torch.cuda.is_available():
             assert make() is not None
         else:
