@@ -34,7 +34,15 @@ plain version.  The ``lm serve`` phase then drives the LM serving path
 parallel forward, the card against the CPU at two layers of full width,
 the engine draining six requests on four slots twice with the same tokens,
 and the decode-step p50, forward time, tokens/s and peak memory; the path
-launches no hand-written kernel (every counter reads 0 after it).
+launches no hand-written kernel (every counter reads 0 after it).  The
+``lm train`` phase drives the training path (``repro_torch.train``'s
+``Trainer``, ``make_train_step``, AdamW, checkpoints) at the same config:
+one train step of the card against the CPU at two layers, the 22-layer
+Trainer straight and resumed from a checkpoint, bit for bit, its step
+p50, tokens/s, peak memory and a profiled step; training launches no
+hand-written kernel, and its sketch gradient telemetry
+(``train/telemetry.py``) runs B1 and B3 on the micro-batches' whole
+gradients (T = 1,100,048,384), counted as ``train_launches``.
 After the service runs, the ``merge`` phase builds lakes through
 ``ingest_many_sharded`` (4 shards; ICWS the whole lake, the other
 families a 2,048-table sub-lake, each beside a single-stream service:
@@ -59,7 +67,8 @@ Imports nothing of JAX and nothing of the JAX package.  Exits non-zero on
 any failure, and at once when no card is present.  Each phase prints its
 wall time.  The line before the last is a JSON object with each kernel's
 launches on the serving runs and the sharded builds (B10 also on its own
-path; B3 and B4 on the corpus path; B14 and B15 on theirs),
+path; B3 and B4 on the corpus path; B14 and B15 on theirs; B1 and B3 also
+on the training telemetry's),
 its error against the plain version, its time, the plain version's time, its bound and the time of one PyTorch
 call that computes the same function (where there is one); the last line
 is the run's device.
@@ -71,6 +80,7 @@ import gc
 import json
 import math
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -173,14 +183,15 @@ CORPUS_HOST_ROWS = 1_024
 CORPUS_P = 1 << (3 * LAKE_TABLES - 1).bit_length()
 CORPUS_KERNELS = ("icws_sketch", "estimate_pairs", "estimate_one_vs_many",
                   "estimate_many")
-# the merge phase (m = 512, unpacked, 4 shards): ICWS ingests the whole lake
-# through ingest_many_sharded; the other families a sub-lake of the 32
-# planted partners and the lake's first 2,016 other tables (a depth cut for
-# time); CS and JL also an integer-valued separated lake of 512 tables of
-# 500-2,000 rows, where their sharded build equals the single-stream one;
-# merge_stores is timed on two 16,384-row, 3-field stores (the sub-lake's
-# shard rows, eight times over), its merge_rows checked on the sub-lake's
-# first 256 tables
+# the merge phase (m = 512, unpacked, 4 shards): every family ingests a
+# sub-lake of the 32 planted partners and the lake's first 2,016 other
+# tables through ingest_many_sharded, beside a single-stream service of it
+# (a depth cut for time: ICWS took the whole lake, 16,384 tables, until the
+# lm train phase came); CS and JL also an integer-valued separated lake of
+# 512 tables of 500-2,000 rows, where their sharded build equals the
+# single-stream one; merge_stores is timed on two 16,384-row, 3-field
+# stores (the sub-lake's shard rows, eight times over), its merge_rows
+# checked on the sub-lake's first 256 tables
 MERGE_SHARDS = 4
 MERGE_SUBLAKE = 2_048
 MERGE_ROWS = 16_384
@@ -283,6 +294,31 @@ LM_CPU_B, LM_CPU_T = 2, 8
 LM_SLOTS, LM_REQUESTS, LM_NEW, LM_MAX_SEQ = 4, 6, 8, 256
 LM_FORWARD_T = 512
 LM_STEPS = 32
+
+# lm train: (a) one train step at LM_CPU_LAYERS of full width on the card
+# and on the CPU (M = 2 micro-batches of one LM_TRAIN_CPU_T row), held at
+# the CPU tests' tiers (tests/test_torch_train.py: the loss at LM_TOL, each
+# gradient leaf and the bf16 moments within LM_GRAD_TOL of the largest CPU
+# magnitude, the updates on the entries whose first moment is at least
+# LM_WELL_POSED of the largest, at most LM_ILL_SHARE of the others off);
+# (b) tinyllama-1.1b's 22 layers through the Trainer: LM_TRAIN_B x
+# LM_TRAIN_SEQ tokens a step in LM_TRAIN_M micro-batches, LM_TRAIN_STEPS
+# straight and again with a checkpoint after LM_TRAIN_RESUME steps and a
+# fresh Trainer restoring it, equal bit for bit; (c) the sketch gradient
+# telemetry on the micro-batches' flattened gradients (m = TEL_M), B1 at
+# B1's gate and B3 bit for bit against their plain versions (B1 on the
+# rows' first TEL_PLAIN_N entries: the plain version holds [m, N]), the
+# estimated cosines within TEL_COS_GATE of the exact ones (about four
+# standard errors of an m = 256 sketch)
+LM_GRAD_TOL = 2 ** -5
+LM_WELL_POSED = 2 ** -4
+LM_ILL_SHARE = 0.05
+LM_TRAIN_CPU_T = 64
+LM_TRAIN_B, LM_TRAIN_SEQ, LM_TRAIN_M = 8, 512, 2
+LM_TRAIN_STEPS, LM_TRAIN_RESUME = 4, 2
+TEL_M = 256
+TEL_PLAIN_N = 1 << 20
+TEL_COS_GATE = 0.35
 
 
 def log(msg: str) -> None:
@@ -2111,6 +2147,391 @@ def lm_leaves(tree):
         yield from lm_leaves(v) if isinstance(v, dict) else (v,)
 
 
+def lm_train_opt(total_steps: int = LM_TRAIN_STEPS):
+    """The launcher's optimizer settings (``launch/train.py``)."""
+    from repro_torch.optim import AdamWConfig
+    return AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=total_steps)
+
+
+def lm_train_batch(vocab: int, B: int, T: int, dev, step: int = 0):
+    """The pipeline's batch of ``step`` (seed 0) as ``[M, B / M, T]``
+    tensors on ``dev``."""
+    from repro_torch.data.synthetic import token_stream
+    toks = token_stream(0, step, B, T, vocab).astype(np.int32)
+    return {k: torch.from_numpy(np.ascontiguousarray(
+        v.reshape(LM_TRAIN_M, B // LM_TRAIN_M, T))).to(dev)
+        for k, v in (("tokens", toks[:, :-1]), ("labels", toks[:, 1:]))}
+
+
+def lm_train_card_vs_cpu(cfg):
+    """Gate (a): one micro-batch's gradients and one train step at
+    LM_CPU_LAYERS of full width, on the card and on the CPU, same weights
+    and batch."""
+    import dataclasses
+
+    from repro_torch import tree as tr
+    from repro_torch.convert import model_params_to
+    from repro_torch.models import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import loss_and_grads, make_train_step
+    small = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS)
+    card = Model(small)
+    params = card.init(torch.Generator(device="cuda").manual_seed(1))
+    runs = {}
+    for dev, model, prm in (("cuda", card, params),
+                            ("cpu", Model(small, device="cpu"),
+                             model_params_to(params, "cpu"))):
+        batch = lm_train_batch(cfg.vocab_size, LM_TRAIN_M, LM_TRAIN_CPU_T,
+                               dev)
+        _, grads = loss_and_grads(model, prm, {k: v[0] for k, v in
+                                               batch.items()},
+                                  q_chunk=LM_TRAIN_CPU_T,
+                                  k_chunk=LM_TRAIN_CPU_T)
+        step = make_train_step(model, lm_train_opt(), q_chunk=LM_TRAIN_CPU_T,
+                               k_chunk=LM_TRAIN_CPU_T)
+        opt0 = adamw.init_opt_state(prm, lm_train_opt())
+        new, opt, metrics = step(prm, opt0, batch)
+        runs[dev] = (prm, grads, new, opt, metrics)
+    (p0, g_card, new_card, opt_card, m_card), \
+        (_, g_cpu, new_cpu, opt_cpu, m_cpu) = runs["cuda"], runs["cpu"]
+    rels = {"loss": abs(m_card["loss"].item() - m_cpu["loss"].item())
+            / abs(m_cpu["loss"].item()),
+            "grad_norm": abs(m_card["grad_norm"].item()
+                             - m_cpu["grad_norm"].item())
+            / m_cpu["grad_norm"].item()}
+    rels["grads"] = max(lm_rel(a, b) for a, b in zip(tr.leaves(g_card),
+                                                      tr.leaves(g_cpu)))
+    rels["moments"] = max(lm_rel(a, b) for k in ("mu", "nu") for a, b in
+                          zip(tr.leaves(opt_card[k]), tr.leaves(opt_cpu[k])))
+    ill = 0.0
+    for got, want, old, mu in zip(tr.leaves(new_card), tr.leaves(new_cpu),
+                                  tr.leaves(p0), tr.leaves(opt_cpu["mu"])):
+        old = old.cpu()
+        want_up, got_up = want - old, got.cpu() - old
+        off = (got_up - want_up).abs() > LM_GRAD_TOL * want_up.abs().max()
+        mu = mu.float().abs()
+        if bool((off & (mu >= LM_WELL_POSED * mu.max())).any()):
+            raise AssertionError("lm train (a): an update on a well-posed "
+                                 "entry differs from the CPU's")
+        ill = max(ill, off.float().mean().item())
+    if (rels["loss"] > LM_TOL or rels["grad_norm"] > 1e-3
+            or rels["grads"] > LM_GRAD_TOL or rels["moments"] > LM_GRAD_TOL
+            or ill > LM_ILL_SHARE or int(m_card["step"]) != 1):
+        raise AssertionError(f"lm train (a): the card is off the CPU: "
+                             f"{rels}, ill-posed share {ill}")
+    log(f"lm train (a) card == CPU at {LM_CPU_LAYERS} layers of full width, "
+        f"M = {LM_TRAIN_M} x 1 x {LM_TRAIN_CPU_T}: rel loss "
+        f"{rels['loss']:.3g} (tol {LM_TOL}), grad_norm "
+        f"{rels['grad_norm']:.3g} (1e-3), every gradient leaf "
+        f"{rels['grads']:.3g} and moment {rels['moments']:.3g} (tol "
+        f"{LM_GRAD_TOL}); updates equal on the well-posed entries, "
+        f"{ill:.4f} of a leaf's entries off at most (gate {LM_ILL_SHARE})")
+    return rels
+
+
+def lm_trainer(cfg, steps: int, total_steps: int, ckpt_dir=None):
+    """The port's Trainer at the phase's batch; returns (trainer,
+    history)."""
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    tcfg = TrainerConfig(steps=steps, global_batch=LM_TRAIN_B,
+                         seq=LM_TRAIN_SEQ, microbatches=LM_TRAIN_M,
+                         ckpt_dir=ckpt_dir, log_every=1,
+                         opt=lm_train_opt(total_steps))
+    trainer = Trainer(cfg, tcfg, log_fn=lambda s: log(f"  {s}"))
+    return trainer, trainer.run()
+
+
+def lm_train_resume(cfg):
+    """Gate (b): LM_TRAIN_STEPS straight, then LM_TRAIN_RESUME steps with
+    a checkpoint and a fresh Trainer that restores it and runs the rest:
+    the rest's losses and grad norms and the final state equal bit for
+    bit.  The checkpoints (f32 params, bf16 moments stored as f32) go to a
+    temporary directory under the checkout's ``build/``."""
+    from repro_torch import tree as tr
+    straight, hist = lm_trainer(cfg, LM_TRAIN_STEPS, LM_TRAIN_STEPS)
+    if not (np.isfinite(hist["loss"]).all()
+            and np.isfinite(hist["grad_norm"]).all()):
+        raise AssertionError(f"lm train (b): non-finite history {hist}")
+    build = SRC.parent / "build"
+    build.mkdir(exist_ok=True)
+    free_gb = shutil.disk_usage(build).free / 1e9
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        t0 = time.perf_counter()
+        lm_trainer(cfg, LM_TRAIN_RESUME, LM_TRAIN_STEPS, ckpt_dir=tmp)
+        first_s = time.perf_counter() - t0
+        ckpt_gb = sum(f.stat().st_size for f in pathlib.Path(tmp).rglob(
+            "*.npy")) / 1e9
+        t0 = time.perf_counter()
+        resumed, hist_b = lm_trainer(cfg, LM_TRAIN_STEPS, LM_TRAIN_STEPS,
+                                     ckpt_dir=tmp)
+        resumed_s = time.perf_counter() - t0
+    if hist_b["step"][0] != LM_TRAIN_RESUME:
+        raise AssertionError(f"lm train (b): resumed at {hist_b['step']}")
+    same = (hist_b["loss"] == hist["loss"][LM_TRAIN_RESUME:]
+            and hist_b["grad_norm"] == hist["grad_norm"][LM_TRAIN_RESUME:]
+            and all(bits_equal(a, b) if a.dtype != torch.bfloat16
+                    else torch.equal(a, b) for a, b in zip(
+                        tr.leaves(straight.state), tr.leaves(resumed.state))))
+    if not same:
+        raise AssertionError(f"lm train (b): resume differs from the "
+                             f"straight run: {hist} vs {hist_b}")
+    del resumed
+    log(f"lm train (b) {LM_ARCH} Trainer, {cfg.num_layers} layers, "
+        f"{LM_TRAIN_B} x {LM_TRAIN_SEQ} tokens a step in {LM_TRAIN_M} "
+        f"micro-batches: losses {hist['loss']}, grad norms "
+        f"{hist['grad_norm']}; resumed from step {LM_TRAIN_RESUME} (a "
+        f"{ckpt_gb:.2f} GB checkpoint, {free_gb:.0f} GB free before it; the "
+        f"first run with its save {first_s:.1f} s, the resumed run with its "
+        f"restore and save {resumed_s:.1f} s): losses, grad norms and the "
+        f"final params and moments equal to the straight run bit for bit")
+    return straight, hist
+
+
+def lm_train_profile(trainer, cfg):
+    """One train step of the 22-layer model under ``torch.profiler`` (after
+    a warm one): the device's summed kernel time over the step's wall time,
+    and the kernels that take the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train import make_train_step
+    step = make_train_step(trainer.model, lm_train_opt(),
+                           q_chunk=LM_TRAIN_SEQ, k_chunk=LM_TRAIN_SEQ)
+    params, opt = trainer.state
+    batch = lm_train_batch(cfg.vocab_size, LM_TRAIN_B, LM_TRAIN_SEQ, "cuda")
+    params, opt, _ = step(params, opt, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    return {"step_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "kernels": sum(n for _, n in by_name.values()),
+            "top_kernels": [{"name": name[:90], "ms": ms, "launches": n}
+                            for name, (ms, n) in top]}
+
+
+def flat_grads(trainer, cfg):
+    """Each micro-batch's gradient of the pipeline's first batch at the
+    trainer's final params, flattened in the tree's order: ``[M, T]``
+    f32."""
+    from repro_torch import tree as tr
+    from repro_torch.train import loss_and_grads
+    params = trainer.state[0]
+    batch = lm_train_batch(cfg.vocab_size, LM_TRAIN_B, LM_TRAIN_SEQ, "cuda")
+    T = sum(p.numel() for p in tr.leaves(params))
+    flat = torch.empty((LM_TRAIN_M, T), dtype=torch.float32, device="cuda")
+    for i in range(LM_TRAIN_M):
+        _, grads = loss_and_grads(trainer.model, params,
+                                  {k: v[i] for k, v in batch.items()},
+                                  q_chunk=LM_TRAIN_SEQ, k_chunk=LM_TRAIN_SEQ)
+        lo = 0
+        for g in tr.leaves(grads):
+            flat[i, lo:lo + g.numel()] = g.reshape(-1)
+            lo += g.numel()
+        del grads
+    return flat
+
+
+def telemetry_rows(flat):
+    """(w, keys, zn) of ``sketch_gradient``'s ICWS launch over ``flat``
+    ``[R, T]``."""
+    norm = torch.linalg.vector_norm(flat, dim=-1)
+    zn = flat / torch.clamp(norm, min=1e-30)[:, None]
+    keys = torch.arange(flat.shape[1], dtype=torch.int32,
+                        device=flat.device).expand_as(flat).contiguous()
+    return zn * zn, keys, zn
+
+
+def lm_train_telemetry(flat):
+    """Gate (c): the telemetry's main path -- ``sketch_gradient`` of the
+    ``[2, T]`` micro-batch gradients (one B1 launch), ``estimate_pairwise``
+    (one B3 launch), and ``gradient_agreement`` of the first over a 1-rank
+    NCCL replica axis (one each again) -- with every counter set to 0
+    just before and read just after; the estimated cosines beside the
+    exact ones; then B1 at full T timed, B1 on the first TEL_PLAIN_N
+    entries and B3 on the main path's sketches against their plain
+    versions.  Returns (launches, B1 report, B3 report)."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import estimate as ke
+    from repro_torch.kernels import icws_sketch as ks
+    from repro_torch.launch import register_world_axis
+    from repro_torch.train import telemetry as tel
+    cfg = tel.TelemetryConfig(m=TEL_M)
+    R, T = flat.shape
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    counters = reset_counters()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sk = tel.sketch_gradient(flat, cfg)
+        est = tel.estimate_pairwise(sk, cfg)
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+    b1_spans = [e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and "icws_sketch_kernel" in e.name]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=pathlib.Path(tmp, "rendezvous").as_uri(),
+            world_size=1, rank=0)
+        try:
+            register_world_axis("data")
+            agree = tel.gradient_agreement(flat[0], "data", cfg)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {name: 0 for name in counters}
+    want.update(icws_sketch=2, estimate_pairs=2)
+    if launches != want:
+        raise AssertionError(f"lm train (c): launches {launches}")
+    cos = (est / torch.outer(sk["norm"], sk["norm"])).cpu()
+    exact = torch.zeros((R, R), dtype=torch.float64, device=flat.device)
+    for lo in range(0, T, 1 << 26):
+        part = flat[:, lo:lo + (1 << 26)].double()
+        exact += part @ part.T
+    norms = exact.diagonal().sqrt()
+    exact_cos = (exact / torch.outer(norms, norms)).float().cpu()
+    err = (cos - exact_cos).abs().max().item()
+    if not (torch.isfinite(cos).all() and err <= TEL_COS_GATE
+            and abs(agree.item() - cos[0, 0].item()) <= 1e-5):
+        raise AssertionError(f"lm train (c): cosines {cos.tolist()} against "
+                             f"exact {exact_cos.tolist()}, agreement "
+                             f"{agree.item()}")
+    # B1 at the full T: the main path's launch, from its trace (a trace with
+    # no device activity, seen late in long runs: the launch again, timed
+    # with CUDA events, and it must repeat the main path's bits)
+    live = int((flat != 0).sum().item())
+    if b1_spans:
+        b1_ms = sum(b1_spans) / 1e3
+        b1_source = "profiler, the main path's launch"
+    else:
+        w, keys, zn = telemetry_rows(flat)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        again = ks.icws_sketch_cuda(w, keys, zn, m=TEL_M, seed=cfg.seed)
+        b.record()
+        b.synchronize()
+        b1_ms, b1_source = a.elapsed_time(b), "events, one launch"
+        if not (torch.equal(again[0], sk["fp"])
+                and torch.equal(again[1], sk["val"])):
+            raise AssertionError("lm train (c): B1 at full T does not "
+                                 "repeat")
+        del w, keys, zn, again
+    b1_bound, b1_by = bound_of(R * T * 12 + R * TEL_M * 16,
+                               ICWS_OPS_PER_DRAW * live * TEL_M)
+    # B1 against its plain version on the rows' first TEL_PLAIN_N entries
+    args = telemetry_rows(flat[:, :TEL_PLAIN_N].contiguous())
+    got = ks.icws_sketch_cuda(*args, m=TEL_M, seed=cfg.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = ks.icws_sketch_plain(*args, m=TEL_M, seed=cfg.seed)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    agree_fp = got[0] == plain[0]
+    share = agree_fp.float().mean().item()
+    b1_err = (got[1] - plain[1])[agree_fp].abs().max().item()
+    if share < 0.99 or b1_err != 0.0:
+        raise AssertionError(f"lm train (c): B1 on {TEL_PLAIN_N} entries "
+                             f"agrees with plain on {share} (val err "
+                             f"{b1_err})")
+    prefix_ms = time_ms(lambda: ks.icws_sketch_cuda(*args, m=TEL_M,
+                                                    seed=cfg.seed), reps=3)
+    prefix_live = int((args[0] > 0).sum().item())
+    prefix_bound, _ = bound_of(R * TEL_PLAIN_N * 12 + R * TEL_M * 16,
+                               ICWS_OPS_PER_DRAW * prefix_live * TEL_M)
+    del args, got, plain
+    # B3 on the main path's sketches, pairwise at P = R^2
+    fp, val = sk["fp"], sk["val"]
+    pair_args = (fp.repeat_interleave(R, 0), val.repeat_interleave(R, 0),
+                 fp.repeat(R, 1), val.repeat(R, 1))
+    b3, _ = pair_case(f"B3 P={R * R} m={TEL_M}", ke.estimate_partials_cuda,
+                      ke.estimate_partials_plain, pair_args,
+                      tests=R * R * TEL_M,
+                      bytes_moved=4 * R * R * TEL_M * 4 + 2 * R * R * 4,
+                      symbol="estimate_pairs_kernel")
+    b1 = {"shape": f"B={R} N={T} m={TEL_M}", "max_abs_err": b1_err,
+          "ms": b1_ms, "ms_source": b1_source,
+          "bound_ms": b1_bound, "bound_by": b1_by, "live": live,
+          "group_size": ks._group_size(R, TEL_M, T),
+          "plain_ms": plain_ms, "plain_shape":
+              f"B={R} N={TEL_PLAIN_N} m={TEL_M}",
+          "kernel_ms_at_plain_shape": prefix_ms,
+          "bound_ms_at_plain_shape": prefix_bound, "fp_agree": share,
+          "fp_slots_differing": int((~agree_fp).sum().item())}
+    log(f"lm train (c) telemetry over {R} micro-batch gradients of T = {T}: "
+        f"estimated cosines {cos.tolist()}, exact {exact_cos.tolist()} (max "
+        f"|err| {err:.4f}, gate {TEL_COS_GATE}); gradient_agreement over a "
+        f"1-rank NCCL axis {agree.item():.6f}; main path {path_s:.2f} s; B1 "
+        f"at B = {R}, N = {T}, m = {TEL_M}: {b1_ms:.1f} ms ({b1_source}; "
+        f"bound {b1_bound:.1f} ms, {b1_by}, {live} live entries, "
+        f"{b1['group_size']} threads a (row, t)); on the first "
+        f"{TEL_PLAIN_N} entries fingerprints agree with plain on "
+        f"{share:.6f} ({b1['fp_slots_differing']} slots differ), values "
+        f"equal where they agree, kernel {prefix_ms:.2f} ms, plain "
+        f"{plain_ms:.1f} ms; B3 at P = {R * R}: {b3['ms']:.4f} ms, bound "
+        f"{b3['bound_ms']:.6f} ms; launches {want}")
+    return launches, b1, b3
+
+
+def lm_train_phase(identity: str):
+    """The LM training path at tinyllama-1.1b's full config: (a) the card
+    against the CPU at two layers, (b) the Trainer at 22 layers, straight
+    and resumed from a checkpoint, bit for bit, (d) its step p50,
+    tokens/s, peak memory and a profiled step, (c) the sketch gradient
+    telemetry through B1 and B3.  Training itself launches no
+    hand-written kernel: every counter is set to 0 before (a) and must
+    read 0 after (d); the telemetry's launches are counted apart.  Returns
+    (the telemetry's launches by kernel, B1's and B3's reports)."""
+    from repro_torch import configs
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm train needs TF32 off")
+    cfg = configs.get(LM_ARCH)
+    counters = reset_counters()
+    rels = lm_train_card_vs_cpu(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, hist = lm_train_resume(cfg)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = lm_train_profile(trainer, cfg)
+    trained = sum(fn.launches for fn in counters.values())
+    if trained:
+        raise AssertionError(f"lm train launched {trained} hand-written "
+                             "kernels outside the telemetry; its training "
+                             "path has none")
+    step_ms = statistics.median(hist["step_time"][1:]) * 1e3
+    numbers = {"train_step_p50_ms": step_ms,
+               "tokens_per_s": LM_TRAIN_B * LM_TRAIN_SEQ / step_ms * 1e3,
+               "step_times_ms": [t * 1e3 for t in hist["step_time"]],
+               "global_batch": LM_TRAIN_B, "seq": LM_TRAIN_SEQ,
+               "microbatches": LM_TRAIN_M, "layers": cfg.num_layers,
+               "peak_memory_GiB": peak, "card_vs_cpu_rel": rels, **prof}
+    log(f"lm train (d) {LM_ARCH} on {identity}: " + json.dumps(numbers))
+    flat = flat_grads(trainer, cfg)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = lm_train_telemetry(flat)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"lm train peak memory {peak:.2f} GiB (training and telemetry) on "
+        f"{identity}")
+    return out
+
+
 def lake_phase():
     rng = np.random.default_rng(4)
     tables, queries, partners = make_lake(rng, LAKE_TABLES, QUERIES)
@@ -2656,7 +3077,7 @@ def family_phases(family: str, lake):
     del svc, p_svc
     gc.collect()
     torch.cuda.empty_cache()
-    return ((launches, recall), (p_launches, p_recall), latency, b10, served,
+    return ((launches, recall), (p_launches, p_recall), latency, b10,
             sharded)
 
 
@@ -2805,11 +3226,11 @@ def merge_stores_ms(family, a, b) -> float:
                    warmup=0 if host else 1)
 
 
-def merge_phase(lake, served):
-    """Mergeable corpora on the card, m = 512, unpacked, 4 shards.  ICWS
-    ingests the whole lake through ``ingest_many_sharded`` and the other
-    families the sub-lake (with a single-stream service of it beside
-    theirs); every planted partner must rank first, and each query's top 10
+def merge_phase(lake):
+    """Mergeable corpora on the card, m = 512, unpacked, 4 shards.  Each
+    family ingests the sub-lake through ``ingest_many_sharded``, with a
+    single-stream service of it beside; every planted partner must rank
+    first, and each query's top 10
     is printed against the single-stream service's.  On the integer lake
     the CS sharded build answers exactly as the single-stream one and JL
     within rtol 1e-5.  Per family ``merge_rows`` commutes bit for bit (ICWS
@@ -2817,7 +3238,7 @@ def merge_phase(lake, served):
     timed.  Returns the sharded builds' launches, summed."""
     from repro_torch import SketchSearchService
     from repro_torch.data.dataset_search import DatasetSearchIndex
-    tables, queries, partners = lake
+    _, queries, partners = lake
     min_join = QUERY_ROWS / 4
     launches = {name: 0 for name in launch_counters()}
     report = {}
@@ -2827,21 +3248,16 @@ def merge_phase(lake, served):
     vec_rows = [vectorize(k, x) for _, k, x in sub[:MERGE_ROWS // 8]]
     for family in FAMILIES:
         t0 = time.perf_counter()
-        if family == "icws":
-            lake_tables, ref, ref_ingest_s = tables, *served[family]
-        else:
-            lake_tables = sub
-            single = SketchSearchService(m=M, seed=0, family=family,
-                                         keep_host_oracle=False)
-            t1 = time.perf_counter()
-            single.ingest_many(sub)
-            torch.cuda.synchronize()
-            ref_ingest_s = time.perf_counter() - t1
-            ref = single.search_batch(queries, top_k=10, min_join=min_join,
-                                      micro_batch=MICRO_BATCH)
-            del single
-        svc, results, run, ingest_s = sharded_service(family, lake_tables,
-                                                      queries)
+        single = SketchSearchService(m=M, seed=0, family=family,
+                                     keep_host_oracle=False)
+        t1 = time.perf_counter()
+        single.ingest_many(sub)
+        torch.cuda.synchronize()
+        ref_ingest_s = time.perf_counter() - t1
+        ref = single.search_batch(queries, top_k=10, min_join=min_join,
+                                  micro_batch=MICRO_BATCH)
+        del single
+        svc, results, run, ingest_s = sharded_service(family, sub, queries)
         for k, n in run.items():
             launches[k] += n
         first = first_ranked(f"{family} sharded", results, partners)
@@ -2850,7 +3266,7 @@ def merge_phase(lake, served):
         overlap = top10_overlap(results, ref)
         shared = sum(o for o, _ in overlap)
         returned = sum(n for _, n in overlap)
-        n = len(lake_tables)
+        n = len(sub)
         log(f"{family} sharded build ({MERGE_SHARDS} shards, {n} tables): "
             f"{n / ingest_s:.1f} tables/s ({ingest_s:.1f} s) against "
             f"ingest_many's {n / ref_ingest_s:.1f} tables/s; planted "
@@ -3284,18 +3700,19 @@ def main() -> int:
     phase("lm serve", lm_serve_phase, identity)
     gc.collect()
     torch.cuda.empty_cache()
+    train_launches, b1_train, b3_train = phase("lm train", lm_train_phase,
+                                               identity)
+    gc.collect()
+    torch.cuda.empty_cache()
     for family in FAMILIES:
         phase(f"small lake {family}", small_reference_phase, dev, family)
     lake = phase("lake", lake_phase)
     corpus_launches, corpus_sharded = phase("corpus", corpus_phase, lake)
-    runs, packed_runs, latency, b10_path, served = {}, {}, {}, {}, {}
-    sharded = {}
+    runs, packed_runs, latency, b10_path, sharded = {}, {}, {}, {}, {}
     for family in FAMILIES:
         (runs[family], packed_runs[family], latency[family],
-         b10_path[family], served[family],
-         sharded[family]) = family_phases(family, lake)
-    merge_launches = phase("merge", merge_phase, lake, served)
-    del served
+         b10_path[family], sharded[family]) = family_phases(family, lake)
+    merge_launches = phase("merge", merge_phase, lake)
     phase("host oracle", host_oracle_phase, lake)
     phase("paper baselines", paper_baselines_phase)
     for label, rs in (("unpacked", runs), ("packed", packed_runs)):
@@ -3392,6 +3809,15 @@ def main() -> int:
             sharded_serving_launches=sharded_launches[name],
             entry_point="repro_torch.kernels.flash_attention."
                         "flash_attention"))
+    # the training path's telemetry launches B1 and B3 (its own counts,
+    # "train_launches", added into each entry's launches; 0 elsewhere), at
+    # the shapes in "train_path"
+    for entry in kernels:
+        entry["train_launches"] = train_launches[entry["name"]]
+        entry["launches"] += entry["train_launches"]
+    kernels[0]["train_path"] = b1_train
+    next(e for e in kernels if e["name"] == "estimate_pairs")[
+        "train_path"] = b3_train
     log("latency (unpacked; packed), p50 ms of search and of a micro-batch "
         "of 16: " + json.dumps(latency))
     log(f"sharded search p50 ms (A single device, B {SHARDS[0]} shards of "

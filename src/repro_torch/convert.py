@@ -36,7 +36,10 @@ layer's stacked on a leading ``[L, ...]`` axis) carry across as they are::
                                      device="cuda")
 
 and the port's ``Model`` of the same config computes with them what the
-JAX model computes.  ``model_params_to(params, "cpu")`` moves a port
+JAX model computes.  JAX's AdamW state (``{"mu", "nu", "step"}``, bf16
+moments) carries across beside them with ``opt_state_from_numpy``, so a
+run JAX started continues in the port (a checkpoint of either package
+also restores in the other: ``repro_torch.checkpoint``).  ``model_params_to(params, "cpu")`` moves a port
 parameter tree to another device (the card's weights to the CPU's plain
 run, say).
 
@@ -152,28 +155,46 @@ def _param_shapes(cfg):
     return shapes
 
 
+def _carry(cfg, want, got, path, dev, dtype=torch.float32):
+    """``got`` (a numpy tree) as tensors of ``dtype`` on ``dev``, checked
+    against the shape tree ``want``."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or set(got) != set(want):
+            keys = sorted(got) if isinstance(got, dict) else type(got)
+            raise ValueError(f"{path or 'params'}: keys {keys}; "
+                             f"{cfg.name} needs {sorted(want)}")
+        return {k: _carry(cfg, w, got[k], f"{path}/{k}", dev, dtype)
+                for k, w in want.items()}
+    a = np.asarray(got, np.float32)
+    if a.shape != want:
+        raise ValueError(f"{path}: shape {a.shape}; {cfg.name} needs "
+                         f"{want}")
+    return torch.from_numpy(a.copy()).to(dev).to(dtype)
+
+
 def model_params_from_numpy(cfg, tree, device="cuda"):
     """The port's parameters of the dense model ``cfg`` from a JAX
     parameter tree exported as numpy: the same tree of f32 tensors on
     ``device``.  Raises ``ValueError`` where a key or a shape differs from
     what ``cfg`` needs."""
+    return _carry(cfg, _param_shapes(cfg), tree, "", resolve_device(device))
+
+
+def opt_state_from_numpy(cfg, tree, moment_dtype: str = "bfloat16",
+                         device="cuda"):
+    """The port's AdamW state of the dense model ``cfg`` from JAX's
+    ``{"mu", "nu", "step"}`` exported as numpy (``jax.tree.map(np.asarray,
+    opt_state)``; bf16 moments arrive as ``ml_dtypes`` arrays, which
+    widen to f32 exactly): moments of ``moment_dtype`` and ``step`` a 0-d
+    int32 tensor, on ``device``."""
     dev = resolve_device(device)
-
-    def carry(want, got, path):
-        if isinstance(want, dict):
-            if not isinstance(got, dict) or set(got) != set(want):
-                keys = sorted(got) if isinstance(got, dict) else type(got)
-                raise ValueError(f"{path or 'params'}: keys {keys}; "
-                                 f"{cfg.name} needs {sorted(want)}")
-            return {k: carry(w, got[k], f"{path}/{k}")
-                    for k, w in want.items()}
-        a = np.asarray(got, np.float32)
-        if a.shape != want:
-            raise ValueError(f"{path}: shape {a.shape}; {cfg.name} needs "
-                             f"{want}")
-        return torch.from_numpy(a.copy()).to(dev)
-
-    return carry(_param_shapes(cfg), tree, "")
+    if not isinstance(tree, dict) or set(tree) != {"mu", "nu", "step"}:
+        raise ValueError("opt_state needs the keys ['mu', 'nu', 'step']")
+    shapes, dt = _param_shapes(cfg), getattr(torch, moment_dtype)
+    return {"mu": _carry(cfg, shapes, tree["mu"], "mu", dev, dt),
+            "nu": _carry(cfg, shapes, tree["nu"], "nu", dev, dt),
+            "step": torch.tensor(int(np.asarray(tree["step"])),
+                                 dtype=torch.int32, device=dev)}
 
 
 def model_params_to(tree, device):

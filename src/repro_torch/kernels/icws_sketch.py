@@ -46,6 +46,8 @@ _PLAIN_CHUNK = 1 << 22
 # threads the CUDA launch aims for: 132 SMs x 1,536 resident threads each
 # (six blocks of 256 at the kernel's 40 registers a thread)
 _TARGET_THREADS = 132 * 1536
+# the kernel takes the row length and a non-zero's index as 32-bit ints
+_MAX_N = 2 ** 31 - 1
 
 
 def _check_inputs(w, keys, vals, m: int):
@@ -119,6 +121,9 @@ def _launch(w, keys, vals, m: int, seed: int, pack: bool):
     variant, whose fifth output the kernel ORs halfwords into (zeroed
     here)."""
     _check_inputs(w, keys, vals, m)
+    if w.shape[1] > _MAX_N:
+        raise ValueError(f"rows of {w.shape[1]} non-zeros; the CUDA ICWS "
+                         f"sketch takes at most {_MAX_N} a row")
     if w.device.type != "cuda":
         raise ValueError(f"the CUDA ICWS sketch takes CUDA tensors; got "
                          f"{w.device}")

@@ -7,9 +7,9 @@ activations are written op by op in bf16, each op rounding to bf16 as the
 JAX package's bf16 program does (``jax.nn.silu`` and ``jax.nn.gelu``,
 which is the tanh approximation, with their constants rounded to bf16), not
 as ``torch.nn.functional``'s fused f32 versions.  ``rms_norm`` and
-``apply_rope`` work in f32 and round once.  ``layer_norm`` and
-``cross_entropy`` wait for the families and the training path that use
-them.
+``apply_rope`` work in f32 and round once, and so does
+``cross_entropy``, the training loss.  ``layer_norm`` waits for the
+families that use it.
 """
 from __future__ import annotations
 
@@ -125,3 +125,32 @@ def lm_logits(x, table_or_head):
     if w.shape[0] != x.shape[-1]:       # tied embedding [V, d] -> transpose
         w = w.t()
     return x @ w
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
+    """Mean next-token cross entropy with JAX's z-loss, ``nll + z_loss *
+    lse**2``, as ``repro/models/layers.py::cross_entropy`` computes it.
+
+    logits [B, T, V] (any float dtype), labels [B, T] integer, mask [B, T]
+    or None.  ``lse`` is ``jax.nn.logsumexp``'s: the max held out of the
+    gradient, ``log(sum(exp(lg - max))) + max``, in f32.  The correct-class
+    logit is a select-and-sum over the vocabulary (no gather, whose CUDA
+    backward adds with float atomics).  The unmasked mean multiplies by the
+    f32 reciprocal of the count, as XLA compiles ``jnp.mean``'s divide; the
+    masked one divides by ``max(sum(mask), 1)``."""
+    lg = logits.float()
+    amax = lg.amax(dim=-1, keepdim=True).detach()
+    amax = torch.where(torch.isfinite(amax), amax, 0.0)
+    lse = torch.log(torch.exp(lg - amax).sum(dim=-1)) + amax[..., 0]
+    vocab = torch.arange(lg.shape[-1], device=lg.device)
+    correct = torch.where(vocab == labels[..., None], lg, 0.0).sum(dim=-1)
+    nll = lse - correct
+    if z_loss:
+        nll = nll + z_loss * lse ** 2
+    if mask is None:
+        return nll.sum() * f32_reciprocal(nll.numel())
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -4,10 +4,15 @@
 Parameters are a tree of f32 tensors shaped as the JAX package's, each
 layer's stacked on a leading ``[L, ...]`` axis (``convert.
 model_params_from_numpy`` carries a JAX tree across as it is); the layers
-run in a Python loop over that axis, under ``torch.inference_mode()``.
-The decode state's KV cache is ``[L, B, S, K, hd]`` bf16, written in place
-by ``decode_step``.  The other families (moe, ssm, hybrid, encdec, vlm)
-and the model mesh (``ctx``) are not ported yet (ROADMAP.md Queue A 18c).
+run in a Python loop over that axis.  ``forward`` and ``loss`` record for
+autograd when grad is enabled, each block under
+``torch.utils.checkpoint`` (the counterpart of JAX's ``jax.checkpoint``:
+its activations are recomputed in the backward, always); ``init`` runs
+under ``torch.no_grad()`` (its tensors can take ``requires_grad``) and the
+decode path under ``torch.inference_mode()``.  The decode state's KV cache
+is ``[L, B, S, K, hd]`` bf16, written in place by ``decode_step``.  The
+other families (moe, ssm, hybrid, encdec, vlm) and the model mesh
+(``ctx``) are not ported yet (ROADMAP.md Queue A 18c).
 """
 from __future__ import annotations
 
@@ -15,12 +20,13 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 
 from . import attention as attn
-from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, apply_mlp, embed,
-                     init_embedding, init_mlp, init_normal, lm_logits,
+from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, apply_mlp, cross_entropy,
+                     embed, init_embedding, init_mlp, init_normal, lm_logits,
                      rms_norm)
 
 
@@ -41,10 +47,13 @@ def _check_tf32(device):
                            "False (PyTorch's default)")
 
 
-def _layer(layers, i: int):
-    """Layer ``i``'s parameters: views into the stacked tree."""
-    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
+def _unbind(layers, n: int):
+    """Every layer's parameters, views into the stacked tree, from one
+    ``unbind`` a leaf: its backward stacks the L gradients once, where L
+    ``select`` backwards would each write a whole ``[L, ...]`` tensor."""
+    parts = {k: _unbind(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in layers.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 class Model:
@@ -58,7 +67,7 @@ class Model:
         self.device = resolve_device(device)
 
     # ------------------------------------------------------------------ init
-    @torch.inference_mode()
+    @torch.no_grad()
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """f32 parameters drawn from ``generator``, which must lie on the
         model's device."""
@@ -100,24 +109,39 @@ class Model:
     def _head(self, params):
         return params["embed" if self.cfg.tie_embeddings else "lm_head"]
 
+    def _block(self, layer, x, q_chunk: int, k_chunk: int):
+        h = rms_norm(x, layer["norm1"], self.cfg.norm_eps)
+        o = attn.attention_block(layer["attn"], h, self.cfg, q_chunk=q_chunk,
+                                 k_chunk=k_chunk)
+        return self._mlp_sublayer(layer, x, o)
+
     # --------------------------------------------------------------- forward
-    @torch.inference_mode()
     def forward(self, params, batch, q_chunk: int = 1024,
                 k_chunk: int = 1024):
         """Logits ``[B, T, V]`` (bf16) of ``batch["tokens"]`` ``[B, T]``, and
-        the auxiliary loss (0 for the dense family), as JAX's pair."""
+        the auxiliary loss (0 for the dense family), as JAX's pair.  Each
+        block runs under ``checkpoint`` (JAX's ``jax.checkpoint``), which
+        computes the same values; with grad disabled it saves nothing."""
         _check_tf32(self.device)
         cfg = self.cfg
         x = embed(params["embed"], batch["tokens"])
-        for i in range(cfg.num_layers):
-            layer = _layer(params["layers"], i)
-            h = rms_norm(x, layer["norm1"], cfg.norm_eps)
-            o = attn.attention_block(layer["attn"], h, cfg, q_chunk=q_chunk,
-                                     k_chunk=k_chunk)
-            x = self._mlp_sublayer(layer, x, o)
+        for layer in _unbind(params["layers"], cfg.num_layers):
+            # the blocks draw no random numbers: no RNG state to replay
+            x = checkpoint(self._block, layer, x, q_chunk, k_chunk,
+                           use_reentrant=False, preserve_rng_state=False)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return lm_logits(x, self._head(params)), aux
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, params, batch, q_chunk: int = 1024, k_chunk: int = 1024,
+             aux_weight: float = 0.01):
+        """``(ce + aux_weight * aux, {"ce", "aux"})`` of ``batch``'s
+        ``tokens`` against its ``labels`` ``[B, T]`` (and ``mask``, where
+        it has one), as JAX's ``Model.loss``."""
+        logits, aux = self.forward(params, batch, q_chunk, k_chunk)
+        ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     # --------------------------------------------------------------- decode
     @torch.inference_mode()
@@ -150,8 +174,7 @@ class Model:
         slots = torch.arange(layout.size, device=pos.device)
         slot_pos = torch.where(slots == slot, pos, state["slot_pos"])
         k_all, v_all = state["kv"]["k"], state["kv"]["v"]
-        for i in range(cfg.num_layers):
-            layer = _layer(params["layers"], i)
+        for i, layer in enumerate(_unbind(params["layers"], cfg.num_layers)):
             h = rms_norm(x, layer["norm1"], cfg.norm_eps)
             o, _, _ = attn.decode_attention(layer["attn"], h, cfg, k_all[i],
                                             v_all[i], slot_pos, pos, layout)

@@ -1,1 +1,6 @@
-"""Optimizer-side features of the port: sketch-based gradient compression."""
+"""Optimizer side of the port: memory-efficient AdamW and sketch-based
+gradient compression."""
+from . import adamw
+from .adamw import AdamWConfig
+
+__all__ = ["adamw", "AdamWConfig"]

@@ -6,7 +6,10 @@ import torch
 
 
 def make_prefill_step(model, q_chunk: int = 1024, k_chunk: int = 1024):
-    """prefill(params, batch) -> logits [B, T, V]."""
+    """prefill(params, batch) -> logits [B, T, V], under
+    ``torch.inference_mode()`` (``Model.forward`` records for autograd
+    where grad is enabled)."""
+    @torch.inference_mode()
     def prefill(params, batch):
         logits, _ = model.forward(params, batch, q_chunk=q_chunk,
                                   k_chunk=k_chunk)

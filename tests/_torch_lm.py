@@ -1,13 +1,40 @@
 """Shared checks of the port's LM tests on the CPU (against the JAX
 package) and on the card (against the CPU): logits within ``TOL`` of the
 reference's largest magnitude, and greedy picks equal to the reference's
-but at near ties; and an engine whose steps record their logits.
-Imports nothing of JAX."""
+but at near ties; an engine whose steps record their logits; and the
+training tests' tiny config, trainer settings and tolerances.  Imports
+nothing of JAX."""
+import dataclasses
+
 import numpy as np
 import torch
 
 # two bf16 steps of the largest reference magnitude
 TOL = 2 ** -6
+# a gradient leaf within four bf16 steps of its largest reference
+# magnitude: the backward runs through bf16 activations that the two
+# frameworks round in other places, and the embedding's repeated rows add
+# in f32 here, in bf16 in JAX's scatter-add
+GRAD_TOL = 2 ** -5
+# the training tests' model: ``tests/test_train_serve.py``'s
+TINY = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+            head_dim=16, d_ff=128, vocab_size=256)
+
+
+def tiny_cfg(configs):
+    """``configs`` (either package's) tinyllama-1.1b cut to ``TINY``."""
+    return dataclasses.replace(configs.reduced("tinyllama-1.1b"), **TINY)
+
+
+def trainer_config(TrainerConfig, AdamWConfig, tmp=None, steps=24,
+                   total_steps=None, **kw):
+    """``tests/test_train_serve.py``'s trainer settings, for either
+    package's ``TrainerConfig``."""
+    return TrainerConfig(
+        steps=steps, global_batch=4, seq=32, microbatches=2,
+        ckpt_dir=str(tmp) if tmp else None, ckpt_every=8, log_every=100,
+        opt=AdamWConfig(lr=2e-3, warmup_steps=4,
+                        total_steps=total_steps or steps), **kw)
 
 
 def as_f32(a) -> np.ndarray:

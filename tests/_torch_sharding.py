@@ -1,15 +1,67 @@
 """Shared setup of the port's sharded-serving tests: meshes whose device
 repeats (``("cpu",) * d`` here, the port's counterpart of JAX's forced
-host devices; ``("cuda",) * d`` in the card tests) and the checks that a
+host devices; ``("cuda",) * d`` in the card tests), the checks that a
 sharded service, or a family's sharded launch, equals its single-device
-twin bit for bit.  Imports nothing of JAX."""
+twin bit for bit, and ``run_script``, which runs a test's script (gloo
+ranks, or JAX over forced host devices) in a fresh interpreter with a
+bounded time and a loud failure.  Imports nothing of JAX."""
+import os
+import pathlib
+import signal
+import subprocess
+import sys
+
 import numpy as np
+import pytest
 import torch
 
 from repro_torch import SketchSearchService
 from repro_torch.launch import make_corpus_mesh
 
 M = 64
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+# the tail of a failed script's output that a failure shows
+TAIL = 3000
+
+
+def _tail(text) -> str:
+    if isinstance(text, bytes):
+        text = text.decode(errors="replace")
+    return (text or "")[-TAIL:]
+
+
+def run_script(tmp_path, script: str, *args, timeout: float = 240,
+               name: str = "run.py"):
+    """Runs ``script`` (written to ``tmp_path / name``) as ``python name
+    tmp_path *args`` from the repository root, in a session of its own.
+
+    Its gloo ranks find each other on the loopback device
+    (``GLOO_SOCKET_IFNAME=lo``, ``MASTER_ADDR=127.0.0.1``), not through
+    the host name.  Past ``timeout`` seconds the whole session is killed,
+    the ranks that ``torch.multiprocessing.spawn`` started included, and
+    the test fails with how long it ran and the tails of both streams; so
+    does a nonzero exit."""
+    path = tmp_path / name
+    path.write_text(script)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               GLOO_SOCKET_IFNAME="lo", MASTER_ADDR="127.0.0.1")
+    proc = subprocess.Popen([sys.executable, str(path), str(tmp_path),
+                             *map(str, args)], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        pytest.fail(f"{name} {' '.join(map(str, args))} ran past {timeout} s"
+                    f"; stdout tail:\n{_tail(out)}\nstderr tail:\n"
+                    f"{_tail(err)}")
+    if proc.returncode != 0:
+        pytest.fail(f"{name} {' '.join(map(str, args))} exited "
+                    f"{proc.returncode}; stdout tail:\n{_tail(out)}\n"
+                    f"stderr tail:\n{_tail(err)}")
+    return out
 
 
 def repeated_mesh(shards: int, device="cpu"):

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 from _torch_lm import TOL as LM_TOL
-from _torch_lm import Recorded, near_tie_rows
+from _torch_lm import (GRAD_TOL, Recorded, near_tie_rows, tiny_cfg,
+                       trainer_config)
 from _torch_lm import rel as lm_rel
 
 from repro_torch.core.dmh import dmh_replication, replicate_keys
@@ -1391,3 +1392,113 @@ def test_engine_on_the_card_matches_the_cpu(cuda):
         if near_tie_rows(g, w).size:
             return                               # a near tie: the runs part
     assert got_out == want_out
+
+
+# ---------------------------------------------------------------------------
+# LM training: one train step card against CPU at two layers of
+# tinyllama-1.1b's full width (loss at test_torch_lm.py's tolerance, the
+# moments, which are gradients, at test_torch_train.py's GRAD_TOL; one
+# step, since a second starts from parameters that AdamW moved apart on
+# the ill-posed entries), the
+# card's bits repeatable (the resume test's ground), and the telemetry's
+# B1 launch at B1's gate (fingerprints on 99% of slots, values equal where
+# they agree) and B3 bit for bit against their plain versions.
+# ---------------------------------------------------------------------------
+def _train_steps(model, params, cfg, batch, steps=2):
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.train import make_train_step
+    opt_cfg = AdamWConfig(lr=2e-3, warmup_steps=4, total_steps=24)
+    step = make_train_step(model, opt_cfg, q_chunk=32, k_chunk=32)
+    opt = adamw.init_opt_state(params, opt_cfg)
+    for _ in range(steps):
+        params, opt, metrics = step(params, opt, batch)
+    return params, opt, metrics
+
+
+def _lm_batch(device, vocab=32000, M=2):
+    g = torch.Generator().manual_seed(4)
+    toks = torch.randint(0, vocab, (M, 2, 33), generator=g).int()
+    return {"tokens": toks[..., :-1].contiguous().to(device),
+            "labels": toks[..., 1:].contiguous().to(device)}
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    from repro_torch import tree as tr
+    cfg, card, params, cpu, cpu_params = _lm_pair(cuda)
+    _, opt, got = _train_steps(card, params, cfg, _lm_batch(cuda), steps=1)
+    _, cpu_opt, want = _train_steps(cpu, cpu_params, cfg, _lm_batch("cpu"),
+                                    steps=1)
+    assert abs(float(got["loss"]) - float(want["loss"])) <= LM_TOL * float(
+        want["loss"])
+    np.testing.assert_allclose(float(got["grad_norm"]),
+                               float(want["grad_norm"]), rtol=1e-3)
+    assert int(got["step"]) == int(want["step"]) == 1
+    for k in ("mu", "nu"):
+        for a, b in zip(tr.leaves(opt[k]), tr.leaves(cpu_opt[k])):
+            assert lm_rel(a, b) <= GRAD_TOL, k
+
+
+@pytest.mark.cuda
+def test_train_step_repeats_bit_for_bit_on_the_card(cuda):
+    from repro_torch import tree as tr
+    cfg, card, params, _, _ = _lm_pair(cuda)
+    runs = [_train_steps(card, params, cfg, _lm_batch(cuda))
+            for _ in range(2)]
+    for a, b in zip(tr.leaves(runs[0]), tr.leaves(runs[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_trainer_resume_on_the_card_is_bit_for_bit(cuda, tmp_path):
+    from repro_torch import configs
+    from repro_torch import tree as tr
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    cfg = tiny_cfg(configs)
+
+    def run(ckpt, steps, total_steps=None):
+        t = Trainer(cfg, trainer_config(TrainerConfig, AdamWConfig, ckpt,
+                                        steps=steps, total_steps=total_steps),
+                    log_fn=lambda _: None, device=cuda)
+        return t, t.run()
+    ta, hist_a = run(tmp_path / "a", 12)
+    run(tmp_path / "b", 8, total_steps=12)
+    tb, hist_b = run(tmp_path / "b", 12)
+    assert hist_b["step"][0] == 8 and hist_a["loss"][8:] == hist_b["loss"]
+    for x, y in zip(tr.leaves(ta.state), tr.leaves(tb.state)):
+        assert x.device.type == "cuda" and torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_telemetry_launches_b1_and_b3_bit_for_bit(cuda):
+    from repro_torch.train import telemetry as tel
+    cfg = tel.TelemetryConfig(m=256, seed=23)
+    g = torch.randn(2, 50_000, generator=torch.Generator().manual_seed(1))
+    g[:, ::3] = 0.0
+    g = g.to(cuda)
+    sketch0 = port_sketch.icws_sketch_cuda.launches
+    est0 = port_est.estimate_partials_cuda.launches
+    sk = tel.sketch_gradient(g, cfg)
+    est = tel.estimate_pairwise(sk, cfg)
+    torch.cuda.synchronize()
+    assert port_sketch.icws_sketch_cuda.launches == sketch0 + 1
+    assert port_est.estimate_partials_cuda.launches == est0 + 1
+    zn = g / torch.clamp(torch.linalg.vector_norm(g, dim=-1), min=1e-30)[:, None]
+    keys = torch.arange(g.shape[1], dtype=torch.int32,
+                        device=cuda).expand_as(g).contiguous()
+    fp, val, _, _ = port_sketch.icws_sketch_plain(zn * zn, keys, zn, m=256,
+                                                  seed=23)
+    agree = sk["fp"] == fp
+    assert agree.float().mean().item() >= 0.99
+    assert torch.equal(sk["val"][agree], val[agree])
+    R = 2
+    fp, val = sk["fp"], sk["val"]
+    cnt, sw = port_est.estimate_partials_plain(
+        fp.repeat_interleave(R, 0), val.repeat_interleave(R, 0),
+        fp.repeat(R, 1), val.repeat(R, 1))
+    want = ops._norm_epilogue(cnt, sw, sk["norm"].repeat_interleave(R),
+                              sk["norm"].repeat(R), 256).reshape(R, R)
+    assert torch.equal(est, want)
+    exact = (g @ g.T)
+    assert (est - exact).abs().max() <= 0.2 * exact.abs().max()

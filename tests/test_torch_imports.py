@@ -51,7 +51,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.core.minhash", "repro_torch.core.registry",
             "repro_torch.data.synthetic", "repro_torch.configs.gemma_7b",
             "repro_torch.models.transformer", "repro_torch.serve.engine",
-            "repro_torch.launch.serve"} <= loaded
+            "repro_torch.launch.serve", "repro_torch.tree",
+            "repro_torch.optim.adamw", "repro_torch.train.step",
+            "repro_torch.train.trainer", "repro_torch.train.telemetry",
+            "repro_torch.data.pipeline", "repro_torch.checkpoint.store",
+            "repro_torch.ft.monitor", "repro_torch.launch.train"} <= loaded
     assert lines["BAD"].strip() == ""
 
 
@@ -60,12 +64,15 @@ def test_entry_points_default_to_the_card():
                              SketchSearchService)
     from repro_torch.configs import reduced
     from repro_torch.data.store import CorpusStore
+    from repro_torch.launch.train import train
     from repro_torch.models import Model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
     for make in (lambda: SketchSearchService(m=8),
                  lambda: DatasetSearchIndex(m=8),
                  lambda: CorpusStore(m=8),
                  lambda: SketchCorpus(m=8),
-                 lambda: Model(reduced("tinyllama-1.1b"))):
+                 lambda: Model(reduced("tinyllama-1.1b")),
+                 lambda: Trainer(reduced("tinyllama-1.1b"), TrainerConfig())):
         if torch.cuda.is_available():
             assert make() is not None
         else:
@@ -73,6 +80,9 @@ def test_entry_points_default_to_the_card():
                 make()
     with pytest.raises(ValueError, match="unsupported device"):
         DatasetSearchIndex(m=8, device="meta")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train("tinyllama-1.1b", steps=1)
 
 
 # names a module has without binding them

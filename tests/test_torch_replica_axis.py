@@ -7,33 +7,32 @@ Two ranks: every rank's delta equal bit for bit, and each within the
 tolerance of ``tests/test_torch_compression.py`` of JAX's on the
 coordinates off the edge of the mask.  One rank: equal bit for bit to
 ``axis_name=None``; an axis with no registered group raises."""
-import os
-import pathlib
-import subprocess
-import sys
 import textwrap
 
 import numpy as np
 import pytest
 import torch
+from _torch_sharding import run_script
 
 from repro_torch.optim import compression as comp
 
 torch.set_num_threads(1)
 
-ROOT = pathlib.Path(__file__).resolve().parents[1]
 CFG = dict(width=256, reps=5, seed=3)
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 _RANKS = textwrap.dedent("""
-    import pathlib, sys
+    import datetime, pathlib, sys
     import numpy as np, torch
 
     def worker(rank, world, out):
         torch.set_num_threads(1)
+        # a stuck rendezvous or collective raises here, inside the
+        # script's time limit
         torch.distributed.init_process_group(
             "gloo", init_method=(out / "rendezvous").as_uri(),
-            world_size=world, rank=rank)
+            world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=120))
         from repro_torch.launch import register_world_axis
         from repro_torch.optim import compression as comp
         cfg = comp.CompressionConfig(width=256, reps=5, seed=3)
@@ -94,23 +93,13 @@ def _grads(world: int) -> np.ndarray:
             ).astype(np.float32)
 
 
-def _run(tmp_path, script, *args):
-    path = tmp_path / "run.py"
-    path.write_text(script)
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    out = subprocess.run([sys.executable, str(path), str(tmp_path), *args],
-                         cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=240)
-    assert out.returncode == 0, out.stderr[-3000:]
-
-
 def test_two_gloo_ranks_agree_and_match_jax_shard_map(tmp_path):
     grads = _grads(2)
     np.save(tmp_path / "grads.npy", grads)
-    _run(tmp_path, _RANKS, "2")
+    run_script(tmp_path, _RANKS, 2, name="ranks.py")
     deltas = [np.load(tmp_path / f"delta{r}.npy") for r in range(2)]
     assert np.array_equal(deltas[0].view(np.int32), deltas[1].view(np.int32))
-    _run(tmp_path, _JAX)
+    run_script(tmp_path, _JAX, name="jax_shard_map.py")
     want = np.load(tmp_path / "jax_delta.npy")
     # the coordinates whose |est| lies within 1e-5 of tau or of the k-th
     # largest may fall either way of the mask (summation order)
@@ -134,7 +123,7 @@ def test_two_gloo_ranks_agree_and_match_jax_shard_map(tmp_path):
 
 def test_one_rank_group_equals_no_axis_and_unregistered_raises(tmp_path):
     np.save(tmp_path / "grads.npy", _grads(1))
-    _run(tmp_path, _RANKS, "1")
+    run_script(tmp_path, _RANKS, 1, name="ranks.py")
     assert (tmp_path / "one_rank_ok").exists()
 
 
