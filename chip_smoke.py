@@ -320,6 +320,46 @@ TEL_M = 256
 TEL_PLAIN_N = 1 << 20
 TEL_COS_GATE = 0.35
 
+# lm moe: qwen3-moe-30b-a3b at its published widths (d 2,048, 32/4 heads of
+# 128, 128 experts top 8 of d_ff 768, vocab 151,936), depth cut to
+# MOE_LAYERS of 48 (5,607,294,976 parameters, 22.43 GB f32; all 48 are
+# 122.1 GB, which init refuses before it allocates).  The routing rule
+# holds wherever two runs' routes are compared: a token whose top-k expert
+# set differs must sit at a near tie of the reference's routing (its k-th
+# and (k+1)-th probabilities within MOE_ROUTE_MARGIN of the k-th), unless
+# its input already differs (a token at or before it in its sequence was
+# routed apart in an earlier layer); such tokens are counted, outputs are
+# compared on the tokens with none routed apart at or before them, and a
+# gradient step on the card replays the CPU's routing.  Gates: (a) decode ==
+# forward over MOE_DECODE_B sequences at capacity_factor MOE_DECODE_CF =
+# E / k, so that the forward drops no token (the published 1.25 drops past
+# 40 a expert at T = 512; JAX's own test raises it likewise), rel <
+# LM_DECODE_REL; the two runs' activations differ by bf16 steps that add up
+# over the layers (up to LM_DECODE_REL, JAX's gate), so the routing rule's
+# margin there is LM_DECODE_REL (one f32 ulp apart, card and CPU take
+# MOE_ROUTE_MARGIN); (b) the card against the CPU at LM_CPU_LAYERS of full
+# width, on the logits and on one loss-and-gradient step's loss, aux and
+# gradients (LM_TOL; the gradients at LM_GRAD_TOL on the entries at least
+# LM_WELL_POSED of their leaf's largest, at most LM_ILL_SHARE of the others
+# off, as lm train (a)); (c) the launcher's engine
+# drains LM_REQUESTS on LM_SLOTS twice, same tokens; (e) a LM_CPU_LAYERS
+# Trainer of LM_TRAIN_STEPS steps at LM_TRAIN_B x LM_TRAIN_SEQ in
+# LM_TRAIN_M micro-batches, twice, bit for bit
+MOE_ARCH = "qwen3-moe-30b-a3b"
+MOE_LAYERS = 8
+MOE_DECODE_CF = 16.0
+MOE_DECODE_B = 4
+MOE_ROUTE_MARGIN = 2 ** -6
+MOE_GRAD_B, MOE_GRAD_T = 2, 64
+
+# lm vlm: internvl2-1b's whole published config (24 layers, 896 wide, 14/2
+# heads of 64, vocab 151,655, 256 patch embeddings of the stubbed vision
+# frontend): the forward over VLM_PATCHES patches and VLM_T tokens, the
+# card against the CPU at LM_CPU_LAYERS on the text logits and one
+# loss-and-gradient step, the engine (text only, as JAX's) twice
+VLM_ARCH = "internvl2-1b"
+VLM_T = 256
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -2532,6 +2572,477 @@ def lm_train_phase(identity: str):
     return out
 
 
+def moe_route_check(label: str, got_routes, want_routes, k: int, B: int,
+                    T: int, margin: float = MOE_ROUTE_MARGIN,
+                    capacity: int = 0):
+    """The routing rule over a stack of MoE layers: ``got_routes`` against
+    the reference's ``want_routes`` (each layer's ``(top_e [B * T, k],
+    probs [B * T, E])``, rows in sequence order, each row's experts in
+    falling probability).  A row whose top-k set differs must sit at a
+    near tie of the reference (its k-th and (k+1)-th probabilities within
+    ``margin`` of the k-th), and a row whose first expert differs (the
+    load-balance loss counts first choices) at a near tie of its first and
+    second, unless its input already differs: a row at or before it in
+    its sequence was routed apart in an earlier layer (attention carries
+    that row's change forward).  Given the runs' ``capacity``, a row whose
+    kept experts differ because another row's routing moved its rank in an
+    expert past the capacity counts as routed apart, without a tie of its
+    own.  Returns (the clean rows, a boolean [B * T]: no row at or before
+    them routed apart in any layer; the rows routed apart in some layer;
+    the rows whose first choice alone differs)."""
+    from repro_torch.models import moe
+    apart = torch.zeros((B, T), dtype=torch.bool)
+    first_apart = 0
+    for layer, ((ge, _), (we, wp)) in enumerate(zip(got_routes,
+                                                    want_routes)):
+        ge, we, wp = ge.cpu(), we.cpu(), wp.float().cpu()
+        differ = (ge.sort(-1).values != we.sort(-1).values).any(-1)
+        differ = differ.view(B, T)
+        first = (ge[:, 0] != we[:, 0]).view(B, T)
+        moved = apart.int().cummax(dim=1).values.bool()
+        top = wp.topk(k + 1, dim=-1).values
+        gap = ((top[:, k - 1] - top[:, k]) / top[:, k - 1]).view(B, T)
+        gap1 = ((top[:, 0] - top[:, 1]) / top[:, 0]).view(B, T)
+        bad = ~moved & ((differ & (gap > margin))
+                        | (first & (gap1 > margin)))
+        if bool(bad.any()):
+            raise AssertionError(
+                f"lm moe {label}: layer {layer} routes {int(bad.sum())} rows "
+                f"apart from the reference away from a near tie (gaps "
+                f"{gap[bad].tolist()}, first gaps {gap1[bad].tolist()}, "
+                f"margin {margin})")
+        first_apart += int((first & ~differ).sum())
+        if capacity:
+            kept = []
+            for e in (ge, we):
+                pos = moe._positions_in_expert(e.reshape(-1), wp.shape[-1])
+                m = torch.zeros_like(wp, dtype=torch.bool)
+                m.scatter_(1, e, (pos < capacity).view(e.shape))
+                kept.append(m)
+            differ = differ | (kept[0] != kept[1]).any(-1).view(B, T)
+        apart = apart | differ
+    clean = ~apart.int().cummax(dim=1).values.bool()
+    return clean.reshape(-1), int(apart.sum()), first_apart
+
+
+def moe_aux(routes, probs_routes) -> float:
+    """The load-balance loss summed over the layers, of the first choices
+    in ``routes`` and the probabilities in ``probs_routes`` (JAX's
+    formula, in f64): the reference's aux as the other run's first
+    choices would make it."""
+    total = 0.0
+    for (top_e, _), (_, probs) in zip(routes, probs_routes):
+        probs = probs.double().cpu()
+        N, E = probs.shape
+        density = torch.bincount(top_e[:, 0].cpu(), minlength=E).double() / N
+        total += E * float((density * probs.mean(dim=0)).sum())
+    return total
+
+
+def decode_routes(routes, layers: int, T: int):
+    """``record_routes``' list from T decode steps of B rows (a step's
+    layers in order) as each layer's ``(top_e, probs)`` over the ``[B *
+    T]`` rows in sequence order, as a forward's."""
+    out = []
+    for layer in range(layers):
+        steps = [routes[t * layers + layer] for t in range(T)]
+        out.append(tuple(torch.stack([s[i] for s in steps], dim=1).flatten(
+            0, 1) for i in range(2)))
+    return out
+
+
+def lm_moe_card_vs_cpu(cfg):
+    """Gate (b): the logits of LM_CPU_B x LM_CPU_T tokens under the routing
+    rule, and one loss-and-gradient step on MOE_GRAD_B x MOE_GRAD_T tokens
+    with the card replaying the CPU's routing (its own routing of them
+    held to the rule), at LM_CPU_LAYERS of full width, on the card and on
+    the CPU, same weights."""
+    import dataclasses
+
+    from repro_torch import tree as tr
+    from repro_torch.convert import model_params_to
+    from repro_torch.models import Model, moe
+    from repro_torch.train import loss_and_grads
+    small = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS)
+    k = cfg.num_experts_per_tok
+    card = Model(small)
+    params = card.init(torch.Generator(device="cuda").manual_seed(1))
+    cpu = Model(small, device="cpu")
+    cpu_params = model_params_to(params, "cpu")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        LM_CPU_B, LM_CPU_T)).astype(np.int32))
+    runs = {}
+    for dev, model, prm in (("cuda", card, params), ("cpu", cpu, cpu_params)):
+        with moe.record_routes() as routes:
+            logits, aux = model.forward(prm, {"tokens": toks.to(dev)})
+        runs[dev] = (logits, aux, list(routes))
+    (got, got_aux, got_routes), (want, want_aux, want_routes) = \
+        runs["cuda"], runs["cpu"]
+    alike, apart, first = moe_route_check(
+        "forward", got_routes, want_routes, k, LM_CPU_B, LM_CPU_T,
+        capacity=moe.capacity(LM_CPU_B * LM_CPU_T, cfg))
+    V = cfg.vocab_size
+    got_rows, want_rows = got.reshape(-1, V)[alike.cuda()], \
+        want.reshape(-1, V)[alike]
+    # the CPU's aux as the card's first choices make it: a first choice
+    # swapped at a near tie moves the loss by E / N of a probability
+    want_aux = moe_aux(got_routes, want_routes)
+    rels = {"logits": lm_rel(got_rows, want_rows),
+            "aux": abs(got_aux.item() - want_aux) / want_aux}
+    ties = lm_near_ties("moe forward", got_rows, want_rows)
+    # one loss-and-gradient step, the card replaying the CPU's routing (a
+    # token routed apart changes every gradient leaf's sum, not only its
+    # experts'); the card's own routing of the batch under the rule
+    gtoks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        MOE_GRAD_B, MOE_GRAD_T + 1)).astype(np.int32))
+    batches = {dev: {"tokens": gtoks[:, :-1].to(dev),
+                     "labels": gtoks[:, 1:].to(dev)} for dev in ("cpu",
+                                                                 "cuda")}
+    chunks = dict(q_chunk=MOE_GRAD_T, k_chunk=MOE_GRAD_T)
+    grads = {}
+    with moe.record_routes() as r_cpu:
+        grads["cpu"] = loss_and_grads(cpu, cpu_params, batches["cpu"],
+                                      **chunks)
+        with torch.no_grad():
+            grads["cpu"] += (cpu.loss(cpu_params, batches["cpu"],
+                                      **chunks)[1]["aux"],)
+    with moe.record_routes() as own:
+        card.forward(params, batches["cuda"], **chunks)
+    _, g_apart, g_first = moe_route_check(
+        "gradient batch", own, r_cpu[:LM_CPU_LAYERS], k, MOE_GRAD_B,
+        MOE_GRAD_T, capacity=moe.capacity(MOE_GRAD_B * MOE_GRAD_T, cfg))
+    with moe.replay_routes(r_cpu):
+        grads["cuda"] = loss_and_grads(card, params, batches["cuda"],
+                                       **chunks)
+        with torch.no_grad():
+            grads["cuda"] += (card.loss(params, batches["cuda"],
+                                        **chunks)[1]["aux"],)
+    (g_loss, g_card, g_aux), (w_loss, g_cpu, w_aux) = \
+        grads["cuda"], grads["cpu"]
+    rels["loss"] = abs(g_loss.item() - w_loss.item()) / abs(w_loss.item())
+    rels["grad_aux"] = abs(g_aux.item() - w_aux.item()) / w_aux.item()
+    leaves = {}
+    for (path, a), b in zip(tr.leaves_with_paths(g_card), tr.leaves(g_cpu)):
+        # lm train (a)'s tiers: within LM_GRAD_TOL of the leaf's largest CPU
+        # magnitude on the well-posed entries (at least LM_WELL_POSED of
+        # it), at most LM_ILL_SHARE of the others off by more
+        a, b = a.float().cpu(), b.float()
+        big = b.abs().max()
+        off = (a - b).abs() / big
+        well = b.abs() >= LM_WELL_POSED * big
+        leaves["/".join(map(str, path))] = (
+            off.max().item(), off[well].max().item(),
+            ((off > LM_GRAD_TOL) & ~well).float().mean().item())
+    rels["grads_all"] = max(v[0] for v in leaves.values())
+    rels["grads"] = max(v[1] for v in leaves.values())
+    rels["ill_share"] = max(v[2] for v in leaves.values())
+    rels["worst_leaf"] = max(leaves, key=lambda n: leaves[n][1])
+    if (rels["logits"] > LM_TOL or rels["loss"] > LM_TOL
+            or rels["grads"] > LM_GRAD_TOL or rels["aux"] > LM_TOL
+            or rels["grad_aux"] > LM_TOL or rels["ill_share"] > LM_ILL_SHARE):
+        raise AssertionError(
+            f"lm moe (b): the card is off the CPU: {rels}; rows routed "
+            f"apart {apart} / {g_apart}, first choices swapped {first} / "
+            f"{g_first}; by leaf (all, well-posed, ill-posed share off): "
+            f"{leaves}")
+    n_apart = (apart, g_apart, first, g_first)
+    log(f"lm moe (b) card == CPU at {LM_CPU_LAYERS} layers of full width: "
+        f"logits of {LM_CPU_B} x {LM_CPU_T} tokens rel {rels['logits']:.3g} "
+        f"on the {int(alike.sum())} rows with no row at or before them "
+        f"routed apart (tolerance {LM_TOL}; {n_apart[0]} rows routed apart, "
+        f"each at a near tie within {MOE_ROUTE_MARGIN} of the CPU's k-th "
+        f"probability or after such a row; greedy picks "
+        f"equal, {ties} near ties), aux rel {rels['aux']:.3g} "
+        f"({LM_TOL}; {first} first choices swapped at a near tie); "
+        f"one loss-and-gradient step on {MOE_GRAD_B} x {MOE_GRAD_T} tokens "
+        f"(its own routing of them: {g_apart} rows routed apart, {g_first} "
+        f"first choices swapped, each at a near tie or after one; the "
+        f"card replaying the CPU's routing): loss rel {rels['loss']:.3g} "
+        f"({LM_TOL}), aux rel {rels['grad_aux']:.3g}, every gradient leaf "
+        f"{rels['grads']:.3g} at most on its well-posed entries "
+        f"({rels['worst_leaf']}; {LM_GRAD_TOL}; {rels['grads_all']:.3g} on "
+        f"all, {rels['ill_share']:.4f} of a leaf's ill-posed entries off at "
+        f"most, gate {LM_ILL_SHARE})")
+    return rels, n_apart
+
+
+def lm_moe_phase(identity: str):
+    """The moe family at qwen3-moe-30b-a3b's published widths, MOE_LAYERS
+    deep: (c) the launcher refuses all 48 layers before it allocates, and
+    its engine drains twice with the same tokens; (a) decode == forward;
+    (d) decode-step p50, forward ms, tokens/s, peak memory and a profiled
+    step; (b) the card against the CPU at two layers under the routing
+    rule; (e) a two-layer Trainer twice, bit for bit.  The path reaches no
+    hand-written kernel: every counter is set to 0 before it and must read
+    0 after."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch import tree as tr
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model, moe
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("lm moe needs TF32 off")
+    counters = reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    full = configs.get(MOE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MOE_LAYERS)
+    # (c)
+    before = torch.cuda.memory_allocated()
+    try:
+        serve(MOE_ARCH, full=True)
+        raise AssertionError("lm moe: all 48 layers were served")
+    except MemoryError as e:
+        if (f"{4 * full.param_count():,} bytes" not in str(e)
+                or torch.cuda.memory_allocated() != before):
+            raise
+        refusal = str(e)
+    runs = [serve(MOE_ARCH, requests=LM_REQUESTS, slots=LM_SLOTS,
+                  max_new_tokens=LM_NEW, full=True, layers=MOE_LAYERS)
+            for _ in range(2)]
+    outs = [[r.output for r in reqs] for reqs, _ in runs]
+    if not all(r.done and len(r.output) == LM_NEW for reqs, _ in runs
+               for r in reqs) or outs[0] != outs[1]:
+        raise AssertionError(f"lm moe: the engine runs differ or did not "
+                             f"drain: {outs}")
+    tok_s = [LM_REQUESTS * LM_NEW / seconds for _, seconds in runs]
+    log(f"lm moe (c) {refusal}; ServeEngine drained {LM_REQUESTS} requests "
+        f"on {LM_SLOTS} slots at {MOE_LAYERS} layers twice, same tokens: "
+        f"{outs[0]}")
+    del runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (a)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(v.numel() for v in tr.leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, not "
+                             f"{cfg.param_count()}")
+    ample = Model(dataclasses.replace(cfg, capacity_factor=MOE_DECODE_CF))
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (MOE_DECODE_B, LM_T)).astype(np.int32)).cuda()
+    with moe.record_routes() as par_routes:
+        par, _ = ample.forward(params, {"tokens": toks})
+    state = ample.init_decode_state(MOE_DECODE_B, 32)
+    inc = []
+    with moe.record_routes() as inc_routes:
+        for t in range(LM_T):
+            lg, state = ample.decode_step(params, toks[:, t:t + 1], state)
+            inc.append(lg[:, 0])
+    clean, apart, _ = moe_route_check(
+        "decode", decode_routes(inc_routes, MOE_LAYERS, LM_T), par_routes,
+        cfg.num_experts_per_tok, MOE_DECODE_B, LM_T, margin=LM_DECODE_REL)
+    V = cfg.vocab_size
+    inc = torch.stack(inc, dim=1).reshape(-1, V)
+    rel = lm_rel(inc[clean.cuda()], par.reshape(-1, V)[clean.cuda()])
+    if (not rel < LM_DECODE_REL or not torch.isfinite(par.float()).all()
+            or not bool(clean.any())):
+        raise AssertionError(f"lm moe: decode is {rel} from forward on "
+                             f"{int(clean.sum())} rows")
+    log(f"lm moe (a) {MOE_ARCH} ({MOE_LAYERS} of {full.num_layers} layers, "
+        f"{n_params:,} parameters): decode == forward over B = "
+        f"{MOE_DECODE_B}, T = {LM_T} at capacity_factor {MOE_DECODE_CF}, "
+        f"rel {rel:.4g} (gate {LM_DECODE_REL}) on the {int(clean.sum())} "
+        f"of {MOE_DECODE_B * LM_T} rows with no row at or before them routed "
+        f"apart; {apart} rows routed apart, each at a near tie within "
+        f"{LM_DECODE_REL} of the forward's k-th probability or after such a "
+        f"row")
+    del par, inc, state
+    # (d)
+    state = model.init_decode_state(LM_SLOTS, LM_MAX_SEQ)
+    step_toks = torch.ones((LM_SLOTS, 1), dtype=torch.int32, device="cuda")
+    step_ms = []
+    for i in range(LM_STEPS):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, state = model.decode_step(params, step_toks, state)
+        b.record()
+        b.synchronize()
+        if i >= 2:
+            step_ms.append(a.elapsed_time(b))
+    busy_ms, kernels = lm_step_device(model, params, step_toks, state)
+    fwd_toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (1, LM_FORWARD_T)).astype(np.int32)).cuda()
+    fwd_ms = time_ms(lambda: model.forward(params, {"tokens": fwd_toks}),
+                     reps=5)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, params, ample, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # a step reads every f32 weight, writes its bf16 cast and reads that in
+    # the products (JAX's einsum over all E experts); of the untied
+    # embedding table it gathers and casts only the slots' rows
+    step_values = n_params - (cfg.vocab_size - LM_SLOTS) * cfg.d_model
+    expert_values = MOE_LAYERS * cfg.num_experts * 3 * cfg.d_model * cfg.d_ff
+    # (b)
+    rels, n_apart = lm_moe_card_vs_cpu(full)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e)
+    small = dataclasses.replace(full, num_layers=LM_CPU_LAYERS)
+    first, hist = lm_trainer(small, LM_TRAIN_STEPS, LM_TRAIN_STEPS)
+    second, hist_b = lm_trainer(small, LM_TRAIN_STEPS, LM_TRAIN_STEPS)
+    same = (hist_b["loss"] == hist["loss"]
+            and hist_b["grad_norm"] == hist["grad_norm"]
+            and all(bits_equal(a, b) if a.dtype != torch.bfloat16
+                    else torch.equal(a, b) for a, b in zip(
+                        tr.leaves(first.state), tr.leaves(second.state))))
+    if not (same and np.isfinite(hist["loss"]).all()):
+        raise AssertionError(f"lm moe (e): two Trainer runs differ: {hist} "
+                             f"vs {hist_b}")
+    train_ms = statistics.median(hist["step_time"][1:]) * 1e3
+    log(f"lm moe (e) {LM_CPU_LAYERS}-layer Trainer, {LM_TRAIN_B} x "
+        f"{LM_TRAIN_SEQ} tokens a step in {LM_TRAIN_M} micro-batches: "
+        f"losses {hist['loss']}, grad norms {hist['grad_norm']}; a second "
+        f"run equal bit for bit (losses, grad norms, params, moments)")
+    del first, second
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = sum(fn.launches for fn in counters.values())
+    if launches:
+        raise AssertionError(f"lm moe launched {launches} hand-written "
+                             "kernels; its path has none")
+    numbers = {"decode_step_p50_ms": statistics.median(step_ms),
+               "decode_step_ms": step_ms, "decode_slots": LM_SLOTS,
+               "max_seq": LM_MAX_SEQ, "layers": MOE_LAYERS,
+               "forward_ms": fwd_ms, "forward_B": 1,
+               "forward_T": LM_FORWARD_T,
+               "forward_tokens_per_s": LM_FORWARD_T / fwd_ms * 1e3,
+               "engine_tokens_per_s": tok_s, "peak_memory_GiB": peak,
+               "step_device_kernels": kernels,
+               "step_device_busy_ms": busy_ms,
+               "step_device_busy_share": busy_ms / statistics.median(
+                   step_ms),
+               "step_bytes": step_values * (4 + 2 + 2),
+               "step_byte_floor_ms":
+                   step_values * (4 + 2 + 2) / HBM_BYTES_PER_S * 1e3,
+               "step_byte_floor_bf16_weights_ms":
+                   step_values * 2 / HBM_BYTES_PER_S * 1e3,
+               "expert_share_of_step_bytes": expert_values / step_values,
+               "train_layers": LM_CPU_LAYERS,
+               "train_step_p50_ms": train_ms,
+               "train_tokens_per_s": LM_TRAIN_B * LM_TRAIN_SEQ / train_ms
+               * 1e3,
+               "train_step_times_ms": [t * 1e3 for t in hist["step_time"]],
+               "decode_vs_forward_rel": rel,
+               "decode_vs_forward_rows": [int(clean.sum()),
+                                          MOE_DECODE_B * LM_T],
+               "decode_vs_forward_routed_apart": apart,
+               "card_vs_cpu_rel": rels,
+               "card_vs_cpu_routed_apart": n_apart,
+               "kernel_launches": launches}
+    log(f"lm moe (d) {MOE_ARCH} on {identity}: " + json.dumps(numbers))
+    return numbers
+
+
+def lm_vlm_card_vs_cpu(cfg):
+    """The text logits of LM_CPU_B x LM_CPU_T tokens after the patches and
+    one loss-and-gradient step at LM_CPU_LAYERS of full width, on the card
+    and on the CPU, same weights."""
+    import dataclasses
+
+    from repro_torch import tree as tr
+    from repro_torch.convert import model_params_to
+    from repro_torch.models import Model
+    from repro_torch.train import loss_and_grads
+    small = dataclasses.replace(cfg, num_layers=LM_CPU_LAYERS)
+    card = Model(small)
+    params = card.init(torch.Generator(device="cuda").manual_seed(1))
+    cpu = Model(small, device="cpu")
+    cpu_params = model_params_to(params, "cpu")
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        LM_CPU_B, LM_CPU_T + 1)).astype(np.int32))
+    patches = torch.from_numpy(rng.standard_normal(
+        (LM_CPU_B, cfg.num_patches, cfg.d_model)).astype(np.float32))
+    out = {}
+    for dev, model, prm in (("cuda", card, params), ("cpu", cpu, cpu_params)):
+        batch = {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev),
+                 "patches": patches.to(dev)}
+        logits, _ = model.forward(prm, batch)
+        loss, grads = loss_and_grads(model, prm, batch)
+        out[dev] = (logits[:, cfg.num_patches:], loss, grads)
+    (got, g_loss, g_card), (want, w_loss, g_cpu) = out["cuda"], out["cpu"]
+    rels = {"text_logits": lm_rel(got, want),
+            "loss": abs(g_loss.item() - w_loss.item()) / abs(w_loss.item()),
+            "grads": max(lm_rel(a, b) for a, b in zip(tr.leaves(g_card),
+                                                      tr.leaves(g_cpu)))}
+    ties = lm_near_ties("vlm text logits", got, want)
+    if (rels["text_logits"] > LM_TOL or rels["loss"] > LM_TOL
+            or rels["grads"] > LM_GRAD_TOL):
+        raise AssertionError(f"lm vlm: the card is off the CPU: {rels}")
+    log(f"lm vlm (b) card == CPU at {LM_CPU_LAYERS} layers of full width, "
+        f"{cfg.num_patches} patches before {LM_CPU_T} tokens, B = "
+        f"{LM_CPU_B}: text logits rel {rels['text_logits']:.3g} (tolerance "
+        f"{LM_TOL}; greedy picks equal, {ties} near ties), loss rel "
+        f"{rels['loss']:.3g} ({LM_TOL}), every gradient leaf "
+        f"{rels['grads']:.3g} ({LM_GRAD_TOL})")
+    return rels
+
+
+def lm_vlm_phase(identity: str):
+    """The vlm family at internvl2-1b's whole published config: (a) the
+    forward over VLM_PATCHES patch embeddings and VLM_T tokens, finite,
+    and its time; (b) the card against the CPU at two layers; (c) the
+    launcher's engine (text only) drains twice with the same tokens.  No
+    hand-written kernel: every counter reads 0 after it."""
+    from repro_torch import configs
+    from repro_torch import tree as tr
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import Model
+    counters = reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = configs.get(VLM_ARCH)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(v.numel() for v in tr.leaves(params))
+    if n_params != cfg.param_count():
+        raise AssertionError(f"{n_params} parameters, not "
+                             f"{cfg.param_count()}")
+    rng = np.random.default_rng(6)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, VLM_T)).astype(np.int32)).cuda(),
+        "patches": torch.from_numpy(rng.standard_normal(
+            (1, cfg.num_patches, cfg.d_model)).astype(np.float32)).cuda()}
+    with torch.inference_mode():
+        logits, _ = model.forward(params, batch)
+        fwd_ms = time_ms(lambda: model.forward(params, batch), reps=5)
+    if (logits.shape != (1, cfg.num_patches + VLM_T, cfg.vocab_size)
+            or not torch.isfinite(logits.float()).all()):
+        raise AssertionError(f"lm vlm: forward gave {logits.shape}")
+    log(f"lm vlm (a) {VLM_ARCH} ({cfg.num_layers} layers, {n_params:,} "
+        f"parameters): forward over {cfg.num_patches} patches and {VLM_T} "
+        f"tokens, finite logits {tuple(logits.shape)}, {fwd_ms:.2f} ms")
+    del model, params, logits, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    rels = lm_vlm_card_vs_cpu(cfg)
+    runs = [serve(VLM_ARCH, requests=LM_REQUESTS, slots=LM_SLOTS,
+                  max_new_tokens=LM_NEW, full=True) for _ in range(2)]
+    outs = [[r.output for r in reqs] for reqs, _ in runs]
+    if not all(r.done and len(r.output) == LM_NEW for reqs, _ in runs
+               for r in reqs) or outs[0] != outs[1]:
+        raise AssertionError(f"lm vlm: the engine runs differ or did not "
+                             f"drain: {outs}")
+    launches = sum(fn.launches for fn in counters.values())
+    if launches:
+        raise AssertionError(f"lm vlm launched {launches} hand-written "
+                             "kernels; its path has none")
+    numbers = {"forward_ms": fwd_ms, "forward_patches": cfg.num_patches,
+               "forward_T": VLM_T,
+               "engine_tokens_per_s": [LM_REQUESTS * LM_NEW / s
+                                       for _, s in runs],
+               "peak_memory_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+               "card_vs_cpu_rel": rels, "kernel_launches": launches}
+    log(f"lm vlm (c) ServeEngine drained {LM_REQUESTS} requests on "
+        f"{LM_SLOTS} slots twice, same tokens: {outs[0]}")
+    log(f"lm vlm (d) {VLM_ARCH} on {identity}: " + json.dumps(numbers))
+    return numbers
+
+
 def lake_phase():
     rng = np.random.default_rng(4)
     tables, queries, partners = make_lake(rng, LAKE_TABLES, QUERIES)
@@ -3702,6 +4213,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_launches, b1_train, b3_train = phase("lm train", lm_train_phase,
                                                identity)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("lm moe", lm_moe_phase, identity)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("lm vlm", lm_vlm_phase, identity)
     gc.collect()
     torch.cuda.empty_cache()
     for family in FAMILIES:

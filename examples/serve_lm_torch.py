@@ -2,8 +2,10 @@
 counterpart): the ServeEngine admits queued requests into a fixed slot
 batch and decodes them together (static batching with slot retirement).
 Runs on the card; ``--device cpu`` runs the same code on the CPU.
+``--arch`` takes any architecture of the dense, moe or vlm family (its
+reduced config; a vlm decodes text only).
 
-Run:  PYTHONPATH=src python examples/serve_lm_torch.py [--device cpu]
+Run:  PYTHONPATH=src python examples/serve_lm_torch.py [--arch NAME] [--device cpu]
 """
 import argparse
 import time
@@ -17,9 +19,10 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    cfg = configs.reduced("tinyllama-1.1b")
+    cfg = configs.reduced(args.arch)
     model = Model(cfg, device=args.device)
     params = model.init(torch.Generator(device=model.device).manual_seed(0))
     engine = ServeEngine(model, params, batch_slots=4, max_seq=64)

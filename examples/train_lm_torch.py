@@ -2,13 +2,14 @@
 counterpart): a llama-family model trained on the deterministic synthetic
 token stream, with async atomic checkpointing, preemption handling and
 resumability.  Runs on the card; ``--device cpu`` runs the same code on
-the CPU.
+the CPU.  ``--arch`` takes a moe architecture too (qwen3-moe-30b-a3b,
+mixtral-8x22b: its experts and top-k at the widths below).
 
 Defaults are a ~10M-parameter model and 60 steps; pass ``--full`` for the
 ~100M / 300-step configuration.  Restart it with the same ``--ckpt-dir``
 to resume from the newest checkpoint there.
 
-Run:  PYTHONPATH=src python examples/train_lm_torch.py [--full] [--device cpu]
+Run:  PYTHONPATH=src python examples/train_lm_torch.py [--full] [--arch NAME] [--device cpu]
 """
 import argparse
 import dataclasses
@@ -21,8 +22,8 @@ from repro_torch.train.trainer import Trainer, TrainerConfig
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-def model_for(full: bool):
-    base = configs.reduced("tinyllama-1.1b")
+def model_for(full: bool, arch: str = "tinyllama-1.1b"):
+    base = configs.reduced(arch)
     if full:
         # ~100M params: 12L x d768 (llama-family)
         return dataclasses.replace(
@@ -39,10 +40,11 @@ def main():
     ap.add_argument("--full", action="store_true")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--ckpt-dir", default=str(ROOT / "build" / "train_lm"))
+    ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
 
-    cfg = model_for(args.full)
+    cfg = model_for(args.full, args.arch)
     steps = args.steps or (300 if args.full else 60)
     tcfg = TrainerConfig(
         steps=steps,
@@ -55,7 +57,7 @@ def main():
         opt=AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps),
     )
     print(f"model: {cfg.num_layers}L d{cfg.d_model} vocab {cfg.vocab_size} "
-          f"(~{configs.get('tinyllama-1.1b').param_count()/1e9:.1f}B full-size arch, "
+          f"(~{configs.get(args.arch).param_count()/1e9:.1f}B full-size arch, "
           f"reduced for this run)")
     trainer = Trainer(cfg, tcfg, device=args.device)
     trainer.preemption.install()

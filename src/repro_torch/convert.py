@@ -28,8 +28,9 @@ A JAX ``SketchCorpus`` is carried the same way, from its exact-size rows::
                                m=jax_corpus.m, seed=jax_corpus.seed,
                                device="cuda")
 
-A JAX dense ``Model``'s parameters (``Model(cfg).init(key)[0]``, each
-layer's stacked on a leading ``[L, ...]`` axis) carry across as they are::
+A JAX ``Model``'s parameters of the dense, moe or vlm family
+(``Model(cfg).init(key)[0]``, each layer's stacked on a leading ``[L,
+...]`` axis) carry across as they are::
 
     tree = jax.tree.map(np.asarray, jax_params)
     params = model_params_from_numpy(repro_torch.configs.get(name), tree,
@@ -140,18 +141,26 @@ def index_from_numpy(buffers: Sequence[np.ndarray], size: int, *,
 
 
 def _param_shapes(cfg):
-    """The dense model's parameter tree, as leaf shapes."""
+    """The model's parameter tree (the dense, moe and vlm families), as
+    leaf shapes."""
     L, d, V, F = cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.d_ff
     H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    mlp = {"w_up": (L, d, F), "w_down": (L, F, d)}
-    if cfg.mlp_variant in ("swiglu", "geglu"):
-        mlp["w_gate"] = (L, d, F)
-    shapes = {"embed": (V, d), "final_norm": (d,),
-              "layers": {"attn": {"wq": (L, d, H, hd), "wk": (L, d, K, hd),
-                                  "wv": (L, d, K, hd), "wo": (L, H, hd, d)},
-                         "norm1": (L, d), "norm2": (L, d), "mlp": mlp}}
+    layers = {"attn": {"wq": (L, d, H, hd), "wk": (L, d, K, hd),
+                       "wv": (L, d, K, hd), "wo": (L, H, hd, d)},
+              "norm1": (L, d), "norm2": (L, d)}
+    if cfg.num_experts and cfg.moe_every == 1:
+        E = cfg.num_experts
+        layers["moe"] = {"w_router": (L, d, E), "w_gate": (L, E, d, F),
+                         "w_up": (L, E, d, F), "w_down": (L, E, F, d)}
+    else:
+        layers["mlp"] = {"w_up": (L, d, F), "w_down": (L, F, d)}
+        if cfg.mlp_variant in ("swiglu", "geglu"):
+            layers["mlp"]["w_gate"] = (L, d, F)
+    shapes = {"embed": (V, d), "final_norm": (d,), "layers": layers}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, V)
+    if cfg.family == "vlm":
+        shapes["patch_proj"] = (d, d)
     return shapes
 
 
@@ -173,7 +182,7 @@ def _carry(cfg, want, got, path, dev, dtype=torch.float32):
 
 
 def model_params_from_numpy(cfg, tree, device="cuda"):
-    """The port's parameters of the dense model ``cfg`` from a JAX
+    """The port's parameters of the model ``cfg`` from a JAX
     parameter tree exported as numpy: the same tree of f32 tensors on
     ``device``.  Raises ``ValueError`` where a key or a shape differs from
     what ``cfg`` needs."""
@@ -182,7 +191,7 @@ def model_params_from_numpy(cfg, tree, device="cuda"):
 
 def opt_state_from_numpy(cfg, tree, moment_dtype: str = "bfloat16",
                          device="cuda"):
-    """The port's AdamW state of the dense model ``cfg`` from JAX's
+    """The port's AdamW state of the model ``cfg`` from JAX's
     ``{"mu", "nu", "step"}`` exported as numpy (``jax.tree.map(np.asarray,
     opt_state)``; bf16 moments arrive as ``ml_dtypes`` arrays, which
     widen to f32 exactly): moments of ``moment_dtype`` and ``step`` a 0-d

@@ -1,14 +1,17 @@
-"""Serving launcher: batched greedy decode of a dense model through the
-``ServeEngine`` (the port of ``repro/launch/serve.py``), on the card unless
-``--device cpu``.
+"""Serving launcher: batched greedy decode of a dense, moe or vlm model
+(a vlm decodes text only) through the ``ServeEngine`` (the port of
+``repro/launch/serve.py``), on the card unless ``--device cpu``.
 
 Usage:
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --requests 6
   python -m repro_torch.launch.serve --arch tinyllama-1.1b --full
+  python -m repro_torch.launch.serve --arch qwen3-moe-30b-a3b --full --layers 8
 
 As in JAX, the model is the architecture's reduced config unless
-``--full`` asks for the published one; weights are random, drawn from a
-generator seeded 0.  ``--dry-run`` (with ``--shape``, ``--multi-pod``)
+``--full`` asks for the published one; ``--layers`` cuts its depth (the
+widths stay).  On the card, a model whose f32 parameters exceed the free
+memory raises ``MemoryError`` before it allocates.  Weights are random,
+drawn from a generator seeded 0.  ``--dry-run`` (with ``--shape``, ``--multi-pod``)
 lowers the production cell through XLA HLO in JAX
 (``repro/launch/dryrun.py``), which has no PyTorch counterpart: here it
 raises.
@@ -16,7 +19,9 @@ raises.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+from typing import Optional
 
 import torch
 
@@ -27,12 +32,16 @@ from repro_torch.serve.engine import Request, ServeEngine
 
 
 def serve(arch: str, *, requests: int = 6, slots: int = 4,
-          max_new_tokens: int = 8, full: bool = False, device="cuda"):
+          max_new_tokens: int = 8, full: bool = False,
+          layers: Optional[int] = None, device="cuda"):
     """Serves ``requests`` prompts ``[1 + i, 2 + i]`` on ``slots`` slots
-    of a 128-position cache, as JAX's launcher.  Returns the requests and
+    of a 128-position cache, as JAX's launcher, with the config's first
+    ``layers`` layers (all of them by default).  Returns the requests and
     the seconds the engine took to drain them."""
     dev = resolve_device(device)
     cfg = configs.get(arch) if full else configs.reduced(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     engine = ServeEngine(model, params, batch_slots=slots, max_seq=128)
@@ -59,6 +68,8 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--full", action="store_true",
                     help="the published config instead of the reduced one")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve the config's first LAYERS layers")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -69,7 +80,7 @@ def main(argv=None):
             "run it with python -m repro.launch.serve")
     reqs, seconds = serve(args.arch, requests=args.requests, slots=args.slots,
                           max_new_tokens=args.max_new_tokens, full=args.full,
-                          device=args.device)
+                          layers=args.layers, device=args.device)
     toks = sum(len(r.output) for r in reqs)
     where = (torch.cuda.get_device_name(0) if resolve_device(args.device).type
              == "cuda" else "cpu")

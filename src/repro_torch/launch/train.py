@@ -1,14 +1,16 @@
-"""Training launcher: the dense family through the port's ``Trainer`` (the
-port of ``repro/launch/train.py``), on the card unless ``--device cpu``.
+"""Training launcher: the dense and moe families through the port's
+``Trainer`` (the port of ``repro/launch/train.py``), on the card unless
+``--device cpu``.
 
 Usage:
   python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 50
   python -m repro_torch.launch.train --arch tinyllama-1.1b --full --steps 4
+  python -m repro_torch.launch.train --arch mixtral-8x22b --steps 4
 
 As in JAX, the model is the architecture's reduced config unless
 ``--full`` asks for the published one; weights are random, drawn from a
-generator seeded 0.  encdec and vlm exit as JAX's launcher does; the other
-families are not ported yet (``Model`` raises, naming ROADMAP.md Queue A
+generator seeded 0.  encdec and vlm exit as JAX's launcher does; ssm and
+hybrid are not ported yet (``Model`` raises, naming ROADMAP.md Queue A
 18c).  ``--dry-run`` (with ``--multi-pod``) lowers the production cell
 through XLA HLO in JAX (``repro/launch/dryrun.py``), which has no PyTorch
 counterpart: here it raises.

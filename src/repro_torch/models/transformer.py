@@ -1,5 +1,6 @@
-"""The dense transformer in PyTorch: the port of
-``repro/models/transformer.py::Model`` for ``family == "dense"``.
+"""The transformer stack in PyTorch: the port of
+``repro/models/transformer.py::Model`` for the families JAX runs on one
+block stack (``family`` dense, moe and vlm).
 
 Parameters are a tree of f32 tensors shaped as the JAX package's, each
 layer's stacked on a leading ``[L, ...]`` axis (``convert.
@@ -10,9 +11,12 @@ autograd when grad is enabled, each block under
 its activations are recomputed in the backward, always); ``init`` runs
 under ``torch.no_grad()`` (its tensors can take ``requires_grad``) and the
 decode path under ``torch.inference_mode()``.  The decode state's KV cache
-is ``[L, B, S, K, hd]`` bf16, written in place by ``decode_step``.  The
-other families (moe, ssm, hybrid, encdec, vlm) and the model mesh
-(``ctx``) are not ported yet (ROADMAP.md Queue A 18c).
+is ``[L, B, S, K, hd]`` bf16, written in place by ``decode_step``.  A
+moe block's FFN is ``models/moe.py``'s (every layer's, as JAX's stack); a
+vlm puts its projected patch embeddings before the tokens, decodes text
+only and takes its loss on the text positions.  The other families (ssm,
+hybrid, encdec) and the model mesh (``ctx``) are not ported yet
+(ROADMAP.md Queue A 18c).
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 
 from . import attention as attn
+from . import moe as moe_mod
+from .counting import count_params
 from .layers import (COMPUTE_DTYPE, PARAM_DTYPE, apply_mlp, cross_entropy,
                      embed, init_embedding, init_mlp, init_normal, lm_logits,
                      rms_norm)
@@ -56,13 +62,26 @@ def _unbind(layers, n: int):
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
+FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_fits(cfg, free_bytes: int):
+    """Raises ``MemoryError`` where ``cfg``'s f32 parameters take more
+    than ``free_bytes``."""
+    need = 4 * count_params(cfg)
+    if need > free_bytes:
+        raise MemoryError(
+            f"{cfg.name} ({cfg.num_layers} layers): {need:,} bytes of f32 "
+            f"parameters exceed the {free_bytes:,} bytes free on the device")
+
+
 class Model:
     def __init__(self, cfg, device="cuda"):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} ({cfg.name}) is not ported yet: the "
-                "port's Model runs the dense family only (ROADMAP.md Queue "
-                "A 18c)")
+                f"port's Model runs the families {', '.join(FAMILIES)} "
+                "(ROADMAP.md Queue A 18c)")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -70,11 +89,18 @@ class Model:
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> Dict[str, Any]:
         """f32 parameters drawn from ``generator``, which must lie on the
-        model's device."""
+        model's device.  On the card, raises ``MemoryError`` before it
+        allocates where they would not fit in the free memory."""
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
         cfg = self.cfg
+        if self.device.type == "cuda":
+            # the blocks this process's allocator holds but no tensor uses
+            # are free to it, though not to cudaMemGetInfo's count
+            cached = (torch.cuda.memory_reserved(self.device)
+                      - torch.cuda.memory_allocated(self.device))
+            check_fits(cfg, torch.cuda.mem_get_info(self.device)[0] + cached)
         params: Dict[str, Any] = {
             "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model)}
         if not cfg.tie_embeddings:
@@ -85,26 +111,43 @@ class Model:
                                            device=self.device)
         params["layers"] = _stack([self._init_block(generator)
                                    for _ in range(cfg.num_layers)])
+        if cfg.family == "vlm":
+            params["patch_proj"] = init_normal(
+                generator, (cfg.d_model, cfg.d_model),
+                1.0 / math.sqrt(cfg.d_model))
         return params
 
     def _init_block(self, generator):
         cfg = self.cfg
         zeros = torch.zeros(cfg.d_model, dtype=PARAM_DTYPE,
                             device=self.device)
-        return {"attn": attn.init_attention(generator, cfg),
-                "norm1": zeros, "norm2": zeros.clone(),
-                "mlp": init_mlp(generator, cfg.d_model, cfg.d_ff,
-                                cfg.mlp_variant)}
+        block = {"attn": attn.init_attention(generator, cfg),
+                 "norm1": zeros, "norm2": zeros.clone()}
+        # one homogeneous stack: a MoE FFN in every layer or in none, as
+        # JAX's (interleaved MoE is the hybrid family's)
+        if cfg.num_experts and cfg.moe_every == 1:
+            block["moe"] = moe_mod.init_moe(generator, cfg)
+        else:
+            block["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff,
+                                    cfg.mlp_variant)
+        return block
 
-    def _mlp_sublayer(self, layer, x, o):
-        """The attention residual ``x + o``, then the MLP sublayer.  The sum
-        feeds the norm in f32, unrounded, as XLA's compiled JAX program
-        keeps it (excess precision), and enters the MLP residual rounded to
-        bf16, as the program states it."""
+    def _ffn_sublayer(self, layer, x, o):
+        """The attention residual ``x + o``, then the FFN sublayer (the MLP,
+        or the MoE on the ``[B * T, d]`` tokens).  The sum feeds the norm
+        in f32, unrounded, as XLA's compiled JAX program keeps it (excess
+        precision), and enters the FFN residual rounded to bf16, as the
+        program states it.  Returns the block's output and its
+        load-balance loss (None without a MoE)."""
         x = x.float() + o.float()
         h = rms_norm(x, layer["norm2"], self.cfg.norm_eps).to(COMPUTE_DTYPE)
-        return x.to(COMPUTE_DTYPE) + apply_mlp(layer["mlp"], h,
-                                               self.cfg.mlp_variant)
+        if "moe" in layer:
+            y, aux = moe_mod.moe_ffn(layer["moe"], h.reshape(-1, h.shape[-1]),
+                                     self.cfg)
+            y = y.view(h.shape)
+        else:
+            y, aux = apply_mlp(layer["mlp"], h, self.cfg.mlp_variant), None
+        return x.to(COMPUTE_DTYPE) + y, aux
 
     def _head(self, params):
         return params["embed" if self.cfg.tie_embeddings else "lm_head"]
@@ -113,24 +156,34 @@ class Model:
         h = rms_norm(x, layer["norm1"], self.cfg.norm_eps)
         o = attn.attention_block(layer["attn"], h, self.cfg, q_chunk=q_chunk,
                                  k_chunk=k_chunk)
-        return self._mlp_sublayer(layer, x, o)
+        return self._ffn_sublayer(layer, x, o)
 
     # --------------------------------------------------------------- forward
     def forward(self, params, batch, q_chunk: int = 1024,
                 k_chunk: int = 1024):
-        """Logits ``[B, T, V]`` (bf16) of ``batch["tokens"]`` ``[B, T]``, and
-        the auxiliary loss (0 for the dense family), as JAX's pair.  Each
-        block runs under ``checkpoint`` (JAX's ``jax.checkpoint``), which
-        computes the same values; with grad disabled it saves nothing."""
+        """Logits ``[B, T, V]`` (bf16) of ``batch["tokens"]`` ``[B, T]``
+        (``[B, P + T, V]`` for a vlm, its ``batch["patches"]`` ``[B, P, d]``
+        first), and the auxiliary loss (the MoE layers' load-balance losses
+        summed; 0 without them), as JAX's pair.  Each block runs under
+        ``checkpoint`` (JAX's ``jax.checkpoint``), which computes the same
+        values; with grad disabled it saves nothing."""
         _check_tf32(self.device)
         cfg = self.cfg
         x = embed(params["embed"], batch["tokens"])
+        if cfg.family == "vlm":
+            patches = (batch["patches"].to(x.dtype)
+                       @ params["patch_proj"].to(x.dtype))
+            x = torch.cat([patches, x], dim=1)
+        auxs = []
         for layer in _unbind(params["layers"], cfg.num_layers):
             # the blocks draw no random numbers: no RNG state to replay
-            x = checkpoint(self._block, layer, x, q_chunk, k_chunk,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, aux = checkpoint(self._block, layer, x, q_chunk, k_chunk,
+                                use_reentrant=False, preserve_rng_state=False)
+            if aux is not None:
+                auxs.append(aux)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = (torch.stack(auxs).sum() if auxs else
+               torch.zeros((), dtype=torch.float32, device=x.device))
         return lm_logits(x, self._head(params)), aux
 
     # ----------------------------------------------------------------- loss
@@ -138,8 +191,11 @@ class Model:
              aux_weight: float = 0.01):
         """``(ce + aux_weight * aux, {"ce", "aux"})`` of ``batch``'s
         ``tokens`` against its ``labels`` ``[B, T]`` (and ``mask``, where
-        it has one), as JAX's ``Model.loss``."""
+        it has one), as JAX's ``Model.loss``; a vlm's on the text
+        positions only."""
         logits, aux = self.forward(params, batch, q_chunk, k_chunk)
+        if self.cfg.family == "vlm":
+            logits = logits[:, self.cfg.num_patches:]
         ce = cross_entropy(logits, batch["labels"], batch.get("mask"))
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
@@ -159,7 +215,8 @@ class Model:
         """One token for every batch row: tokens ``[B, 1]`` at the state's
         shared ``pos``.  Returns (logits ``[B, 1, V]``, new state); the new
         state holds ``pos + 1``, the updated ``slot_pos`` and the same cache
-        tensors, written in place."""
+        tensors, written in place.  A MoE layer routes the ``[B, d]``
+        tokens and drops its load-balance loss; a vlm decodes text only."""
         _check_tf32(self.device)
         cfg = self.cfg
         pos = state["pos"]
@@ -178,7 +235,7 @@ class Model:
             h = rms_norm(x, layer["norm1"], cfg.norm_eps)
             o, _, _ = attn.decode_attention(layer["attn"], h, cfg, k_all[i],
                                             v_all[i], slot_pos, pos, layout)
-            x = self._mlp_sublayer(layer, x, o)
+            x, _ = self._ffn_sublayer(layer, x, o)
         x = rms_norm(x, params["final_norm"], cfg.norm_eps)
         logits = lm_logits(x, self._head(params))
         return logits, dict(state, pos=pos + 1, slot_pos=slot_pos)

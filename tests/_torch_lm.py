@@ -16,6 +16,14 @@ TOL = 2 ** -6
 # frameworks round in other places, and the embedding's repeated rows add
 # in f32 here, in bf16 in JAX's scatter-add
 GRAD_TOL = 2 ** -5
+# the share of values bit for bit the reference's (the port follows XLA's
+# compiled rounding, so nearly all are)
+SHARE = 0.75
+# a routing flip is a near tie where the reference's k-th and (k+1)-th
+# router probabilities lie within this share of the k-th: one f32 ulp of a
+# router logit moves a token's k-th expert there, and a bf16 step of an
+# upstream activation moves a logit by far less than the margin
+ROUTE_MARGIN = 2 ** -6
 # the training tests' model: ``tests/test_train_serve.py``'s
 TINY = dict(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
             head_dim=16, d_ff=128, vocab_size=256)
@@ -45,6 +53,23 @@ def as_f32(a) -> np.ndarray:
     return np.asarray(a, np.float32)
 
 
+def to_torch(a) -> torch.Tensor:
+    """A JAX or numpy array as a CPU tensor of the same dtype (bf16 by
+    value)."""
+    t = torch.from_numpy(as_f32(a).copy())
+    return t.to(torch.bfloat16) if str(a.dtype) == "bfloat16" else t
+
+
+def assert_close(got, want, what: str, share: float = SHARE):
+    """``got`` within ``TOL`` of ``want``'s largest magnitude, with at
+    least ``share`` of the values bit for bit equal."""
+    a, b = as_f32(want), as_f32(got)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    err = np.abs(a - b).max() / max(np.abs(a).max(), 1e-30)
+    assert err <= TOL, (what, err)
+    assert (a == b).mean() >= share, (what, (a == b).mean())
+
+
 def rel(got, want) -> float:
     """max |got - want| over max |want|."""
     a, b = as_f32(want), as_f32(got)
@@ -63,6 +88,26 @@ def near_tie_rows(got, want, tol: float = TOL) -> np.ndarray:
     margin = top2[:, 1] - top2[:, 0]
     limit = tol * np.abs(a).max()
     assert (margin <= limit).all(), (rows, margin, limit)
+    return rows
+
+
+def route_flips(got_top_e, want_top_e, want_probs, k: int,
+                exempt=None) -> np.ndarray:
+    """The rows (tokens) whose top-k expert set in ``got_top_e`` ``[N, k]``
+    differs from ``want_top_e``'s.  Each must sit at a near tie of the
+    reference: its k-th and (k+1)-th probabilities in ``want_probs`` ``[N,
+    E]`` within ``ROUTE_MARGIN`` of the k-th; rows in ``exempt`` (a boolean
+    ``[N]``, say those routed apart in an earlier layer, whose inputs
+    differ) need not.  A flip elsewhere fails the assertion."""
+    got = np.sort(np.asarray(as_f32(got_top_e), np.int64), axis=-1)
+    want = np.sort(np.asarray(as_f32(want_top_e), np.int64), axis=-1)
+    rows = np.flatnonzero((got != want).any(-1))
+    probs = as_f32(want_probs)
+    top = np.sort(probs[rows], axis=-1)[:, ::-1]
+    gap = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+    free = np.zeros(len(rows), bool) if exempt is None else \
+        np.asarray(exempt)[rows]
+    assert ((gap <= ROUTE_MARGIN) | free).all(), (rows, gap, ROUTE_MARGIN)
     return rows
 
 

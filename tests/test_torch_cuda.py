@@ -1502,3 +1502,97 @@ def test_telemetry_launches_b1_and_b3_bit_for_bit(cuda):
     assert torch.equal(est, want)
     exact = (g @ g.T)
     assert (est - exact).abs().max() <= 0.2 * exact.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# The moe family: qwen3-moe-30b-a3b's router and experts at their published
+# widths, card against CPU under the routing rule (``_torch_lm.
+# route_flips``: a token routed apart sits at a near tie of the CPU's
+# routing, within ROUTE_MARGIN; the outputs are compared on the tokens
+# routed alike, at LM_TOL), the train step's bits repeated (no float
+# atomics on the MoE path), and mixtral-8x22b at one layer of its full
+# width (2.9 B parameters with its embedding and head, 11.6 GB f32) for
+# decode == forward, at capacity_factor E / k so that the forward drops no
+# token (JAX's gate, rel < 0.06).
+# ---------------------------------------------------------------------------
+def _moe_cfg(arch, **kw):
+    """``arch``'s published config with ``kw`` replaced, after the earlier
+    tests' garbage is collected (a full-width layer takes up to 11.6 GB)."""
+    import dataclasses
+    import gc
+
+    from repro_torch import configs
+    gc.collect()
+    return dataclasses.replace(configs.get(arch), **kw)
+
+
+@pytest.mark.cuda
+def test_moe_routing_on_the_card_follows_the_rule(cuda):
+    from _torch_lm import route_flips
+
+    from repro_torch.models import moe
+    cfg = _moe_cfg("qwen3-moe-30b-a3b")
+    params = moe.init_moe(torch.Generator(device=cuda).manual_seed(0), cfg)
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    x = torch.randn(512, cfg.d_model, generator=torch.Generator(
+        ).manual_seed(1)).bfloat16()
+    with moe.record_routes() as routes:
+        want, want_aux = moe.moe_ffn(cpu_params, x, cfg)
+        got, got_aux = moe.moe_ffn(params, x.to(cuda), cfg)
+    (want_e, want_p), (got_e, got_p) = routes
+    flips = route_flips(got_e, want_e, want_p, cfg.num_experts_per_tok)
+    alike = torch.ones(512, dtype=torch.bool)
+    alike[torch.from_numpy(flips)] = False
+    _assert_lm_close(got.cpu()[alike], want[alike], "moe_ffn")
+    assert lm_rel(got_p, want_p) <= 1e-5
+    if flips.size == 0:
+        assert abs(float(got_aux) - float(want_aux)) <= 1e-5 * float(
+            want_aux)
+    print(f"moe_ffn at full width, 512 tokens: {flips.size} routed apart")
+
+
+@pytest.mark.cuda
+def test_moe_train_step_repeats_bit_for_bit_on_the_card(cuda):
+    """One layer of qwen3-moe-30b-a3b's full width, two train steps of two
+    micro-batches of 64 tokens (capacity 5 a expert: slots are dropped),
+    twice from one state: equal bits."""
+    from repro_torch import tree as tr
+    from repro_torch.models import Model
+    cfg = _moe_cfg("qwen3-moe-30b-a3b", num_layers=1)
+    card = Model(cfg, device=cuda)
+    params = card.init(torch.Generator(device=cuda).manual_seed(0))
+    batch = _lm_batch(cuda, vocab=cfg.vocab_size)
+    runs = [_train_steps(card, params, cfg, batch) for _ in range(2)]
+    assert torch.isfinite(runs[0][2]["loss"])
+    for a, b in zip(tr.leaves(runs[0]), tr.leaves(runs[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_mixtral_full_width_layer_decode_equals_forward(cuda):
+    """The layer's decode and forward see bf16-rounded inputs that differ
+    by a step: a token they route apart must sit at a near tie of the
+    forward's routing, and the logits are compared on the others."""
+    from _torch_lm import route_flips
+
+    from repro_torch.models import Model, moe
+    cfg = _moe_cfg("mixtral-8x22b", num_layers=1, capacity_factor=4.0)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (1, 12), generator=torch.Generator(
+        ).manual_seed(2)).int().to(cuda)
+    with moe.record_routes() as routes:
+        par, _ = model.forward(params, {"tokens": toks})
+        state = model.init_decode_state(1, 32)
+        inc = []
+        for t in range(12):
+            lg, state = model.decode_step(params, toks[:, t:t + 1], state)
+            inc.append(lg[:, 0])
+    (want_e, want_p), steps = routes[0], routes[1:]
+    got_e = torch.cat([e for e, _ in steps])
+    flips = route_flips(got_e, want_e, want_p, cfg.num_experts_per_tok)
+    alike = torch.ones(12, dtype=torch.bool)
+    alike[torch.from_numpy(flips)] = False
+    assert torch.isfinite(par.float()).all() and flips.size <= 2
+    inc = torch.stack(inc, dim=1)[0].cpu()
+    assert lm_rel(inc[alike], par[0].cpu()[alike]) < 0.06

@@ -50,7 +50,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "repro_torch.core.rounding", "repro_torch.core.linear",
             "repro_torch.core.minhash", "repro_torch.core.registry",
             "repro_torch.data.synthetic", "repro_torch.configs.gemma_7b",
-            "repro_torch.models.transformer", "repro_torch.serve.engine",
+            "repro_torch.models.transformer", "repro_torch.models.moe",
+            "repro_torch.serve.engine",
             "repro_torch.launch.serve", "repro_torch.tree",
             "repro_torch.optim.adamw", "repro_torch.train.step",
             "repro_torch.train.trainer", "repro_torch.train.telemetry",

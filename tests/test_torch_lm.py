@@ -22,8 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from _torch_lm import TOL
 from _torch_lm import as_f32 as f32
+from _torch_lm import assert_close, to_torch
 
 from repro import configs as jax_configs
 from repro.models import Model as JaxModel
@@ -41,22 +41,7 @@ torch.set_num_threads(1)
 
 DENSE = ("tinyllama-1.1b", "codeqwen1.5-7b", "mistral-nemo-12b", "gemma-7b")
 OTHER = tuple(a for a in configs.ARCHS if a not in DENSE)
-SHARE = 0.75
 STEPS = 12
-
-
-def to_torch(a) -> torch.Tensor:
-    """A JAX array as a CPU tensor of the same dtype (bf16 by value)."""
-    t = torch.from_numpy(f32(a).copy())
-    return t.to(torch.bfloat16) if a.dtype == jnp.bfloat16 else t
-
-
-def assert_close(got, want, what: str, share: float = SHARE):
-    a, b = f32(want), f32(got)
-    assert a.shape == b.shape, (what, a.shape, b.shape)
-    err = np.abs(a - b).max() / max(np.abs(a).max(), 1e-30)
-    assert err <= TOL, (what, err)
-    assert (a == b).mean() >= share, (what, (a == b).mean())
 
 
 class Pair:
@@ -232,8 +217,35 @@ def test_params_from_numpy_rejects_a_wrong_tree():
 
 @pytest.mark.parametrize("arch", OTHER)
 def test_other_families_raise_naming_the_queue(arch):
-    with pytest.raises(NotImplementedError, match="Queue A 18c"):
-        Model(configs.reduced(arch), device="cpu")
+    """ssm, hybrid and encdec raise, naming the queue; moe and vlm, which
+    JAX runs on the dense family's block stack, build and run: a forward
+    (a vlm's with its patches), the loss and a decode step, finite and of
+    the expected shapes (their values against JAX's are in
+    ``tests/test_torch_moe.py``)."""
+    cfg = configs.reduced(arch)
+    if cfg.family not in ("moe", "vlm"):
+        with pytest.raises(NotImplementedError, match="Queue A 18c"):
+            Model(cfg, device="cpu")
+        return
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 9)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    P = cfg.num_patches if cfg.family == "vlm" else 0
+    if P:
+        batch["patches"] = torch.randn((2, P, cfg.d_model), generator=
+                                       torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        logits, aux = model.forward(params, batch)
+        loss, parts = model.loss(params, batch)
+    assert logits.shape == (2, P + 8, cfg.vocab_size)
+    assert bool(torch.isfinite(logits.float()).all())
+    assert bool(torch.isfinite(loss)) and torch.equal(parts["aux"], aux)
+    assert (float(aux) > 0) == (cfg.family == "moe")
+    state = model.init_decode_state(2, 16)
+    lg, state = model.decode_step(params, toks[:, :1], state)
+    assert lg.shape == (2, 1, cfg.vocab_size) and int(state["pos"]) == 1
 
 
 def test_model_runs_on_the_card_by_default():

@@ -151,7 +151,7 @@ def test_launcher_serves_on_the_cpu_and_refuses_the_rest(capsys):
     with pytest.raises(NotImplementedError, match="XLA HLO"):
         launcher.main(["--arch", "tinyllama-1.1b", "--dry-run"])
     with pytest.raises(NotImplementedError, match="Queue A 18c"):
-        launcher.main(["--arch", "mixtral-8x22b", "--device", "cpu"])
+        launcher.main(["--arch", "rwkv6-1.6b", "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             launcher.main(["--arch", "tinyllama-1.1b"])

@@ -400,7 +400,7 @@ def test_launcher_trains_the_reduced_config(capsys):
 @pytest.mark.parametrize("arch,error,match", [
     ("whisper-base", SystemExit, "token-stream trainer"),
     ("internvl2-1b", SystemExit, "token-stream trainer"),
-    ("mixtral-8x22b", NotImplementedError, "18c"),
+    ("jamba-1.5-large-398b", NotImplementedError, "18c"),
     ("rwkv6-1.6b", NotImplementedError, "18c")])
 def test_launcher_refuses_what_it_cannot_train(arch, error, match):
     from repro_torch.launch.train import main
